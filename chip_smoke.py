@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive flamo_tpu_torch's colorless-FDN path on one CUDA card.
+"""Drive flamo_tpu_torch's colorless- and attenuated-FDN paths on one CUDA
+card.
 
 Run from the root of the repository:
 
@@ -9,27 +10,38 @@ Phases, in order; any failure raises and exits non-zero without a result:
 
 1. device and build: needs CUDA, prints the card's name and power limit,
    compiles the hand-written kernels of flamo_tpu_torch/csrc (nvcc,
-   sm_90a) and prints the build time;
+   sm_90a, one process per library, all at once) and prints the build
+   time;
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U);
-3. the slice at full width: build_colorless_fdn(nfft=96000) on the card;
-   the graph loss through K2 against the 'ge' solve, the fused frequency
-   response (K3f) against Shell.get_freq_response, the gradients of the
-   fused-tf loss (K3b) against the graph gradients, and colorless_fit
-   (K1, no pivot) for FIT_STEPS steps, timed; every kernel must have
-   been launched in this phase;
-4. timing of each kernel, its plain version and, where one PyTorch call
+   paths' shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U; K = 12
+   sections of P = 3 taps, random well-conditioned ones and those of the
+   attenuated FDN's GEQ);
+3. the colorless slice at full width: build_colorless_fdn(nfft=96000) on
+   the card; the graph loss through K2 against the 'ge' solve, the fused
+   frequency response (K3f) against Shell.get_freq_response, the
+   gradients of the fused-tf loss (K3b) against the graph gradients, and
+   colorless_fit (K1, no pivot) for FIT_STEPS steps, timed; K1-K3 must
+   have been launched in this phase;
+4. the attenuated slice at full width: build_attenuated_fdn(nfft=96000,
+   octave_interval=1, cache_delays=True) on the card; the graph loss and
+   gradients of the 'xla'/'ge' route (plain cascade and elimination)
+   against the 'pallas'/'pallas' route (K4f + K2, backward K4b + K2
+   transposed) and the fused step (K5), then ATT_STEPS Adam steps of
+   attenuated_train_step(fused_step=True) (K5, no pivot), timed; K2, K4f,
+   K4b and K5 must have been launched in this phase;
+5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound;
-5. a torch.profiler trace of a few training steps: the device's busy and
-   idle share and the kernels that take its time;
-6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
+6. torch.profiler traces of a few training steps of each path: the
+   device's busy and idle share and the kernels that take its time;
+7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 ``ms``, ``plain_ms`` and ``library_ms`` are all device time per call from
 torch.profiler: the sum over every operation the call runs on the card.
 The whole call, host side included (checks, allocation, launches, the
 partials sum), is timed with CUDA events beside each of them as
-``call_ms``, ``plain_call_ms`` and ``library_call_ms``.
+``call_ms``, ``plain_call_ms`` and ``library_call_ms``.  ``launches``
+counts each kernel's launches in phases 3 and 4.
 
 TF32 is off throughout: expm's matmuls and the references stay float32.
 """
@@ -46,32 +58,59 @@ import torch
 
 from flamo_tpu_torch.convert import jax_named_tensors
 from flamo_tpu_torch.functional import expm_skew
-from flamo_tpu_torch.models import (build_colorless_fdn, colorless_fit,
+from flamo_tpu_torch.models import (attenuated_loss,
+                                    attenuated_loss_fused_step,
+                                    attenuated_train_step,
+                                    build_attenuated_fdn, build_colorless_fdn,
+                                    colorless_fit,
                                     colorless_freq_response_fused,
                                     colorless_loss, colorless_loss_fused_tf)
 from flamo_tpu_torch.ops import cuda_build
 from flamo_tpu_torch.ops import fdn_kernels as fk
+from flamo_tpu_torch.ops import sos_kernels as sk
 
 M_MAIN, N_MAIN, NFFT = 48001, 6, 96000
+K_MAIN, P_MAIN = 12, 3  # GEQ sections (octave bands + 3) and SOS taps
 SEED = 0
 FIT_STEPS = 300
+ATT_STEPS = 200
+ATT_LR = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
-SOURCE = "flamo_tpu_torch/csrc/fdn_kernels.cu"
+SOURCES = {
+    "fdn_tf_mse": "flamo_tpu_torch/csrc/fdn_kernels.cu",
+    "fdn_solve": "flamo_tpu_torch/csrc/fdn_kernels.cu",
+    "fdn_tf_fwd": "flamo_tpu_torch/csrc/fdn_kernels.cu",
+    "fdn_tf_bwd": "flamo_tpu_torch/csrc/fdn_kernels.cu",
+    "sos_cascade_fwd": "flamo_tpu_torch/csrc/sos_kernels.cu",
+    "sos_cascade_bwd": "flamo_tpu_torch/csrc/sos_kernels.cu",
+    "fdn_sos_tf_mse": "flamo_tpu_torch/csrc/sos_kernels.cu",
+}
 REPLACES = {
     "fdn_tf_mse": "flamo_tpu/ops/pallas_solve.py:719",
     "fdn_solve": "flamo_tpu/ops/pallas_solve.py:277",
     "fdn_tf_fwd": "flamo_tpu/ops/pallas_solve.py:451",
     "fdn_tf_bwd": "flamo_tpu/ops/pallas_solve.py:474",
+    "sos_cascade_fwd": "flamo_tpu/ops/pallas_solve.py:940",
+    "sos_cascade_bwd": "flamo_tpu/ops/pallas_solve.py:957",
+    "fdn_sos_tf_mse": "flamo_tpu/ops/pallas_solve.py:1376",
 }
 # kernel vs plain version on the same inputs.  Per-bin values (tf, y, the
-# loss) differ only by rounding (FMA contraction, division order): 1e-5 of
-# the max.  Sums over 48001 bins (U/b/c cotangents) are reduced in another
-# order (block trees vs torch.sum): 1e-4 of the max, as are per-bin
-# cotangents, which pass through a second elimination.
+# loss, H) differ only by rounding (FMA contraction, division order, the
+# kernels' (2 pi / nfft) m phase against the plain 2 pi m / nfft): 1e-5 of
+# the max.  Sums over 48001 bins (U/b/c and tap cotangents) are reduced in
+# another order (block trees vs torch.sum): 1e-4 of the max, as are per-bin
+# cotangents, which pass through a second elimination.  Those hold for
+# well-conditioned taps (poles of radius <= 0.6, numerators near the
+# denominators).  The 12-section GEQ cascade is ill-conditioned near DC in
+# float32, so on a GEQ's taps the bounds are the JAX package's for its two
+# GEQ backends (tests/test_ops.py): 5e-3 on values, 1e-3 on gradients, and
+# for K5 its fused-vs-graph bounds: 1e-4 on the loss, 5e-3 on cotangents.
 VAL_TOL = 1e-5
 GRAD_TOL = 1e-4
+GEQ_VAL_TOL, GEQ_GRAD_TOL = 5e-3, 1e-3
+FUSED_LOSS_TOL, FUSED_GRAD_TOL = 1e-4, 5e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -129,11 +168,55 @@ def _flops_cotangents(N, with_dbar: bool):
     return N * per_i + (N * N + 2 * N + 1)   # + one add per partial
 
 
-def kernel_work(name: str, M: int, N: int, pivot=False, with_dbar=False):
+PHASOR = 4  # the angle (a multiply and an add), its sine and its cosine
+
+
+def _flops_horner(P):
+    return (P - 1) * (CMUL + 1)
+
+
+def _flops_cascade(K, P):
+    """One channel's guarded cascade: 2 K Horners, 2 K products, the
+    guarded ratio."""
+    return K * (2 * _flops_horner(P) + 2 * CMUL) + CABS2 + 1 + 8
+
+
+def _flops_tap_sums(K, P):
+    """One channel's tap cotangents from t: per section (both parts) the
+    guarded quotient and P powers, each added to its sum.  The section
+    responses are those of the cascade, counted there (the kernels
+    recompute them, which is their choice, not work the function needs)."""
+    return 2 * K * (CABS2 + 1 + 8 + P * (CMUL + 1))
+
+
+def kernel_work(name: str, M: int, N: int, pivot=False, with_dbar=False,
+                K=K_MAIN, P=P_MAIN, fuse_taps=True):
     """(bytes moved once, FLOPs) of one launch."""
     cplx_mn, cplx_m, real_m = 8 * M * N, 8 * M, 4 * M
     small = 4 * (N * N + 2 * N)
     partials = 4 * (-(-M // 128)) * (N * N + 2 * N + 1)
+    taps = 2 * 4 * P * K * N
+    if name == "sos_cascade_fwd":
+        return taps + cplx_mn, M * (PHASOR + N * _flops_cascade(K, P))
+    if name == "sos_cascade_bwd":
+        tap_partials = 4 * (-(-M // 128)) * N * 2 * P * K
+        return (taps + cplx_mn + tap_partials,
+                M * (PHASOR + N * (_flops_cascade(K, P) + CMUL
+                                   + _flops_tap_sums(K, P))))
+    if name == "fdn_sos_tf_mse":
+        adjoint = (_flops_assemble(N) + _flops_ge(N, True) if pivot
+                   else _flops_transpose_from_factors(N))
+        per_i = (4 * CMUL + 4 * N + 2 * (CMUL + 1) + N * (CMUL + 1)
+                 + (CMUL + 2 if with_dbar else 0) + (CMUL if fuse_taps else 0))
+        flops = (PHASOR + N * (_flops_cascade(K, P) + CMUL)
+                 + _flops_assemble(N) + 2 * N + _flops_ge(N, pivot) + 4 * N
+                 + 22 + adjoint + N * per_i + 1
+                 + (N * _flops_tap_sums(K, P) if fuse_taps else 0))
+        nv = N * N + 2 * N + 1 + (2 * P * K * N if fuse_taps else 0)
+        nbytes = (cplx_mn + cplx_m + real_m + taps + small
+                  + 4 * (-(-M // 128)) * nv + (cplx_mn if with_dbar else 0)
+                  + (0 if fuse_taps else cplx_mn))
+        return nbytes, M * flops
     if name == "fdn_solve":
         return (2 * cplx_mn + 4 * N * N + cplx_mn,
                 M * (_flops_assemble(N) + _flops_ge(N, True)))
@@ -211,20 +294,41 @@ def phase_build() -> str:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    seconds = cuda_build.build((N_MAIN,))
+    libs = ("fdn_kernels", "sos_kernels")
+    seconds = cuda_build.build((N_MAIN,), libs=libs)
+    names = [cuda_build.library_path(N_MAIN, lib).name for lib in libs]
     lib = cuda_build.load(N_MAIN)
-    print(f"phase 1 build: {seconds:.1f} s "
-          f"({cuda_build.library_path(N_MAIN).name}, N = "
-          f"{lib.fdn_channels()}, {cuda_build.threads_per_block(N_MAIN)} "
-          f"threads/block)")
+    cuda_build.load(N_MAIN, "sos_kernels")
+    print(f"phase 1 build: {seconds:.1f} s, {len(names)} libraries in "
+          f"parallel ({', '.join(names)}; N = {lib.fdn_channels()}, "
+          f"{cuda_build.threads_per_block(N_MAIN)} threads/block)")
     return card
+
+
+def _stable_taps(rng, P: int, K: int, N: int):
+    """Well-conditioned SOS taps: poles of radius 0.2-0.6, numerators close
+    to the denominators (each section's response near 1)."""
+    r = rng.uniform(0.2, 0.6, (K, N))
+    th = rng.uniform(0, np.pi, (K, N))
+    a = np.stack([np.ones((K, N)), -2 * r * np.cos(th), r * r])
+    b = a + 0.02 * rng.normal(size=(P, K, N))
+    return (torch.tensor(b.astype(np.float32), device="cuda"),
+            torch.tensor(a.astype(np.float32), device="cuda"))
 
 
 def main_path_operands(M: int, N: int, seed: int = SEED):
     rng = np.random.default_rng(seed)
     D = (0.85 * np.exp(1j * rng.uniform(0, 2 * np.pi, (M, N))))
     U = expm_skew(torch.tensor(rng.normal(size=(N, N)), dtype=torch.float32))
+    bt, at = _stable_taps(rng, P_MAIN, K_MAIN, N)
+    # the taps of the attenuated FDN that phase 4 trains, at its first step
+    att = att_model(seed).get_core().feedback_loop.feedback.attenuation
+    with torch.no_grad():
+        geq_bt, geq_at = att.sos_taps(att.map(att.param))
     return dict(
+        bt=bt, at=at, geq_bt=geq_bt.contiguous(), geq_at=geq_at.contiguous(),
+        g=torch.tensor((rng.normal(size=(M, N)) + 1j * rng.normal(
+            size=(M, N))).astype(np.complex64), device="cuda"),
         D=torch.tensor(D.astype(np.complex64), device="cuda"),
         U=U.cuda(),
         b=torch.tensor(rng.normal(size=N).astype(np.float32), device="cuda"),
@@ -280,6 +384,45 @@ def phase_kernels(o) -> dict:
                 e.append(compare(f"{tag} {n}", g, r, GRAD_TOL))
             if not pivot and not with_dbar:  # the variant colorless_fit runs
                 errs["fdn_tf_mse"] = max(e)
+
+    print(f"  SOS kernels at K={K_MAIN}, P={P_MAIN}")
+    for label, bt, at, vtol, gtol in (
+            ("random taps", o["bt"], o["at"], VAL_TOL, GRAD_TOL),
+            ("GEQ taps", o["geq_bt"], o["geq_at"], GEQ_VAL_TOL,
+             GEQ_GRAD_TOL)):
+        e_f = compare(f"K4f sos_cascade_fwd ({label})",
+                      sk.sos_cascade_fwd_kernel(bt, at, NFFT),
+                      sk.sos_cascade_fwd_plain(bt, at, NFFT), vtol)
+        got = sk.sos_cascade_bwd_kernel(bt, at, o["g"], NFFT)
+        ref = sk.sos_cascade_bwd_plain(bt, at, o["g"], NFFT)
+        e_b = max(compare(f"K4b sos_cascade_bwd {n} ({label})", g_, r_, gtol)
+                  for n, g_, r_ in zip(("b_bar", "a_bar"), got, ref))
+        if label == "GEQ taps":  # the attenuated FDN's own taps
+            errs["sos_cascade_fwd"], errs["sos_cascade_bwd"] = e_f, e_b
+    U6 = 0.6 * U  # a loop gain well below 1 with |Gam| near 1
+    names = ("D_bar", "bt_bar", "at_bar", "U_bar", "b_bar", "c_bar")
+    for pivot, fuse_taps in ((True, False), (False, False), (False, True)):
+        for with_dbar in (True, False):
+            args = (D, o["bt"], o["at"], U6, b, c, X, t, NFFT, with_dbar,
+                    pivot, fuse_taps)
+            got = sk.fdn_sos_tf_mse_kernel(*args)
+            ref = sk.fdn_sos_tf_mse_plain(*args)
+            tag = (f"K5 pivot={pivot} fuse_taps={fuse_taps} "
+                   f"with_dbar={with_dbar}")
+            e = [compare(f"{tag} loss", got[0], ref[0], VAL_TOL)]
+            for n, g_, r_ in zip(names, got[1:], ref[1:]):
+                if r_ is None:
+                    check(g_ is None, f"{tag}: D_bar should be absent")
+                    continue
+                e.append(compare(f"{tag} {n}", g_, r_, GRAD_TOL))
+            if fuse_taps and not pivot and not with_dbar:  # the training one
+                errs["fdn_sos_tf_mse"] = max(e)
+    args = (D, o["geq_bt"], o["geq_at"], U6, b, c, X, t, NFFT)
+    got = sk.fdn_sos_tf_mse_kernel(*args)
+    ref = sk.fdn_sos_tf_mse_plain(*args)
+    compare("K5 (GEQ taps) loss", got[0], ref[0], FUSED_LOSS_TOL)
+    for n, g_, r_ in zip(names[1:], got[2:], ref[2:]):
+        compare(f"K5 (GEQ taps) {n}", g_, r_, FUSED_GRAD_TOL)
     torch.cuda.synchronize()
     return errs
 
@@ -361,8 +504,86 @@ def phase_slice(card: str) -> dict:
     return launches, seconds * 1e3 / FIT_STEPS
 
 
+def impulse_pair(nfft: int):
+    """The impulse input (1, nfft, 1) and the flat target (1, M, 1)."""
+    x = torch.zeros((1, nfft, 1), device="cuda")
+    x[:, 0, :] = 1.0
+    return x, torch.ones((1, nfft // 2 + 1, 1), device="cuda")
+
+
+def att_model(seed: int = SEED, **routes):
+    return build_attenuated_fdn(
+        nfft=NFFT, octave_interval=1, cache_delays=True, device="cuda",
+        generator=torch.Generator().manual_seed(seed), **routes)
+
+
+def phase_attenuated(card: str):
+    """The attenuated slice: the graph routes and the fused step agree,
+    then ATT_STEPS Adam steps through K5.  Returns the launch counts of
+    this phase and the untraced ms per training step."""
+    print(f"phase 4 the attenuated slice: build_attenuated_fdn(nfft={NFFT}, "
+          f"octave_interval=1, cache_delays=True) on cuda")
+    model = att_model()
+    model_k = att_model(seed=1, solve_method="pallas",
+                        cascade_backend="pallas")
+    model_k.load_state_dict(model.state_dict())
+    x, t = impulse_pair(NFFT)
+
+    fk.reset_launch_counts()
+    sk.reset_launch_counts()
+    l_ge, g_ge = loss_and_grads(model, attenuated_loss, x, t)
+    l_k, g_k = loss_and_grads(model_k, attenuated_loss, x, t)
+    l_f, g_f = loss_and_grads(model, attenuated_loss_fused_step, x, t)
+    print(f"  loss: graph xla/ge {l_ge:.7f}, graph pallas/pallas (K4f + K2) "
+          f"{l_k:.7f}, fused step (K5) {l_f:.7f}")
+    check(np.isfinite(l_ge), "the attenuated graph loss is not finite")
+    for label, loss, grads in (("K4 + K2 graph", l_k, g_k),
+                               ("K5 fused step", l_f, g_f)):
+        check(abs(loss - l_ge) / l_ge < FUSED_LOSS_TOL,
+              f"{label} loss differs from the xla/ge graph loss")
+        for k in g_ge:
+            compare(f"{label} grad {k}", grads[k], g_ge[k], FUSED_GRAD_TOL)
+
+    # training through K5: a short warm-up on a copy, then the timed run
+    warm = att_model(seed=2)
+    step, _ = attenuated_train_step(warm, lr=ATT_LR, fused_step=True)
+    for _ in range(10):
+        step(x, t)
+    step, _ = attenuated_train_step(model, lr=ATT_LR, fused_step=True,
+                                    step_pivot=False)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    before = {**fk.LAUNCHES, **sk.LAUNCHES}
+    torch.cuda.synchronize()
+    start.record()
+    losses = [step(x, t) for _ in range(ATT_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    seconds = start.elapsed_time(end) / 1e3
+    per_step = {k: (v - before[k]) / ATT_STEPS
+                for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items()}
+    print(f"  launches per training step: {per_step}")
+    hist = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(hist).all()), "attenuated training loss is not "
+          "finite")
+    print(f"  attenuated_train_step (K5, no pivot, lr {ATT_LR:g}): loss "
+          f"{hist[0]:.7f} -> {hist[-1]:.7f} over {ATT_STEPS} steps")
+    check(abs(hist[0] - l_f) / l_f < 1e-5,
+          "first training loss differs from the fused-step loss")
+    check(hist[-1] < hist[0], "attenuated training loss did not decrease")
+    print(f"  attenuated_train_step: {ATT_STEPS / seconds:.1f} steps/s "
+          f"({seconds * 1e3 / ATT_STEPS:.4f} ms/step, CUDA events, after a "
+          f"10-step warm-up) on {card}")
+    launches = {**fk.LAUNCHES, **sk.LAUNCHES}
+    print(f"  launches in phase 4: {launches}")
+    for name in ("fdn_solve", *sk.LAUNCHES):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the attenuated path")
+    return launches, seconds * 1e3 / ATT_STEPS
+
+
 def phase_timing(o, launches, errs, card) -> list:
-    print(f"phase 4 timing at M={M_MAIN}, N={N_MAIN} on {card}")
+    print(f"phase 5 timing at M={M_MAIN}, N={N_MAIN} on {card}")
     D, U, b, c, B, X, t = (o[k] for k in "DUbcBXt")
     _, y = fk.fdn_tf_fwd_kernel(D, U, b, c)
     A = (torch.eye(N_MAIN, dtype=torch.complex64, device="cuda")[None]
@@ -383,6 +604,22 @@ def phase_timing(o, launches, errs, card) -> list:
                        lambda: fk.fdn_tf_bwd_plain(D, U, b, c, y,
                                                    o["tf_bar"]), None, {}),
     }
+    # the SOS kernels on the attenuated path's taps and variants
+    gb, ga, g = o["geq_bt"], o["geq_at"], o["g"]
+    U6 = 0.6 * U
+    k5 = (D, gb, ga, U6, b, c, X, t, NFFT)
+    runs.update({
+        "sos_cascade_fwd": (lambda: sk.sos_cascade_fwd_kernel(gb, ga, NFFT),
+                            lambda: sk.sos_cascade_fwd_plain(gb, ga, NFFT),
+                            None, {}),
+        "sos_cascade_bwd": (lambda: sk.sos_cascade_bwd_kernel(gb, ga, g,
+                                                              NFFT),
+                            lambda: sk.sos_cascade_bwd_plain(gb, ga, g,
+                                                             NFFT),
+                            None, {}),
+        "fdn_sos_tf_mse": (lambda: sk.fdn_sos_tf_mse_kernel(*k5),
+                           lambda: sk.fdn_sos_tf_mse_plain(*k5), None, {}),
+    })
     rows = []
     for name, (kern, plain, lib, kw) in runs.items():
         ms = device_ms(kern, f"{name}_kernel")
@@ -397,7 +634,7 @@ def phase_timing(o, launches, errs, card) -> list:
         print(f"  {name}: device ms (call ms): kernel {ms:.4f} "
               f"({call_ms:.4f}), plain {plain_ms:.4f} ({plain_call_ms:.3f}), "
               f"library {lib_txt}; bound {bound_ms:.5f} ({bound_by})")
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -415,30 +652,43 @@ def phase_timing(o, launches, errs, card) -> list:
                             with_dbar=with_dbar)
             print(f"  fdn_tf_mse pivot={pivot} with_dbar={with_dbar}: "
                   f"kernel {ms_v:.4f} ms, bound {bms:.5f} ms ({by})")
+    for pivot, fuse_taps in ((True, False), (False, False), (True, True),
+                             (False, True)):
+        for with_dbar in (True, False):
+            run = (lambda: sk.fdn_sos_tf_mse_kernel(
+                *k5, with_dbar=with_dbar, pivot=pivot, fuse_taps=fuse_taps))
+            ms_v = device_ms(run, "fdn_sos_tf_mse_kernel")
+            ms_all = device_ms(run) if not fuse_taps else ms_v
+            bms, by = bound("fdn_sos_tf_mse", M_MAIN, N_MAIN, pivot=pivot,
+                            with_dbar=with_dbar, fuse_taps=fuse_taps)
+            extra = ("" if fuse_taps else
+                     f", with K4b and the sums {ms_all:.4f} ms")
+            print(f"  fdn_sos_tf_mse pivot={pivot} fuse_taps={fuse_taps} "
+                  f"with_dbar={with_dbar}: kernel {ms_v:.4f} ms{extra}, "
+                  f"bound {bms:.5f} ms ({by})")
     return rows
 
 
-def phase_trace(card: str, step_ms: float, steps: int = 20) -> None:
+def phase_trace(card: str, label: str, run_steps, step_ms: float,
+                steps: int = 20) -> None:
     """Where a training step's time goes: a torch.profiler trace of
-    ``steps`` colorless_fit steps, the device's busy time per step, its
-    idle share against the traced wall time (the profiler slows the host)
-    and against ``step_ms``, the untraced step time of phase 3, and the
-    kernels that take the most device time."""
-    model = build_colorless_fdn(nfft=NFFT, device="cuda",
-                                generator=torch.Generator().manual_seed(3))
-    colorless_fit(model, n_steps=5)
+    ``run_steps(steps)``, the device's busy time per step, its idle share
+    against the traced wall time (the profiler slows the host) and
+    against ``step_ms``, the untraced step time, and the kernels that take
+    the most device time."""
+    run_steps(5)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        colorless_fit(model, n_steps=steps)
+        run_steps(steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = _device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     n_kernels = sum(e.count for e in events)
-    print(f"phase 5 trace of {steps} colorless_fit steps on {card}: wall "
+    print(f"phase 6 trace of {steps} {label} steps on {card}: wall "
           f"{wall_ms / steps:.4f} ms/step (profiler on), device busy "
           f"{busy_ms / steps:.4f} ms/step, idle share "
           f"{1 - busy_ms / wall_ms:.4f} (traced), "
@@ -447,7 +697,20 @@ def phase_trace(card: str, step_ms: float, steps: int = 20) -> None:
     events.sort(key=lambda e: -e.self_device_time_total)
     for e in events[:8]:
         print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
-              f"x{e.count // steps} {e.key[:90]}")
+              f"x{e.count / steps:g} {e.key[:90]}")
+
+
+def colorless_steps():
+    model = build_colorless_fdn(nfft=NFFT, device="cuda",
+                                generator=torch.Generator().manual_seed(3))
+    return lambda n: colorless_fit(model, n_steps=n)
+
+
+def attenuated_steps():
+    step, _ = attenuated_train_step(att_model(seed=3), lr=ATT_LR,
+                                    fused_step=True)
+    x, t = impulse_pair(NFFT)
+    return lambda n: [step(x, t) for _ in range(n)]
 
 
 def main() -> int:
@@ -456,14 +719,20 @@ def main() -> int:
     o = main_path_operands(M_MAIN, N_MAIN)
     errs = phase_kernels(o)
     launches, step_ms = phase_slice(card)
+    att_launches, att_step_ms = phase_attenuated(card)
+    for name, n in att_launches.items():
+        launches[name] = launches.get(name, 0) + n
     rows = phase_timing(o, launches, errs, card)
-    phase_trace(card, step_ms)
+    phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
+    phase_trace(card, "attenuated_train_step (K5)", attenuated_steps(),
+                att_step_ms)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
+    # the run uses one card, whatever the machine exposes
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -1,0 +1,399 @@
+// Hand-written Hopper (sm_90a) kernels of the attenuated-FDN path, with a
+// plain C interface that flamo_tpu_torch/ops/sos_kernels.py loads through
+// ctypes.  Every entry point launches on the stream it is given, allocates
+// nothing, and returns cudaGetLastError(), kBadN (-1) when asked for
+// another channel count than the FDN_N this library was built for, or
+// kBadSize (-2) for taps or sizes out of the limits below.
+//
+// Kernels and the TPU kernels they replace (flamo_tpu/ops/pallas_solve.py):
+//   sos_cascade_fwd_kernel (K4f) <- _sos_cascade_fwd_kernel, pallas_call at :940
+//   sos_cascade_bwd_kernel (K4b) <- _sos_cascade_bwd_kernel, pallas_call at
+//                                   :957 (VJP of pallas_sos_cascade) and :989
+//                                   (_sos_bwd_rows)
+//   fdn_sos_tf_mse_kernel  (K5)  <- _fdn_sos_tf_mse_kernel, pallas_call at :1376
+//
+// The guarded SOS cascade of a channel n at the phasor z = e^{-j w},
+//   H_n = prod_k B_kn(z) / prod_k A_kn(z),  B_kn(z) = sum_p b[p,k,n] z^p,
+// is FLT_EPSILON (real) with zero gradient where |prod_k A_kn|^2 = 0, as
+// _iir_guard_prods; a single section whose |B_k|^2 or |A_k|^2 is 0 adds
+// nothing to the tap cotangents.  Taps are (P, K, N) float32, row-major.
+// K and P are runtime sizes (loops, no per-section arrays): P <= kMaxP,
+// K <= kMaxK.  The phasor is made per bin from the bin index, in float32
+// as the TPU kernel's _bin_phasor: w = (2 pi / nfft) (m + off), with the
+// accurate sincosf (near m = nfft/2 the angle is close to pi, where the
+// fast intrinsics lose digits).
+//
+// What bounds them on an H100: arithmetic.  At N = 6, K = 12, P = 3 a bin
+// costs ~3.0 kFLOP of Horner and products in K4f, ~7.7 kFLOP in K4b (the
+// cascade again, then 2 K section quotients and P powers per channel) and
+// ~9.7 kFLOP in K5 (K4f's cascade, K1's eliminations and the K4b tap
+// sums; chip_smoke.py's kernel_work counts them), against 48-75 bytes of
+// D, X, t, H and partials per bin: at 67 TFLOP/s and 3.35 TB/s the
+// operations take 3-7x the memory time.  K4b and K5 also recompute the
+// 2 K section Horners per channel for the tap sums (~2.0 kFLOP per bin
+// more than those counts, which take each section response once).  The
+// design keeps
+// every intermediate of a bin in registers: the section responses are
+// recomputed in K5's tap phase rather than kept (2 K N complex values would
+// not fit beside the N x N loop matrix), and the 2 P K N tap sums are
+// reduced as they are produced, one warp shuffle tree per value into a
+// shared-memory row per warp, then one row per block that the wrapper sums
+// with torch.sum.  No atomics: two runs give the same partials.
+//
+// Threads of the ragged edge m >= M run with zero operands (K5: D = X =
+// t = 0; K4b: t = 0), so they add exactly 0, and they take part in the
+// warp shuffles of the block reductions.
+
+#include <cfloat>
+#include <cstddef>
+
+#include "fdn_ge.cuh"
+
+namespace sos {
+
+using fdn::cabs2;
+using fdn::cmul;
+using fdn::kThreads;
+
+constexpr int kBadN = -1;
+constexpr int kBadSize = -2;
+constexpr int kMaxP = 8;
+constexpr int kMaxK = 64;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSharedFloats = 48 * 1024 / 4;
+
+__device__ __forceinline__ float2 bin_phasor(int m, float w_scale, float off) {
+  const float w = w_scale * (static_cast<float>(m) + off);
+  float s, c;
+  sincosf(w, &s, &c);
+  return make_float2(c, -s);
+}
+
+// sum_p c[p * stride] z^p by Horner, from the highest tap down
+__device__ __forceinline__ float2 horner(const float* __restrict__ c, int stride, int P,
+                                         float2 z) {
+  float2 out = make_float2(__ldg(c + (P - 1) * stride), 0.0f);
+  for (int p = P - 2; p >= 0; --p) {
+    out = cmul(out, z);
+    out.x += __ldg(c + p * stride);
+  }
+  return out;
+}
+
+// Guarded cascade response of channel n; ok is false where the
+// denominator product vanished (the response is then FLT_EPSILON).
+__device__ __forceinline__ float2 cascade(const float* __restrict__ b, const float* __restrict__ a,
+                                          int n, int K, int P, int N, float2 z, bool& ok) {
+  const int stride = K * N;
+  float2 pb = make_float2(1.0f, 0.0f);
+  float2 pa = make_float2(1.0f, 0.0f);
+  for (int k = 0; k < K; ++k) {
+    pb = cmul(pb, horner(b + k * N + n, stride, P, z));
+    pa = cmul(pa, horner(a + k * N + n, stride, P, z));
+  }
+  const float den = cabs2(pa);
+  ok = den != 0.0f;
+  const float inv = 1.0f / (ok ? den : 1.0f);
+  return ok ? make_float2((pb.x * pa.x + pb.y * pa.y) * inv, (pb.y * pa.x - pb.x * pa.y) * inv)
+            : make_float2(FLT_EPSILON, 0.0f);
+}
+
+// Sum one per-thread value over the warp; lane 0 parks it in the warp's
+// shared-memory row of nv values.  Every thread of the block calls it.
+__device__ __forceinline__ void put(float* red, int nv, int idx, float v) {
+  v = fdn::warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[(threadIdx.x >> 5) * nv + idx] = v;
+}
+
+// After all put calls: add the warps' rows into this block's row.
+__device__ __forceinline__ void store_row(const float* red, int nv, float* __restrict__ row) {
+  __syncthreads();
+  for (int v = threadIdx.x; v < nv; v += kThreads) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w * nv + v];
+    row[v] = s;
+  }
+}
+
+// Tap cotangents of channel n from t = (cotangent of H_n) * H_n, masked:
+//   b_bar[p,k,n] =  sum_m Re(t / B_kn z^p),  a_bar[p,k,n] = -sum_m Re(t / A_kn z^p),
+// warp-summed into slot base + ((part * P + p) * K + k) * stride.
+__device__ __forceinline__ void tap_partials(const float* __restrict__ b,
+                                             const float* __restrict__ a, int n, int K, int P,
+                                             int N, float2 z, float2 t, float* red, int nv,
+                                             int base, int stride) {
+  for (int part = 0; part < 2; ++part) {
+    const float* c = part ? a : b;
+    const float sign = part ? -1.0f : 1.0f;
+    for (int k = 0; k < K; ++k) {
+      const float2 sec = horner(c + k * N + n, K * N, P, z);
+      const float d = cabs2(sec);
+      const bool okd = d > 0.0f;
+      const float invd = sign / (okd ? d : 1.0f);
+      float2 q = okd ? make_float2((t.x * sec.x + t.y * sec.y) * invd,
+                                   (t.y * sec.x - t.x * sec.y) * invd)
+                     : make_float2(0.0f, 0.0f);
+      for (int p = 0; p < P; ++p) {
+        put(red, nv, base + ((part * P + p) * K + k) * stride, q.x);
+        q = cmul(q, z);
+      }
+    }
+  }
+}
+
+// K4f: one thread per (bin, channel); H (M, N) complex64, interleaved.
+__global__ void __launch_bounds__(kThreads)
+    sos_cascade_fwd_kernel(const float* __restrict__ b, const float* __restrict__ a,
+                           float2* __restrict__ H, int M, int N, int K, int P, float w_scale,
+                           float off) {
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= M * N) return;
+  const int m = idx / N;
+  const int n = idx - m * N;
+  bool ok;
+  H[idx] = cascade(b, a, n, K, P, N, bin_phasor(m, w_scale, off), ok);
+}
+
+// K4b: grid (bin blocks, N); block (x, n) reduces its bins of channel n
+// into partials row x * N + n of 2 P K values, ordered (part, p, k).
+// G is JAX's cotangent of H, (M, N) complex64.
+__global__ void __launch_bounds__(kThreads)
+    sos_cascade_bwd_kernel(const float* __restrict__ b, const float* __restrict__ a,
+                           const float2* __restrict__ G, float* __restrict__ partials, int M,
+                           int N, int K, int P, float w_scale, float off) {
+  extern __shared__ float red[];
+  const int nv = 2 * P * K;
+  const int n = blockIdx.y;
+  const int m = blockIdx.x * kThreads + threadIdx.x;
+  const float2 z = bin_phasor(m, w_scale, off);
+  bool ok;
+  const float2 h = cascade(b, a, n, K, P, N, z, ok);
+  float2 t = make_float2(0.0f, 0.0f);
+  if (m < M && ok) t = cmul(G[static_cast<size_t>(m) * N + n], h);
+  tap_partials(b, a, n, K, P, N, z, t, red, nv, 0, 1);
+  store_row(red, nv, partials + (static_cast<size_t>(blockIdx.x) * N + n) * nv);
+}
+
+// K5: one thread per bin.  Gam = guarded cascade of the taps bt/at, folded
+// into the loop diagonal:
+//   tf = c^T (I - diag(D Gam) U)^{-1} diag(D) b,  L = (1/M) sum (|tf X| - t)^2,
+// with JAX's cotangents (tb of tf, bb_i = tb w_i, w = A^{-T} c):
+//   U_bar_ij = Re sum bb_i D_i Gam_i y_j,  b_bar_i = Re sum bb_i D_i,
+//   c_bar_i = Re sum tb y_i,  Gam_bar_i = bb_i (U y)_i D_i,
+//   D_bar_i = bb_i ((U y)_i Gam_i + b_i)  (WITH_DBAR).
+// Partials row per block: [U_bar, b_bar, c_bar, loss] and, with FUSE_TAPS,
+// the 2 P K N tap sums ordered (part, p, k, n) from t_i = Gam_bar_i Gam_i;
+// without, Gbar gets the masked Gam_bar rows for K4b.  scale = 2 / M.
+template <int N, bool PIVOT, bool WITH_DBAR, bool FUSE_TAPS>
+__global__ void __launch_bounds__(kThreads)
+    fdn_sos_tf_mse_kernel(const float2* __restrict__ D, const float* __restrict__ bt,
+                          const float* __restrict__ at, const float* __restrict__ U,
+                          const float* __restrict__ b, const float* __restrict__ c,
+                          const float2* __restrict__ X, const float* __restrict__ t,
+                          float2* __restrict__ Dbar, float2* __restrict__ Gbar,
+                          float* __restrict__ partials, float scale, int M, int K, int P,
+                          float w_scale, float off) {
+  extern __shared__ float red[];
+  constexpr int NV0 = fdn::n_partials(N);
+  const int nv = NV0 + (FUSE_TAPS ? 2 * P * K * N : 0);
+  const int m = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = m < M;
+  const size_t row = static_cast<size_t>(live ? m : 0) * N;
+  const float2 z = bin_phasor(m, w_scale, off);
+
+  // phase 1: cascade, solve, loss and the U/b/c heads
+  float2 d[N], gam[N], dp[N];
+  bool gok[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    d[i] = live ? D[row + i] : make_float2(0.0f, 0.0f);
+    gam[i] = cascade(bt, at, i, K, P, N, z, gok[i]);
+    dp[i] = cmul(d[i], gam[i]);
+  }
+  float2 A[N][N];
+  fdn::assemble<N, false>(dp, U, A);
+  float2 rhs[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float bi = __ldg(b + i);
+    rhs[i] = make_float2(d[i].x * bi, d[i].y * bi);
+  }
+  float2 y[N];
+  if (PIVOT) {
+    fdn::ge_pivot<N>(A, rhs, y);
+  } else {
+    fdn::ge_nopivot_factors<N>(A, rhs, y);
+  }
+  float2 tf = make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float ci = __ldg(c + i);
+    tf.x += ci * y[i].x;
+    tf.y += ci * y[i].y;
+  }
+  const float2 x = live ? X[m] : make_float2(0.0f, 0.0f);
+  const float tt = live ? t[m] : 0.0f;
+  const float zr = tf.x * x.x - tf.y * x.y;
+  const float zi = tf.x * x.y + tf.y * x.x;
+  const float amag = sqrtf(zr * zr + zi * zi);
+  const float diff = amag - tt;
+  const float g = scale * diff / (amag > 0.0f ? amag : 1.0f);
+  const float dzr = g * zr;
+  const float dzi = g * zi;
+  const float2 tb = make_float2(dzr * x.x + dzi * x.y, dzr * x.y - dzi * x.x);
+
+  float2 cc[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) cc[i] = make_float2(__ldg(c + i), 0.0f);
+  float2 w[N];
+  if (PIVOT) {
+    float2 At[N][N];
+    fdn::assemble<N, true>(dp, U, At);
+    fdn::ge_pivot<N>(At, cc, w);
+  } else {
+    fdn::transpose_solve_from_factors<N>(A, cc, w);
+  }
+
+  float2 tn[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float2 bb = cmul(tb, w[i]);
+    float ur = 0.0f, ui = 0.0f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float u = __ldg(U + i * N + j);
+      ur += u * y[j].x;
+      ui += u * y[j].y;
+    }
+    const float2 dpbar = cmul(bb, make_float2(ur, ui));
+    const float2 gambar = cmul(dpbar, d[i]);
+    if (WITH_DBAR) {
+      float2 db = cmul(dpbar, gam[i]);
+      const float bi = __ldg(b + i);
+      db.x += bb.x * bi;
+      db.y += bb.y * bi;
+      if (live) Dbar[row + i] = db;
+    }
+    put(red, nv, N * N + i, cmul(bb, d[i]).x);
+    put(red, nv, N * N + N + i, cmul(tb, y[i]).x);
+    const float2 bbdp = cmul(bb, dp[i]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) put(red, nv, i * N + j, cmul(bbdp, y[j]).x);
+    const float2 zero = make_float2(0.0f, 0.0f);
+    if (FUSE_TAPS) {
+      tn[i] = gok[i] ? cmul(gambar, gam[i]) : zero;
+    } else if (live) {
+      Gbar[row + i] = gok[i] ? gambar : zero;
+    }
+  }
+  put(red, nv, NV0 - 1, diff * diff);
+
+  // phase 2: the tap cotangents, section responses recomputed
+  if (FUSE_TAPS) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) tap_partials(bt, at, i, K, P, N, z, tn[i], red, nv, NV0 + i, N);
+  }
+  store_row(red, nv, partials + static_cast<size_t>(blockIdx.x) * nv);
+}
+
+inline unsigned n_blocks(long long work) {
+  return static_cast<unsigned>((work + kThreads - 1) / kThreads);
+}
+
+inline bool sizes_ok(int M, int N, int K, int P) {
+  return M >= 1 && N >= 1 && K >= 1 && K <= kMaxK && P >= 1 && P <= kMaxP &&
+         static_cast<long long>(M) * N <= 0x7fffffffLL - kThreads;
+}
+
+template <int N>
+void launch_tf_mse(bool pivot, bool with_dbar, bool fuse_taps, const float2* D, const float* bt,
+                   const float* at, const float* U, const float* b, const float* c,
+                   const float2* X, const float* t, float2* Dbar, float2* Gbar, float* partials,
+                   float scale, int M, int K, int P, float w_scale, float off, cudaStream_t s) {
+  const dim3 grid(n_blocks(M)), block(kThreads);
+  const size_t smem =
+      sizeof(float) * kWarps * (fdn::n_partials(N) + (fuse_taps ? 2 * P * K * N : 0));
+#define SOS_K5(PV, WD, FT)                                                                     \
+  fdn_sos_tf_mse_kernel<N, PV, WD, FT><<<grid, block, smem, s>>>(                              \
+      D, bt, at, U, b, c, X, t, Dbar, Gbar, partials, scale, M, K, P, w_scale, off)
+  if (pivot) {
+    if (with_dbar) {
+      if (fuse_taps) SOS_K5(true, true, true); else SOS_K5(true, true, false);
+    } else {
+      if (fuse_taps) SOS_K5(true, false, true); else SOS_K5(true, false, false);
+    }
+  } else {
+    if (with_dbar) {
+      if (fuse_taps) SOS_K5(false, true, true); else SOS_K5(false, true, false);
+    } else {
+      if (fuse_taps) SOS_K5(false, false, true); else SOS_K5(false, false, false);
+    }
+  }
+#undef SOS_K5
+}
+
+}  // namespace sos
+
+// One build is for one channel count, FDN_N (-DFDN_N=6), as fdn_kernels.cu:
+// K5 is unrolled over it, and K4f/K4b, which loop over N at run time, are
+// launched from the library of the taps' channel count.
+#ifndef FDN_N
+#error "compile with -DFDN_N=<channel count>"
+#endif
+static_assert(FDN_N >= 1 && FDN_N <= fdn::kMaxN, "FDN_N out of range");
+
+extern "C" {
+
+int sos_threads_per_block() { return sos::kThreads; }
+
+int sos_channels() { return FDN_N; }
+
+const char* sos_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int sos_cascade_fwd_launch(const void* b, const void* a, void* H, int M, int N, int K, int P,
+                           float w_scale, float off, void* stream) {
+  if (N != FDN_N) return sos::kBadN;
+  if (!sos::sizes_ok(M, N, K, P)) return sos::kBadSize;
+  sos::sos_cascade_fwd_kernel<<<sos::n_blocks(static_cast<long long>(M) * N), sos::kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(b), static_cast<const float*>(a), static_cast<float2*>(H), M, N,
+      K, P, w_scale, off);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sos_cascade_bwd_launch(const void* b, const void* a, const void* G, void* partials, int M,
+                           int N, int K, int P, float w_scale, float off, void* stream) {
+  if (N != FDN_N) return sos::kBadN;
+  if (!sos::sizes_ok(M, N, K, P)) return sos::kBadSize;
+  const dim3 grid(sos::n_blocks(M), N);
+  const size_t smem = sizeof(float) * sos::kWarps * 2 * P * K;
+  sos::sos_cascade_bwd_kernel<<<grid, sos::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(b), static_cast<const float*>(a), static_cast<const float2*>(G),
+      static_cast<float*>(partials), M, N, K, P, w_scale, off);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fdn_sos_tf_mse_launch(int N, int pivot, int with_dbar, int fuse_taps, const void* D,
+                          const void* bt, const void* at, const void* U, const void* b,
+                          const void* c, const void* X, const void* t, void* Dbar, void* Gbar,
+                          void* partials, float scale, int M, int K, int P, float w_scale,
+                          float off, void* stream) {
+  if (N != FDN_N) return sos::kBadN;
+  if (!sos::sizes_ok(M, N, K, P)) return sos::kBadSize;
+  // the block's warp rows must fit the 48 KB of dynamic shared memory a
+  // launch gets without opting in
+  if (sos::kWarps * (fdn::n_partials(N) + (fuse_taps ? 2 * P * K * N : 0)) > sos::kMaxSharedFloats)
+    return sos::kBadSize;
+  sos::launch_tf_mse<FDN_N>(pivot != 0, with_dbar != 0, fuse_taps != 0,
+    static_cast<const float2*>(D), static_cast<const float*>(bt), static_cast<const float*>(at),
+    static_cast<const float*>(U), static_cast<const float*>(b), static_cast<const float*>(c),
+    static_cast<const float2*>(X), static_cast<const float*>(t), static_cast<float2*>(Dbar),
+    static_cast<float2*>(Gbar), static_cast<float*>(partials), scale, M, K, P, w_scale, off,
+    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

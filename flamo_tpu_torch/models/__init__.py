@@ -1,3 +1,7 @@
+from flamo_tpu_torch.models.attenuated_fdn import (
+    attenuated_loss, attenuated_loss_fused_step, attenuated_train_step,
+    build_attenuated_fdn, extract_attenuated_operands,
+)
 from flamo_tpu_torch.models.colorless_fdn import (
     build_colorless_fdn, colorless_fit, colorless_freq_response_fused,
     colorless_loss, colorless_loss_fused_step, colorless_loss_fused_tf,

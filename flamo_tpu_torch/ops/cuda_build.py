@@ -3,12 +3,16 @@
 The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
 shared libraries with a plain C interface (no PyTorch headers), under
 ``build/flamo_tpu_torch/`` at the root of the checkout, and loaded with
-``ctypes``.  The eliminations are unrolled over the channel count N, and
-the large-N instantiations compile slowly, so each N is its own library
-(``-DFDN_N=<n>``), built when a kernel first needs it; :func:`build`
-starts several at once, one ``nvcc`` each.  A library's file name carries
-a hash of the sources, so an edited source is rebuilt, and a finished
-build replaces the file atomically.
+``ctypes``.  There is one library per kernel source and channel count
+N (``-DFDN_N=<n>``, n in 1..16): ``fdn_kernels.cu`` holds K1, K2 and K3,
+``sos_kernels.cu`` the SOS-cascade kernels K4f/K4b and K5.
+
+The eliminations are unrolled over N and the large-N instantiations
+compile slowly, so each (source, N) is its own library, built when a
+kernel first needs it; :func:`build` starts several at once, one ``nvcc``
+each.  A library's file name carries a hash of every source file, so an
+edited source is rebuilt, and a finished build replaces the file
+atomically.
 """
 
 from __future__ import annotations
@@ -23,27 +27,44 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flamo_tpu_torch"
-SOURCES = ("fdn_kernels.cu", "fdn_ge.cuh")
+SOURCES = ("fdn_kernels.cu", "sos_kernels.cu", "fdn_ge.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_N = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> (restype, argtypes); every pointer and the stream are c_void_p
+_F = ctypes.c_float
+# library -> (prefix of its C entry points, {name: (restype, argtypes)});
+# every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "fdn_threads_per_block": (_I, []),
-    "fdn_channels": (_I, []),
-    "fdn_error_string": (ctypes.c_char_p, [_I]),
-    "fdn_tf_mse_launch": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                               ctypes.c_float, _I, _P]),
-    "fdn_solve_launch": (_I, [_I, _I, _P, _P, _P, _P, _I, _P]),
-    "fdn_tf_fwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _P]),
-    "fdn_tf_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
+    "fdn_kernels": ("fdn", {
+        "fdn_threads_per_block": (_I, []),
+        "fdn_channels": (_I, []),
+        "fdn_error_string": (ctypes.c_char_p, [_I]),
+        "fdn_tf_mse_launch": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _F, _I, _P]),
+        "fdn_solve_launch": (_I, [_I, _I, _P, _P, _P, _P, _I, _P]),
+        "fdn_tf_fwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _P]),
+        "fdn_tf_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _P]),
+    }),
+    "sos_kernels": ("sos", {
+        "sos_threads_per_block": (_I, []),
+        "sos_channels": (_I, []),
+        "sos_error_string": (ctypes.c_char_p, [_I]),
+        "sos_cascade_fwd_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _F, _F,
+                                        _P]),
+        "sos_cascade_bwd_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                        _F, _P]),
+        "fdn_sos_tf_mse_launch": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _P, _P, _P, _F, _I, _I,
+                                       _I, _F, _F, _P]),
+    }),
 }
 
-_LIBS: dict[int, ctypes.CDLL] = {}
-_THREADS: dict[int, int] = {}
+_LIBS: dict[tuple[str, int], ctypes.CDLL] = {}
+_THREADS: dict[tuple[str, int], int] = {}
 
 
 def nvcc_path() -> str:
@@ -63,47 +84,56 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(n: int) -> Path:
+def _check_target(lib: str, n: int) -> None:
+    if lib not in _SIGNATURES:
+        raise ValueError(f"unknown kernel library {lib!r}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"N = {n} channels; the kernels take 1..{MAX_N}")
+
+
+def library_path(n: int, lib: str = "fdn_kernels") -> Path:
     digest = hashlib.sha256()
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libfdn_kernels-n{n}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{lib}-n{n}-{digest.hexdigest()[:16]}.so"
 
 
-def build(channels=(6,), ptxas_log: Path | None = None) -> float:
-    """Compile the libraries for the channel counts ``channels`` that are
-    not built yet, one ``nvcc`` each, all started together; returns the
-    wall seconds spent (0.0 when nothing was built).  With ``ptxas_log``
-    every library is compiled and the compiler's per-kernel register and
+def build(channels=(6,), libs=("fdn_kernels",),
+          ptxas_log: Path | None = None) -> float:
+    """Compile the libraries ``libs`` x ``channels`` that are not built
+    yet, one ``nvcc`` each, all started together; returns the wall
+    seconds spent (0.0 when nothing was built).  With ``ptxas_log`` every
+    named library is compiled and the compiler's per-kernel register and
     spill report goes there."""
-    todo = sorted({int(n) for n in channels
-                   if ptxas_log is not None or not library_path(n).exists()})
-    for n in todo:
-        if not 1 <= n <= MAX_N:
-            raise ValueError(f"N = {n} channels; the kernels take 1..{MAX_N}")
+    todo = []
+    for lib in libs:
+        for n in map(int, channels):
+            _check_target(lib, n)
+            if ptxas_log is not None or not library_path(n, lib).exists():
+                todo.append((lib, n))
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     jobs = []
-    for n in todo:
-        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+    for lib, n in todo:
+        tmp = library_path(n, lib).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, f"-DFDN_N={n}", "-o", str(tmp),
-               str(CSRC / "fdn_kernels.cu")]
+               str(CSRC / f"{lib}.cu")]
         if ptxas_log is not None:
             cmd[1:1] = ["-Xptxas", "-v"]
-        jobs.append((n, tmp, subprocess.Popen(
+        jobs.append((lib, n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     reports, failures = [], []
-    for n, tmp, proc in jobs:
+    for lib, n, tmp, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"N={n} (exit {proc.returncode}):\n{out}")
+            failures.append(f"{lib} N={n} (exit {proc.returncode}):\n{out}")
             continue
-        reports.append(f"# N = {n}\n{out}")
-        os.replace(tmp, library_path(n))
+        reports.append(f"# {lib} N = {n}\n{out}")
+        os.replace(tmp, library_path(n, lib))
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     if ptxas_log is not None:
@@ -112,35 +142,43 @@ def build(channels=(6,), ptxas_log: Path | None = None) -> float:
     return time.perf_counter() - t0
 
 
-def load(n: int) -> ctypes.CDLL:
-    """The loaded kernel library for N channels (built first if needed)."""
-    if n not in _LIBS:
-        build((n,))
-        lib = ctypes.CDLL(str(library_path(n)))
-        for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(lib, name)
+def load(n: int, lib: str = "fdn_kernels") -> ctypes.CDLL:
+    """The loaded kernel library ``lib`` for N channels (built first if
+    needed)."""
+    key = (lib, n)
+    if key not in _LIBS:
+        _check_target(lib, n)
+        build((n,), (lib,))
+        path = library_path(n, lib)
+        handle = ctypes.CDLL(str(path))
+        prefix, sigs = _SIGNATURES[lib]
+        for name, (restype, argtypes) in sigs.items():
+            fn = getattr(handle, name)
             fn.restype = restype
             fn.argtypes = argtypes
-        if lib.fdn_channels() != n:
-            raise RuntimeError(f"{library_path(n)} holds N = "
-                               f"{lib.fdn_channels()}, not {n}")
-        _THREADS[n] = lib.fdn_threads_per_block()
-        _LIBS[n] = lib
-    return _LIBS[n]
+        built_n = getattr(handle, f"{prefix}_channels")()
+        if built_n != n:
+            raise RuntimeError(f"{path} holds N = {built_n}, not {n}")
+        _THREADS[key] = getattr(handle, f"{prefix}_threads_per_block")()
+        _LIBS[key] = handle
+    return _LIBS[key]
 
 
-def threads_per_block(n: int) -> int:
-    """The block size of the N-channel kernels, read from the library
-    once, when it is loaded."""
-    load(n)
-    return _THREADS[n]
+def threads_per_block(n: int, lib: str = "fdn_kernels") -> int:
+    """The block size of a library's kernels, read from it once, when it
+    is loaded."""
+    load(n, lib)
+    return _THREADS[(lib, n)]
 
 
-def check(rc: int, what: str, n: int) -> None:
+def check(rc: int, what: str, n: int, lib: str = "fdn_kernels") -> None:
     """Raise if a launch entry point reported an error."""
     if rc == -1:
         raise ValueError(f"{what}: the library of N = {n} refused the "
                          "channel count")
+    if rc == -2:
+        raise ValueError(f"{what}: the kernel refused its sizes")
     if rc != 0:
-        msg = load(n).fdn_error_string(rc).decode()
+        prefix = _SIGNATURES[lib][0]
+        msg = getattr(load(n, lib), f"{prefix}_error_string")(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")

@@ -60,15 +60,19 @@ def _loop_matrix(D, U, transpose: bool = False):
     return A.transpose(1, 2) if transpose else A
 
 
-def _cotangents(D, U, b, y, w, tb, with_dbar: bool):
+def _cotangents(D, U, b, y, w, tb, with_dbar: bool, gam=None):
     """JAX-convention cotangents (D_bar or None, U_bar, b_bar, c_bar) of
     ``tf = c^T y``, ``y = A^{-1} diag(D) b``, given ``w = A^{-T} c`` and
-    the cotangent ``tb`` of tf (see fdn_ge.cuh)."""
+    the cotangent ``tb`` of tf (see fdn_ge.cuh).  The loop matrix is
+    ``A = I - diag(D gam) U``, with ``gam`` 1 when None (the attenuation
+    of the attenuated FDN enters the loop only)."""
     bb = tb[:, None] * w  # cotangent of the right-hand side diag(D) b
+    D_loop = D if gam is None else D * gam
     D_bar = None
     if with_dbar:
-        D_bar = bb * (torch.einsum("ij,mj->mi", U.to(y.dtype), y) + b)
-    U_bar = torch.real(torch.einsum("mi,mi,mj->ij", bb, D, y))
+        Uy = torch.einsum("ij,mj->mi", U.to(y.dtype), y)
+        D_bar = bb * ((Uy if gam is None else Uy * gam) + b)
+    U_bar = torch.real(torch.einsum("mi,mi,mj->ij", bb, D_loop, y))
     b_bar = torch.sum(torch.real(bb * D), dim=0)
     c_bar = torch.sum(torch.real(tb[:, None] * y), dim=0)
     return D_bar, U_bar, b_bar, c_bar
@@ -96,8 +100,17 @@ def fdn_tf_mse_plain(D, U, b, c, X, t, with_dbar: bool = True,
     """K1's function: (loss, D_bar or None, U_bar, b_bar, c_bar).
     ``pivot=False`` eliminates without pivoting and solves the adjoint
     system from the same L/U factors."""
+    loss, y, w, tb = _tf_mse_solves(D, U, b, c, X, t, pivot)
+    return (loss, *_cotangents(D, U, b, y, w, tb, with_dbar))
+
+
+def _tf_mse_solves(D, U, b, c, X, t, pivot: bool, D_loop=None):
+    """(loss, y, w, tb) of ``L = (1/M) sum (|tf X| - t)^2``:
+    ``y = A^{-1} diag(D) b`` and ``w = A^{-T} c`` for the loop matrix
+    ``A = I - diag(D_loop) U`` (``D_loop`` defaults to D), and JAX's
+    cotangent ``tb`` of tf."""
     M = D.shape[0]
-    A = _loop_matrix(D, U)
+    A = _loop_matrix(D if D_loop is None else D_loop, U)
     cc = c.to(D.dtype).expand_as(D)
     if pivot:
         y = _gauss_solve_raw(A, D * b)
@@ -112,7 +125,7 @@ def fdn_tf_mse_plain(D, U, b, c, X, t, with_dbar: bool = True,
     loss = torch.sum(diff * diff) / M
     g = (2.0 / M) * diff / torch.where(a > 0.0, a, 1.0)
     tb = g * torch.conj(z) * X  # JAX's cotangent of tf
-    return (loss, *_cotangents(D, U, b, y, w, tb, with_dbar))
+    return loss, y, w, tb
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,319 @@
+"""The SOS-cascade kernels K4 and K5 (counterpart of the SOS part of
+``flamo_tpu/ops/pallas_solve.py``): wrappers around the hand-written CUDA
+kernels of ``flamo_tpu_torch/csrc/sos_kernels.cu``, their plain PyTorch
+versions, and the ``autograd.Function``s of the public functions.
+
+Public functions keep the JAX signatures and layouts (taps (P, K, N)
+float32, tap-major; D (M, N) complex64; U (N, N), b and c (N,) float32;
+X (M,) complex64, t (M,) float32):
+
+* :func:`sos_cascade` (K4f forward, K4b gradient): the guarded cascade
+  response ``H_n(z_m) = prod_k B_kn(z_m) / prod_k A_kn(z_m)``, (M, N)
+  complex64, ``FLT_EPSILON`` where the denominator product vanishes;
+* :func:`fdn_sos_tf_mse` (K5): the attenuated-FDN loss
+  ``L = (1/M) sum_m (|tf_m X_m| - t_m)^2``,
+  ``tf_m = c^T (I - diag(D_m Gam_m) U)^{-1} diag(D_m) b`` with
+  ``Gam = sos_cascade(bt, at)``, and its cotangents in the same pass.
+
+``bin_offset`` (a number, default 0) evaluates row j at bin
+``j + bin_offset``.  Each ``*_kernel`` wrapper launches its CUDA kernel
+for CUDA tensors (and counts the launch in :data:`LAUNCHES`) and runs the
+plain version for CPU tensors; it never falls back from one to the other.
+On the card every kernel takes 1..16 channels (one library per channel
+count, as ``fdn_kernels``), at most ``MAX_P`` taps and ``MAX_K`` sections.
+Cotangents follow ``fdn_kernels``: the kernels compute JAX's cotangent of
+a complex tensor and each backward conjugates at the boundary.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flamo_tpu_torch.functional import cascade_prods
+from flamo_tpu_torch.ops import cuda_build
+from flamo_tpu_torch.ops.fdn_kernels import (_check, _cotangents, _on_cuda,
+                                             _stream, _tf_mse_solves)
+
+# the kernels' limits (sos_kernels.cu: kMaxP, kMaxK, kMaxSharedFloats)
+MAX_P = 8
+MAX_K = 64
+_MAX_SHARED_FLOATS = 48 * 1024 // 4
+
+# launches of each CUDA kernel since the last reset (plain CPU runs do not
+# count)
+LAUNCHES = {"sos_cascade_fwd": 0, "sos_cascade_bwd": 0, "fdn_sos_tf_mse": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (JAX-convention outputs)
+# ---------------------------------------------------------------------------
+def _iir_guard_prods(prodB, prodA):
+    """H = prodB / prodA, the real eps where prodA is 0.  Double where:
+    the divide sees a safe denominator, so its gradient at guarded bins is
+    0, not NaN (a gradient flows through both branches of a where)."""
+    ok = torch.abs(prodA) != 0
+    prodA_safe = torch.where(ok, prodA, torch.ones_like(prodA))
+    eps = torch.finfo(prodA.real.dtype).eps
+    return torch.where(ok, prodB / prodA_safe,
+                       torch.full_like(prodB, eps))
+
+
+def _phasor(nfft: int, M: int, bin_offset, device):
+    """z^{-1} = e^{-j 2 pi (m + bin_offset) / nfft} for m < M:
+    ``rfft_phasor``'s formula on a shifted grid."""
+    m = torch.arange(M, dtype=torch.float32, device=device)
+    if bin_offset is not None:
+        m = m + float(bin_offset)
+    return torch.exp(-1j * (2.0 * torch.pi * m / nfft))
+
+
+def _tap_sums(b, a, zinv, t):
+    """(b_bar, a_bar), each (P, K, N), from t (M, N) = cotangent of H
+    times H (zero at guarded bins):
+    ``b_bar[p,k,n] = sum_m Re(t / B_kn z^p)`` and
+    ``a_bar = -sum_m Re(t / A_kn z^p)``, a section whose response is 0
+    adding nothing."""
+    P = b.shape[0]
+    zp = [torch.ones_like(zinv)]
+    for _ in range(1, P):
+        zp.append(zp[-1] * zinv)
+    zp = torch.stack(zp)  # (P, M)
+    out = []
+    for c, sign in ((b, 1.0), (a, -1.0)):
+        sec = c[P - 1].to(zinv.dtype).expand(zinv.shape[0], *c.shape[1:])
+        for p in range(P - 2, -1, -1):
+            sec = sec * zinv[:, None, None] + c[p]
+        ok = torch.abs(sec) != 0
+        q = torch.where(ok, t[:, None, :] / torch.where(ok, sec, 1.0), 0.0)
+        out.append(sign * torch.real(torch.einsum("pm,mkn->pkn", zp, q)))
+    return tuple(out)
+
+
+def sos_cascade_fwd_plain(b, a, nfft: int, bin_offset=None):
+    """K4f's function: the code that ``cascade_backend='xla'`` runs."""
+    zinv = (None if bin_offset is None
+            else _phasor(nfft, nfft // 2 + 1, bin_offset, b.device))
+    return _iir_guard_prods(*cascade_prods(b, a, nfft, zinv))
+
+
+def sos_cascade_bwd_plain(b, a, g, nfft: int, bin_offset=None):
+    """K4b's function: (b_bar, a_bar) for JAX's cotangent g (M, N) of H."""
+    zinv = _phasor(nfft, g.shape[0], bin_offset, g.device)
+    prodB, prodA = cascade_prods(b, a, nfft, zinv)
+    ok = torch.abs(prodA) != 0
+    H = prodB / torch.where(ok, prodA, torch.ones_like(prodA))
+    return _tap_sums(b, a, zinv, torch.where(ok, g * H, 0.0))
+
+
+def fdn_sos_tf_mse_plain(D, bt, at, U, b, c, X, t, nfft: int,
+                         with_dbar: bool = False, pivot: bool = False,
+                         fuse_taps: bool = True, bin_offset=None):
+    """K5's function: (loss, D_bar or None, bt_bar, at_bar, U_bar, b_bar,
+    c_bar).  ``fuse_taps=False`` takes the tap sums from K4b's plain
+    version, as the kernel's wrapper takes them from K4b."""
+    zinv = _phasor(nfft, D.shape[0], bin_offset, D.device)
+    prodB, prodA = cascade_prods(bt, at, nfft, zinv)
+    gam = _iir_guard_prods(prodB, prodA)
+    gok = torch.abs(prodA) != 0
+    loss, y, w, tb = _tf_mse_solves(D, U, b, c, X, t, pivot, D_loop=D * gam)
+    D_bar, U_bar, b_bar, c_bar = _cotangents(D, U, b, y, w, tb, with_dbar,
+                                             gam)
+    Uy = torch.einsum("ij,mj->mi", U.to(y.dtype), y)
+    gam_bar = torch.where(gok, tb[:, None] * w * Uy * D, 0.0)
+    if fuse_taps:
+        bt_bar, at_bar = _tap_sums(bt, at, zinv, gam_bar * gam)
+    else:
+        bt_bar, at_bar = sos_cascade_bwd_plain(bt, at, gam_bar, nfft,
+                                               bin_offset)
+    return loss, D_bar, bt_bar, at_bar, U_bar, b_bar, c_bar
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers: CUDA tensors -> the kernel, CPU tensors -> plain version
+# ---------------------------------------------------------------------------
+def _check_taps(b, a, N=None):
+    if b.ndim != 3 or b.dtype != torch.float32:
+        raise TypeError(f"taps must be (P, K, N) float32, got "
+                        f"{tuple(b.shape)} {b.dtype}")
+    if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+        raise TypeError(f"b and a taps differ: {tuple(b.shape)} {b.dtype} "
+                        f"and {tuple(a.shape)} {a.dtype}")
+    P, K, Nb = b.shape
+    if not 1 <= P <= MAX_P:
+        raise ValueError(f"P = {P} taps per section; the kernels take "
+                         f"1..{MAX_P}")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K = {K} sections; the kernels take 1..{MAX_K}")
+    if N is not None and Nb != N:
+        raise ValueError(f"taps have {Nb} channels, D has {N}")
+    return P, K, Nb
+
+
+def _phase_args(nfft: int, bin_offset):
+    return 2.0 * math.pi / nfft, 0.0 if bin_offset is None else float(
+        bin_offset)
+
+
+def sos_cascade_fwd_kernel(b, a, nfft: int, bin_offset=None):
+    """K4f wrapper: H (nfft//2+1, N) complex64."""
+    P, K, N = _check_taps(b, a)
+    if not _on_cuda(b, a):
+        return sos_cascade_fwd_plain(b, a, nfft, bin_offset)
+    M = nfft // 2 + 1
+    lib = cuda_build.load(N, "sos_kernels")
+    b, a = b.contiguous(), a.contiguous()
+    H = torch.empty((M, N), dtype=torch.complex64, device=b.device)
+    with torch.cuda.device(b.device):
+        rc = lib.sos_cascade_fwd_launch(b.data_ptr(), a.data_ptr(),
+                                        H.data_ptr(), M, N, K, P,
+                                        *_phase_args(nfft, bin_offset),
+                                        _stream(b))
+    cuda_build.check(rc, "sos_cascade_fwd_kernel", N, "sos_kernels")
+    LAUNCHES["sos_cascade_fwd"] += 1
+    return H
+
+
+def sos_cascade_bwd_kernel(b, a, g, nfft: int, bin_offset=None):
+    """K4b wrapper: (b_bar, a_bar), each (P, K, N), for JAX's cotangent
+    g (M, N) complex64 of the cascade response."""
+    P, K, N = _check_taps(b, a)
+    if g.ndim != 2 or g.shape[1] != N or g.dtype != torch.complex64:
+        raise TypeError(f"g must be (M, {N}) complex64, got "
+                        f"{tuple(g.shape)} {g.dtype}")
+    if not _on_cuda(b, a, g):
+        return sos_cascade_bwd_plain(b, a, g, nfft, bin_offset)
+    M = g.shape[0]
+    lib = cuda_build.load(N, "sos_kernels")
+    b, a, g = b.contiguous(), a.contiguous(), g.contiguous()
+    n_blocks = -(-M // cuda_build.threads_per_block(N, "sos_kernels"))
+    partials = torch.empty((n_blocks, N, 2 * P * K), dtype=torch.float32,
+                           device=b.device)
+    with torch.cuda.device(b.device):
+        rc = lib.sos_cascade_bwd_launch(b.data_ptr(), a.data_ptr(),
+                                        g.data_ptr(), partials.data_ptr(),
+                                        M, N, K, P,
+                                        *_phase_args(nfft, bin_offset),
+                                        _stream(b))
+    cuda_build.check(rc, "sos_cascade_bwd_kernel", N, "sos_kernels")
+    LAUNCHES["sos_cascade_bwd"] += 1
+    # (N, part, p, k) -> (part, p, k, n)
+    s = torch.sum(partials, dim=0).reshape(N, 2, P, K).permute(1, 2, 3, 0)
+    return s[0].contiguous(), s[1].contiguous()
+
+
+def fdn_sos_tf_mse_kernel(D, bt, at, U, b, c, X, t, nfft: int,
+                          with_dbar: bool = False, pivot: bool = False,
+                          fuse_taps: bool = True, bin_offset=None):
+    """K5 wrapper: (loss, D_bar or None, bt_bar, at_bar, U_bar, b_bar,
+    c_bar).  ``fuse_taps=False`` emits the masked Gam-cotangent rows and
+    launches K4b on them."""
+    M, N = _check(D, U, vecs=[("b", b), ("c", c)], cplx_rows=[("X", X)],
+                  real_rows=[("t", t)])
+    P, K, _ = _check_taps(bt, at, N)
+    if not _on_cuda(D, bt, at, U, b, c, X, t):
+        return fdn_sos_tf_mse_plain(D, bt, at, U, b, c, X, t, nfft,
+                                    with_dbar, pivot, fuse_taps, bin_offset)
+    nv0 = N * N + 2 * N + 1
+    nv = nv0 + (2 * P * K * N if fuse_taps else 0)
+    lib = cuda_build.load(N, "sos_kernels")
+    threads = cuda_build.threads_per_block(N, "sos_kernels")
+    if threads // 32 * nv > _MAX_SHARED_FLOATS:
+        raise ValueError(f"fuse_taps with P*K*N = {P * K * N} needs more "
+                         "than 48 KB of shared memory per block; use "
+                         "fuse_taps=False")
+    D, bt, at, U, b, c, X, t = (x.contiguous()
+                                for x in (D, bt, at, U, b, c, X, t))
+    D_bar = torch.empty_like(D) if with_dbar else None
+    G_bar = None if fuse_taps else torch.empty_like(D)
+    n_blocks = -(-M // threads)
+    partials = torch.empty((n_blocks, nv), dtype=torch.float32,
+                           device=D.device)
+    with torch.cuda.device(D.device):
+        rc = lib.fdn_sos_tf_mse_launch(
+            N, int(pivot), int(with_dbar), int(fuse_taps), D.data_ptr(),
+            bt.data_ptr(), at.data_ptr(), U.data_ptr(), b.data_ptr(),
+            c.data_ptr(), X.data_ptr(), t.data_ptr(),
+            None if D_bar is None else D_bar.data_ptr(),
+            None if G_bar is None else G_bar.data_ptr(),
+            partials.data_ptr(), 2.0 / M, M, K, P,
+            *_phase_args(nfft, bin_offset), _stream(D))
+    cuda_build.check(rc, "fdn_sos_tf_mse_kernel", N, "sos_kernels")
+    LAUNCHES["fdn_sos_tf_mse"] += 1
+    s = torch.sum(partials, dim=0)
+    U_bar = s[:N * N].reshape(N, N)
+    b_bar, c_bar = s[N * N:N * N + N], s[N * N + N:N * N + 2 * N]
+    if fuse_taps:
+        taps = s[nv0:].reshape(2, P, K, N)
+        bt_bar, at_bar = taps[0], taps[1]
+    else:
+        bt_bar, at_bar = sos_cascade_bwd_kernel(bt, at, G_bar, nfft,
+                                                bin_offset)
+    return s[nv0 - 1] / M, D_bar, bt_bar, at_bar, U_bar, b_bar, c_bar
+
+
+# ---------------------------------------------------------------------------
+# differentiable public functions
+# ---------------------------------------------------------------------------
+class _SosCascade(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, b, a, nfft, bin_offset):
+        ctx.save_for_backward(b, a)
+        ctx.nfft, ctx.bin_offset = nfft, bin_offset
+        return sos_cascade_fwd_kernel(b, a, nfft, bin_offset)
+
+    @staticmethod
+    def backward(ctx, H_bar):
+        b, a = ctx.saved_tensors
+        b_bar, a_bar = sos_cascade_bwd_kernel(
+            b, a, torch.conj_physical(H_bar), ctx.nfft, ctx.bin_offset)
+        return b_bar, a_bar, None, None
+
+
+class _FdnSosTfMse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, D, bt, at, U, b, c, X, t, nfft, with_dbar, pivot,
+                fuse_taps, bin_offset):
+        loss, D_bar, *grads = fdn_sos_tf_mse_kernel(
+            D, bt, at, U, b, c, X, t, nfft, with_dbar, pivot, fuse_taps,
+            bin_offset)
+        if D_bar is not None:
+            D_bar = torch.conj_physical(D_bar)
+        ctx.save_for_backward(D_bar, *grads)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        D_bar, *grads = ctx.saved_tensors
+        return (None if D_bar is None else g * D_bar,
+                *(g * x for x in grads), None, None, None, None, None,
+                None, None)
+
+
+def sos_cascade(b, a, nfft: int, bin_offset=None):
+    """Guarded SOS-cascade frequency response (K4f; gradient K4b):
+    ``H_n(z_m) = prod_k B_kn(z_m) / prod_k A_kn(z_m)`` from (P, K, N)
+    taps (any envelope applied), (nfft//2+1, N) complex64."""
+    return _SosCascade.apply(b, a, nfft, bin_offset)
+
+
+def fdn_sos_tf_mse(D, bt, at, U, b, c, X, t, nfft: int,
+                   with_dbar: bool = False, pivot: bool = False,
+                   fuse_taps: bool = True, bin_offset=None):
+    """Fused attenuated-FDN training-step kernel (K5): the scalar
+    ``L = (1/M) sum_m (|tf_m X_m| - t_m)^2`` with
+    ``tf_m = c^T (I - diag(D_m Gam_m) U)^{-1} diag(D_m) b`` and
+    ``Gam = sos_cascade(bt, at)``, whose gradients in bt, at, U, b, c
+    (and D with ``with_dbar``) come from the same pass.  X and t get no
+    gradient; with ``with_dbar=False`` neither does D.  ``pivot=False``
+    reuses the forward L/U factors for the adjoint (stable loops).
+    ``fuse_taps=False`` takes the tap gradients from a second launch,
+    K4b, on the Gam-cotangent rows that K5 writes out."""
+    return _FdnSosTfMse.apply(D, bt, at, U, b, c, X, t, nfft, with_dbar,
+                              pivot, fuse_taps, bin_offset)

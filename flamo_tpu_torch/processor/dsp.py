@@ -1,5 +1,5 @@
-"""DSP processor modules of the colorless-FDN path (counterpart of the
-matching subset of ``flamo_tpu/processor/dsp.py``).
+"""DSP processor modules of the colorless- and attenuated-FDN paths
+(counterpart of the matching subset of ``flamo_tpu/processor/dsp.py``).
 
 Spectra flow as complex ``(B, M, N, ...)`` with ``M = nfft//2+1`` rfft
 bins; each module maps its raw ``param`` to a per-bin response and
@@ -19,9 +19,11 @@ from typing import Callable
 import torch
 from torch import nn
 
+from flamo_tpu_torch.auxiliary.eq import eq_freqs, geq
 from flamo_tpu_torch.core import Module
-from flamo_tpu_torch.functional import expm_skew
+from flamo_tpu_torch.functional import cascade_prods, expm_skew, poly_response
 from flamo_tpu_torch.ops import linop
+from flamo_tpu_torch.ops.sos_kernels import _iir_guard_prods, sos_cascade
 from flamo_tpu_torch.utils import (complex_dtype_for, next_key,
                                    resolve_device, to_complex)
 
@@ -33,6 +35,10 @@ def _check(cond: bool, msg: str) -> None:
 
 def _identity(x):
     return x
+
+
+def _abs_db_map(x):
+    return 20 * torch.log10(torch.abs(x))
 
 
 def _softplus(x):
@@ -356,6 +362,156 @@ class parallelDelay(Delay):
         m = self.get_delays(self.param)  # (N,)
         phase = self.omega()[:, None] * m[None, :]
         return self._gain_of(m)[None] * torch.exp(-1j * phase)
+
+    def matrix_response(self):
+        return linop.DIAG, self.response()
+
+    def forward(self, x):
+        self.check_input_shape(x)
+        return torch.einsum("fn,bfn...->bfn...", self.response(), x)
+
+
+# ============================= FILTERS ================================
+
+
+class Filter(DSP):
+    """General FIR MIMO filter, param (taps, N_out, N_in): response =
+    rfft(map(param) * gamma^t).  The subset that GEQ builds on: the
+    exact-phase ``response_at`` and the probes are not ported yet."""
+
+    def check_param_shape(self):
+        _check(len(self.size) == 3,
+               "Filter must be 3D, for 2D (parallel) filters use "
+               "ParallelFilter module.")
+
+    def ir(self, param):
+        return self.map(param)
+
+    def response(self):
+        """(M, N_out, N_in) complex frequency response."""
+        ir = self.ir(self.param)
+        t = torch.arange(ir.shape[0], dtype=self.dtype, device=ir.device)
+        env = torch.tensor(self.gamma, dtype=self.dtype,
+                           device=ir.device) ** t
+        env = env.reshape((-1,) + (1,) * (ir.ndim - 1))
+        return torch.fft.rfft(ir * env, n=self.nfft, dim=0)
+
+    def matrix_response(self):
+        return linop.FULL, self.response()
+
+    def forward(self, x):
+        self.check_input_shape(x)
+        return torch.einsum("fmn,bfn...->bfm...", self.response(), x)
+
+
+# -------------------- parametric IIR families ------------------------------
+
+
+def _iir_eps_guard(B, A):
+    """Guarded product-of-sections ratio from materialized (M, K, ...)
+    per-section responses."""
+    return _iir_guard_prods(torch.prod(B, dim=1), torch.prod(A, dim=1))
+
+
+def _guarded_cascade(be, ae, nfft: int, backend: str = "xla"):
+    """Guarded cascade response from envelope-applied (P, K, ...) taps.
+
+    backend='xla': the Horner-product chain of ``cascade_prods`` in
+    PyTorch; backend='pallas': the hand-written cascade kernel K4
+    (:func:`flamo_tpu_torch.ops.sos_kernels.sos_cascade`; the names are
+    the JAX package's).  Trailing channel dims fold into the kernel's
+    channel axis."""
+    if backend == "pallas":
+        P, K = be.shape[:2]
+        chans = be.shape[2:]
+        H = sos_cascade(be.reshape(P, K, -1), ae.reshape(P, K, -1), nfft)
+        return H.reshape((H.shape[0],) + tuple(chans))
+    return _iir_guard_prods(*cascade_prods(be, ae, nfft))
+
+
+def _check_cascade_backend(backend: str):
+    if backend not in ("xla", "pallas"):
+        raise ValueError(
+            f"cascade_backend must be 'xla' or 'pallas', got {backend!r}")
+
+
+class GEQ(Filter):
+    """Graphic EQ (1 or 1/3 octave); params = command gains (K, N_out,
+    N_in), K = n_bands + 3.  ``cascade_backend='pallas'`` evaluates the
+    cascade with kernel K4."""
+
+    def __init__(self, size=(1, 1), octave_interval=1, nfft=2**11, fs=48000,
+                 map=_abs_db_map, requires_grad=False, alias_decay_db=0.0,
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 device=None, cascade_backend: str = "xla"):
+        _check_cascade_backend(cascade_backend)
+        self.cascade_backend = cascade_backend
+        self.octave_interval = octave_interval
+        self.fs = fs
+        center, shelving = eq_freqs(interval=octave_interval)
+        self.center_freq = tuple(float(f) for f in center)
+        self.shelving_crossover = tuple(float(f) for f in shelving)
+        self.n_gains = len(self.center_freq) + 3
+        super().__init__(size=(self.n_gains, *size), nfft=nfft, map=map,
+                         requires_grad=requires_grad,
+                         alias_decay_db=alias_decay_db, dtype=dtype,
+                         generator=generator, device=device)
+        # the band frequencies on the parameter's device, so that the
+        # design of a training step copies nothing from the host
+        for name, freqs in (("center_freq_t", self.center_freq),
+                            ("shelving_crossover_t", self.shelving_crossover)):
+            self.register_buffer(name, torch.tensor(
+                freqs, dtype=dtype, device=self.param.device),
+                persistent=False)
+
+    def init_param(self, generator):
+        lo, hi = 10 ** (-6 / 20), 10 ** (6 / 20)
+        return (torch.rand(self.size, generator=generator, dtype=self.dtype)
+                * (hi - lo) + lo)
+
+    def check_param_shape(self):
+        _check(len(self.size) == 3,
+               "Filter must be 3D, for 2D (parallel) filters use ParallelGEQ "
+               "module.")
+
+    def _design(self, gain_db):
+        """gain_db (K, ...) -> SOS (b, a), each (3, n_bands, ...)."""
+        return geq(center_freq=self.center_freq_t,
+                   shelving_freq=self.shelving_crossover_t, R=2.7,
+                   gain_db=gain_db, fs=self.fs, dtype=self.dtype)
+
+    def sos_taps(self, gain_db):
+        """The design's (b, a) with the alias envelope gamma^[0, 1, 2]
+        folded in: the taps the cascade is evaluated from."""
+        b, a = self._design(gain_db)
+        env = self.gamma ** torch.arange(3, dtype=self.dtype,
+                                         device=b.device)
+        env = env.reshape((3,) + (1,) * (b.ndim - 1))
+        return b * env, a * env
+
+    def get_poly_coeff(self, gain_db):
+        """(H, B, A): the guarded response and the (M, K, ...) per-section
+        numerator and denominator responses.  :meth:`response` needs H
+        alone and does not compute B and A."""
+        be, ae = self.sos_taps(gain_db)
+        return (_guarded_cascade(be, ae, self.nfft, self.cascade_backend),
+                poly_response(be, self.nfft), poly_response(ae, self.nfft))
+
+    def response(self):
+        be, ae = self.sos_taps(self.map(self.param))
+        return _guarded_cascade(be, ae, self.nfft, self.cascade_backend)
+
+
+class parallelGEQ(GEQ):
+    """Diagonal GEQ, param (K, N)."""
+
+    def check_param_shape(self):
+        _check(len(self.size) == 2,
+               "Filter must be 2D, for 3D filters use GEQ module.")
+
+    def get_io(self):
+        self.input_channels = self.size[-1]
+        self.output_channels = self.size[-1]
 
     def matrix_response(self):
         return linop.DIAG, self.response()

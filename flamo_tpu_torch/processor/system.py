@@ -33,39 +33,49 @@ def _matrix_response_of(module):
         return None
 
 
+def _compose_all(responses):
+    """(kind, H) of a cascade of per-bin maps, applied in order."""
+    out = None
+    for r in responses:
+        out = r if out is None else linop.compose(r[0], r[1], out[0], out[1])
+    return out
+
+
+def _ones_for(U):
+    return torch.ones((1, U.shape[0]), dtype=U.dtype, device=U.device)
+
+
 def _diag_flat_split(module):
     """Factor a module's per-bin map as ``diag(d(f)) @ U`` (rows-scaled
     frequency-flat matrix): ``(d, U)`` with d (M, N) or (1, N), or None.
 
-    Recognized: a FLAT module (d = 1), and a Series of one FLAT stage
-    followed by DIAG stages (the FDN feedback ``Series(mixing_matrix,
-    attenuation)``)."""
-    r = _matrix_response_of(module)
-    if r is not None and r[0] == linop.FLAT:
-        H = r[1]
-        return torch.ones((1, H.shape[0]), dtype=H.dtype, device=H.device), H
-    if isinstance(module, Series):
-        U = d = None
-        for sub in module:
-            rr = _matrix_response_of(sub)
-            if rr is None:
-                return None
-            kind, H = rr
-            if kind == linop.FLAT:
-                if U is not None or d is not None:
-                    return None  # second flat / flat after diag
-                U = H
-            elif kind == linop.DIAG:
-                if U is None:
-                    return None  # diag before flat: columns-scaled form
-                d = H if d is None else d * H
-            else:
-                return None
-        if U is None:
-            return None
-        if d is None:
-            d = torch.ones((1, U.shape[0]), dtype=U.dtype, device=U.device)
-        return d, U
+    Recognized: a FLAT module (d = 1), a Series of one FLAT stage followed
+    by DIAG stages (the FDN feedback ``Series(mixing_matrix,
+    attenuation)``), and a Series whose stages compose to a FLAT map.
+    Each stage's response is evaluated once: PyTorch runs eagerly, so a
+    response computed and not used is paid for."""
+    if not isinstance(module, Series):
+        r = _matrix_response_of(module)
+        if r is not None and r[0] == linop.FLAT:
+            return _ones_for(r[1]), r[1]
+        return None
+    responses = [_matrix_response_of(sub) for sub in module]
+    if any(r is None for r in responses):
+        return None
+    U = d = None
+    for kind, H in responses:
+        if kind == linop.FLAT and U is None and d is None:
+            U = H
+        elif kind == linop.DIAG and U is not None:
+            d = H if d is None else d * H
+        else:  # a second flat stage, a flat after a diag, a diag first
+            U = None
+            break
+    if U is not None:
+        return (_ones_for(U) if d is None else d), U
+    whole = _compose_all(responses)
+    if whole is not None and whole[0] == linop.FLAT:
+        return _ones_for(whole[1]), whole[1]
     return None
 
 
@@ -160,14 +170,13 @@ class Series(Module):
 
     def matrix_response(self):
         """Composed per-bin linear map of the cascade (cheapest kind)."""
-        out = None
+        responses = []
         for module in self:
             r = _matrix_response_of(module)
             if r is None:
                 return None
-            out = r if out is None else linop.compose(r[0], r[1],
-                                                      out[0], out[1])
-        return out
+            responses.append(r)
+        return _compose_all(responses)
 
 
 def _unpack_modules(modules, current_keys: list):
@@ -287,12 +296,10 @@ class Recursion(Module):
         cdtype = B.dtype if B.is_complex() else complex_dtype_for(B.dtype)
 
         rF = _matrix_response_of(self.feedforward)
-        rB = _matrix_response_of(self.feedback)
         split = (_diag_flat_split(self.feedback)
-                 if self.solve_method == "pallas" else None)
-        if (self.solve_method == "pallas" and rF is not None
-                and rF[0] == linop.DIAG and split is not None
-                and B.ndim == 3):
+                 if (self.solve_method == "pallas" and rF is not None
+                     and rF[0] == linop.DIAG and B.ndim == 3) else None)
+        if split is not None:
             # FDN structure: per-bin diagonal stages after the mixing
             # matrix fold into D, I - diag(D_F) diag(g) U = I - diag(D_F g) U
             dB, U = split
@@ -302,6 +309,9 @@ class Recursion(Module):
             y = fdn_solve(Df.contiguous(), torch.real(U).contiguous(),
                           B.reshape(-1, N).contiguous())
             return y.reshape(B.shape)
+        # the feedback's response only now: the branch above does not
+        # need it, and PyTorch would compute it all the same
+        rB = _matrix_response_of(self.feedback)
         if rF is not None and rB is not None:
             kL, L = linop.compose(rF[0], rF[1], rB[0], rB[1])
             eye = torch.eye(N, dtype=cdtype, device=B.device)

@@ -7,8 +7,12 @@ is:
 Without a CUDA device every test skips (the decision is taken inside a
 fixture, so every worker collects the same tests).  Tolerances: per-bin
 values 1e-5 of the max (the two differ only by rounding: FMA
-contraction, division order); cotangents 1e-4 of the max (a second
-elimination, and U/b/c sums reduced in another order).
+contraction, division order, the kernels' (2 pi / nfft) (m + off) phase
+against the plain 2 pi m / nfft); cotangents 1e-4 of the max (a second
+elimination, and sums over bins reduced in another order).  Those hold
+for well-conditioned random SOS taps; the 12-section GEQ cascade is
+ill-conditioned near DC in float32, and its taps are held to the JAX
+package's bounds for its two GEQ backends (5e-3 values, 1e-3 gradients).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import torch
 
 from flamo_tpu_torch.functional import expm_skew
 from flamo_tpu_torch.ops import fdn_kernels as fk
+from flamo_tpu_torch.ops import sos_kernels as sk
+from flamo_tpu_torch.processor import dsp
 
 
 @pytest.fixture()
@@ -114,3 +120,117 @@ def test_cuda_kernel_rejects_unsupported_n(cuda):
     D = torch.zeros((8, 17), dtype=torch.complex64, device="cuda")
     with pytest.raises(ValueError, match="channels"):
         fk.fdn_solve_kernel(D, torch.zeros((17, 17), device="cuda"), D)
+    taps = torch.zeros((3, 2, 17), device="cuda")
+    with pytest.raises(ValueError, match="channels"):
+        sk.sos_cascade_fwd_kernel(taps, taps, 64)
+
+
+def _sos_taps(seed: int, P: int, K: int, N: int):
+    """Well-conditioned taps: poles of radius 0.2-0.6 and numerators close
+    to the denominators, so that each section's response stays near 1
+    and the attenuated loop I - diag(D Gam) U stays far from singular."""
+    rng = np.random.default_rng(seed)
+    if P == 3:
+        r = rng.uniform(0.2, 0.6, (K, N))
+        th = rng.uniform(0, np.pi, (K, N))
+        a = np.stack([np.ones((K, N)), -2 * r * np.cos(th), r * r])
+    else:
+        a = np.concatenate([np.ones((1, K, N)),
+                            0.1 * rng.normal(size=(P - 1, K, N))])
+    b = a + 0.02 * rng.normal(size=(P, K, N))
+    return (torch.tensor(b.astype(np.float32), device="cuda"),
+            torch.tensor(a.astype(np.float32), device="cuda"))
+
+
+def _geq_taps(N: int, nfft: int):
+    g = torch.Generator().manual_seed(N)
+    geq = dsp.parallelGEQ(size=(N,), nfft=nfft, generator=g, device="cuda")
+    with torch.no_grad():
+        return geq.sos_taps(geq.map(geq.param))
+
+
+def _check_k4(b, a, nfft, val_tol, grad_tol, bin_offset=None):
+    M, N = nfft // 2 + 1, b.shape[2]
+    H = sk.sos_cascade_fwd_kernel(b, a, nfft, bin_offset)
+    assert H.shape == (M, N)
+    assert _rel(H, sk.sos_cascade_fwd_plain(b, a, nfft, bin_offset)) < val_tol
+    rng = np.random.default_rng(M)
+    g = torch.tensor((rng.normal(size=(M, N)) + 1j * rng.normal(size=(M, N)))
+                     .astype(np.complex64), device="cuda")
+    got = sk.sos_cascade_bwd_kernel(b, a, g, nfft, bin_offset)
+    ref = sk.sos_cascade_bwd_plain(b, a, g, nfft, bin_offset)
+    for x, r in zip(got, ref):
+        assert _rel(x, r) < grad_tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nfft", [2000, 96000])
+def test_cuda_sos_cascade_matches_plain(cuda, nfft):
+    """K4f and K4b at a small M and at M = 48001: random taps (P = 3,
+    K = 12, N = 6; P = 5; a bin offset; N = 16, the largest library) and
+    a GEQ's taps."""
+    _check_k4(*_sos_taps(0, 3, 12, 6), nfft, 1e-5, 1e-4)
+    _check_k4(*_sos_taps(1, 5, 2, 2), nfft, 1e-5, 1e-4)
+    _check_k4(*_sos_taps(2, 3, 4, 3), nfft, 1e-5, 1e-4, bin_offset=17.0)
+    _check_k4(*_sos_taps(3, 3, 3, 16), nfft, 1e-5, 1e-4)
+    _check_k4(*_geq_taps(6, nfft), nfft, 5e-3, 1e-3)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [3, 6])
+@pytest.mark.parametrize("nfft", [2000, 96000])
+def test_cuda_fdn_sos_tf_mse_matches_plain(cuda, N, nfft):
+    """K5 in every (pivot, with_dbar, fuse_taps) combination against its
+    plain version, with random well-conditioned taps (K = 12, P = 3)."""
+    M = nfft // 2 + 1
+    o = _operands(N + M, M, N)
+    D, U, b, c, X, t = (o[n] for n in "DUbcXt")
+    U = 0.6 * U
+    bt, at = _sos_taps(N, 3, 12, N)
+    for pivot in (True, False):
+        for with_dbar in (True, False):
+            for fuse_taps in (True, False):
+                args = (D, bt, at, U, b, c, X, t, nfft, with_dbar, pivot,
+                        fuse_taps)
+                got = sk.fdn_sos_tf_mse_kernel(*args)
+                ref = sk.fdn_sos_tf_mse_plain(*args)
+                assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5
+                for g, r in zip(got[1:], ref[1:]):
+                    if r is None:
+                        assert g is None
+                    else:
+                        assert _rel(g, r) < 1e-4
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_sos_autograd_matches_plain_and_counts_launches(cuda):
+    """sos_cascade and fdn_sos_tf_mse on the card: gradients equal those
+    of the same functions on the CPU (plain versions), and each launch is
+    counted (fuse_taps=False launches K4b after K5)."""
+    o = _operands(7, 300, 4)
+    bt0, at0 = _sos_taps(7, 3, 5, 4)
+
+    def run(device):
+        D, U, b, c = (o[n].detach().to(device).requires_grad_(True)
+                      for n in "DUbc")
+        bt, at = (x.detach().to(device).requires_grad_(True)
+                  for x in (bt0, at0))
+        X, t = o["X"].to(device), o["t"].to(device)
+        loss = (torch.abs(sk.sos_cascade(bt, at, 598)).sum()
+                + sk.fdn_sos_tf_mse(D, bt, at, 0.6 * U, b, c, X, t, 598,
+                                    with_dbar=True)
+                + sk.fdn_sos_tf_mse(D, bt, at, 0.6 * U, b, c, X, t, 598,
+                                    fuse_taps=False))
+        loss.backward()
+        return [x.grad.cpu() for x in (D, U, b, c, bt, at)]
+
+    sk.reset_launch_counts()
+    on_card = run("cuda")
+    assert sk.LAUNCHES == {"sos_cascade_fwd": 1, "sos_cascade_bwd": 2,
+                           "fdn_sos_tf_mse": 2}
+    on_cpu = run("cpu")
+    assert sk.LAUNCHES["fdn_sos_tf_mse"] == 2  # the CPU run launches nothing
+    for g, r in zip(on_card, on_cpu):
+        assert _rel(g, r) < 1e-4
