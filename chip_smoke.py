@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive flamo_tpu_torch's colorless- and attenuated-FDN paths on one CUDA
-card.
+"""Drive flamo_tpu_torch's colorless-, attenuated- and scattering-FDN
+paths on one CUDA card.
 
 Run from the root of the repository:
 
@@ -15,7 +15,9 @@ Phases, in order; any failure raises and exits non-zero without a result:
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U; K = 12
    sections of P = 3 taps, random well-conditioned ones and those of the
-   attenuated FDN's GEQ);
+   attenuated FDN's GEQ; K6 on dense systems at M = 48001 and at the
+   masked step's P = 2000 bins, random well-conditioned ones and the
+   scattering FDN's own loop matrices);
 3. the colorless slice at full width: build_colorless_fdn(nfft=96000) on
    the card; the graph loss through K2 against the 'ge' solve, the fused
    frequency response (K3f) against Shell.get_freq_response, the
@@ -29,6 +31,14 @@ Phases, in order; any failure raises and exits non-zero without a result:
    transposed) and the fused step (K5), then ATT_STEPS Adam steps of
    attenuated_train_step(fused_step=True) (K5, no pivot), timed; K2, K4f,
    K4b and K5 must have been launched in this phase;
+4b. the scattering slice at full width: build_colorless_sfdn(nfft=96000,
+   solve_method='pallas') on the card; the graph loss and gradients
+   through K6 against the 'ge' route at the same mask, the masked loss
+   through K6 (the loop solved at the mask's 2000 bins only) against the
+   graph loss and against 'ge_cached', then sfdn_fit(masked=True,
+   solve_method='pallas') for SFDN_FIT_STEPS steps and sfdn_train_step
+   (the graph step) for SFDN_GRAPH_STEPS steps, both timed; K6 must have
+   been launched forward and transposed at both shapes in this phase;
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound;
 6. torch.profiler traces of a few training steps of each path: the
@@ -41,13 +51,21 @@ torch.profiler: the sum over every operation the call runs on the card.
 The whole call, host side included (checks, allocation, launches, the
 partials sum), is timed with CUDA events beside each of them as
 ``call_ms``, ``plain_call_ms`` and ``library_call_ms``.  ``launches``
-counts each kernel's launches in phases 3 and 4.
+counts each kernel's launches on the main paths, the counts set to 0 just
+before each run and read just after it: K1 in the timed colorless_fit, K5
+in the timed attenuated steps, K6 in the timed sfdn_train_step (M = 48001,
+the rows without a suffix) and sfdn_fit(masked=True) (P = 2000, the
+``@P2000`` rows), each once per step (K6 once each way); K2, K3f, K3b, K4f
+and K4b, which no training step runs, in the graph-route and fused-tf
+calls of phases 3 and 4.  ``trace_retries`` counts a row's profiler traces
+that were taken again because they held none of its kernel.
 
 TF32 is off throughout: expm's matmuls and the references stay float32.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -56,25 +74,33 @@ import time
 import numpy as np
 import torch
 
-from flamo_tpu_torch.convert import jax_named_tensors
+from flamo_tpu_torch.convert import jax_named_tensors, load_jax_scattering
 from flamo_tpu_torch.functional import expm_skew
 from flamo_tpu_torch.models import (attenuated_loss,
                                     attenuated_loss_fused_step,
                                     attenuated_train_step,
                                     build_attenuated_fdn, build_colorless_fdn,
-                                    colorless_fit,
+                                    build_colorless_sfdn, colorless_fit,
                                     colorless_freq_response_fused,
-                                    colorless_loss, colorless_loss_fused_tf)
+                                    colorless_loss, colorless_loss_fused_tf,
+                                    sfdn_fit, sfdn_masked_loss,
+                                    sfdn_masked_train_step, sfdn_train_step)
 from flamo_tpu_torch.ops import cuda_build
 from flamo_tpu_torch.ops import fdn_kernels as fk
 from flamo_tpu_torch.ops import sos_kernels as sk
+from flamo_tpu_torch.optimize import masked_mse_loss, sparsity_loss
 
 M_MAIN, N_MAIN, NFFT = 48001, 6, 96000
 K_MAIN, P_MAIN = 12, 3  # GEQ sections (octave bands + 3) and SOS taps
 SEED = 0
-FIT_STEPS = 300
-ATT_STEPS = 200
+FIT_STEPS = 100
+ATT_STEPS = 100
 ATT_LR = 1e-4
+SFDN_SAMPLES = 2000  # bins per masked step (the masked_mse mask)
+SFDN_FIT_STEPS = 200
+SFDN_GRAPH_STEPS = 20
+K1_K3 = ("fdn_tf_mse", "fdn_solve", "fdn_tf_fwd", "fdn_tf_bwd")
+K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
@@ -86,6 +112,8 @@ SOURCES = {
     "sos_cascade_fwd": "flamo_tpu_torch/csrc/sos_kernels.cu",
     "sos_cascade_bwd": "flamo_tpu_torch/csrc/sos_kernels.cu",
     "fdn_sos_tf_mse": "flamo_tpu_torch/csrc/sos_kernels.cu",
+    "dense_solve": "flamo_tpu_torch/csrc/fdn_kernels.cu",
+    "dense_solve_transposed": "flamo_tpu_torch/csrc/fdn_kernels.cu",
 }
 REPLACES = {
     "fdn_tf_mse": "flamo_tpu/ops/pallas_solve.py:719",
@@ -95,6 +123,9 @@ REPLACES = {
     "sos_cascade_fwd": "flamo_tpu/ops/pallas_solve.py:940",
     "sos_cascade_bwd": "flamo_tpu/ops/pallas_solve.py:957",
     "fdn_sos_tf_mse": "flamo_tpu/ops/pallas_solve.py:1376",
+    # K6's one pallas_call, run on A in the forward and on A^T in the VJP
+    "dense_solve": "flamo_tpu/ops/pallas_solve.py:161",
+    "dense_solve_transposed": "flamo_tpu/ops/pallas_solve.py:161",
 }
 # kernel vs plain version on the same inputs.  Per-bin values (tf, y, the
 # loss, H) differ only by rounding (FMA contraction, division order, the
@@ -111,6 +142,25 @@ VAL_TOL = 1e-5
 GRAD_TOL = 1e-4
 GEQ_VAL_TOL, GEQ_GRAD_TOL = 5e-3, 1e-3
 FUSED_LOSS_TOL, FUSED_GRAD_TOL = 1e-4, 5e-3
+# The scattering FDN's loop I - diag(D) S is close to singular (|D| =
+# gamma^m just under 1 against a paraunitary S), so K6 and its plain
+# version, whose eliminations differ only by rounding, are held there to
+# the JAX package's bound for K6 against its reference (tests/test_ops.py:
+# 1e-4 on values) and for K6's gradients (1e-3).  The graph loss of the
+# 'pallas' and 'ge' routes differs by the solve only, and so does the
+# masked loss of 'pallas' and 'ge_cached': rtol 1e-5, as the JAX package's
+# masked-vs-graph lockstep (tests/test_models.py).  The two routes differ
+# in their phases: the graph route's delay phase w m, up to 6.6e3 rad at
+# nfft = 96000, is a float32 product with up to 2^-24 x 6.6e3 = 3.9e-4 rad
+# of rounding, which the near-singular loop amplifies; the masked route
+# takes exact integer phases mod nfft (response_at), but rounds a float32
+# DFT contraction over ~1.5k taps.  The masked-vs-graph gap (1.12e-4 on
+# the H100 at seed 0) is held to 1e-3.  The same losses in float64 (a
+# float64 twin of the model, plain solves) agree to 1e-7; each float32
+# route's distance to them is printed, not bounded: it measures float32
+# itself at this size (~8e-4 on the H100), not the port.
+SFDN_VAL_TOL, SFDN_GRAD_TOL = 1e-4, 1e-3
+SFDN_LOSS_TOL, SFDN_ROUTE_LOSS_TOL, SFDN_F64_TOL = 1e-5, 1e-3, 1e-7
 
 
 def check(cond: bool, msg: str) -> None:
@@ -217,6 +267,8 @@ def kernel_work(name: str, M: int, N: int, pivot=False, with_dbar=False,
                   + 4 * (-(-M // 128)) * nv + (cplx_mn if with_dbar else 0)
                   + (0 if fuse_taps else cplx_mn))
         return nbytes, M * flops
+    if name.startswith("dense_solve"):  # A (M, N, N), B and y (M, N)
+        return (cplx_mn * N + 2 * cplx_mn, M * _flops_ge(N, True))
     if name == "fdn_solve":
         return (2 * cplx_mn + 4 * N * N + cplx_mn,
                 M * (_flops_assemble(N) + _flops_ge(N, True)))
@@ -252,35 +304,61 @@ def _device_events(prof) -> list:
             and e.self_device_time_total > 0]
 
 
+TRACE_RETRIES = [0]  # traces taken again by device_ms, over the whole run
+
+
 def device_ms(fn, kernel: str | None = None, reps: int = 50) -> float:
     """Mean device time per call of the device operations whose name holds
     ``kernel`` (all of them when None), from a torch.profiler trace of
-    ``reps`` calls of ``fn``."""
+    ``reps`` calls of ``fn``.  A trace that holds no such operation is
+    taken again, up to three times in all, and counted in TRACE_RETRIES:
+    on the H100 the profiler has once come back without any kernel of a
+    trace that launched them."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in _device_events(prof)
-             if kernel is None or kernel in e.key)
+    us = 0.0
+    for attempt in range(3):
+        if attempt:
+            TRACE_RETRIES[0] += 1
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in _device_events(prof)
+                 if kernel is None or kernel in e.key)
+        if us > 0:
+            break
+        seen = sorted({e.key[:40] for e in _device_events(prof)})
+        print(f"  the profiler saw no device time for {kernel or fn} "
+              f"(it saw {len(seen)} other device operations: {seen[:4]}); "
+              "tracing again")
     check(us > 0, f"the profiler saw no device time for {kernel or fn}")
     return us / reps / 1e3
+
+
+def timed(run):
+    """(result of ``run()``, its seconds by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = run()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / 1e3
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+
+    def run():  # each result dropped at once, as a caller's loop would
+        for _ in range(reps):
+            fn()
+
+    _, seconds = timed(run)
+    return seconds * 1e3 / reps
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +419,80 @@ def main_path_operands(M: int, N: int, seed: int = SEED):
         tf_bar=torch.tensor((rng.normal(size=M) + 1j * rng.normal(size=M))
                             .astype(np.complex64), device="cuda"),
     )
+
+
+def sfdn_model(seed: int = SEED):
+    return build_colorless_sfdn(nfft=NFFT, solve_method="pallas",
+                                device="cuda",
+                                generator=torch.Generator().manual_seed(seed))
+
+
+def sfdn_masks(seed: int = SEED):
+    """The masked_mse mask schedule of sfdn_fit(generator=seed)."""
+    return masked_mse_loss(nfft=NFFT, n_samples=SFDN_SAMPLES,
+                           generator=torch.Generator().manual_seed(seed),
+                           device="cuda")
+
+
+def sfdn_pair():
+    """sfdn_fit's impulse input and flat target, both (1, M, 1)."""
+    M = NFFT // 2 + 1
+    x = torch.zeros((1, M, 1), device="cuda")
+    x[:, 0, :] = 1.0
+    return x, torch.ones((1, M, 1), device="cuda")
+
+
+def sfdn_loop_systems(model, bins=None):
+    """The scattering FDN's closed-loop systems for the impulse input:
+    A = I - diag(D) S (rows, N, N) and B = D g_in (rows, N), at every bin
+    from the modules' responses (the graph step's K6 operands), or at
+    ``bins`` from their response_at (the masked step's)."""
+    core = model.get_core()
+    loop = core.feedback_loop
+    with torch.no_grad():
+        if bins is None:
+            S, D = loop.feedback.response(), loop.feedforward.response()
+        else:
+            S = loop.feedback.response_at(bins)
+            D = loop.feedforward.response_at(bins)
+        gi = core.input_gain.response()[:, 0]
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+    return ((eye - D[:, :, None] * S).contiguous(),
+            (D * gi[None]).contiguous())
+
+
+def sfdn_model_f64(model):
+    """A float64 twin of the scattering FDN ``model`` on the plain 'ge'
+    solve: its weights and its scattering shifts copied."""
+    m64 = build_colorless_sfdn(nfft=NFFT, dtype=torch.float64, device="cuda",
+                               generator=torch.Generator().manual_seed(SEED))
+    m64.load_state_dict(model.state_dict())
+    mapping = model.get_core().feedback_loop.feedback.map_filter
+    return load_jax_scattering(m64, mapping.shifts, mapping.m_L, mapping.m_R)
+
+
+def random_dense(rng, rows: int, N: int):
+    """Random well-conditioned systems: I plus a normal complex matrix of
+    norm ~0.5, and a normal rhs."""
+    A = (np.eye(N) + (rng.normal(size=(rows, N, N))
+                      + 1j * rng.normal(size=(rows, N, N)))
+         / (4 * np.sqrt(N)))
+    B = rng.normal(size=(rows, N)) + 1j * rng.normal(size=(rows, N))
+    return (torch.tensor(A.astype(np.complex64), device="cuda"),
+            torch.tensor(B.astype(np.complex64), device="cuda"))
+
+
+def dense_operands(seed: int = SEED) -> dict:
+    """K6's operands at the scattering slice's two shapes: the loop
+    systems of its model at every bin and at the first mask's bins, and
+    random ones of the same shapes."""
+    rng = np.random.default_rng(seed + 1)
+    model = sfdn_model(seed)
+    mask = sfdn_masks(seed).masks_for_cycle(0)[0]
+    return {"M": dict(model=sfdn_loop_systems(model),
+                      random=random_dense(rng, M_MAIN, N_MAIN)),
+            "P": dict(model=sfdn_loop_systems(model, mask),
+                      random=random_dense(rng, SFDN_SAMPLES, N_MAIN))}
 
 
 def compare(label, got, ref, tol) -> float:
@@ -423,8 +575,26 @@ def phase_kernels(o) -> dict:
     compare("K5 (GEQ taps) loss", got[0], ref[0], FUSED_LOSS_TOL)
     for n, g_, r_ in zip(names[1:], got[2:], ref[2:]):
         compare(f"K5 (GEQ taps) {n}", g_, r_, FUSED_GRAD_TOL)
+
+    print(f"  K6 dense_solve at M={M_MAIN} and P={SFDN_SAMPLES}, N={N_MAIN}")
+    for shape, systems in o["dense"].items():
+        for label, tol in (("random", VAL_TOL), ("model", SFDN_VAL_TOL)):
+            A, B = systems[label]
+            for tr in (False, True):
+                name = "dense_solve_transposed" if tr else "dense_solve"
+                e = compare(f"K6 {name} {shape}={A.shape[0]} ({label})",
+                            fk.dense_solve_kernel(A, B, tr),
+                            fk.dense_solve_plain(A, B, tr), tol)
+                if label == "model":  # the systems the slice solves
+                    errs[dense_row(name, shape)] = e
     torch.cuda.synchronize()
     return errs
+
+
+def dense_row(name: str, shape: str) -> str:
+    """K6's row name at the graph step's shape (M) or the masked step's
+    (P)."""
+    return name if shape == "M" else f"{name}@P{SFDN_SAMPLES}"
 
 
 def grads_of(model):
@@ -478,15 +648,12 @@ def phase_slice(card: str) -> dict:
     # colorless_fit: a short warm-up on a copy, then the timed run
     warm = build_colorless_fdn(nfft=NFFT, device="cuda",
                                generator=torch.Generator().manual_seed(2))
+    launches = {k: fk.LAUNCHES[k] for k in K1_K3[1:]}
     colorless_fit(warm, n_steps=10)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    model, hist = colorless_fit(model, n_steps=FIT_STEPS)
-    end.record()
-    torch.cuda.synchronize()
-    seconds = start.elapsed_time(end) / 1e3
+    fk.reset_launch_counts()
+    (model, hist), seconds = timed(lambda: colorless_fit(model,
+                                                         n_steps=FIT_STEPS))
+    launches["fdn_tf_mse"] = fk.LAUNCHES["fdn_tf_mse"]
     check(hist.shape == (FIT_STEPS,) and bool(np.isfinite(hist).all()),
           "colorless_fit loss history is not finite")
     print(f"  colorless_fit (K1, no pivot): loss {hist[0]:.7f} -> "
@@ -497,8 +664,10 @@ def phase_slice(card: str) -> dict:
     print(f"  colorless_fit: {FIT_STEPS / seconds:.1f} steps/s "
           f"({seconds * 1e3 / FIT_STEPS:.4f} ms/step, CUDA events, after "
           f"a 10-step warm-up) on {card}")
-    launches = dict(fk.LAUNCHES)
-    print(f"  launches in phase 3: {launches}")
+    print(f"  launches in phase 3 (K2/K3 in the graph and fused-tf calls, "
+          f"K1 in the timed fit): {launches}")
+    check(launches["fdn_tf_mse"] == FIT_STEPS,
+          "colorless_fit should launch K1 once per step")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     return launches, seconds * 1e3 / FIT_STEPS
@@ -544,6 +713,10 @@ def phase_attenuated(card: str):
         for k in g_ge:
             compare(f"{label} grad {k}", grads[k], g_ge[k], FUSED_GRAD_TOL)
 
+    launches = {"fdn_solve": fk.LAUNCHES["fdn_solve"],
+                "sos_cascade_fwd": sk.LAUNCHES["sos_cascade_fwd"],
+                "sos_cascade_bwd": sk.LAUNCHES["sos_cascade_bwd"]}
+
     # training through K5: a short warm-up on a copy, then the timed run
     warm = att_model(seed=2)
     step, _ = attenuated_train_step(warm, lr=ATT_LR, fused_step=True)
@@ -551,18 +724,15 @@ def phase_attenuated(card: str):
         step(x, t)
     step, _ = attenuated_train_step(model, lr=ATT_LR, fused_step=True,
                                     step_pivot=False)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    before = {**fk.LAUNCHES, **sk.LAUNCHES}
-    torch.cuda.synchronize()
-    start.record()
-    losses = [step(x, t) for _ in range(ATT_STEPS)]
-    end.record()
-    torch.cuda.synchronize()
-    seconds = start.elapsed_time(end) / 1e3
-    per_step = {k: (v - before[k]) / ATT_STEPS
+    fk.reset_launch_counts()
+    sk.reset_launch_counts()
+    losses, seconds = timed(lambda: [step(x, t) for _ in range(ATT_STEPS)])
+    per_step = {k: v / ATT_STEPS
                 for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items()}
     print(f"  launches per training step: {per_step}")
+    launches["fdn_sos_tf_mse"] = sk.LAUNCHES["fdn_sos_tf_mse"]
+    check(launches["fdn_sos_tf_mse"] == ATT_STEPS,
+          "attenuated_train_step should launch K5 once per step")
     hist = torch.stack(losses).cpu().numpy()
     check(bool(np.isfinite(hist).all()), "attenuated training loss is not "
           "finite")
@@ -574,12 +744,150 @@ def phase_attenuated(card: str):
     print(f"  attenuated_train_step: {ATT_STEPS / seconds:.1f} steps/s "
           f"({seconds * 1e3 / ATT_STEPS:.4f} ms/step, CUDA events, after a "
           f"10-step warm-up) on {card}")
-    launches = {**fk.LAUNCHES, **sk.LAUNCHES}
-    print(f"  launches in phase 4: {launches}")
-    for name in ("fdn_solve", *sk.LAUNCHES):
-        check(launches[name] > 0,
-              f"kernel {name} was not launched on the attenuated path")
+    print(f"  launches in phase 4 (K2/K4 in the graph calls, K5 in the "
+          f"timed steps): {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the attenuated path")
     return launches, seconds * 1e3 / ATT_STEPS
+
+
+def _k6_counts() -> dict:
+    return {k: fk.LAUNCHES[k] for k in K6}
+
+
+def quarter_means(hist) -> tuple[float, float]:
+    """The mean loss of a history's first and last quarter: each
+    scattering step reads another mask, so single steps are noisy, and
+    the loss falls when the second mean is below the first."""
+    q = max(1, len(hist) // 4)
+    return float(np.mean(hist[:q])), float(np.mean(hist[-q:]))
+
+
+def phase_scattering(card: str):
+    """The scattering slice: the graph route through K6 against 'ge', the
+    masked step through K6 against the graph loss and 'ge_cached', then
+    SFDN_FIT_STEPS masked steps (sfdn_fit) and SFDN_GRAPH_STEPS graph
+    steps.  Returns K6's launches at each shape ({row: n}) and the
+    untraced ms per masked step."""
+    print(f"phase 4b the scattering slice: build_colorless_sfdn(nfft={NFFT}, "
+          f"solve_method='pallas') on cuda")
+    model = sfdn_model()
+    loop = model.get_core().feedback_loop
+    mapping = loop.feedback.map_filter
+    print(f"  scattering feedback: {mapping.n_stages} stages, FIR of "
+          f"{mapping.output_length} taps (shifts {mapping.shifts}, m_L "
+          f"{mapping.m_L}, m_R {mapping.m_R})")
+    x, t = sfdn_pair()
+    ml, sparsity = sfdn_masks(), sparsity_loss()
+    mask = ml.masks_for_cycle(0)[0]
+
+    def graph_loss(m, x, t):  # sfdn_train_step's objective at step 0
+        est = m(x)
+        return ml(est, t, step=0) + 0.2 * sparsity(est, t, m)
+
+    def masked_loss(method):
+        return lambda m, x, t: sfdn_masked_loss(m, m.input_layer(x), t, mask,
+                                                solve_method=method)
+
+    # the graph route: K6 on the (1, M, N, N) loop and its transpose
+    fk.reset_launch_counts()
+    l_k6, g_k6 = loss_and_grads(model, graph_loss, x, t)
+    check(_k6_counts() == {"dense_solve": 1, "dense_solve_transposed": 1},
+          f"the graph step should launch K6 once each way: {fk.LAUNCHES}")
+    loop.solve_method = "ge"
+    l_ge, g_ge = loss_and_grads(model, graph_loss, x, t)
+    loop.solve_method = "pallas"
+    print(f"  graph loss at mask 0: pallas (K6) {l_k6:.7f}, ge {l_ge:.7f}")
+    check(np.isfinite(l_ge) and abs(l_k6 - l_ge) / l_ge < SFDN_LOSS_TOL,
+          "K6 graph loss differs from the 'ge' graph loss")
+    for k in g_ge:
+        compare(f"K6 graph grad {k}", g_k6[k], g_ge[k], SFDN_GRAD_TOL)
+
+    # the graph step: a warm-up on a copy, then the timed steps from the
+    # same initial weights and masks as above
+    step, _ = sfdn_train_step(sfdn_model(seed=2), n_samples=SFDN_SAMPLES,
+                              generator=torch.Generator().manual_seed(2))
+    for i in range(3):
+        step(x, t, i)
+    step, _ = sfdn_train_step(sfdn_model(), n_samples=SFDN_SAMPLES,
+                              generator=torch.Generator().manual_seed(SEED))
+    fk.reset_launch_counts()
+    losses, seconds = timed(lambda: [step(x, t, i)
+                                      for i in range(SFDN_GRAPH_STEPS)])
+    launches = {dense_row(k, "M"): n for k, n in _k6_counts().items()}
+    hist = torch.stack(losses).cpu().numpy()
+    first, last = quarter_means(hist)
+    print(f"  sfdn_train_step (graph, K6 at M={NFFT // 2 + 1}): loss "
+          f"{hist[0]:.7f} -> {hist[-1]:.7f} (quarter means {first:.7f} -> "
+          f"{last:.7f}) over {SFDN_GRAPH_STEPS} steps, "
+          f"{seconds * 1e3 / SFDN_GRAPH_STEPS:.4f} ms/step (CUDA events, "
+          f"after a 3-step warm-up) on {card}")
+    check(bool(np.isfinite(hist).all()), "graph step loss is not finite")
+    check(abs(hist[0] - l_k6) / l_k6 < SFDN_LOSS_TOL,
+          "first graph step loss differs from the graph loss")
+    check(last < first, "the graph steps' loss did not fall")
+
+    # the masked route: K6 on the (1, P, N, N) loop at the mask's bins
+    l_m, g_m = loss_and_grads(model, masked_loss("pallas"), x, t)
+    l_mc, g_mc = loss_and_grads(model, masked_loss("ge_cached"), x, t)
+    print(f"  masked loss at mask 0: pallas (K6) {l_m:.7f}, ge_cached "
+          f"{l_mc:.7f}")
+    check(abs(l_m - l_mc) / l_mc < SFDN_LOSS_TOL,
+          "K6 masked loss differs from the 'ge_cached' masked loss")
+    for k in g_mc:
+        compare(f"K6 masked grad {k} vs ge_cached", g_m[k], g_mc[k],
+                SFDN_GRAD_TOL)
+
+    # both routes against the same losses in float64 (plain solves)
+    m64 = sfdn_model_f64(model)
+    x64, t64 = x.double(), t.double()
+    l64_graph, g64 = loss_and_grads(m64, graph_loss, x64, t64)
+    with torch.no_grad():
+        l64_masked = float(masked_loss("ge")(m64, x64, t64))
+    gaps = {"masked vs graph": (l_m, l_k6, SFDN_ROUTE_LOSS_TOL),
+            "float64 masked vs graph": (l64_masked, l64_graph, SFDN_F64_TOL),
+            "masked vs float64": (l_m, l64_masked, None),
+            "graph vs float64": (l_k6, l64_graph, None)}
+    print(f"  float64 loss at mask 0: graph {l64_graph:.10f}, masked "
+          f"{l64_masked:.10f}")
+    for label, (got, ref, tol) in gaps.items():
+        rel = abs(got - ref) / ref
+        print(f"  loss {label}: rel {rel:.3e}"
+              + ("" if tol is None else f" (tol {tol:g})"))
+        check(tol is None or rel < tol, f"loss {label}: {rel:.3e} >= {tol}")
+    for k in g64:
+        for label, g in (("graph", g_k6), ("masked", g_m)):
+            err, rel = rel_err(g[k], g64[k].float())
+            print(f"  {label} grad {k} vs float64: max abs err {err:.3e}, "
+                  f"rel {rel:.3e}")
+
+    # the masked step through sfdn_fit, likewise
+    sfdn_fit(sfdn_model(seed=2), n_steps=10, n_samples=SFDN_SAMPLES,
+             masked=True, solve_method="pallas",
+             generator=torch.Generator().manual_seed(2))
+    fk.reset_launch_counts()
+    (_, hist), seconds = timed(lambda: sfdn_fit(
+        model, n_steps=SFDN_FIT_STEPS, n_samples=SFDN_SAMPLES, masked=True,
+        solve_method="pallas", generator=torch.Generator().manual_seed(SEED)))
+    launches.update({dense_row(k, "P"): n for k, n in _k6_counts().items()})
+    masked_ms = seconds * 1e3 / SFDN_FIT_STEPS
+    first, last = quarter_means(hist)
+    print(f"  sfdn_fit(masked=True, 'pallas', K6 at P={SFDN_SAMPLES}): loss "
+          f"{hist[0]:.7f} -> {hist[-1]:.7f} (quarter means {first:.7f} -> "
+          f"{last:.7f}) over {SFDN_FIT_STEPS} steps, {masked_ms:.4f} "
+          f"ms/step (CUDA events, after a 10-step warm-up) on {card}")
+    check(hist.shape == (SFDN_FIT_STEPS,) and bool(np.isfinite(hist).all()),
+          "sfdn_fit loss history is not finite")
+    check(abs(hist[0] - l_m) / l_m < SFDN_LOSS_TOL,
+          "first sfdn_fit loss differs from the masked loss")
+    check(last < first, "the sfdn_fit loss did not fall")
+    print(f"  K6 launches in the timed runs of phase 4b: {launches}")
+    for name in K6:  # one each way per step, at the step's own shape
+        check(launches[dense_row(name, "M")] == SFDN_GRAPH_STEPS,
+              f"sfdn_train_step should launch {name} once per step")
+        check(launches[dense_row(name, "P")] == SFDN_FIT_STEPS,
+              f"sfdn_fit(masked=True) should launch {name} once per step")
+    return launches, masked_ms
 
 
 def phase_timing(o, launches, errs, card) -> list:
@@ -620,27 +928,22 @@ def phase_timing(o, launches, errs, card) -> list:
         "fdn_sos_tf_mse": (lambda: sk.fdn_sos_tf_mse_kernel(*k5),
                            lambda: sk.fdn_sos_tf_mse_plain(*k5), None, {}),
     })
-    rows = []
-    for name, (kern, plain, lib, kw) in runs.items():
-        ms = device_ms(kern, f"{name}_kernel")
-        plain_ms = device_ms(plain, reps=5)
-        library_ms = device_ms(lib, reps=20) if lib is not None else None
-        call_ms = time_ms(kern, reps=200)
-        plain_call_ms = time_ms(plain, reps=5, warmup=1)
-        library_call_ms = time_ms(lib, reps=20) if lib is not None else None
-        bound_ms, bound_by = bound(name, M_MAIN, N_MAIN, **kw)
-        lib_txt = ("n/a" if library_ms is None else
-                   f"{library_ms:.4f} (call {library_call_ms:.4f})")
-        print(f"  {name}: device ms (call ms): kernel {ms:.4f} "
-              f"({call_ms:.4f}), plain {plain_ms:.4f} ({plain_call_ms:.3f}), "
-              f"library {lib_txt}; bound {bound_ms:.5f} ({bound_by})")
-        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name], "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-                     "library_call_ms": library_call_ms})
+    rows = [timing_row(name, name, M_MAIN, *run, launches, errs)
+            for name, run in runs.items()]
+    # K6 on the scattering slice's own loop systems, at the graph step's
+    # M bins and at the masked step's P; torch.linalg.solve computes the
+    # same function in one call
+    for shape, systems in o["dense"].items():
+        As, Bs = systems["model"]
+        for name in K6:
+            tr = name == "dense_solve_transposed"
+            At = As.transpose(-1, -2) if tr else As
+            rows.append(timing_row(
+                name, dense_row(name, shape), As.shape[0],
+                lambda As=As, Bs=Bs, tr=tr: fk.dense_solve_kernel(As, Bs, tr),
+                lambda As=As, Bs=Bs, tr=tr: fk.dense_solve_plain(As, Bs, tr),
+                lambda At=At, Bs=Bs: torch.linalg.solve(At, Bs[..., None]),
+                {}, launches, errs))
     ms_t = device_ms(lambda: fk.fdn_solve_kernel(D, U, B, True),
                      "fdn_solve_kernel")
     print(f"  fdn_solve transpose=True: kernel {ms_t:.4f} ms")
@@ -669,17 +972,47 @@ def phase_timing(o, launches, errs, card) -> list:
     return rows
 
 
+def timing_row(name, row, M, kern, plain, lib, kw, launches, errs) -> dict:
+    """The kernels-line row ``row`` of kernel ``name`` at M rows: device
+    and call times of the kernel, its plain version and the library call
+    (None when there is none), its bound, launches and error."""
+    retries = TRACE_RETRIES[0]
+    ms = device_ms(kern, f"{name.removesuffix('_transposed')}_kernel")
+    plain_ms = device_ms(plain, reps=5)
+    library_ms = device_ms(lib, reps=20) if lib is not None else None
+    call_ms = time_ms(kern, reps=200)
+    plain_call_ms = time_ms(plain, reps=5, warmup=1)
+    library_call_ms = time_ms(lib, reps=20) if lib is not None else None
+    bound_ms, bound_by = bound(name, M, N_MAIN, **kw)
+    retries = TRACE_RETRIES[0] - retries
+    lib_txt = ("n/a" if library_ms is None else
+               f"{library_ms:.4f} (call {library_call_ms:.4f})")
+    print(f"  {row} (M={M}): device ms (call ms): kernel {ms:.4f} "
+          f"({call_ms:.4f}), plain {plain_ms:.4f} ({plain_call_ms:.3f}), "
+          f"library {lib_txt}; bound {bound_ms:.5f} ({bound_by})"
+          + (f"; {retries} trace(s) taken again" if retries else ""))
+    return {"name": row, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[row],
+            "max_abs_err": errs[row], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "call_ms": call_ms,
+            "plain_call_ms": plain_call_ms,
+            "library_call_ms": library_call_ms, "rows": M,
+            "trace_retries": retries}
+
+
 def phase_trace(card: str, label: str, run_steps, step_ms: float,
-                steps: int = 20) -> None:
-    """Where a training step's time goes: a torch.profiler trace of
-    ``run_steps(steps)``, the device's busy time per step, its idle share
-    against the traced wall time (the profiler slows the host) and
-    against ``step_ms``, the untraced step time, and the kernels that take
-    the most device time."""
-    run_steps(5)
+                steps: int = 10) -> None:
+    """Where a training step's time goes: a torch.profiler trace of the
+    card's operations in ``run_steps(steps)``, the device's busy time per
+    step, its idle share against the traced wall time (the profiler slows
+    the host) and against ``step_ms``, the untraced step time, and the
+    kernels that take the most device time.  The host's operations are
+    not traced: nothing here reads them, and with them the trace's
+    post-processing took most of this phase's time."""
+    run_steps(3)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run_steps(steps)
@@ -713,19 +1046,49 @@ def attenuated_steps():
     return lambda n: [step(x, t) for _ in range(n)]
 
 
+def sfdn_masked_steps():
+    step, _ = sfdn_masked_train_step(sfdn_model(seed=3),
+                                     n_samples=SFDN_SAMPLES,
+                                     solve_method="pallas")
+    x, t = sfdn_pair()
+    i = itertools.count()
+    return lambda n: [step(x, t, next(i)) for _ in range(n)]
+
+
 def main() -> int:
     t0 = time.perf_counter()
+    marks = [t0]
+
+    def seconds_since_last() -> float:
+        marks.append(time.perf_counter())
+        return round(marks[-1] - marks[-2], 1)
+
+    took = {}
     card = phase_build()
+    took["1 build"] = seconds_since_last()
     o = main_path_operands(M_MAIN, N_MAIN)
+    o["dense"] = dense_operands()
     errs = phase_kernels(o)
+    took["2 kernels"] = seconds_since_last()
     launches, step_ms = phase_slice(card)
+    took["3 colorless"] = seconds_since_last()
     att_launches, att_step_ms = phase_attenuated(card)
+    took["4 attenuated"] = seconds_since_last()
     for name, n in att_launches.items():
         launches[name] = launches.get(name, 0) + n
+    sfdn_launches, sfdn_masked_ms = phase_scattering(card)
+    took["4b scattering"] = seconds_since_last()
+    launches.update(sfdn_launches)
     rows = phase_timing(o, launches, errs, card)
+    took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
     phase_trace(card, "attenuated_train_step (K5)", attenuated_steps(),
                 att_step_ms)
+    phase_trace(card, "sfdn masked (K6)", sfdn_masked_steps(),
+                sfdn_masked_ms)
+    took["6 traces"] = seconds_since_last()
+    print(f"seconds per phase: {took}; traces taken again: "
+          f"{TRACE_RETRIES[0]}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

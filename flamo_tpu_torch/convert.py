@@ -4,8 +4,11 @@ The weights come as a ``dict`` from ``jax.tree_util.keystr`` of each leaf
 of the JAX model to a numpy array, e.g. for the colorless FDN
 ``.core.modules[0].param`` (N, 1), ``.core.modules[1].feedforward.param``
 (N,), ``.core.modules[1].feedback.param`` (N, N) and
-``.core.modules[2].param`` (1, N).  The port itself never imports JAX:
-the caller builds the dict.
+``.core.modules[2].param`` (1, N); for the scattering FDN the feedback
+param is (K+1, N, N).  A model's static state that JAX draws at
+construction (the scattering shifts) is not a pytree leaf and is copied
+by :func:`load_jax_scattering`.  The port itself never imports JAX: the
+caller builds the dict and passes plain integers.
 """
 
 from __future__ import annotations
@@ -55,4 +58,29 @@ def load_jax_params(model, params: dict[str, np.ndarray]):
                 raise ValueError(f"{key}: JAX shape {tuple(src.shape)} != "
                                  f"port shape {tuple(dst.shape)}")
             dst.copy_(torch.tensor(src, dtype=dst.dtype))
+    return model
+
+
+def load_jax_scattering(model, shifts, m_L, m_R):
+    """Copy the static state of a JAX ``ScatteringMapping`` (its
+    ``map_filter``: the per-stage ``shifts`` (n_stages, N) and the
+    ``m_L``/``m_R`` offsets (N,), plain integers drawn from JAX's PRNG at
+    construction) into the one :class:`dsp.ScatteringMatrix` of ``model``,
+    in place, and return the model.  Raises on a shape mismatch."""
+    found = [m for m in model.modules() if isinstance(m, dsp.ScatteringMatrix)]
+    if len(found) != 1:
+        raise ValueError(f"expected one ScatteringMatrix in the model, "
+                         f"found {len(found)}")
+    mapping = found[0].map_filter
+    shifts = np.asarray(shifts, dtype=np.int64)
+    m_L, m_R = (np.asarray(v, dtype=np.int64) for v in (m_L, m_R))
+    want = (mapping.n_stages, mapping.N)
+    if (shifts.shape != want or m_L.shape != (mapping.N,)
+            or m_R.shape != (mapping.N,)):
+        raise ValueError(f"scattering state shapes {shifts.shape}, "
+                         f"{m_L.shape}, {m_R.shape} do not fit shifts {want} "
+                         f"and offsets ({mapping.N},)")
+    mapping.shifts = tuple(tuple(int(v) for v in row) for row in shifts)
+    mapping.m_L = tuple(int(v) for v in m_L)
+    mapping.m_R = tuple(int(v) for v in m_R)
     return model

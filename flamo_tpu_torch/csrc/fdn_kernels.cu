@@ -14,8 +14,9 @@
 //   fdn_solve_kernel   (K2) <- _fdn_kernel,        pallas_call at :277
 //   fdn_tf_fwd_kernel  (K3f) <- _fdn_tf_kernel,    pallas_call at :451
 //   fdn_tf_bwd_kernel  (K3b) <- _fdn_tf_bwd_kernel, pallas_call at :474
+//   dense_solve_kernel (K6) <- _solve_kernel,      pallas_call at :161
 //
-// What bounds them on an H100: arithmetic.  At N = 6 a bin reads 48 bytes
+// What bounds K1-K3 on an H100: arithmetic.  At N = 6 a bin reads 48 bytes
 // of D (plus 12 of X and t for K1) and does ~1-2.5 kFLOP of complex
 // elimination, so at 3.35 TB/s and 67 TFLOP/s of FP32 the operation time
 // is ~2x the memory time; at M = 48001 both are ~1 us, so a launch costs
@@ -23,6 +24,14 @@
 // everything per bin in registers (nothing but D, X, t in and the outputs
 // out) and by the no-pivot K1 variant, which reuses the forward factors
 // instead of a second elimination.
+//
+// K6 takes a dense matrix per bin instead of assembling it, and is bound
+// by bytes: at N = 6 a bin reads 288 bytes of A and 48 of B and writes 48
+// of y against ~1 kFLOP (18.4 MB, ~5.5 us at M = 48001).  It reads A in
+// the caller's (rows, N, N) layout, with no transposed copy: each thread
+// loads its own 288 contiguous bytes, so a warp's loads are strided and
+// lean on L1 to use each cache line fully; staging through shared memory
+// would coalesce them.
 //
 // The ragged edge m >= M is masked: there is no padding to a tile.
 // Masked threads of the gradient kernels run with D = X = t = tb = 0,
@@ -191,6 +200,30 @@ __global__ void __launch_bounds__(kThreads)
                       partials + static_cast<size_t>(blockIdx.x) * NV);
 }
 
+// K6: A_m y_m = B_m for a dense complex N x N matrix per row m (batch and
+// bins folded into the rows), or with TRANSPOSE A_m^T y_m = B_m, which the
+// gradient needs: the kernel then reads A[j][i], so A^T is never stored.
+// A is (M, N, N) row-major per row, B and Y are (M, N).
+template <int N, bool TRANSPOSE>
+__global__ void __launch_bounds__(kThreads)
+    dense_solve_kernel(const float2* __restrict__ A, const float2* __restrict__ B,
+                       float2* __restrict__ Y, int M) {
+  const int m = blockIdx.x * kThreads + threadIdx.x;
+  if (m >= M) return;
+  const float2* __restrict__ a = A + static_cast<size_t>(m) * (N * N);
+  const size_t row = static_cast<size_t>(m) * N;
+  float2 Am[N][N], rhs[N], y[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) Am[i][j] = __ldg(a + (TRANSPOSE ? j * N + i : i * N + j));
+    rhs[i] = __ldg(B + row + i);
+  }
+  ge_pivot<N>(Am, rhs, y);
+#pragma unroll
+  for (int i = 0; i < N; ++i) Y[row + i] = y[i];
+}
+
 inline unsigned n_blocks(int M) { return static_cast<unsigned>((M + kThreads - 1) / kThreads); }
 
 template <int N>
@@ -216,6 +249,16 @@ void launch_solve(bool transpose, const float2* D, const float* U, const float2*
     fdn_solve_kernel<N, true><<<grid, block, 0, s>>>(D, U, B, Y, M);
   else
     fdn_solve_kernel<N, false><<<grid, block, 0, s>>>(D, U, B, Y, M);
+}
+
+template <int N>
+void launch_dense_solve(bool transpose, const float2* A, const float2* B, float2* Y, int M,
+                        cudaStream_t s) {
+  const dim3 grid(n_blocks(M)), block(kThreads);
+  if (transpose)
+    dense_solve_kernel<N, true><<<grid, block, 0, s>>>(A, B, Y, M);
+  else
+    dense_solve_kernel<N, false><<<grid, block, 0, s>>>(A, B, Y, M);
 }
 
 template <int N>
@@ -272,6 +315,15 @@ int fdn_solve_launch(int N, int transpose, const void* D, const void* U, const v
   fdn::launch_solve<FDN_N>(transpose != 0, static_cast<const float2*>(D),
     static_cast<const float*>(U), static_cast<const float2*>(B),
     static_cast<float2*>(Y), M, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fdn_dense_solve_launch(int N, int transpose, const void* A, const void* B, void* Y, int M,
+                           void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (N != FDN_N) return fdn::kBadN;
+  fdn::launch_dense_solve<FDN_N>(transpose != 0, static_cast<const float2*>(A),
+    static_cast<const float2*>(B), static_cast<float2*>(Y), M, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,3 +7,7 @@ from flamo_tpu_torch.models.colorless_fdn import (
     colorless_loss, colorless_loss_fused_step, colorless_loss_fused_tf,
     colorless_train_step, extract_siso_tf_operands,
 )
+from flamo_tpu_torch.models.scattering_fdn import (
+    DEFAULT_SFDN_DELAYS, build_colorless_sfdn, sfdn_fit, sfdn_masked_est,
+    sfdn_masked_loss, sfdn_masked_train_step, sfdn_train_step,
+)

@@ -4,8 +4,9 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
 shared libraries with a plain C interface (no PyTorch headers), under
 ``build/flamo_tpu_torch/`` at the root of the checkout, and loaded with
 ``ctypes``.  There is one library per kernel source and channel count
-N (``-DFDN_N=<n>``, n in 1..16): ``fdn_kernels.cu`` holds K1, K2 and K3,
-``sos_kernels.cu`` the SOS-cascade kernels K4f/K4b and K5.
+N (``-DFDN_N=<n>``, n in 1..16): ``fdn_kernels.cu`` holds the per-bin
+eliminations K1, K2, K3 and K6, ``sos_kernels.cu`` the SOS-cascade
+kernels K4f/K4b and K5.
 
 The eliminations are unrolled over N and the large-N instantiations
 compile slowly, so each (source, N) is its own library, built when a
@@ -45,6 +46,7 @@ _SIGNATURES = {
         "fdn_tf_mse_launch": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _F, _I, _P]),
         "fdn_solve_launch": (_I, [_I, _I, _P, _P, _P, _P, _I, _P]),
+        "fdn_dense_solve_launch": (_I, [_I, _I, _P, _P, _P, _I, _P]),
         "fdn_tf_fwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _P]),
         "fdn_tf_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                    _P]),

@@ -1,7 +1,8 @@
-"""The FDN per-bin kernels K1, K2 and K3 (counterpart of the FDN part of
-``flamo_tpu/ops/pallas_solve.py``): wrappers around the hand-written CUDA
-kernels of ``flamo_tpu_torch/csrc/fdn_kernels.cu``, their plain PyTorch
-versions, and the ``autograd.Function``s of the public functions.
+"""The per-bin solve kernels K1, K2, K3 and K6 (counterpart of the
+elimination kernels of ``flamo_tpu/ops/pallas_solve.py``): wrappers
+around the hand-written CUDA kernels of
+``flamo_tpu_torch/csrc/fdn_kernels.cu``, their plain PyTorch versions, and
+the ``autograd.Function``s of the public functions.
 
 Public functions keep the JAX signatures and layouts (D (M, N)
 complex64, U (N, N) float32, b and c (N,) float32, X (M,) complex64,
@@ -11,7 +12,10 @@ t (M,) float32):
 * :func:`fdn_tf` (K3f forward, K3b gradient):
   ``tf_m = c^T (I - diag(D_m) U)^{-1} diag(D_m) b``;
 * :func:`fdn_tf_mse` (K1): ``L = (1/M) sum_m (|tf_m X_m| - t_m)^2`` with
-  its cotangents in the same pass.
+  its cotangents in the same pass;
+* :func:`dense_solve` (K6): ``A_m y_m = B_m`` for a dense (..., M, N, N)
+  complex64 A and a vector rhs B (..., M, N); the gradient is K6 on the
+  transposed systems.
 
 Each ``*_kernel`` wrapper launches its CUDA kernel for CUDA tensors (and
 counts the launch in :data:`LAUNCHES`) and runs the plain version for CPU
@@ -38,9 +42,10 @@ from flamo_tpu_torch.ops.solve import (_gauss_solve_raw, _ge_nopivot_factor,
 MAX_N = cuda_build.MAX_N
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
-# count)
+# count); K6 counts its forward and its transposed (gradient) launches
+# apart
 LAUNCHES = {"fdn_tf_mse": 0, "fdn_solve": 0, "fdn_tf_fwd": 0,
-            "fdn_tf_bwd": 0}
+            "fdn_tf_bwd": 0, "dense_solve": 0, "dense_solve_transposed": 0}
 
 
 def reset_launch_counts() -> None:
@@ -81,6 +86,11 @@ def _cotangents(D, U, b, y, w, tb, with_dbar: bool, gam=None):
 def fdn_solve_plain(D, U, B, transpose: bool = False):
     """K2's function: (I - diag(D) U) y = B, or the transposed system."""
     return _gauss_solve_raw(_loop_matrix(D, U, transpose), B)
+
+
+def dense_solve_plain(A, B, transpose: bool = False):
+    """K6's function: A y = B per row, or A^T y = B; A (M, N, N), B (M, N)."""
+    return _gauss_solve_raw(A.transpose(-1, -2) if transpose else A, B)
 
 
 def fdn_tf_fwd_plain(D, U, b, c):
@@ -198,6 +208,33 @@ def fdn_solve_kernel(D, U, B, transpose: bool = False):
     return Y
 
 
+def dense_solve_kernel(A, B, transpose: bool = False):
+    """K6 wrapper: y (M, N) complex64 for A (M, N, N), B (M, N)."""
+    if (A.ndim != 3 or B.ndim != 2 or A.dtype != torch.complex64
+            or B.dtype != torch.complex64 or A.shape[1] != A.shape[2]
+            or tuple(A.shape[:2]) != tuple(B.shape)):
+        raise TypeError(f"A must be (M, N, N) and B (M, N), both complex64, "
+                        f"got {tuple(A.shape)} {A.dtype} and "
+                        f"{tuple(B.shape)} {B.dtype}")
+    M, N = B.shape
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"N = {N} channels; the kernels take 1..{MAX_N}")
+    if M == 0:
+        raise ValueError("no rows (M = 0)")
+    if not _on_cuda(A, B):
+        return dense_solve_plain(A, B, transpose)
+    lib = cuda_build.load(N)
+    A, B = A.contiguous(), B.contiguous()
+    Y = torch.empty_like(B)
+    with torch.cuda.device(A.device):
+        rc = lib.fdn_dense_solve_launch(N, int(transpose), A.data_ptr(),
+                                        B.data_ptr(), Y.data_ptr(), M,
+                                        _stream(A))
+    cuda_build.check(rc, "dense_solve_kernel", N)
+    LAUNCHES["dense_solve_transposed" if transpose else "dense_solve"] += 1
+    return Y
+
+
 def fdn_tf_fwd_kernel(D, U, b, c):
     """K3f wrapper: (tf (M,), y (M, N))."""
     M, N = _check(D, U, vecs=[("b", b), ("c", c)])
@@ -284,6 +321,34 @@ class _FdnSolve(torch.autograd.Function):
                 torch.conj_physical(b_bar))
 
 
+class _DenseSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, B):
+        N = A.shape[-1]
+        # A broadcast to B's batch, the batch folded into the rows
+        A2 = A.expand(B.shape[:-1] + (N, N)).reshape(-1, N, N)
+        y = dense_solve_kernel(A2, B.reshape(-1, N)).reshape(B.shape)
+        ctx.save_for_backward(A2, y)
+        ctx.a_shape = A.shape
+        return y
+
+    @staticmethod
+    def backward(ctx, y_bar):
+        A2, y = ctx.saved_tensors
+        N = y.shape[-1]
+        # JAX's VJP: b_bar = A^{-T} y_bar, A_bar = -b_bar y^T, summed over
+        # the dimensions A was broadcast along
+        b_bar = dense_solve_kernel(
+            A2, torch.conj_physical(y_bar).reshape(-1, N),
+            transpose=True).reshape(y.shape)
+        A_bar = None
+        if ctx.needs_input_grad[0]:
+            A_bar = (-b_bar[..., :, None] * y[..., None, :]).sum_to_size(
+                ctx.a_shape)
+            A_bar = torch.conj_physical(A_bar)
+        return A_bar, torch.conj_physical(b_bar)
+
+
 class _FdnTf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, D, U, b, c):
@@ -319,6 +384,14 @@ class _FdnTfMse(torch.autograd.Function):
 def fdn_solve(D, U, B):
     """Fused FDN closed-loop solve ``(I - diag(D_m) U) y_m = B_m`` (K2)."""
     return _FdnSolve.apply(D, U, B)
+
+
+def dense_solve(A, B):
+    """Dense per-bin solve ``A_m y_m = B_m`` (K6; gradient K6 on A^T), the
+    counterpart of ``pallas_gauss_solve``.  A (..., M, N, N) complex64,
+    broadcast to B's batch; B (..., M, N) complex64; leading batch
+    dimensions fold into the kernel's rows."""
+    return _DenseSolve.apply(A, B)
 
 
 def fdn_tf(D, U, b, c):

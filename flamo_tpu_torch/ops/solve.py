@@ -185,16 +185,18 @@ def closed_loop_solve(A: torch.Tensor, B: torch.Tensor,
     variant for N > 32 computes the same elimination), 'ge_nopivot',
     'ge_cached' (no pivot, factor-reusing gradient), 'lu'
     (``torch.linalg.solve``) or 'pallas'.  A vector-rhs 'pallas' solve is
-    the dense per-bin kernel K6 of the JAX package, which is not ported
-    yet, so it raises rather than solve another way.  Unlike the JAX
-    package, an unknown method raises instead of falling back to 'ge'."""
+    the dense per-bin kernel K6 (:func:`~flamo_tpu_torch.ops.fdn_kernels.
+    dense_solve`: the CUDA kernel for CUDA tensors, its plain version for
+    CPU tensors; 1..16 channels); a matrix rhs goes to the pivoted 'ge',
+    as in the JAX package.  Unlike the JAX package, an unknown method
+    raises instead of falling back to 'ge'."""
     if method == "pallas":
         if B.ndim == A.ndim - 1:
-            raise NotImplementedError(
-                "closed_loop_solve(method='pallas') on a generic loop needs "
-                "kernel K6 (pallas_gauss_solve, flamo_tpu/ops/"
-                "pallas_solve.py:192), which is not ported yet; use "
-                "method='ge' or an FDN-structured Recursion")
+            # imported here: fdn_kernels builds its plain versions on this
+            # module
+            from flamo_tpu_torch.ops.fdn_kernels import dense_solve
+
+            return dense_solve(A, B)
         return gauss_solve(A, B)
     if method == "ge":
         return gauss_solve(A, B)

@@ -1,11 +1,15 @@
-"""Losses of the colorless-FDN objective (counterpart of the matching
-subset of ``flamo_tpu/optimize/loss.py``)."""
+"""Losses of the colorless- and scattering-FDN objectives (counterpart of
+the matching subset of ``flamo_tpu/optimize/loss.py``)."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from flamo_tpu_torch.optimize.utils import generate_partitions
+from flamo_tpu_torch.utils import next_key
 
 
 class sparsity_loss:
@@ -47,3 +51,72 @@ class mse_loss:
         if y_true.shape[-1] == 1:
             y_true = torch.squeeze(y_true, dim=-1)
         return torch.mean((y_pred_sum - y_true) ** 2)
+
+
+class masked_mse_loss:
+    """MSE over random partitions of the bin axis.
+
+    The partitions of cycle ``c = step // n_masks`` are a pure function of
+    a base seed (drawn once from ``generator``) and c: a fresh
+    ``torch.Generator`` seeded from both draws them, so every caller that
+    names a step sees the same mask.  They are not JAX's masks (another
+    PRNG).  The masks live on ``device`` (default the CPU); the last
+    cycle's are kept, so a training loop draws each cycle once."""
+
+    name = "maskedMSE"
+    stateful = True
+
+    def __init__(self, nfft: int, n_samples: int, n_sets: int = 1,
+                 regenerate_mask: bool = True, generator=None, device=None,
+                 **kwargs):
+        self.nfft = nfft
+        self.n_samples = n_samples
+        self.n_sets = n_sets
+        self.regenerate_mask = regenerate_mask
+        self.device = torch.device("cpu" if device is None else device)
+        self._base_seed = int(torch.randint(
+            0, 2**62, (1,), generator=next_key(generator)))
+        self._cached = None
+        self.mask_indices = self.masks_for_cycle(0)
+        self.n_masks = self.mask_indices.shape[0]
+        self._calls = 0
+        self._cycle = 0
+
+    def masks_for_cycle(self, cycle: int) -> torch.Tensor:
+        """(n_masks, n_samples) bin indices of regeneration cycle
+        ``cycle``."""
+        cycle = int(cycle)
+        if self._cached is None or self._cached[0] != cycle:
+            seed = np.random.SeedSequence(
+                [self._base_seed, cycle]).generate_state(1, np.uint64)[0]
+            masks = generate_partitions(
+                torch.arange(self.nfft // 2 + 1, device=self.device),
+                self.n_samples, self.n_sets,
+                generator=torch.Generator().manual_seed(int(seed)))
+            self._cached = (cycle, masks)
+        return self._cached[1]
+
+    def pre_step(self):
+        """Host-side hook before each step of a loop that does not pass
+        ``step``: advances ``mask_indices`` to the next cycle when the
+        masks of this one are used up."""
+        self._calls += 1
+        if self.regenerate_mask:
+            cycle = (self._calls - 1) // self.n_masks
+            if cycle != self._cycle:
+                self._cycle = cycle
+                self.mask_indices = self.masks_for_cycle(cycle)
+
+    def __call__(self, y_pred, y_true, step=None, state=None):
+        if step is None:
+            masks = self.mask_indices if state is None else state
+            mask = masks[0]
+        elif self.regenerate_mask:
+            step = int(step)
+            mask = self.masks_for_cycle(step // self.n_masks)[
+                step % self.n_masks]
+        else:
+            masks = self.mask_indices if state is None else state
+            mask = masks[int(step) % masks.shape[0]]
+        mask = mask.to(y_pred.device)
+        return torch.mean((y_pred[:, mask] - y_true[:, mask]) ** 2)

@@ -1,5 +1,6 @@
-"""DSP processor modules of the colorless- and attenuated-FDN paths
-(counterpart of the matching subset of ``flamo_tpu/processor/dsp.py``).
+"""DSP processor modules of the colorless-, attenuated- and scattering-FDN
+paths (counterpart of the matching subset of
+``flamo_tpu/processor/dsp.py``).
 
 Spectra flow as complex ``(B, M, N, ...)`` with ``M = nfft//2+1`` rfft
 bins; each module maps its raw ``param`` to a per-bin response and
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from flamo_tpu_torch.auxiliary.eq import eq_freqs, geq
+from flamo_tpu_torch.auxiliary.scattering import ScatteringMapping
 from flamo_tpu_torch.core import Module
 from flamo_tpu_torch.functional import cascade_prods, expm_skew, poly_response
 from flamo_tpu_torch.ops import linop
@@ -43,6 +45,16 @@ def _abs_db_map(x):
 
 def _softplus(x):
     return torch.nn.functional.softplus(x)
+
+
+def _bins_prod_mod(b, m_int, nfft: int):
+    """``(b * m_int) % nfft``, exact in int64 (both factors are reduced mod
+    nfft first, so the product stays below nfft**2).  The ``response_at``
+    phasors take their phase indices from it: integer indices mod nfft
+    avoid the float32 large-angle loss of ``cos(2 pi b m / nfft)`` at
+    b m ~ 1e8.  (The JAX package splits m into int32 hi/lo halves for the
+    TPU; the indices are the same.)"""
+    return (b.to(torch.int64) % nfft) * (m_int.to(torch.int64) % nfft) % nfft
 
 
 # ============================= TRANSFORMS ================================
@@ -337,6 +349,24 @@ class Delay(DSP):
         phase = self.omega()[:, None, None] * m[None]
         return self._gain_of(m)[None] * torch.exp(-1j * phase)
 
+    def response_at(self, bins):
+        """Closed-form ``gamma^m e^{-j w m}`` at just ``bins``, for Delay's
+        (N_out, N_in) and parallelDelay's (N,) delays alike.  The phase
+        ``b m`` is reduced mod nfft with the integer part of m in exact
+        integer arithmetic; the fractional part (nonzero only for
+        trainable non-integer delays) is added in float32 and is the only
+        path of the delay gradient (d phase / d m = 2 pi b / nfft, exact,
+        since floor is piecewise constant)."""
+        m = self.get_delays(self.param)
+        b = torch.as_tensor(bins, device=m.device).to(torch.int64)
+        mi = torch.floor(m).detach()
+        frac = m - mi
+        bb = b.reshape((-1,) + (1,) * m.ndim)
+        idx = _bins_prod_mod(bb, mi, self.nfft)
+        ph = (2 * torch.pi / self.nfft) * (
+            idx.to(self.dtype) + bb.to(self.dtype) * frac)
+        return self._gain_of(m)[None] * torch.exp(-1j * ph)
+
     def matrix_response(self):
         return linop.FULL, self.response()
 
@@ -376,8 +406,7 @@ class parallelDelay(Delay):
 
 class Filter(DSP):
     """General FIR MIMO filter, param (taps, N_out, N_in): response =
-    rfft(map(param) * gamma^t).  The subset that GEQ builds on: the
-    exact-phase ``response_at`` and the probes are not ported yet."""
+    rfft(map(param) * gamma^t).  The probes are not ported yet."""
 
     def check_param_shape(self):
         _check(len(self.size) == 3,
@@ -396,12 +425,73 @@ class Filter(DSP):
         env = env.reshape((-1,) + (1,) * (ir.ndim - 1))
         return torch.fft.rfft(ir * env, n=self.nfft, dim=0)
 
+    def response_at(self, bins):
+        """``response()[bins]`` without the full-nfft rfft: the (L, ...) ir
+        times the alias envelope, contracted against an exact-phase DFT
+        basis at just those bins, two float32 (P, L) x (L, prod(size))
+        matmuls (the caller keeps TF32 off on the card).  The phase
+        indices are integers mod nfft (:func:`_bins_prod_mod`).  A
+        subclass that redefines :meth:`response` (GEQ) takes the base
+        gather instead, since the FIR contraction would not be its
+        response."""
+        if type(self).response is not Filter.response:
+            return DSP.response_at(self, bins)
+        b = torch.as_tensor(bins, device=self.param.device).to(torch.int64)
+        ir = self.ir(self.param)
+        if ir.shape[0] > self.nfft:  # rfft(n=nfft) truncates; match it
+            ir = ir[:self.nfft]
+        L = ir.shape[0]
+        t = torch.arange(L, dtype=self.dtype, device=ir.device)
+        env = torch.tensor(self.gamma, dtype=self.dtype, device=ir.device) ** t
+        flat = (ir * env.reshape((-1,) + (1,) * (ir.ndim - 1))).reshape(L, -1)
+        idx = _bins_prod_mod(b[:, None],
+                             torch.arange(L, device=ir.device)[None, :],
+                             self.nfft)
+        ph = (2 * torch.pi / self.nfft) * idx.to(self.dtype)
+        re = torch.matmul(torch.cos(ph), flat)
+        im = torch.matmul(torch.sin(ph), flat)
+        return torch.complex(re, -im).reshape((b.shape[0],) + ir.shape[1:])
+
     def matrix_response(self):
         return linop.FULL, self.response()
 
     def forward(self, x):
         self.check_input_shape(x)
         return torch.einsum("fmn,bfn...->bfm...", self.response(), x)
+
+
+# -------------------- scattering feedback matrices -------------------------
+
+
+class ScatteringMatrix(Filter):
+    """Learnable paraunitary filter feedback matrix for FDNs: K+1
+    orthogonal matrices (``expm_skew`` of the (K+1, N, N) param)
+    interleaved with sparse parallel delays (Schlecht & Habets,
+    'Scattering in FDNs').  The shifts and m_L/m_R of its
+    :class:`ScatteringMapping` are drawn from ``generator`` at
+    construction and stay fixed."""
+
+    def __init__(self, size=(1, 1, 1), nfft=2**11, sparsity=3,
+                 gain_per_sample=0.9999, pulse_size=1, m_L=None, m_R=None,
+                 requires_grad=False, alias_decay_db=0.0,
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 device=None):
+        _check(size[1] == size[2], "Matrix must be square")
+        self.sparsity = sparsity
+        self.gain_per_sample = float(gain_per_sample)
+        self.pulse_size = pulse_size
+        generator = next_key(generator)
+        self.map_filter = ScatteringMapping(
+            size[-1], n_stages=size[0] - 1, sparsity=sparsity,
+            gain_per_sample=gain_per_sample, pulse_size=pulse_size,
+            m_L=m_L, m_R=m_R, dtype=dtype, generator=generator)
+        super().__init__(size=size, nfft=nfft, map=expm_skew,
+                         requires_grad=requires_grad,
+                         alias_decay_db=alias_decay_db, dtype=dtype,
+                         generator=generator, device=device)
+
+    def ir(self, param):
+        return self.map_filter(self.map(param))
 
 
 # -------------------- parametric IIR families ------------------------------

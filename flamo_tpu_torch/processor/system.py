@@ -47,7 +47,10 @@ def _ones_for(U):
 
 def _diag_flat_split(module):
     """Factor a module's per-bin map as ``diag(d(f)) @ U`` (rows-scaled
-    frequency-flat matrix): ``(d, U)`` with d (M, N) or (1, N), or None.
+    frequency-flat matrix).  Returns ``(split, response)``: split is
+    ``(d, U)`` with d (M, N) or (1, N), or None; when it is None, response
+    is the module's ``(kind, H)`` (None if unknown), for the caller's
+    generic solve.
 
     Recognized: a FLAT module (d = 1), a Series of one FLAT stage followed
     by DIAG stages (the FDN feedback ``Series(mixing_matrix,
@@ -57,11 +60,11 @@ def _diag_flat_split(module):
     if not isinstance(module, Series):
         r = _matrix_response_of(module)
         if r is not None and r[0] == linop.FLAT:
-            return _ones_for(r[1]), r[1]
-        return None
+            return (_ones_for(r[1]), r[1]), None
+        return None, r
     responses = [_matrix_response_of(sub) for sub in module]
     if any(r is None for r in responses):
-        return None
+        return None, None
     U = d = None
     for kind, H in responses:
         if kind == linop.FLAT and U is None and d is None:
@@ -72,11 +75,11 @@ def _diag_flat_split(module):
             U = None
             break
     if U is not None:
-        return (_ones_for(U) if d is None else d), U
+        return ((_ones_for(U) if d is None else d), U), None
     whole = _compose_all(responses)
     if whole is not None and whole[0] == linop.FLAT:
-        return _ones_for(whole[1]), whole[1]
-    return None
+        return (_ones_for(whole[1]), whole[1]), None
+    return None, whole
 
 
 # ============================= SERIES ================================
@@ -230,7 +233,9 @@ class Recursion(Module):
     :func:`flamo_tpu_torch.ops.solve.closed_loop_solve`; with 'pallas' an
     FDN-structured loop (diagonal feedforward, [diag-scaled] flat
     feedback) goes to the fused kernel K2 (:func:`fdn_solve`), which
-    assembles ``I - diag(D) U`` per bin in registers."""
+    assembles ``I - diag(D) U`` per bin in registers, and any other loop
+    (a frequency-dependent feedback such as the scattering matrix) to the
+    dense per-bin kernel K6 on the materialized ``I - F B``."""
 
     def __init__(self, fF, fB, solve_method: str = "ge"):
         super().__init__()
@@ -296,9 +301,14 @@ class Recursion(Module):
         cdtype = B.dtype if B.is_complex() else complex_dtype_for(B.dtype)
 
         rF = _matrix_response_of(self.feedforward)
-        split = (_diag_flat_split(self.feedback)
-                 if (self.solve_method == "pallas" and rF is not None
-                     and rF[0] == linop.DIAG and B.ndim == 3) else None)
+        if (self.solve_method == "pallas" and rF is not None
+                and rF[0] == linop.DIAG and B.ndim == 3):
+            # the split evaluates the feedback once, and hands back its
+            # response when it declines: PyTorch runs eagerly, so a second
+            # evaluation would be paid for
+            split, rB = _diag_flat_split(self.feedback)
+        else:
+            split, rB = None, _matrix_response_of(self.feedback)
         if split is not None:
             # FDN structure: per-bin diagonal stages after the mixing
             # matrix fold into D, I - diag(D_F) diag(g) U = I - diag(D_F g) U
@@ -309,9 +319,6 @@ class Recursion(Module):
             y = fdn_solve(Df.contiguous(), torch.real(U).contiguous(),
                           B.reshape(-1, N).contiguous())
             return y.reshape(B.shape)
-        # the feedback's response only now: the branch above does not
-        # need it, and PyTorch would compute it all the same
-        rB = _matrix_response_of(self.feedback)
         if rF is not None and rB is not None:
             kL, L = linop.compose(rF[0], rF[1], rB[0], rB[1])
             eye = torch.eye(N, dtype=cdtype, device=B.device)

@@ -27,7 +27,8 @@ from flamo_tpu_torch.convert import jax_named_tensors, load_jax_params
 from flamo_tpu_torch.models import (attenuated_loss,
                                     attenuated_loss_fused_step,
                                     attenuated_train_step,
-                                    build_attenuated_fdn)
+                                    build_attenuated_fdn,
+                                    build_colorless_sfdn)
 from flamo_tpu_torch.processor import dsp, system
 
 NFFT = 512
@@ -330,12 +331,18 @@ def test_load_jax_params_reaches_series_geq_and_cache():
 @pytest.mark.parametrize("solve_method", ["pallas", "ge"])
 def test_recursion_evaluates_the_feedback_once(monkeypatch, solve_method):
     """One loop solve evaluates the GEQ (and the mixing matrix's expm)
-    once: PyTorch runs eagerly, so a response computed for a branch that
-    is not taken is paid for, not discarded as under jit."""
+    once, and a non-Series feedback that the FDN split declines (the
+    scattering matrix, solved by K6 under 'pallas') once too: PyTorch
+    runs eagerly, so a response computed for a branch that is not taken
+    is paid for, not discarded as under jit."""
     _, mt = _pair(solve_method=solve_method)
-    calls = {"geq": 0, "matrix": 0}
+    sfdn = build_colorless_sfdn(nfft=NFFT, delays=(31, 37, 41), n_stages=2,
+                                solve_method=solve_method, device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+    calls = {"geq": 0, "matrix": 0, "scattering": 0}
     geq_response = dsp.parallelGEQ.response
     matrix_response = dsp.Matrix.matrix_response
+    scattering_response = dsp.ScatteringMatrix.response
 
     def count_geq(self):
         calls["geq"] += 1
@@ -345,8 +352,14 @@ def test_recursion_evaluates_the_feedback_once(monkeypatch, solve_method):
         calls["matrix"] += 1
         return matrix_response(self)
 
+    def count_scattering(self):
+        calls["scattering"] += 1
+        return scattering_response(self)
+
     monkeypatch.setattr(dsp.parallelGEQ, "response", count_geq)
     monkeypatch.setattr(dsp.Matrix, "matrix_response", count_matrix)
+    monkeypatch.setattr(dsp.ScatteringMatrix, "response", count_scattering)
     with torch.no_grad():
         mt(_io_torch()[0])
-    assert calls == {"geq": 1, "matrix": 1}
+        sfdn(_io_torch()[0])
+    assert calls == {"geq": 1, "matrix": 1, "scattering": 1}

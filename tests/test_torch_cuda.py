@@ -108,7 +108,8 @@ def test_cuda_autograd_matches_plain_and_counts_launches(cuda):
     fk.reset_launch_counts()
     on_card = run("cuda")
     assert fk.LAUNCHES == {"fdn_tf_mse": 1, "fdn_solve": 2,
-                           "fdn_tf_fwd": 1, "fdn_tf_bwd": 1}
+                           "fdn_tf_fwd": 1, "fdn_tf_bwd": 1,
+                           "dense_solve": 0, "dense_solve_transposed": 0}
     on_cpu = run("cpu")
     assert fk.LAUNCHES["fdn_tf_fwd"] == 1  # the CPU run launches nothing
     for g, r in zip(on_card, on_cpu):
@@ -123,6 +124,63 @@ def test_cuda_kernel_rejects_unsupported_n(cuda):
     taps = torch.zeros((3, 2, 17), device="cuda")
     with pytest.raises(ValueError, match="channels"):
         sk.sos_cascade_fwd_kernel(taps, taps, 64)
+    A = torch.zeros((8, 17, 17), dtype=torch.complex64, device="cuda")
+    with pytest.raises(ValueError, match="channels"):
+        fk.dense_solve_kernel(A, D)
+    with pytest.raises(ValueError, match="channels"):
+        fk.dense_solve(A, D)
+
+
+def _dense_system(seed: int, shape, N: int):
+    """Random well-conditioned complex systems: I plus a normal matrix of
+    norm ~0.5, and a normal rhs, on the card."""
+    rng = np.random.default_rng(seed)
+    A = (np.eye(N) + (rng.normal(size=shape + (N, N))
+                      + 1j * rng.normal(size=shape + (N, N)))
+         / (4 * np.sqrt(N))).astype(np.complex64)
+    B = (rng.normal(size=shape + (N,))
+         + 1j * rng.normal(size=shape + (N,))).astype(np.complex64)
+    return torch.tensor(A, device="cuda"), torch.tensor(B, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 3, 6, 16])
+def test_cuda_dense_solve_matches_plain(cuda, N):
+    """K6 forward and transposed against its plain version (1e-5 of the
+    max) at M = 4097; the public function with A (M, N, N) broadcast
+    against a batched B (2, M, N) on the card against the same function
+    on the CPU (values 1e-5, gradients 1e-4), one forward and one
+    transposed launch counted; closed_loop_solve('pallas') runs K6."""
+    from flamo_tpu_torch.ops.solve import closed_loop_solve
+
+    M = 4097
+    A, B = _dense_system(N, (M,), N)
+    for transpose in (False, True):
+        assert _rel(fk.dense_solve_kernel(A, B, transpose),
+                    fk.dense_solve_plain(A, B, transpose)) < 1e-5
+    _, B2 = _dense_system(N + 100, (2, M), N)
+
+    def run(device):
+        a = A.detach().to(device).requires_grad_(True)
+        b = B2.detach().to(device).requires_grad_(True)
+        y = fk.dense_solve(a, b)
+        assert y.shape == b.shape
+        torch.sum(torch.abs(y) ** 2).backward()
+        return y.detach().cpu(), a.grad.cpu(), b.grad.cpu()
+
+    fk.reset_launch_counts()
+    on_card = run("cuda")
+    assert fk.LAUNCHES["dense_solve"] == 1
+    assert fk.LAUNCHES["dense_solve_transposed"] == 1
+    on_cpu = run("cpu")
+    assert fk.LAUNCHES["dense_solve"] == 1  # the CPU run launches nothing
+    assert _rel(on_card[0], on_cpu[0]) < 1e-5
+    for g, r in zip(on_card[1:], on_cpu[1:]):
+        assert _rel(g, r) < 1e-4
+    y = closed_loop_solve(A, B, method="pallas")
+    assert fk.LAUNCHES["dense_solve"] == 2
+    assert _rel(y, fk.dense_solve_plain(A, B)) < 1e-5
+    torch.cuda.synchronize()
 
 
 def _sos_taps(seed: int, P: int, K: int, N: int):

@@ -220,19 +220,25 @@ def test_closed_loop_solve_matches_jax(method):
 
 
 def test_closed_loop_solve_pallas_generic_loop_raises_k6():
-    """A generic (non-FDN) loop with method='pallas' needs K6, which is not
-    ported: it raises instead of solving another way."""
+    """A generic (non-FDN) loop with method='pallas' needs K6, the dense
+    per-bin solve, and no longer raises for want of it: for CPU tensors it
+    runs K6's plain version (no launch), which equals the pivoted 'ge'
+    solve (1e-6 of the max), in closed_loop_solve and in a Recursion."""
     A, B = _random_system(8, 3, seed=0)
-    with pytest.raises(NotImplementedError, match="K6"):
-        closed_loop_solve(torch.tensor(A), torch.tensor(B), method="pallas")
+    At, Bt = torch.tensor(A), torch.tensor(B)
+    fk.reset_launch_counts()
+    y = closed_loop_solve(At, Bt, method="pallas")
+    assert torch.equal(y, fk.dense_solve_plain(At, Bt))
+    assert _rel(y, closed_loop_solve(At, Bt, method="ge")) < 1e-6
     g = torch.Generator().manual_seed(0)
-    loop = system.Recursion(
-        dsp.Gain(size=(3, 3), nfft=16, generator=g, device="cpu"),
-        dsp.Gain(size=(3, 3), nfft=16, generator=g, device="cpu"),
-        solve_method="pallas")
+    fF = dsp.Gain(size=(3, 3), nfft=16, generator=g, device="cpu")
+    fB = dsp.Gain(size=(3, 3), nfft=16, generator=g, device="cpu")
     x = torch.ones((1, 9, 3), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="K6"):
-        loop(x)
+    with torch.no_grad():
+        y = system.Recursion(fF, fB, solve_method="pallas")(x)
+        y_ge = system.Recursion(fF, fB, solve_method="ge")(x)
+    assert _rel(y, y_ge) < 1e-6
+    assert fk.LAUNCHES["dense_solve"] == 0
 
 
 def test_expm_skew_matches_jax():
