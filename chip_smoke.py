@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive flamo_tpu_torch's colorless-, attenuated- and scattering-FDN
-paths on one CUDA card.
+paths and its active-acoustics path on one CUDA card.
 
 Run from the root of the repository:
 
@@ -17,7 +17,11 @@ Phases, in order; any failure raises and exits non-zero without a result:
    sections of P = 3 taps, random well-conditioned ones and those of the
    attenuated FDN's GEQ; K6 on dense systems at M = 48001 and at the
    masked step's P = 2000 bins, random well-conditioned ones and the
-   scattering FDN's own loop matrices);
+   scattering FDN's own loop matrices); the Durand-Kerner roots K7 at
+   B = 1601 polynomials of degree 4 and 8, the active-acoustics steps K8
+   (pivot on and off) and K9 (bin offset 0 and 24000) at M = 48001, N = 4
+   microphones, L = 13 loudspeakers, 100 taps, on the magnitude rig's own
+   rows;
 3. the colorless slice at full width: build_colorless_fdn(nfft=96000) on
    the card; the graph loss through K2 against the 'ge' solve, the fused
    frequency response (K3f) against Shell.get_freq_response, the
@@ -39,6 +43,20 @@ Phases, in order; any failure raises and exits non-zero without a result:
    solve_method='pallas') for SFDN_FIT_STEPS steps and sfdn_train_step
    (the graph step) for SFDN_GRAPH_STEPS steps, both timed; K6 must have
    been launched forward and transposed at both shapes in this phase;
+4c. the active-acoustics magnitude path at full width:
+   build_active_acoustics(4 x 13, 15000-tap WGN room, 100-tap mixer,
+   nfft=96000, solve_method='ge_cached') on the card; the graph loss, then
+   AA_K9_STEPS Adam steps of aa_fused_taps_step (K9) and AA_K8_STEPS of
+   aa_fused_step (K8) from the same weights, timed: each first loss equals
+   the graph loss, each loss falls, one launch per step;
+4d. the active-acoustics eigenvalue path at full width:
+   ActiveAcoustics(1, 4, 13, 1, FIR_order=100, rir_length=15000,
+   wgn_RT=1.0, room_t60=0.5, nfft=96000) on the card (its constructor's
+   GBI runs torch.linalg.eigvals on (48001, 4, 4)); mse_evs on the F_MM
+   graph at the first of its 1601-bin partitions, then aa_evs_fit over the
+   same partitions for AA_EVS_STEPS steps, timed: the first loss equals
+   mse_evs's, the quarter means fall, K7 once per step; K7 against its
+   plain version on the char-polys the first step handed it;
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound;
 6. torch.profiler traces of a few training steps of each path: the
@@ -47,7 +65,9 @@ Phases, in order; any failure raises and exits non-zero without a result:
    the last line.
 
 ``ms``, ``plain_ms`` and ``library_ms`` are all device time per call from
-torch.profiler: the sum over every operation the call runs on the card.
+torch.profiler: the sum over every operation the call runs on the card;
+K7's library call (torch.linalg.eigvals, mostly off the device) is timed
+by CUDA events only (``library_ms_by``).
 The whole call, host side included (checks, allocation, launches, the
 partials sum), is timed with CUDA events beside each of them as
 ``call_ms``, ``plain_call_ms`` and ``library_call_ms``.  ``launches``
@@ -55,9 +75,10 @@ counts each kernel's launches on the main paths, the counts set to 0 just
 before each run and read just after it: K1 in the timed colorless_fit, K5
 in the timed attenuated steps, K6 in the timed sfdn_train_step (M = 48001,
 the rows without a suffix) and sfdn_fit(masked=True) (P = 2000, the
-``@P2000`` rows), each once per step (K6 once each way); K2, K3f, K3b, K4f
-and K4b, which no training step runs, in the graph-route and fused-tf
-calls of phases 3 and 4.  ``trace_retries`` counts a row's profiler traces
+``@P2000`` rows), K9 and K8 in the timed active-acoustics magnitude steps
+and K7 in the timed aa_evs_fit, each once per step (K6 once each way); K2,
+K3f, K3b, K4f and K4b, which no training step runs, in the graph-route and
+fused-tf calls of phases 3 and 4.  ``trace_retries`` counts a row's profiler traces
 that were taken again because they held none of its kernel.
 
 TF32 is off throughout: expm's matmuls and the references stay float32.
@@ -75,8 +96,12 @@ import numpy as np
 import torch
 
 from flamo_tpu_torch.convert import jax_named_tensors, load_jax_scattering
-from flamo_tpu_torch.functional import expm_skew
-from flamo_tpu_torch.models import (attenuated_loss,
+from flamo_tpu_torch.functional import charpoly, expm_skew
+from flamo_tpu_torch.models import (ActiveAcoustics, aa_dft_basis,
+                                    aa_evs_fit, aa_evs_train_step,
+                                    aa_fused_operands,
+                                    aa_fused_step, aa_fused_taps_step,
+                                    attenuated_loss, build_active_acoustics,
                                     attenuated_loss_fused_step,
                                     attenuated_train_step,
                                     build_attenuated_fdn, build_colorless_fdn,
@@ -85,10 +110,13 @@ from flamo_tpu_torch.models import (attenuated_loss,
                                     colorless_loss, colorless_loss_fused_tf,
                                     sfdn_fit, sfdn_masked_loss,
                                     sfdn_masked_train_step, sfdn_train_step)
+from flamo_tpu_torch.models.active_acoustics import _mixer_taps
+from flamo_tpu_torch.ops import aa_kernels as ak
 from flamo_tpu_torch.ops import cuda_build
+from flamo_tpu_torch.ops import eig_kernels as ek
 from flamo_tpu_torch.ops import fdn_kernels as fk
 from flamo_tpu_torch.ops import sos_kernels as sk
-from flamo_tpu_torch.optimize import masked_mse_loss, sparsity_loss
+from flamo_tpu_torch.optimize import masked_mse_loss, mse_evs, sparsity_loss
 
 M_MAIN, N_MAIN, NFFT = 48001, 6, 96000
 K_MAIN, P_MAIN = 12, 3  # GEQ sections (octave bands + 3) and SOS taps
@@ -99,6 +127,14 @@ ATT_LR = 1e-4
 SFDN_SAMPLES = 2000  # bins per masked step (the masked_mse mask)
 SFDN_FIT_STEPS = 200
 SFDN_GRAPH_STEPS = 20
+# the active-acoustics rig (bench.py's): 4 mics x 13 loudspeakers, a
+# 15000-tap room, a 100-tap mixer; the eigenvalue step reads 1601 bins
+AA_N, AA_L, AA_ORDER, AA_RIR = 4, 13, 100, 15000
+AA_LR = 1e-3
+AA_K9_STEPS, AA_K8_STEPS, AA_EVS_STEPS = 100, 50, 100
+AA_ITER_NUM, AA_TARGET = 30, 0.3
+AA_OFFSET = 24000  # K9 on bins 24000.. as a shard at its global bins
+DK_B, DK_ITERS = 1601, 96
 K1_K3 = ("fdn_tf_mse", "fdn_solve", "fdn_tf_fwd", "fdn_tf_bwd")
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s
@@ -114,6 +150,9 @@ SOURCES = {
     "fdn_sos_tf_mse": "flamo_tpu_torch/csrc/sos_kernels.cu",
     "dense_solve": "flamo_tpu_torch/csrc/fdn_kernels.cu",
     "dense_solve_transposed": "flamo_tpu_torch/csrc/fdn_kernels.cu",
+    "dk_roots": "flamo_tpu_torch/csrc/eig_kernels.cu",
+    "aa_tf_mse": "flamo_tpu_torch/csrc/aa_kernels.cu",
+    "aa_taps_tf_mse": "flamo_tpu_torch/csrc/aa_kernels.cu",
 }
 REPLACES = {
     "fdn_tf_mse": "flamo_tpu/ops/pallas_solve.py:719",
@@ -126,6 +165,9 @@ REPLACES = {
     # K6's one pallas_call, run on A in the forward and on A^T in the VJP
     "dense_solve": "flamo_tpu/ops/pallas_solve.py:161",
     "dense_solve_transposed": "flamo_tpu/ops/pallas_solve.py:161",
+    "dk_roots": "flamo_tpu/ops/pallas_eig.py:118",
+    "aa_tf_mse": "flamo_tpu/ops/pallas_solve.py:1602",
+    "aa_taps_tf_mse": "flamo_tpu/ops/pallas_solve.py:1820",
 }
 # kernel vs plain version on the same inputs.  Per-bin values (tf, y, the
 # loss, H) differ only by rounding (FMA contraction, division order, the
@@ -161,6 +203,16 @@ FUSED_LOSS_TOL, FUSED_GRAD_TOL = 1e-4, 5e-3
 # itself at this size (~8e-4 on the H100), not the port.
 SFDN_VAL_TOL, SFDN_GRAD_TOL = 1e-4, 1e-3
 SFDN_LOSS_TOL, SFDN_ROUTE_LOSS_TOL, SFDN_F64_TOL = 1e-5, 1e-3, 1e-7
+# K7 against its plain version: the JAX package's kernel-vs-scan bound,
+# 1e-4 max abs on the roots (tests/test_ops.py); the library is built
+# without FMA contraction and repeats the plain version's arithmetic, so
+# the two should agree exactly.  K8 and K9 against their plain versions:
+# 1e-5 of the loss (per-bin values, rounding only) and 1e-4 of the max on
+# the S rows and the tap cotangent (a second solve; K9's sums over 48001
+# bins in another order).  The fused losses against the module graph's,
+# and the eigenvalue step's first loss against mse_evs on the F_MM graph:
+# 1e-4, the JAX package's bounds (tests/test_ops.py, tests/test_models.py).
+DK_TOL, AA_LOSS_TOL, AA_GRAD_TOL, AA_GRAPH_TOL = 1e-4, 1e-5, 1e-4, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -239,9 +291,30 @@ def _flops_tap_sums(K, P):
     return 2 * K * (CABS2 + 1 + 8 + P * (CMUL + 1))
 
 
+def _flops_aa_bin(N, L, pivot):
+    """One bin of K8: H G as L rank-1 updates, A = I - H G, the solve,
+    the loss and w, the adjoint solve, and the S numbers."""
+    adjoint = (_flops_ge(N, True) if pivot
+               else _flops_transpose_from_factors(N))
+    return (8 * L * N * N + 2 * N * N + _flops_ge(N, pivot) + 11 * N
+            + adjoint + L * N * (CMUL + 2) + L * N * CMUL)
+
+
 def kernel_work(name: str, M: int, N: int, pivot=False, with_dbar=False,
-                K=K_MAIN, P=P_MAIN, fuse_taps=True):
-    """(bytes moved once, FLOPs) of one launch."""
+                K=K_MAIN, P=P_MAIN, fuse_taps=True, L=AA_L, order=AA_ORDER):
+    """(bytes moved once, FLOPs) of one launch.  For K7 M counts the
+    polynomials and N is their degree."""
+    if name == "dk_roots":
+        # per slot and iteration: Horner 8N, the product 8(N-1), |d|^2,
+        # the reciprocal, the quotient and the update 14
+        return 16 * N * M, M * (DK_ITERS * N * (16 * N + 6) + 7 * N)
+    if name == "aa_tf_mse":  # reads H, G, r, t; writes S and the loss row
+        return (4 * M * (4 * N * L + 3 * N + 2 * L * N + 1),
+                M * _flops_aa_bin(N, L, pivot))
+    if name == "aa_taps_tf_mse":  # reads H, r, t, tw; writes loss, tb
+        return (4 * M * (2 * N * L + 3 * N + 1) + 2 * 4 * order * L * N,
+                M * (_flops_aa_bin(N, L, pivot) + PHASOR * order
+                     + 2 * 4 * order * L * N))
     cplx_mn, cplx_m, real_m = 8 * M * N, 8 * M, 4 * M
     small = 4 * (N * N + 2 * N)
     partials = 4 * (-(-M // 128)) * (N * N + 2 * N + 1)
@@ -372,14 +445,15 @@ def phase_build() -> str:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    libs = ("fdn_kernels", "sos_kernels")
-    seconds = cuda_build.build((N_MAIN,), libs=libs)
-    names = [cuda_build.library_path(N_MAIN, lib).name for lib in libs]
-    lib = cuda_build.load(N_MAIN)
-    cuda_build.load(N_MAIN, "sos_kernels")
+    targets = (("fdn_kernels", N_MAIN), ("sos_kernels", N_MAIN),
+               ("aa_kernels", AA_N), ("eig_kernels", AA_N), ("eig_kernels", 8))
+    seconds = cuda_build.build(targets)
+    names = [cuda_build.library_path(n, lib).name for lib, n in targets]
+    for lib, n in targets:
+        cuda_build.load(n, lib)
     print(f"phase 1 build: {seconds:.1f} s, {len(names)} libraries in "
-          f"parallel ({', '.join(names)}; N = {lib.fdn_channels()}, "
-          f"{cuda_build.threads_per_block(N_MAIN)} threads/block)")
+          f"parallel ({', '.join(names)}; "
+          f"{cuda_build.threads_per_block(N_MAIN)} threads/block for K1-K6)")
     return card
 
 
@@ -595,6 +669,93 @@ def dense_row(name: str, shape: str) -> str:
     """K6's row name at the graph step's shape (M) or the masked step's
     (P)."""
     return name if shape == "M" else f"{name}@P{SFDN_SAMPLES}"
+
+
+def aa_rig(seed: int = SEED):
+    """The active-acoustics magnitude rig at full width on the card."""
+    return build_active_acoustics(
+        n_mics=AA_N, n_loudspeakers=AA_L, rir_length=AA_RIR,
+        fir_order=AA_ORDER, nfft=NFFT, t60=0.5, solve_method="ge_cached",
+        device="cuda", generator=torch.Generator().manual_seed(seed))
+
+
+def aa_pair():
+    """The rig's impulses on every loudspeaker (1, nfft, L) and the flat
+    target (1, M, N)."""
+    x = torch.zeros((1, NFFT, AA_L), device="cuda")
+    x[:, 0, :] = 1.0
+    return x, torch.ones((1, NFFT // 2 + 1, AA_N), device="cuda")
+
+
+def aa_kernel_operands(model) -> dict:
+    """K8's and K9's operands on the rig's own rows at its initial mixer:
+    the room rows, rhs and targets, the envelope-folded taps and the
+    mixer response rows from the DFT basis."""
+    o = aa_fused_operands(model, *aa_pair())
+    with torch.no_grad():
+        tw = _mixer_taps(model.get_core().feedback).contiguous()
+        er, ei = (torch.from_numpy(b).cuda()
+                  for b in aa_dft_basis(AA_ORDER, NFFT))
+        o.update(tw=tw, gr=(tw.T @ er).contiguous(),
+                 gi=(tw.T @ ei).contiguous())
+    return o
+
+
+def random_charpolys(rng, N: int, B: int):
+    """Coefficient rows (N, B) on the card of the characteristic
+    polynomials of B random complex N x N matrices, centred and scaled as
+    eigvals_dk does (random coefficients of degree 8 include polynomials
+    on which the Durand-Kerner iteration overflows, in the JAX package's
+    iteration as in the port's)."""
+    A = torch.tensor((rng.normal(size=(B, N, N)) + 1j * rng.normal(
+        size=(B, N, N))).astype(np.complex64), device="cuda")
+    eye = torch.eye(N, dtype=A.dtype, device="cuda")
+    Bm = A - torch.diagonal(A, dim1=-2, dim2=-1).mean(-1)[:, None, None] * eye
+    s = torch.sqrt(torch.sum(torch.abs(Bm) ** 2, dim=(-2, -1)) / N)
+    c = charpoly(Bm / s[:, None, None]).T
+    return torch.real(c).contiguous(), torch.imag(c).contiguous()
+
+
+def phase_kernels_aa(o, errs: dict) -> None:
+    """K7, K8 and K9 against their plain versions; adds each kernel's max
+    abs error on its main-path variant to ``errs``."""
+    print(f"  K7 dk_roots at B={DK_B}, degrees 4 and 8, on the char-polys of "
+          "random centred and scaled complex matrices (what eigvals_dk and "
+          "the eigenvalue step hand it)")
+    rng = np.random.default_rng(SEED + 2)
+    e = []
+    for N in (AA_N, 8):
+        cr, ci = random_charpolys(rng, N, DK_B)
+        zr, zi = ek.dk_roots_rows(cr, ci)
+        pr, pi = ek.dk_roots_rows_plain(cr, ci)
+        err = max(float((zr - pr).abs().max()), float((zi - pi).abs().max()))
+        print(f"  K7 N={N}: max abs err {err:.3e} (tol {DK_TOL:g})")
+        check(err < DK_TOL, f"K7 N={N}: max abs error {err:.3e}")
+        e.append(err)
+    errs["dk_roots"] = max(e)
+    print(f"  K8 aa_tf_mse and K9 aa_taps_tf_mse at M={M_MAIN}, N={AA_N}, "
+          f"L={AA_L}, order={AA_ORDER} on the rig's rows")
+    rows8 = [o[k] for k in ("hr", "hi", "gr", "gi", "rr", "ri", "t")]
+    for pivot in (True, False):
+        got = ak.aa_tf_mse_kernel(*rows8, AA_N, AA_L, pivot)
+        ref = ak.aa_tf_mse_plain(*rows8, AA_N, AA_L, pivot)
+        e = [compare(f"K8 pivot={pivot} loss", got[0], ref[0], AA_LOSS_TOL)]
+        e += [compare(f"K8 pivot={pivot} {n}", g, r, AA_GRAD_TOL)
+              for n, g, r in zip(("S re", "S im"), got[1:], ref[1:])]
+        if not pivot:  # the variant aa_fused_step runs
+            errs["aa_tf_mse"] = max(e)
+    for pivot, off in ((False, 0), (True, 0), (False, AA_OFFSET)):
+        rows9 = [o[k][:, off:].contiguous() for k in ("hr", "hi")] + [o["tw"]]
+        rows9 += [o[k][:, off:].contiguous() for k in ("rr", "ri", "t")]
+        got = ak.aa_taps_tf_mse_kernel(*rows9, AA_N, AA_L, NFFT, pivot,
+                                       bin_offset=off)
+        ref = ak.aa_taps_tf_mse_plain(*rows9, AA_N, AA_L, NFFT, pivot, off)
+        tag = f"K9 pivot={pivot} bin_offset={off} (M={rows9[0].shape[1]})"
+        e = [compare(f"{tag} loss", got[0], ref[0], AA_LOSS_TOL),
+             compare(f"{tag} tap cotangent", got[1], ref[1], AA_GRAD_TOL)]
+        if not pivot and off == 0:  # the variant aa_fused_taps_step runs
+            errs["aa_taps_tf_mse"] = max(e)
+    torch.cuda.synchronize()
 
 
 def grads_of(model):
@@ -890,6 +1051,118 @@ def phase_scattering(card: str):
     return launches, masked_ms
 
 
+def phase_aa_magnitude(card: str, model):
+    """The active-acoustics magnitude slice: the graph loss, then
+    AA_K9_STEPS steps through K9 and AA_K8_STEPS through K8 from the same
+    weights.  Returns the launches of the timed runs and the untraced
+    ms/step of each."""
+    print(f"phase 4c active acoustics, magnitude: build_active_acoustics("
+          f"{AA_N} x {AA_L}, rir_length={AA_RIR}, fir_order={AA_ORDER}, "
+          f"nfft={NFFT}, solve_method='ge_cached') on cuda")
+    x, t = aa_pair()
+    with torch.no_grad():
+        l_graph = float(torch.mean((torch.abs(model(x)) - t) ** 2))
+    print(f"  graph loss (ge_cached): {l_graph:.7f}")
+    check(np.isfinite(l_graph), "the graph loss is not finite")
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    launches, step_ms = {}, {}
+    for name, build, steps in (("aa_taps_tf_mse", aa_fused_taps_step,
+                                AA_K9_STEPS),
+                               ("aa_tf_mse", aa_fused_step, AA_K8_STEPS)):
+        model.load_state_dict(state)
+        step, _ = build(model, x, t, lr=AA_LR)
+        ak.reset_launch_counts()
+        losses, seconds = timed(lambda: [step() for _ in range(steps)])
+        counts = dict(ak.LAUNCHES)
+        launches[name] = counts[name]
+        hist = torch.stack(losses).cpu().numpy()
+        rel = abs(hist[0] - l_graph) / l_graph
+        step_ms[name] = seconds * 1e3 / steps
+        print(f"  {build.__name__} ({name}, no pivot, lr {AA_LR:g}): loss "
+              f"{hist[0]:.7f} -> {hist[-1]:.7f} over {steps} steps, first "
+              f"loss vs graph rel {rel:.3e} (tol {AA_GRAPH_TOL:g}), "
+              f"{step_ms[name]:.4f} ms/step (CUDA events, no warm-up) on "
+              f"{card}; launches {counts}")
+        check(bool(np.isfinite(hist).all()), f"{name} loss is not finite")
+        check(rel < AA_GRAPH_TOL, f"{name}: first loss differs from the "
+              "graph loss")
+        check(hist[-1] < hist[0], f"{name}: the loss did not fall")
+        check(counts == {k: (steps if k == name else 0) for k in counts},
+              f"{build.__name__} should launch {name} once per step")
+    model.load_state_dict(state)
+    return launches, step_ms
+
+
+def phase_aa_evs(card: str):
+    """The active-acoustics eigenvalue slice: ActiveAcoustics at full
+    width, mse_evs on the F_MM graph at the first partition, then
+    aa_evs_fit over the same partitions.  Returns the rig, K7's launches,
+    the untraced ms/step, the coefficient rows of the first step and K7's
+    error on them against its plain version."""
+    print(f"phase 4d active acoustics, eigenvalues: ActiveAcoustics(1, "
+          f"{AA_N}, {AA_L}, 1, FIR_order={AA_ORDER}, rir_length={AA_RIR}, "
+          f"wgn_RT=1.0, room_t60=0.5, nfft={NFFT}) on cuda")
+    M = NFFT // 2 + 1
+    t0 = time.perf_counter()
+    aa = ActiveAcoustics(n_S=1, n_M=AA_N, n_L=AA_L, n_A=1, nfft=NFFT,
+                         FIR_order=AA_ORDER, rir_length=AA_RIR, wgn_RT=1.0,
+                         room_t60=0.5, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    print(f"  built in {time.perf_counter() - t0:.1f} s with its GBI "
+          f"(torch.linalg.eigvals on ({M}, {AA_N}, {AA_N})): G = "
+          f"{float(aa.G.param[0]):.6f}")
+    tg = torch.full((M, AA_N), AA_TARGET, device="cuda")
+    crit = mse_evs(iter_num=AA_ITER_NUM, freq_points=M,
+                   generator=torch.Generator().manual_seed(SEED))
+    x = torch.zeros((1, NFFT, AA_N), device="cuda")
+    x[:, 0, :] = 1.0
+    with torch.no_grad():
+        l_ref = float(crit(aa(x), tg[None], step=0))
+    # the coefficient rows of the first step, kept as K7 receives them
+    first, kernel = [], ek.dk_roots_rows
+
+    def keep_first(cr, ci, iters=DK_ITERS):
+        if not first:
+            first.append((cr.detach().clone(), ci.detach().clone()))
+        return kernel(cr, ci, iters)
+
+    ek.dk_roots_rows = keep_first
+    try:
+        ek.reset_launch_counts()
+        (_, hist), seconds = timed(lambda: aa_evs_fit(
+            aa, tg, n_steps=AA_EVS_STEPS, lr=AA_LR, masks=crit.mask_indices))
+        launches = ek.LAUNCHES["dk_roots"]
+    finally:
+        ek.dk_roots_rows = kernel
+    step_ms = seconds * 1e3 / AA_EVS_STEPS
+    q0, q1 = quarter_means(hist)
+    rel = abs(hist[0] - l_ref) / l_ref
+    n_bins = crit.mask_indices.shape[1]
+    print(f"  mse_evs on the F_MM graph at partition 0 ({n_bins} bins, "
+          f"{crit.n_masks} partitions): {l_ref:.7f}; "
+          f"aa_evs_fit (K7, lr {AA_LR:g}): loss {hist[0]:.7f} -> "
+          f"{hist[-1]:.7f} (quarter means {q0:.7f} -> {q1:.7f}) over "
+          f"{AA_EVS_STEPS} steps, first loss rel {rel:.3e} (tol "
+          f"{AA_GRAPH_TOL:g}), {step_ms:.4f} ms/step (CUDA events) on "
+          f"{card}; K7 launches {launches}")
+    check(hist.shape == (AA_EVS_STEPS,) and bool(np.isfinite(hist).all()),
+          "aa_evs_fit loss history is not finite")
+    check(rel < AA_GRAPH_TOL, "the first eigenvalue step's loss differs "
+          "from mse_evs on the graph")
+    check(q1 < q0, "the aa_evs_fit loss did not fall")
+    check(launches == AA_EVS_STEPS, "aa_evs_fit should launch K7 once per "
+          "step")
+    cr, ci = first[0]
+    zr, zi = ek.dk_roots_rows(cr, ci)
+    pr, pi = ek.dk_roots_rows_plain(cr, ci)
+    err = max(float((zr - pr).abs().max()), float((zi - pi).abs().max()))
+    print(f"  K7 on the rig's centred and scaled char-polys of step 0 "
+          f"({tuple(cr.shape)}): max abs err {err:.3e} (tol {DK_TOL:g})")
+    check(err < DK_TOL, f"K7 on the rig's char-polys: {err:.3e}")
+    return aa, launches, step_ms, (cr, ci), err
+
+
 def phase_timing(o, launches, errs, card) -> list:
     print(f"phase 5 timing at M={M_MAIN}, N={N_MAIN} on {card}")
     D, U, b, c, B, X, t = (o[k] for k in "DUbcBXt")
@@ -969,21 +1242,61 @@ def phase_timing(o, launches, errs, card) -> list:
             print(f"  fdn_sos_tf_mse pivot={pivot} fuse_taps={fuse_taps} "
                   f"with_dbar={with_dbar}: kernel {ms_v:.4f} ms{extra}, "
                   f"bound {bms:.5f} ms ({by})")
+    # K7 on the eigenvalue step's char-polys (torch.linalg.eigvals of their
+    # companion matrices computes the same roots in one call), K8 and K9
+    # on the magnitude rig's rows, in the variants the trainers run; last,
+    # since the library call's trace is timed by CUDA events only
+    cr, ci = o["dk_rows"]
+    coef = torch.complex(cr, ci).T  # (B, N)
+    comp = torch.zeros((coef.shape[0], AA_N, AA_N), dtype=coef.dtype,
+                       device="cuda")
+    comp[:, 0, :] = -coef
+    comp[:, 1:, :-1] = torch.eye(AA_N - 1, dtype=coef.dtype, device="cuda")
+    a = o["aa"]
+    r8 = [a[k] for k in ("hr", "hi", "gr", "gi", "rr", "ri", "t")]
+    r9 = [a[k] for k in ("hr", "hi", "tw", "rr", "ri", "t")]
+    rows += [
+        timing_row("dk_roots", "dk_roots", cr.shape[1],
+                   lambda: ek.dk_roots_rows(cr, ci),
+                   lambda: ek.dk_roots_rows_plain(cr, ci),
+                   lambda: torch.linalg.eigvals(comp), {}, launches, errs,
+                   N=AA_N, plain_reps=2, lib_reps=3, lib_events=True),
+        timing_row("aa_tf_mse", "aa_tf_mse", M_MAIN,
+                   lambda: ak.aa_tf_mse_kernel(*r8, AA_N, AA_L),
+                   lambda: ak.aa_tf_mse_plain(*r8, AA_N, AA_L), None, {},
+                   launches, errs, N=AA_N),
+        timing_row("aa_taps_tf_mse", "aa_taps_tf_mse", M_MAIN,
+                   lambda: ak.aa_taps_tf_mse_kernel(*r9, AA_N, AA_L, NFFT),
+                   lambda: ak.aa_taps_tf_mse_plain(*r9, AA_N, AA_L, NFFT),
+                   None, {}, launches, errs, N=AA_N)]
     return rows
 
 
-def timing_row(name, row, M, kern, plain, lib, kw, launches, errs) -> dict:
-    """The kernels-line row ``row`` of kernel ``name`` at M rows: device
-    and call times of the kernel, its plain version and the library call
-    (None when there is none), its bound, launches and error."""
+def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
+               N=N_MAIN, plain_reps=5, lib_reps=20,
+               lib_events=False) -> dict:
+    """The kernels-line row ``row`` of kernel ``name`` at M rows and N
+    channels: device and call times of the kernel, its plain version and
+    the library call (None when there is none), its bound, launches and
+    error.  ``plain_reps``/``lib_reps`` calls are traced and timed (fewer
+    for calls that issue thousands of operations: K7's plain version
+    runs ~7,000 small kernels).  With ``lib_events`` the library call is
+    timed by CUDA events only, and ``library_ms`` is that call time:
+    torch.linalg.eigvals on the card takes ~0.8 s a call, mostly off the
+    device, and after a profiler trace of it later traces came back
+    empty or partial."""
     retries = TRACE_RETRIES[0]
     ms = device_ms(kern, f"{name.removesuffix('_transposed')}_kernel")
-    plain_ms = device_ms(plain, reps=5)
-    library_ms = device_ms(lib, reps=20) if lib is not None else None
+    plain_ms = device_ms(plain, reps=plain_reps)
     call_ms = time_ms(kern, reps=200)
-    plain_call_ms = time_ms(plain, reps=5, warmup=1)
-    library_call_ms = time_ms(lib, reps=20) if lib is not None else None
-    bound_ms, bound_by = bound(name, M, N_MAIN, **kw)
+    plain_call_ms = time_ms(plain, reps=plain_reps, warmup=1)
+    library_ms = library_call_ms = None
+    if lib is not None:
+        library_call_ms = time_ms(lib, reps=lib_reps,
+                                  warmup=min(3, lib_reps))
+        library_ms = (library_call_ms if lib_events
+                      else device_ms(lib, reps=lib_reps))
+    bound_ms, bound_by = bound(name, M, N, **kw)
     retries = TRACE_RETRIES[0] - retries
     lib_txt = ("n/a" if library_ms is None else
                f"{library_ms:.4f} (call {library_call_ms:.4f})")
@@ -998,6 +1311,8 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs) -> dict:
             "library_ms": library_ms, "call_ms": call_ms,
             "plain_call_ms": plain_call_ms,
             "library_call_ms": library_call_ms, "rows": M,
+            "library_ms_by": (None if lib is None else
+                              "cuda_events" if lib_events else "profiler"),
             "trace_retries": retries}
 
 
@@ -1031,6 +1346,21 @@ def phase_trace(card: str, label: str, run_steps, step_ms: float,
     for e in events[:8]:
         print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
               f"x{e.count / steps:g} {e.key[:90]}")
+
+
+def aa_magnitude_steps(model, build):
+    x, t = aa_pair()
+    step, _ = build(model, x, t, lr=AA_LR)
+    return lambda n: [step() for _ in range(n)]
+
+
+def aa_evs_steps(aa):
+    tg = torch.full((NFFT // 2 + 1, AA_N), AA_TARGET, device="cuda")
+    step, _ = aa_evs_train_step(
+        aa, tg, lr=AA_LR, iter_num=AA_ITER_NUM,
+        generator=torch.Generator().manual_seed(SEED))
+    i = itertools.count()
+    return lambda n: [step(next(i)) for _ in range(n)]
 
 
 def colorless_steps():
@@ -1068,7 +1398,10 @@ def main() -> int:
     took["1 build"] = seconds_since_last()
     o = main_path_operands(M_MAIN, N_MAIN)
     o["dense"] = dense_operands()
+    rig = aa_rig()
+    o["aa"] = aa_kernel_operands(rig)
     errs = phase_kernels(o)
+    phase_kernels_aa(o["aa"], errs)
     took["2 kernels"] = seconds_since_last()
     launches, step_ms = phase_slice(card)
     took["3 colorless"] = seconds_since_last()
@@ -1079,6 +1412,13 @@ def main() -> int:
     sfdn_launches, sfdn_masked_ms = phase_scattering(card)
     took["4b scattering"] = seconds_since_last()
     launches.update(sfdn_launches)
+    aa_launches, aa_step_ms = phase_aa_magnitude(card, rig)
+    took["4c aa magnitude"] = seconds_since_last()
+    launches.update(aa_launches)
+    aa, launches["dk_roots"], evs_ms, o["dk_rows"], dk_err = phase_aa_evs(
+        card)
+    errs["dk_roots"] = max(errs["dk_roots"], dk_err)
+    took["4d aa eigenvalues"] = seconds_since_last()
     rows = phase_timing(o, launches, errs, card)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
@@ -1086,16 +1426,22 @@ def main() -> int:
                 att_step_ms)
     phase_trace(card, "sfdn masked (K6)", sfdn_masked_steps(),
                 sfdn_masked_ms)
+    phase_trace(card, "aa_fused_taps_step (K9)",
+                aa_magnitude_steps(rig, aa_fused_taps_step),
+                aa_step_ms["aa_taps_tf_mse"])
+    phase_trace(card, "aa_fused_step (K8)",
+                aa_magnitude_steps(rig, aa_fused_step),
+                aa_step_ms["aa_tf_mse"])
+    phase_trace(card, "aa_evs_train_step (K7)", aa_evs_steps(aa), evs_ms)
     took["6 traces"] = seconds_since_last()
     print(f"seconds per phase: {took}; traces taken again: "
           f"{TRACE_RETRIES[0]}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
-    # the run uses one card, whatever the machine exposes
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

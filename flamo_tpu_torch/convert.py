@@ -9,6 +9,16 @@ param is (K+1, N, N).  A model's static state that JAX draws at
 construction (the scattering shifts) is not a pytree leaf and is copied
 by :func:`load_jax_scattering`.  The port itself never imports JAX: the
 caller builds the dict and passes plain integers.
+
+A ``Series`` built from an ``OrderedDict`` flattens like any other: its
+children are ``.modules[i]`` in key order, e.g. for the active-acoustics
+loop shell ``ActiveAcoustics.F_MM`` ``.core.modules[0].param`` (U),
+``[1]`` (R), ``[2]`` (G) and ``.core.modules[3].H_re``/``.H_im`` (the
+cached H_LM).  ``ActiveAcoustics`` itself is no pytree in the JAX package;
+its modules are keyed by attribute name and the module's own path,
+``H_SM.param``, ``H_SA.param``, ``H_LM.param``, ``H_LA.param``,
+``U.param``, ``R.param`` and ``G.param``, and loading them recomputes the
+cached rooms.
 """
 
 from __future__ import annotations
@@ -16,14 +26,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flamo_tpu_torch.models.active_acoustics import ActiveAcoustics
 from flamo_tpu_torch.processor import dsp, system
+
+AA_MODULES = ("H_SM", "H_SA", "H_LM", "H_LA", "U", "R", "G")
 
 
 def jax_named_tensors(module, prefix: str = "") -> dict[str, torch.Tensor]:
     """The port's parameters and buffers under the key paths that the JAX
     package's pytree gives the matching leaves."""
     out = {}
-    if isinstance(module, system.Shell):
+    if isinstance(module, ActiveAcoustics):
+        for name in AA_MODULES:
+            out.update(jax_named_tensors(getattr(module, name),
+                                         f"{prefix}{name}"))
+    elif isinstance(module, system.Shell):
         for name in ("core", "input_layer", "output_layer"):
             out.update(jax_named_tensors(getattr(module, name),
                                          f"{prefix}.{name}"))
@@ -44,7 +61,8 @@ def jax_named_tensors(module, prefix: str = "") -> dict[str, torch.Tensor]:
 
 def load_jax_params(model, params: dict[str, np.ndarray]):
     """Copy ``params`` into ``model`` in place and return it.  Raises on a
-    missing or extra key and on a shape mismatch."""
+    missing or extra key and on a shape mismatch.  An ``ActiveAcoustics``
+    then recomputes its cached room responses."""
     targets = jax_named_tensors(model)
     missing = sorted(set(targets) - set(params))
     extra = sorted(set(params) - set(targets))
@@ -58,6 +76,8 @@ def load_jax_params(model, params: dict[str, np.ndarray]):
                 raise ValueError(f"{key}: JAX shape {tuple(src.shape)} != "
                                  f"port shape {tuple(dst.shape)}")
             dst.copy_(torch.tensor(src, dtype=dst.dtype))
+    if isinstance(model, ActiveAcoustics):
+        model.refresh_rooms()
     return model
 
 

@@ -1,11 +1,20 @@
-"""Functional helpers of the colorless- and attenuated-FDN paths
-(counterpart of the matching subset of ``flamo_tpu/functional.py``)."""
+"""Functional helpers of the FDN and active-acoustics paths (counterpart
+of the matching subset of ``flamo_tpu/functional.py``): the orthogonal
+maps, the impulse, filter design and evaluation, the WGN reverb, and the
+eigenvalue solvers (char-poly + Durand-Kerner, whose root iteration is
+kernel K7 on the card)."""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
-from flamo_tpu_torch.utils import resolve_device
+from flamo_tpu_torch.utils import complex_dtype_for, next_key, resolve_device
+
+# the char-poly + Durand-Kerner solver (and kernel K7) takes N <= 8
+EIG_DK_MAX_N = 8
 
 
 def skew_matrix(X: torch.Tensor) -> torch.Tensor:
@@ -184,3 +193,316 @@ def peak_filter(fc, gain, Q, fs: int = 48000,
     a = torch.stack(torch.broadcast_tensors(
         sg + t, -2 * sg * torch.cos(omegaC), sg - t))
     return b, a
+
+
+def bandpass_filter(fc1, fc2, gain=0.0, fs: int = 48000,
+                    dtype: torch.dtype = torch.float32):
+    """RBJ bandpass between ``fc1`` and ``fc2`` Hz, gain in dB.  Returns
+    (b, a), each (3, *fc1.shape)."""
+    fc1 = torch.as_tensor(fc1, dtype=dtype)
+    fc2 = torch.as_tensor(fc2, dtype=dtype)
+    omegaC = (hertz2rad(fc1, fs) + hertz2rad(fc2, fs)) / 2
+    BW = torch.log2(fc2 / fc1)
+    two = torch.tensor(2.0, dtype=dtype)
+    alpha = torch.sin(omegaC) * torch.sinh(
+        torch.log(two) / two * BW * (omegaC / torch.sin(omegaC)))
+    cosOC = torch.cos(omegaC)
+    b = torch.stack([alpha, torch.zeros_like(alpha), -alpha])
+    a = torch.stack([1 + alpha, -2 * cosOC, 1 - alpha])
+    return 10 ** (torch.as_tensor(gain, dtype=dtype) / 20) * b, a
+
+
+def sosfreqz(sos, nfft: int = 512):
+    """Frequency response of cascaded second-order sections on the rfft
+    grid.  sos: (n_sections, 6) rows [b0 b1 b2 a0 a1 a2]; returns
+    (nfft//2+1,)."""
+    sos = torch.as_tensor(sos)
+    if sos.shape[-1] != 6:
+        raise AssertionError("sos must have 6 columns")
+    B = poly_response(sos[:, :3].T, nfft)  # (M, n_sections)
+    A = poly_response(sos[:, 3:].T, nfft)
+    return torch.prod(B, dim=-1) / torch.prod(A, dim=-1)
+
+
+def WGN_reverb(matrix_size: tuple = (1, 1), t60: float = 1.0,
+               samplerate: int = 48000, generator=None,
+               dtype: torch.dtype = torch.float32, device=None):
+    """Exponentially decaying white-noise IR matrix (n_samples,
+    *matrix_size), n_samples = int(1.5 t60 samplerate), bandpassed 20 Hz
+    to min(20 kHz, 0.95 Nyquist) and normalized per column.  The noise is
+    drawn on the CPU from ``generator`` (another PRNG than JAX's: the
+    same seed gives other rooms than ``flamo_tpu``'s) and then moved to
+    ``device``."""
+    generator = next_key(generator)
+    device = resolve_device(device)
+    n_samples = int(1.5 * t60 * samplerate)
+    noise = torch.randn((n_samples, *matrix_size), generator=generator,
+                        dtype=dtype).to(device)
+    dr = t60 / math.log(1000.0)
+    decay = torch.exp(-1 / dr * torch.linspace(0, t60, n_samples,
+                                               dtype=dtype, device=device))
+    IRs = noise * decay.reshape(-1, *([1] * len(matrix_size)))
+    TFs = torch.fft.rfft(IRs, n=n_samples, dim=0)
+    f_hi = min(20000.0, 0.95 * samplerate / 2)
+    b, a = bandpass_filter(torch.tensor([20.0]), torch.tensor([f_hi]),
+                           torch.tensor([1.0]), fs=samplerate, dtype=dtype)
+    sos = torch.cat([b.reshape(1, 3), a.reshape(1, 3)], dim=1).to(device)
+    bp_H = sosfreqz(sos=sos, nfft=n_samples).squeeze()
+    bp_H = bp_H.reshape(-1, *([1] * len(matrix_size)))
+    IRs = torch.fft.irfft(TFs * bp_H, n=n_samples, dim=0)
+    return IRs / torch.linalg.vector_norm(IRs, ord=2, dim=0)
+
+
+# ----------------------------------------------------------------------
+# eigenvalues
+# ----------------------------------------------------------------------
+def get_eigenvalues(x):
+    """Eigenvalues of (..., N, N) matrices for analysis, without a
+    gradient: ``torch.linalg.eigvals`` (the JAX package's host-callback
+    LAPACK route)."""
+    with torch.no_grad():
+        return torch.linalg.eigvals(x)
+
+
+def eigvals(A):
+    """Differentiable eigenvalues of (..., N, N) matrices:
+    ``torch.linalg.eigvals``, whose autograd is the closed-form VJP of the
+    JAX package's ``eigvals_lapack`` (exact for simple spectra).  The
+    order of the eigenvalues is LAPACK's: treat them as a set."""
+    return torch.linalg.eigvals(A)
+
+
+def spectral_radius(A, iters: int = 64, tail: int = 8):
+    """Differentiable spectral-radius estimate ``max |lambda|`` of
+    (..., N, N) matrices by power iteration from a fixed complex start
+    vector; the geometric mean of the last ``tail`` norm ratios averages
+    out the oscillation of a dominant complex-conjugate pair."""
+    n = A.shape[-1]
+    rdt = A.real.dtype if A.is_complex() else A.dtype
+    cd = complex_dtype_for(rdt)
+    A = A.to(cd)
+    k = torch.arange(1, n + 1, dtype=rdt, device=A.device)
+    v = torch.complex(k, torch.sqrt(k))
+    v = (v / torch.linalg.vector_norm(v)).expand(A.shape[:-1])
+    ratios = []
+    for _ in range(iters):
+        w = torch.einsum("...ij,...j->...i", A, v)
+        r = torch.linalg.vector_norm(w, dim=-1)
+        v = w / (r[..., None] + 1e-30)
+        ratios.append(r)
+    tail = min(tail, iters)
+    return torch.exp(torch.mean(torch.log(torch.stack(ratios[-tail:])
+                                          + 1e-30), dim=0))
+
+
+def charpoly(A):
+    """Characteristic-polynomial coefficients of (..., N, N) matrices by
+    the Faddeev-LeVerrier recursion: ``c`` (..., N) with
+    ``p(z) = z^N + c[0] z^{N-1} + ... + c[N-1]``.  N small matmuls; on the
+    card the caller keeps TF32 off, so they stay full precision."""
+    N = A.shape[-1]
+    eye = torch.eye(N, dtype=A.dtype, device=A.device)
+    Mk = A
+    c = -torch.diagonal(Mk, dim1=-2, dim2=-1).sum(-1)
+    cs = [c]
+    for k in range(2, N + 1):
+        Mk = torch.matmul(A, Mk + c[..., None, None] * eye)
+        c = -torch.diagonal(Mk, dim1=-2, dim2=-1).sum(-1) / k
+        cs.append(c)
+    return torch.stack(cs, dim=-1)
+
+
+def _dk_start_angles(N: int, dtype: torch.dtype, device):
+    """cos and sin of the start angles 2 pi (n + 0.354) / N, computed in
+    float64 and rounded once to ``dtype`` (as the kernel does)."""
+    ang = 2.0 * np.pi * (np.arange(N) + 0.354) / N
+    return (torch.tensor(np.cos(ang), dtype=dtype, device=device),
+            torch.tensor(np.sin(ang), dtype=dtype, device=device))
+
+
+def _dk_iterate_rows(cr, ci, iters: int):
+    """Durand-Kerner (Weierstrass) simultaneous root iteration on rows:
+    real coefficient rows ``cr``/``ci`` (N, ...) of the monic
+    ``z^N + c[0] z^{N-1} + ... + c[N-1]`` -> root rows ``(zr, zi)`` (N, ...).
+
+    This is the plain version of kernel K7 and the iteration of the JAX
+    package's ``_dk_iterate``: start on the circle of radius
+    ``0.9 (1 + max_k |c_k|)`` at angles ``2 pi (n + 0.354) / N``, then
+    ``iters`` simultaneous (Jacobi) updates
+    ``z_n -= p(z_n) / prod_{j != n} (z_n - z_j)``, a slot frozen where
+    ``|prod|^2 = 0``.  The arithmetic is explicit re/im pairs in the
+    kernel's order of operations (monic Horner, the product in ascending
+    j, ``(p conj(d)) / |d|^2``), so on the card the kernel, built without
+    FMA contraction, repeats it to the last bit."""
+    N = cr.shape[0]
+    R = torch.sqrt(cr * cr + ci * ci).amax(dim=0)
+    R = 0.9 * (1.0 + R)
+    cos_a, sin_a = _dk_start_angles(N, cr.dtype, cr.device)
+    shape = (N,) + (1,) * (cr.ndim - 1)
+    zr = R[None] * cos_a.reshape(shape)
+    zi = R[None] * sin_a.reshape(shape)
+    eye = torch.eye(N, dtype=torch.bool, device=cr.device).reshape(
+        (N, N) + (1,) * (cr.ndim - 1))
+    one = torch.ones((), dtype=cr.dtype, device=cr.device)
+    zero = torch.zeros((), dtype=cr.dtype, device=cr.device)
+    for _ in range(iters):
+        ar = torch.ones_like(zr)
+        ai = torch.zeros_like(zi)
+        for k in range(N):
+            tr = ar * zr - ai * zi
+            ti = ar * zi + ai * zr
+            ar, ai = tr + cr[k], ti + ci[k]
+        dr = torch.ones_like(zr)
+        di = torch.zeros_like(zi)
+        for j in range(N):
+            # z_n - z_j, and exactly 1 in slot j (a factor of one)
+            er = torch.where(eye[j], one, zr - zr[j])
+            ei = torch.where(eye[j], zero, zi - zi[j])
+            dr, di = dr * er - di * ei, dr * ei + di * er
+        d2 = dr * dr + di * di
+        ok = d2 > 0.0
+        inv = 1.0 / torch.where(ok, d2, one)
+        sr = (ar * dr + ai * di) * inv
+        si = (ai * dr - ar * di) * inv
+        zr = zr - torch.where(ok, sr, zero)
+        zi = zi - torch.where(ok, si, zero)
+    return zr, zi
+
+
+def _dk_iterate(c, iters: int):
+    """:func:`_dk_iterate_rows` for complex coefficients (..., N) ->
+    complex roots (..., N)."""
+    cr = torch.movedim(c.real, -1, 0)
+    ci = torch.movedim(c.imag, -1, 0)
+    zr, zi = _dk_iterate_rows(cr, ci, iters)
+    return torch.complex(torch.movedim(zr, 0, -1), torch.movedim(zi, 0, -1))
+
+
+def _poly_roots_pullback(z, z_bar):
+    """JAX's implicit-function pullback at converged roots, in JAX's
+    cotangent convention: ``c_bar_k = -sum_n w_n z_n^{N-1-k}`` with
+    ``w_n = z_bar_n / p'(z_n)``, ``p'(z_n) = prod_{j != n} (z_n - z_j)``
+    (0 where that product is 0).  z and z_bar (..., N) complex."""
+    N = z.shape[-1]
+    eye = torch.eye(N, dtype=z.dtype, device=z.device)
+    diff = z[..., :, None] - z[..., None, :] + eye
+    dp = torch.prod(diff, dim=-1)
+    ok = torch.abs(dp) > 0.0
+    w = torch.where(ok, z_bar / torch.where(ok, dp, torch.ones_like(dp)),
+                    torch.zeros_like(dp))
+    pw = torch.stack([z ** (N - 1 - k) for k in range(N)], dim=-1)
+    return -torch.sum(w[..., :, None] * pw, dim=-2)
+
+
+class _PolyRoots(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, c, iters):
+        if c.dtype == torch.complex64:
+            from flamo_tpu_torch.ops.eig_kernels import dk_roots
+
+            z = dk_roots(c, iters)
+        else:
+            z = _dk_iterate(c, iters)
+        ctx.save_for_backward(z)
+        return z
+
+    @staticmethod
+    def backward(ctx, z_bar):
+        (z,) = ctx.saved_tensors
+        # PyTorch's gradient of a complex tensor is the conjugate of JAX's
+        # cotangent: conjugate in, apply JAX's pullback, conjugate out
+        c_bar = _poly_roots_pullback(z, torch.conj_physical(z_bar))
+        return torch.conj_physical(c_bar), None
+
+
+def poly_roots(c, iters: int = 96):
+    """All complex roots of the monic polynomial(s)
+    ``z^N + c[..., 0] z^{N-1} + ... + c[..., N-1]`` by batched
+    Durand-Kerner iteration; the root order is the iteration's, not
+    LAPACK's.  The gradient is the implicit-function pullback at the
+    converged roots (exact for simple roots).
+
+    Dtype rule: complex64 runs kernel K7 (:func:`~flamo_tpu_torch.ops.
+    eig_kernels.dk_roots`: the CUDA kernel for CUDA tensors, N <= 8, its
+    plain version for CPU tensors); complex128 runs the plain iteration on
+    any device, as the JAX package sends x64 to its scan: the kernel is
+    float32."""
+    return _PolyRoots.apply(c, iters)
+
+
+def _poly_roots_rows_pullback(zr, zi, zr_bar, zi_bar):
+    """The pullback of :func:`poly_roots_rows` on rows: with
+    ``acc_k = -sum_n w_n z_n^{N-1-k}``, ``w_n = (zr_bar_n - i zi_bar_n) /
+    p'(z_n)``, the real gradients are ``cr_bar = Re acc``,
+    ``ci_bar = -Im acc``."""
+    N = zr.shape[0]
+    z = torch.complex(zr, zi)
+    eye = torch.eye(N, dtype=z.dtype, device=z.device).reshape(
+        (N, N) + (1,) * (z.ndim - 1))
+    dp = torch.prod(z[:, None] - z[None, :] + eye, dim=1)
+    ok = torch.abs(dp) > 0.0
+    w = torch.complex(zr_bar, -zi_bar)
+    w = torch.where(ok, w / torch.where(ok, dp, torch.ones_like(dp)),
+                    torch.zeros_like(dp))
+    crb, cib = [], []
+    p = torch.ones_like(z)
+    for _ in range(N):
+        acc = -torch.sum(w * p, dim=0)
+        crb.append(torch.real(acc))
+        cib.append(-torch.imag(acc))
+        p = p * z
+    return torch.stack(crb[::-1]), torch.stack(cib[::-1])
+
+
+class _PolyRootsRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cr, ci, iters):
+        if cr.dtype == torch.float32:
+            from flamo_tpu_torch.ops.eig_kernels import dk_roots_rows
+
+            zr, zi = dk_roots_rows(cr, ci, iters)
+        else:
+            zr, zi = _dk_iterate_rows(cr, ci, iters)
+        ctx.save_for_backward(zr, zi)
+        return zr, zi
+
+    @staticmethod
+    def backward(ctx, zr_bar, zi_bar):
+        zr, zi = ctx.saved_tensors
+        if zr_bar is None:
+            zr_bar = torch.zeros_like(zr)
+        if zi_bar is None:
+            zi_bar = torch.zeros_like(zi)
+        crb, cib = _poly_roots_rows_pullback(zr, zi, zr_bar, zi_bar)
+        return crb, cib, None
+
+
+def poly_roots_rows(cr, ci, iters: int = 96):
+    """Rows twin of :func:`poly_roots`: real coefficient rows ``cr``/``ci``
+    (N, B), polynomials on the last axis, -> real root rows ``(zr, zi)``,
+    each (N, B).  Same iteration, root order and pullback.
+
+    Dtype rule: float32 runs kernel K7 (:func:`~flamo_tpu_torch.ops.
+    eig_kernels.dk_roots_rows`: the CUDA kernel for CUDA tensors, N <= 8,
+    its plain version for CPU tensors); float64 runs the plain iteration
+    on any device."""
+    return _PolyRootsRows.apply(cr, ci, iters)
+
+
+def eigvals_dk(A, iters: int = 96):
+    """Differentiable eigenvalues of small (..., N, N) matrices, N <= 8:
+    the matrix is spectrum-centred and scaled (``B = (A - mu I) / s``),
+    then :func:`charpoly` + :func:`poly_roots`.  The root order is the
+    iteration's: compare sorted or through symmetric functions."""
+    rdt = A.real.dtype if A.is_complex() else A.dtype
+    cd = complex_dtype_for(rdt)
+    A = A.to(cd)
+    N = A.shape[-1]
+    eye = torch.eye(N, dtype=cd, device=A.device)
+    mu = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) / N
+    B = A - mu[..., None, None] * eye
+    s = torch.clamp(torch.sqrt(torch.sum(torch.abs(B) ** 2, dim=(-2, -1))
+                               / N), min=1e-30)
+    B = B / s[..., None, None]
+    z = poly_roots(charpoly(B), iters)
+    return z * s[..., None].to(cd) + mu[..., None]

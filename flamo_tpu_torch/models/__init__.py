@@ -1,3 +1,9 @@
+from flamo_tpu_torch.models.active_acoustics import (
+    ActiveAcoustics, aa_dft_basis, aa_evs_fit, aa_evs_train_step,
+    aa_fused_operands, aa_fused_step, aa_fused_taps_step,
+    aa_hoisted_room_step, build_active_acoustics, gain_before_instability,
+    gain_before_instability_diff, open_loop_eigenvalues, open_loop_matrix,
+)
 from flamo_tpu_torch.models.attenuated_fdn import (
     attenuated_loss, attenuated_loss_fused_step, attenuated_train_step,
     build_attenuated_fdn, extract_attenuated_operands,

@@ -1,0 +1,279 @@
+"""The fused active-acoustics step kernels K8 and K9 (counterpart of
+``pallas_aa_tf_mse`` and ``pallas_aa_taps_tf_mse`` in
+``flamo_tpu/ops/pallas_solve.py``): wrappers around the hand-written CUDA
+kernels of ``flamo_tpu_torch/csrc/aa_kernels.cu``, their plain PyTorch
+versions, and the ``autograd.Function``s of the public functions.
+
+For a frozen room H_m (N microphones x L loudspeakers), a mixer response
+G_m (L x N) and a frozen rhs r_m = H_m X_m, per rfft bin m:
+
+    A_m = I_N - H_m G_m,   y_m = A_m^{-1} r_m,
+    loss = (1/(M N)) sum_{m,i} (|y_mi| - t_mi)^2.
+
+The operands keep the JAX package's channels-major rows (bins last, all
+float32): ``hr``/``hi`` (N L, M), row i L + j = H[i, j]; ``gr``/``gi``
+(L N, M), row j N + k = G[j, k]; ``rr``/``ri`` and the targets ``t``
+(N, M).
+
+* :func:`aa_tf_mse` (K8): the loss, differentiable in the response rows
+  gr/gi; the kernel writes the S rows ``S_jk = (H^T xi)_j y_k`` of the
+  adjoint ``A^T xi = w`` in the same pass, and the gradient is
+  ``(g Re S, -g Im S)``.
+* :func:`aa_taps_tf_mse` (K9): the same loss from the envelope-folded
+  mixer taps ``tw`` (order, L N), ``G = tw^T P`` with the DFT powers
+  ``P_t(m) = e^{-j 2 pi t (m + bin_offset) / nfft}`` made inside the
+  kernel; the gradient is the tap cotangent
+  ``tb[t, jk] = sum_m Re S_jk Re P_t - Im S_jk Im P_t``.
+
+Each ``*_kernel`` wrapper launches its CUDA kernel for CUDA tensors (and
+counts the launch in :data:`LAUNCHES`) and runs the plain version for CPU
+tensors; it never falls back from one to the other.  On the card the
+kernels take 1..8 microphones (one library per count) and any number of
+loudspeakers and taps whose K9 working set fits a block's shared memory;
+the wrappers raise outside those limits.  ``pivot=False`` (the default,
+as in the JAX package) eliminates without pivoting and solves the adjoint
+from the same L/U factors: valid while the loop is well away from
+instability, as at the rig's small initial mixer.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flamo_tpu_torch.ops import cuda_build
+from flamo_tpu_torch.ops.fdn_kernels import _on_cuda, _stream
+from flamo_tpu_torch.ops.solve import (_gauss_solve_raw, _ge_nopivot_factor,
+                                       _lu_transpose_solve)
+
+LIB = "aa_kernels"
+MAX_N = cuda_build.LIB_MAX_N[LIB]
+PRECISIONS = ("default", "high", "highest")
+# K9's tile of bins, register tile and dynamic shared memory limit (as
+# in aa_kernels.cu)
+_TAP_BINS, _Q, _MAX_SMEM = 64, 4, 232448
+
+# launches of each CUDA kernel since the last reset (plain CPU runs do not
+# count)
+LAUNCHES = {"aa_tf_mse": 0, "aa_taps_tf_mse": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (JAX-convention outputs)
+# ---------------------------------------------------------------------------
+def aa_tf_mse_plain(hr, hi, gr, gi, rr, ri, t, N: int, L: int,
+                    pivot: bool = False):
+    """K8's function: ``(loss, Sr, Si)``, the S rows (L N, M)."""
+    M = hr.shape[-1]
+    H = torch.complex(hr, hi).reshape(N, L, M).permute(2, 0, 1)  # (M, N, L)
+    G = torch.complex(gr, gi).reshape(L, N, M).permute(2, 0, 1)  # (M, L, N)
+    A = torch.eye(N, dtype=H.dtype, device=H.device) - H @ G
+    r = torch.complex(rr, ri).T  # (M, N)
+    if pivot:
+        y = _gauss_solve_raw(A, r)
+    else:
+        Y, arows, factors = _ge_nopivot_factor(A, r[..., None])
+        y = Y[..., 0]
+    est = torch.abs(y)
+    diff = est - t.T
+    loss = torch.sum(diff * diff) / (M * N)
+    g = (2.0 / (M * N)) * diff / torch.where(est > 0.0, est,
+                                             torch.ones_like(est))
+    w = g * torch.conj(y)
+    if pivot:
+        xi = _gauss_solve_raw(A.transpose(1, 2), w)
+    else:
+        xi = _lu_transpose_solve(arows, factors, w[..., None])[..., 0]
+    a = torch.einsum("mil,mi->ml", H, xi)  # (H^T xi)_l
+    S = (a[:, :, None] * y[:, None, :]).permute(1, 2, 0).reshape(L * N, M)
+    return loss, torch.real(S), torch.imag(S)
+
+
+def dft_powers(order: int, M: int, nfft: int, bin_offset: int = 0,
+               device=None):
+    """``(Pr, Pi)`` (order, M) float32: ``P_t(m) = e^{-j 2 pi idx / nfft}``
+    with ``idx = t (m + bin_offset) mod nfft`` exact in integers, the
+    powers K9 makes per bin."""
+    t = torch.arange(order, dtype=torch.int64, device=device)[:, None]
+    m = (torch.arange(M, dtype=torch.int64, device=device)[None, :]
+         + int(bin_offset))
+    idx = (t % nfft) * (m % nfft) % nfft
+    w = (2.0 * math.pi / nfft) * idx.to(torch.float32)
+    return torch.cos(w), -torch.sin(w)
+
+
+def aa_taps_tf_mse_plain(hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
+                         pivot: bool = False, bin_offset: int = 0):
+    """K9's function: ``(loss, tb)``, the tap cotangent (order, L N)."""
+    M = hr.shape[-1]
+    Pr, Pi = dft_powers(tw.shape[0], M, nfft, bin_offset, hr.device)
+    loss, Sr, Si = aa_tf_mse_plain(hr, hi, tw.T @ Pr, tw.T @ Pi, rr, ri, t,
+                                   N, L, pivot)
+    return loss, Pr @ Sr.T - Pi @ Si.T
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers: CUDA tensors -> the kernel, CPU tensors -> plain version
+# ---------------------------------------------------------------------------
+def _check_rows(N: int, L: int, rows: dict):
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"N = {N} microphone channels; kernels K8 and K9 "
+                         f"take 1..{MAX_N}")
+    if L < 1:
+        raise ValueError(f"L = {L} loudspeakers")
+    M = rows["t"].shape[-1]
+    if M == 0:
+        raise ValueError("no bins (M = 0)")
+    for name, x in rows.items():
+        want = {"hr": N * L, "hi": N * L, "gr": L * N, "gi": L * N}.get(
+            name, N)
+        if name == "tw":
+            if x.ndim != 2 or x.shape[1] != L * N or x.shape[0] < 1:
+                raise TypeError(f"tw must be (order, L N) = (order, {L * N}),"
+                                f" got {tuple(x.shape)}")
+        elif tuple(x.shape) != (want, M):
+            raise TypeError(f"{name} must be ({want}, {M}), got "
+                            f"{tuple(x.shape)}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+    return M
+
+
+def aa_tf_mse_kernel(hr, hi, gr, gi, rr, ri, t, N: int, L: int,
+                     pivot: bool = False):
+    """K8 wrapper: ``(loss, Sr, Si)``."""
+    M = _check_rows(N, L, dict(hr=hr, hi=hi, gr=gr, gi=gi, rr=rr, ri=ri, t=t))
+    if not _on_cuda(hr, hi, gr, gi, rr, ri, t):
+        return aa_tf_mse_plain(hr, hi, gr, gi, rr, ri, t, N, L, pivot)
+    lib = cuda_build.load(N, LIB)
+    hr, hi, gr, gi, rr, ri, t = (x.contiguous()
+                                 for x in (hr, hi, gr, gi, rr, ri, t))
+    loss_row = torch.empty((M,), dtype=torch.float32, device=hr.device)
+    Sr, Si = torch.empty_like(gr), torch.empty_like(gi)
+    with torch.cuda.device(hr.device):
+        rc = lib.aa_tf_mse_launch(
+            N, int(pivot), hr.data_ptr(), hi.data_ptr(), gr.data_ptr(),
+            gi.data_ptr(), rr.data_ptr(), ri.data_ptr(), t.data_ptr(),
+            loss_row.data_ptr(), Sr.data_ptr(), Si.data_ptr(),
+            2.0 / (M * N), L, M, _stream(hr))
+    cuda_build.check(rc, "aa_tf_mse_kernel", N, LIB)
+    LAUNCHES["aa_tf_mse"] += 1
+    return torch.sum(loss_row) / (M * N), Sr, Si
+
+
+def taps_smem_bytes(order: int, LN: int) -> int:
+    """K9's dynamic shared memory per block (as in aa_kernels.cu)."""
+    op, lp = -(-order // _Q) * _Q, -(-LN // _Q) * _Q
+    return _TAP_BINS * 8 * (op + 1 + lp + 1) + 4 * op * lp
+
+
+def _check_taps_args(precision: str, bin_offset, nfft: int):
+    if precision not in PRECISIONS:
+        raise ValueError("precision must be 'default', 'high' or 'highest'")
+    off = 0 if bin_offset is None else bin_offset
+    if float(off) != int(off):
+        raise ValueError(f"bin_offset must be a whole number of bins, got "
+                         f"{bin_offset!r}")
+    if not 1 <= nfft <= 2 ** 30:
+        raise ValueError(f"nfft = {nfft}; kernel K9 takes 1..2^30")
+    return int(off)
+
+
+def aa_taps_tf_mse_kernel(hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
+                          pivot: bool = False, precision: str = "high",
+                          bin_offset=None):
+    """K9 wrapper: ``(loss, tb)``.  Every ``precision`` is FP32 here."""
+    off = _check_taps_args(precision, bin_offset, nfft)
+    M = _check_rows(N, L, dict(hr=hr, hi=hi, tw=tw, rr=rr, ri=ri, t=t))
+    if not _on_cuda(hr, hi, tw, rr, ri, t):
+        return aa_taps_tf_mse_plain(hr, hi, tw, rr, ri, t, N, L, nfft, pivot,
+                                    off)
+    order = tw.shape[0]
+    need = taps_smem_bytes(order, L * N)
+    if need > _MAX_SMEM:
+        raise ValueError(f"kernel K9 needs {need} bytes of shared memory "
+                         f"for order = {order} and L N = {L * N}; a block "
+                         f"has {_MAX_SMEM}")
+    lib = cuda_build.load(N, LIB)
+    hr, hi, tw, rr, ri, t = (x.contiguous() for x in (hr, hi, tw, rr, ri, t))
+    with torch.cuda.device(hr.device):
+        grid = lib.aa_taps_grid(N, int(pivot), order, L, M)
+        cuda_build.check(grid if grid < 0 else 0, "aa_taps_grid", N, LIB)
+        loss_row = torch.empty((M,), dtype=torch.float32, device=hr.device)
+        partials = torch.empty((grid, order, L * N), dtype=torch.float32,
+                               device=hr.device)
+        rc = lib.aa_taps_tf_mse_launch(
+            N, int(pivot), hr.data_ptr(), hi.data_ptr(), tw.data_ptr(),
+            rr.data_ptr(), ri.data_ptr(), t.data_ptr(), loss_row.data_ptr(),
+            partials.data_ptr(), 2.0 / (M * N), L, M, order, nfft,
+            off % nfft, 2.0 * math.pi / nfft, grid, _stream(hr))
+    cuda_build.check(rc, "aa_taps_tf_mse_kernel", N, LIB)
+    LAUNCHES["aa_taps_tf_mse"] += 1
+    return torch.sum(loss_row) / (M * N), torch.sum(partials, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# differentiable public functions
+# ---------------------------------------------------------------------------
+class _AaTfMse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hr, hi, gr, gi, rr, ri, t, N, L, pivot):
+        loss, Sr, Si = aa_tf_mse_kernel(hr, hi, gr, gi, rr, ri, t, N, L,
+                                        pivot)
+        ctx.save_for_backward(Sr, Si)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        Sr, Si = ctx.saved_tensors
+        # real rows: JAX's cotangents are PyTorch's gradients
+        return (None, None, g * Sr, -(g * Si), None, None, None, None, None,
+                None)
+
+
+class _AaTapsTfMse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hr, hi, tw, rr, ri, t, N, L, nfft, pivot, precision,
+                bin_offset):
+        loss, tb = aa_taps_tf_mse_kernel(hr, hi, tw, rr, ri, t, N, L, nfft,
+                                         pivot, precision, bin_offset)
+        ctx.save_for_backward(tb)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        (tb,) = ctx.saved_tensors
+        return (None, None, g * tb) + (None,) * 9
+
+
+def aa_tf_mse(hr, hi, gr, gi, rr, ri, t, N: int, L: int,
+              pivot: bool = False):
+    """Fused active-acoustics training-step loss (K8), differentiable in
+    the mixer-response rows ``gr``/``gi`` only: the room rows, the rhs and
+    the targets are frozen and get no gradient.  Counterpart of
+    ``pallas_aa_tf_mse``, same arguments."""
+    return _AaTfMse.apply(hr, hi, gr, gi, rr, ri, t, N, L, pivot)
+
+
+def aa_taps_tf_mse(hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
+                   pivot: bool = False, precision: str = "high",
+                   bin_offset=None):
+    """The same loss differentiable in the envelope-folded mixer taps
+    ``tw`` (order, L N), ``tw[t, j N + k] = gamma^t taps[t, j, k]`` (K9):
+    the tap->response DFT and the cotangent->tap contraction run inside
+    the kernel, so no basis or response rows exist in device memory.
+    Counterpart of ``pallas_aa_taps_tf_mse``, same arguments.
+
+    ``precision`` must be 'default', 'high' or 'highest' (anything else
+    raises ``ValueError``); all three compute in FP32 on CUDA cores, i.e.
+    as the JAX package's 'highest'.  ``bin_offset`` (a whole number,
+    default 0) evaluates row j at global bin ``j + bin_offset``; the loss
+    is normalized by the local row count."""
+    return _AaTapsTfMse.apply(hr, hi, tw, rr, ri, t, N, L, nfft, pivot,
+                              precision, bin_offset)

@@ -4,9 +4,13 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
 shared libraries with a plain C interface (no PyTorch headers), under
 ``build/flamo_tpu_torch/`` at the root of the checkout, and loaded with
 ``ctypes``.  There is one library per kernel source and channel count
-N (``-DFDN_N=<n>``, n in 1..16): ``fdn_kernels.cu`` holds the per-bin
-eliminations K1, K2, K3 and K6, ``sos_kernels.cu`` the SOS-cascade
-kernels K4f/K4b and K5.
+N (``-DFDN_N=<n>``): ``fdn_kernels.cu`` holds the per-bin eliminations
+K1, K2, K3 and K6 and ``sos_kernels.cu`` the SOS-cascade kernels K4f/K4b
+and K5 (n in 1..16 for both), ``aa_kernels.cu`` the active-acoustics
+steps K8 and K9 (N the microphone count, 1..8; the loudspeaker count and
+the FIR order are runtime sizes) and ``eig_kernels.cu`` the
+Durand-Kerner roots K7 (N the degree, 1..8, built without FMA
+contraction so that it repeats its plain version's rounding).
 
 The eliminations are unrolled over N and the large-N instantiations
 compile slowly, so each (source, N) is its own library, built when a
@@ -28,10 +32,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flamo_tpu_torch"
-SOURCES = ("fdn_kernels.cu", "sos_kernels.cu", "fdn_ge.cuh")
+SOURCES = ("fdn_kernels.cu", "sos_kernels.cu", "aa_kernels.cu",
+           "eig_kernels.cu", "fdn_ge.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_N = 16
+# the channel counts (degrees for K7) each library is built for
+LIB_MAX_N = {"fdn_kernels": MAX_N, "sos_kernels": MAX_N, "aa_kernels": 8,
+             "eig_kernels": 8}
+# flags of one library only
+LIB_FLAGS = {"eig_kernels": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,6 +73,23 @@ _SIGNATURES = {
                                        _P, _P, _P, _P, _P, _P, _F, _I, _I,
                                        _I, _F, _F, _P]),
     }),
+    "aa_kernels": ("aa", {
+        "aa_threads_per_block": (_I, []),
+        "aa_channels": (_I, []),
+        "aa_error_string": (ctypes.c_char_p, [_I]),
+        "aa_tf_mse_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _F, _I, _I, _P]),
+        "aa_taps_grid": (_I, [_I, _I, _I, _I, _I]),
+        "aa_taps_tf_mse_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _F, _I, _I, _I, _I, _I, _F, _I,
+                                       _P]),
+    }),
+    "eig_kernels": ("eig", {
+        "eig_threads_per_block": (_I, []),
+        "eig_channels": (_I, []),
+        "eig_error_string": (ctypes.c_char_p, [_I]),
+        "dk_roots_launch": (_I, [_I, _P, _P, _P, _P, _I, _I, _P]),
+    }),
 }
 
 _LIBS: dict[tuple[str, int], ctypes.CDLL] = {}
@@ -89,8 +116,9 @@ def nvcc_path() -> str:
 def _check_target(lib: str, n: int) -> None:
     if lib not in _SIGNATURES:
         raise ValueError(f"unknown kernel library {lib!r}")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"N = {n} channels; the kernels take 1..{MAX_N}")
+    if not 1 <= n <= LIB_MAX_N[lib]:
+        raise ValueError(f"N = {n} channels; the kernels of {lib} take "
+                         f"1..{LIB_MAX_N[lib]}")
 
 
 def library_path(n: int, lib: str = "fdn_kernels") -> Path:
@@ -100,19 +128,17 @@ def library_path(n: int, lib: str = "fdn_kernels") -> Path:
     return BUILD_DIR / f"lib{lib}-n{n}-{digest.hexdigest()[:16]}.so"
 
 
-def build(channels=(6,), libs=("fdn_kernels",),
-          ptxas_log: Path | None = None) -> float:
-    """Compile the libraries ``libs`` x ``channels`` that are not built
+def build(targets, ptxas_log: Path | None = None) -> float:
+    """Compile the (library, N) pairs of ``targets`` that are not built
     yet, one ``nvcc`` each, all started together; returns the wall
     seconds spent (0.0 when nothing was built).  With ``ptxas_log`` every
     named library is compiled and the compiler's per-kernel register and
     spill report goes there."""
     todo = []
-    for lib in libs:
-        for n in map(int, channels):
-            _check_target(lib, n)
-            if ptxas_log is not None or not library_path(n, lib).exists():
-                todo.append((lib, n))
+    for lib, n in dict.fromkeys((lib, int(n)) for lib, n in targets):
+        _check_target(lib, n)
+        if ptxas_log is not None or not library_path(n, lib).exists():
+            todo.append((lib, n))
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -121,8 +147,8 @@ def build(channels=(6,), libs=("fdn_kernels",),
     jobs = []
     for lib, n in todo:
         tmp = library_path(n, lib).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, f"-DFDN_N={n}", "-o", str(tmp),
-               str(CSRC / f"{lib}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *LIB_FLAGS.get(lib, ()), f"-DFDN_N={n}",
+               "-o", str(tmp), str(CSRC / f"{lib}.cu")]
         if ptxas_log is not None:
             cmd[1:1] = ["-Xptxas", "-v"]
         jobs.append((lib, n, tmp, subprocess.Popen(
@@ -150,7 +176,7 @@ def load(n: int, lib: str = "fdn_kernels") -> ctypes.CDLL:
     key = (lib, n)
     if key not in _LIBS:
         _check_target(lib, n)
-        build((n,), (lib,))
+        build(((lib, n),))
         path = library_path(n, lib)
         handle = ctypes.CDLL(str(path))
         prefix, sigs = _SIGNATURES[lib]

@@ -1,5 +1,5 @@
-"""Losses of the colorless- and scattering-FDN objectives (counterpart of
-the matching subset of ``flamo_tpu/optimize/loss.py``)."""
+"""Losses of the FDN and active-acoustics objectives (counterpart of the
+matching subset of ``flamo_tpu/optimize/loss.py``)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import math
 import numpy as np
 import torch
 
+from flamo_tpu_torch.functional import eigvals
 from flamo_tpu_torch.optimize.utils import generate_partitions
 from flamo_tpu_torch.utils import next_key
 
@@ -120,3 +121,36 @@ class masked_mse_loss:
             mask = masks[int(step) % masks.shape[0]]
         mask = mask.to(y_pred.device)
         return torch.mean((y_pred[:, mask] - y_true[:, mask]) ** 2)
+
+
+class mse_evs:
+    """Eigenvalue-magnitude MSE over cycling bin partitions: the
+    active-acoustics training objective.  ``y_pred`` is the loop-matrix
+    spectrum (B, M, N, N) (``ActiveAcoustics.F_MM`` on diag-embedded
+    impulses), ``y_true`` the target magnitudes (B, M, N).  Step ``step``
+    reads partition ``step % n_masks`` of ``ceil(freq_points / iter_num)``
+    bins, so every bin is seen once per cycle; the eigenvalues come from
+    :func:`flamo_tpu_torch.functional.eigvals` (``torch.linalg.eigvals``
+    and its autograd).  The partitions are drawn from ``generator``
+    (another PRNG than JAX's); ``mask_indices`` may be replaced by the
+    caller's."""
+
+    name = "MSE_evs"
+    stateful = True
+
+    def __init__(self, iter_num: int, freq_points: int, generator=None,
+                 **kwargs):
+        self.iter_num = int(iter_num)
+        self.freq_points = int(freq_points)
+        n_samples = int(math.ceil(freq_points / iter_num))
+        self.mask_indices = generate_partitions(
+            torch.arange(self.freq_points), n_samples, 1,
+            generator=generator)
+        self.n_masks = self.mask_indices.shape[0]
+
+    def __call__(self, y_pred, y_true, step=None, state=None):
+        masks = self.mask_indices if state is None else state
+        i = 0 if step is None else int(step) % masks.shape[0]
+        idx = masks[i].to(y_pred.device)
+        evs_pred = torch.abs(eigvals(y_pred[:, idx]))
+        return torch.mean((evs_pred - y_true[:, idx]) ** 2)

@@ -460,6 +460,26 @@ class Filter(DSP):
         return torch.einsum("fmn,bfn...->bfm...", self.response(), x)
 
 
+class parallelFilter(Filter):
+    """Diagonal FIR filter, param (taps, N): one FIR per channel (the
+    active-acoustics rig's WGN reverb tail)."""
+
+    def check_param_shape(self):
+        _check(len(self.size) == 2,
+               "Filter must be 1D, for 2D filters use Filter module.")
+
+    def get_io(self):
+        self.input_channels = self.size[-1]
+        self.output_channels = self.size[-1]
+
+    def matrix_response(self):
+        return linop.DIAG, self.response()
+
+    def forward(self, x):
+        self.check_input_shape(x)
+        return torch.einsum("fn,bfn...->bfn...", self.response(), x)
+
+
 # -------------------- scattering feedback matrices -------------------------
 
 

@@ -13,6 +13,11 @@ elimination, and sums over bins reduced in another order).  Those hold
 for well-conditioned random SOS taps; the 12-section GEQ cascade is
 ill-conditioned near DC in float32, and its taps are held to the JAX
 package's bounds for its two GEQ backends (5e-3 values, 1e-3 gradients).
+The Durand-Kerner roots (K7) are held to the JAX package's 1e-4 max abs
+(the library is built without FMA contraction, so kernel and plain
+version should agree exactly); the active-acoustics steps K8 and K9 to
+1e-5 on the loss and 1e-4 of the max on the S rows and the tap
+cotangent (a second solve, and K9's sums over bins in another order).
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
-from flamo_tpu_torch.functional import expm_skew
+from flamo_tpu_torch.functional import charpoly, expm_skew, poly_roots_rows
+from flamo_tpu_torch.ops import aa_kernels as ak
+from flamo_tpu_torch.ops import eig_kernels as ek
 from flamo_tpu_torch.ops import fdn_kernels as fk
 from flamo_tpu_torch.ops import sos_kernels as sk
 from flamo_tpu_torch.processor import dsp
@@ -292,3 +299,131 @@ def test_cuda_sos_autograd_matches_plain_and_counts_launches(cuda):
     assert sk.LAUNCHES["fdn_sos_tf_mse"] == 2  # the CPU run launches nothing
     for g, r in zip(on_card, on_cpu):
         assert _rel(g, r) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 2, 4, 8])
+def test_cuda_dk_roots_matches_plain(cuda, N):
+    """K7 against its plain version at the eigenvalue step's B = 1601
+    polynomials (1e-4 max abs), in rows and in the complex layout; each
+    launch counted.  The polynomials are those eigvals_dk makes: the
+    char-polys of centred and scaled random complex matrices."""
+    rng = np.random.default_rng(N)
+    B = 1601
+    A = torch.tensor((rng.normal(size=(B, N, N)) + 1j * rng.normal(
+        size=(B, N, N))).astype(np.complex64), device="cuda")
+    Bm = A - torch.diagonal(A, dim1=-2, dim2=-1).mean(-1)[:, None, None] \
+        * torch.eye(N, dtype=A.dtype, device="cuda")
+    s = torch.sqrt(torch.sum(torch.abs(Bm) ** 2, dim=(-2, -1)) / N)
+    c = charpoly(Bm / torch.clamp(s, min=1e-30)[:, None, None]).T
+    cr, ci = torch.real(c).contiguous(), torch.imag(c).contiguous()
+    ek.reset_launch_counts()
+    zr, zi = ek.dk_roots_rows(cr, ci)
+    pr, pi = ek.dk_roots_rows_plain(cr, ci)
+    assert ek.LAUNCHES["dk_roots"] == 1
+    assert float((zr - pr).abs().max()) < 1e-4
+    assert float((zi - pi).abs().max()) < 1e-4
+    z = ek.dk_roots(torch.complex(cr, ci).T.contiguous())
+    torch.testing.assert_close(z, torch.complex(zr, zi).T, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+def _aa_operands(seed: int, N: int, L: int, M: int, order: int):
+    rng = np.random.default_rng(seed)
+
+    def rows(n, scale=1.0):
+        return torch.tensor((scale * rng.normal(size=(n, M)))
+                            .astype(np.float32), device="cuda")
+
+    return dict(hr=rows(N * L), hi=rows(N * L), gr=rows(L * N, 0.05),
+                gi=rows(L * N, 0.05), rr=rows(N), ri=rows(N),
+                t=torch.tensor(rng.uniform(size=(N, M)).astype(np.float32),
+                               device="cuda"),
+                tw=torch.tensor((0.05 / order * rng.normal(
+                    size=(order, L * N))).astype(np.float32), device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,L", [(1, 1), (2, 3), (4, 13), (8, 5)])
+@pytest.mark.parametrize("pivot", [True, False])
+def test_cuda_aa_tf_mse_matches_plain(cuda, N, L, pivot):
+    """K8 against its plain version at M = 4097 (1e-5 on the loss, 1e-4 of
+    the max on the S rows)."""
+    o = _aa_operands(N * 10 + L, N, L, 4097, 8)
+    args = [o[k] for k in ("hr", "hi", "gr", "gi", "rr", "ri", "t")]
+    got = ak.aa_tf_mse_kernel(*args, N, L, pivot)
+    ref = ak.aa_tf_mse_plain(*args, N, L, pivot)
+    assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5
+    for g, r in zip(got[1:], ref[1:]):
+        assert _rel(g, r) < 1e-4
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,L,order", [(1, 1, 1), (2, 3, 8), (4, 13, 100),
+                                       (3, 5, 37)])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("bin_offset", [0, 1000])
+def test_cuda_aa_taps_tf_mse_matches_plain(cuda, N, L, order, pivot,
+                                           bin_offset):
+    """K9 against its plain version at M = 4097, nfft = 8192, with and
+    without a bin offset (1e-5 on the loss, 1e-4 of the max on the tap
+    cotangent)."""
+    o = _aa_operands(order + N, N, L, 4097, order)
+    args = [o[k] for k in ("hr", "hi", "tw", "rr", "ri", "t")]
+    got = ak.aa_taps_tf_mse_kernel(*args, N, L, 8192, pivot,
+                                   bin_offset=bin_offset)
+    ref = ak.aa_taps_tf_mse_plain(*args, N, L, 8192, pivot, bin_offset)
+    assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5
+    assert _rel(got[1], ref[1]) < 1e-4
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_aa_autograd_matches_plain_and_counts_launches(cuda):
+    """aa_tf_mse, aa_taps_tf_mse and poly_roots_rows on the card:
+    gradients equal those of the same functions on the CPU (plain
+    versions), and each launch is counted."""
+    o = _aa_operands(5, 4, 13, 1000, 20)
+    rng = np.random.default_rng(6)
+    c0 = rng.normal(size=(2, 4, 300)).astype(np.float32)
+
+    def run(device):
+        x = {k: v.to(device) for k, v in o.items()}
+        gr, gi, tw = (x[k].detach().requires_grad_(True)
+                      for k in ("gr", "gi", "tw"))
+        cr, ci = (torch.tensor(c, device=device, requires_grad=True)
+                  for c in c0)
+        zr, zi = poly_roots_rows(cr, ci)
+        loss = (ak.aa_tf_mse(x["hr"], x["hi"], gr, gi, x["rr"], x["ri"],
+                             x["t"], 4, 13)
+                + ak.aa_taps_tf_mse(x["hr"], x["hi"], tw, x["rr"], x["ri"],
+                                    x["t"], 4, 13, 1998)
+                + torch.sum(zr * zr - zi))
+        loss.backward()
+        return [v.grad.cpu() for v in (gr, gi, tw, cr, ci)]
+
+    ak.reset_launch_counts()
+    ek.reset_launch_counts()
+    on_card = run("cuda")
+    assert ak.LAUNCHES == {"aa_tf_mse": 1, "aa_taps_tf_mse": 1}
+    assert ek.LAUNCHES == {"dk_roots": 1}
+    on_cpu = run("cpu")
+    assert ak.LAUNCHES["aa_taps_tf_mse"] == 1  # the CPU run launches none
+    for g, r in zip(on_card, on_cpu):
+        assert _rel(g, r) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_aa_and_eig_kernels_reject_unsupported_sizes(cuda):
+    o = _aa_operands(1, 4, 13, 100, 2000)
+    with pytest.raises(ValueError, match="shared memory"):
+        ak.aa_taps_tf_mse_kernel(*(o[k] for k in ("hr", "hi", "tw", "rr",
+                                                  "ri", "t")), 4, 13, 8192)
+    z = torch.zeros((9, 10), device="cuda")
+    with pytest.raises(ValueError, match="1..8"):
+        ak.aa_tf_mse_kernel(z, z, z, z, z, z, z, 9, 1)
+    with pytest.raises(ValueError, match="EIG_DK_MAX_N"):
+        ek.dk_roots_rows(z, z)
+    with pytest.raises(TypeError, match="float32"):
+        ek.dk_roots_rows(z[:4].double(), z[:4].double())

@@ -289,7 +289,9 @@ def test_masked_adam_matches_optax():
 def test_import_loads_no_jax():
     code = ("import sys, flamo_tpu_torch, flamo_tpu_torch.models, "
             "flamo_tpu_torch.models.attenuated_fdn, "
-            "flamo_tpu_torch.ops.sos_kernels, flamo_tpu_torch.auxiliary.eq; "
+            "flamo_tpu_torch.ops.sos_kernels, flamo_tpu_torch.auxiliary.eq, "
+            "flamo_tpu_torch.models.active_acoustics, "
+            "flamo_tpu_torch.ops.aa_kernels, flamo_tpu_torch.ops.eig_kernels; "
             "bad = [m for m in sys.modules if m in ('jax', 'flamo_tpu') or "
             "m.startswith(('jax.', 'flamo_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -306,7 +308,8 @@ def test_sources_import_no_jax():
     assert len(files) > 10
     port = REPO / "flamo_tpu_torch"
     for new in ("ops/sos_kernels.py", "auxiliary/eq.py",
-                "models/attenuated_fdn.py"):
+                "models/attenuated_fdn.py", "ops/aa_kernels.py",
+                "ops/eig_kernels.py", "models/active_acoustics.py"):
         assert port / new in files, new
     for f in files:
         assert not pattern.search(f.read_text()), f

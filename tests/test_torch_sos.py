@@ -259,21 +259,24 @@ def test_sos_guard_gives_eps_and_zero_gradient(pallas_interpret):
 
 def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
                                                           monkeypatch):
-    """Each kernel source builds one library per channel count (1..16),
-    named by a hash of every source file, and every entry point that the
-    loader binds is defined in its source with as many parameters."""
+    """Each kernel source builds one library per channel count (1..16; the
+    active-acoustics and eigenvalue kernels 1..8), named by a hash of every
+    source file, and every entry point that the loader binds is defined in
+    its source with as many parameters."""
     import re
     import shutil
 
     from flamo_tpu_torch.ops import cuda_build as cb
 
     libs = tuple(cb._SIGNATURES)
-    assert libs == ("fdn_kernels", "sos_kernels")
-    names = {cb.library_path(n, lib).name for lib in libs for n in (1, 6, 16)}
-    assert len(names) == 6
-    for bad in (0, 17):
-        with pytest.raises(ValueError, match="channels"):
-            cb._check_target("sos_kernels", bad)
+    assert libs == ("fdn_kernels", "sos_kernels", "aa_kernels", "eig_kernels")
+    names = {cb.library_path(n, lib).name for lib in libs
+             for n in (1, 6, cb.LIB_MAX_N[lib])}
+    assert len(names) == 12
+    for lib in libs:
+        for bad in (0, cb.LIB_MAX_N[lib] + 1):
+            with pytest.raises(ValueError, match="channels"):
+                cb._check_target(lib, bad)
     with pytest.raises(ValueError, match="unknown"):
         cb._check_target("sos", 6)
     for lib, (prefix, sigs) in cb._SIGNATURES.items():
