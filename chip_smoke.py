@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive flamo_tpu_torch's colorless-, attenuated- and scattering-FDN
-paths and its active-acoustics path on one CUDA card.
+paths, its active-acoustics path and its phase-2 micro-benchmark on one
+CUDA card.
 
 Run from the root of the repository:
 
@@ -21,7 +22,9 @@ Phases, in order; any failure raises and exits non-zero without a result:
    B = 1601 polynomials of degree 4 and 8, the active-acoustics steps K8
    (pivot on and off) and K9 (bin offset 0 and 24000) at M = 48001, N = 4
    microphones, L = 13 loudspeakers, 100 taps, on the magnitude rig's own
-   rows;
+   rows; the four variants of the phase-2 micro-benchmark K10 at its
+   published sizes (nfft = 96000, P = 3, K = 12, N = 6, 48128 bins), on
+   its own operands (t of ones) and on a seeded random t;
 3. the colorless slice at full width: build_colorless_fdn(nfft=96000) on
    the card; the graph loss through K2 against the 'ge' solve, the fused
    frequency response (K3f) against Shell.get_freq_response, the
@@ -57,8 +60,14 @@ Phases, in order; any failure raises and exits non-zero without a result:
    same partitions for AA_EVS_STEPS steps, timed: the first loss equals
    mse_evs's, the quarter means fall, K7 once per step; K7 against its
    plain version on the char-polys the first step handed it;
+4e. the phase-2 micro-benchmark: bench_phase2_micro.run for each of the
+   four K10 variants on the card (best of three windows of 50 calls, CUDA
+   events), its lines printed; each variant's value must equal its phase-2
+   kernel value on the same operands, and its kernel must have been
+   launched in the run;
 5. timing of each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call, beside the kernel's bound;
+   computes the same function, that call, beside the kernel's bound (for
+   K10 also the work of its passes counted as K5's distinct sections);
 6. torch.profiler traces of a few training steps of each path: the
    device's busy and idle share and the kernels that take its time;
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
@@ -78,7 +87,8 @@ the rows without a suffix) and sfdn_fit(masked=True) (P = 2000, the
 ``@P2000`` rows), K9 and K8 in the timed active-acoustics magnitude steps
 and K7 in the timed aa_evs_fit, each once per step (K6 once each way); K2,
 K3f, K3b, K4f and K4b, which no training step runs, in the graph-route and
-fused-tf calls of phases 3 and 4.  ``trace_retries`` counts a row's profiler traces
+fused-tf calls of phases 3 and 4; the K10 variants in phase 4e's
+bench_phase2_micro.run (151 calls each).  ``trace_retries`` counts a row's profiler traces
 that were taken again because they held none of its kernel.
 
 TF32 is off throughout: expm's matmuls and the references stay float32.
@@ -88,6 +98,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -115,8 +126,10 @@ from flamo_tpu_torch.ops import aa_kernels as ak
 from flamo_tpu_torch.ops import cuda_build
 from flamo_tpu_torch.ops import eig_kernels as ek
 from flamo_tpu_torch.ops import fdn_kernels as fk
+from flamo_tpu_torch.ops import phase2_micro as pm
 from flamo_tpu_torch.ops import sos_kernels as sk
 from flamo_tpu_torch.optimize import masked_mse_loss, mse_evs, sparsity_loss
+from flamo_tpu_torch.scripts import bench_phase2_micro as p2bench
 
 M_MAIN, N_MAIN, NFFT = 48001, 6, 96000
 K_MAIN, P_MAIN = 12, 3  # GEQ sections (octave bands + 3) and SOS taps
@@ -153,6 +166,8 @@ SOURCES = {
     "dk_roots": "flamo_tpu_torch/csrc/eig_kernels.cu",
     "aa_tf_mse": "flamo_tpu_torch/csrc/aa_kernels.cu",
     "aa_taps_tf_mse": "flamo_tpu_torch/csrc/aa_kernels.cu",
+    **{f"phase2_{v}": "flamo_tpu_torch/csrc/phase2_micro.cu"
+       for v in pm.VARIANTS},
 }
 REPLACES = {
     "fdn_tf_mse": "flamo_tpu/ops/pallas_solve.py:719",
@@ -168,6 +183,9 @@ REPLACES = {
     "dk_roots": "flamo_tpu/ops/pallas_eig.py:118",
     "aa_tf_mse": "flamo_tpu/ops/pallas_solve.py:1602",
     "aa_taps_tf_mse": "flamo_tpu/ops/pallas_solve.py:1820",
+    # the micro-benchmark's one pallas_call, one variant of _kernel each
+    **{f"phase2_{v}": "scripts/bench_phase2_micro.py:149"
+       for v in pm.VARIANTS},
 }
 # kernel vs plain version on the same inputs.  Per-bin values (tf, y, the
 # loss, H) differ only by rounding (FMA contraction, division order, the
@@ -213,6 +231,16 @@ SFDN_LOSS_TOL, SFDN_ROUTE_LOSS_TOL, SFDN_F64_TOL = 1e-5, 1e-3, 1e-7
 # and the eigenvalue step's first loss against mse_evs on the F_MM graph:
 # 1e-4, the JAX package's bounds (tests/test_ops.py, tests/test_models.py).
 DK_TOL, AA_LOSS_TOL, AA_GRAD_TOL, AA_GRAPH_TOL = 1e-4, 1e-5, 1e-4, 1e-4
+# K10 against its plain version: each result is a float32 sum over 48128
+# bins and 144 section passes (~7e6 terms of both signs, some large where
+# a section's response is small), reduced in another order (warp trees,
+# per-warp running sums and torch.sum against torch.sum per section), so
+# the gap is held to 1e-5 of the sum of the terms' magnitudes, which the
+# plain version computes beside the result; the plain version itself is
+# within 1.3e-7 of that scale of a float64 loop on the CPU.  Phase 4e's
+# run repeats phase 2's launch on the same operands: its value must be
+# identical (no atomics).
+P2_TOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -300,10 +328,45 @@ def _flops_aa_bin(N, L, pivot):
             + adjoint + L * N * (CMUL + 2) + L * N * CMUL)
 
 
+def _flops_phase2(variant: str, K: int, N: int, P: int,
+                  k5_sections: bool = False) -> int:
+    """FLOPs per bin of a K10 variant: the phasor and z^2 once; per
+    section pass the Horner sum, the guarded quotient and the projections
+    Re(q z), Re(q z^2) (3 each), each of the 3 terms added to its sum.
+    ``ps`` per channel: each section's response once, the prefix and
+    suffix products, the product's quotient and, for a pass over k,
+    pre_k suf_{k+1}, q and the same projections.
+
+    What the function needs: the passes s % K, s % N repeat with period
+    lcm(K, N), each repeat giving a bit-identical q, so it needs lcm(K, N)
+    passes (12 of 144 at K = 12, N = 6), and ps's two passes over k are
+    identical, so it needs one; each is summed once and its 3 sums scaled
+    by the repeat count.  With ``k5_sections`` every pass is counted as a
+    distinct section instead, as K5's tap phase has 2 K N of them: the
+    work the kernels do, and K5's."""
+    per_bin = PHASOR + CMUL
+    sums = 2 * 3 + 3
+    if variant == "ps":
+        passes = 2 if k5_sections else 1
+        per_channel = (K * (_flops_horner(P) + 2 * CMUL) + CABS2 + 1 + 8
+                       + passes * K * (2 * CMUL + sums))
+        return per_bin + N * per_channel + (0 if k5_sections else 3)
+    passes = 2 * K * N if k5_sections else math.lcm(K, N)
+    scale = 0 if passes == 2 * K * N else 3
+    return (per_bin + passes * (_flops_horner(P) + CABS2 + 1 + 8 + sums)
+            + scale)
+
+
 def kernel_work(name: str, M: int, N: int, pivot=False, with_dbar=False,
-                K=K_MAIN, P=P_MAIN, fuse_taps=True, L=AA_L, order=AA_ORDER):
+                K=K_MAIN, P=P_MAIN, fuse_taps=True, L=AA_L, order=AA_ORDER,
+                k5_sections=False):
     """(bytes moved once, FLOPs) of one launch.  For K7 M counts the
-    polynomials and N is their degree."""
+    polynomials and N is their degree; for K10 M counts the bins, and
+    ``k5_sections`` counts its passes as K5's distinct sections."""
+    if name.startswith("phase2_"):  # reads t and c, writes the partials
+        variant = name.removeprefix("phase2_")
+        return (8 * M + 4 * P * K * N + 4 * 3 * (-(-M // 128)),
+                M * _flops_phase2(variant, K, N, P, k5_sections))
     if name == "dk_roots":
         # per slot and iteration: Horner 8N, the product 8(N-1), |d|^2,
         # the reciprocal, the quotient and the update 14
@@ -446,7 +509,8 @@ def phase_build() -> str:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     targets = (("fdn_kernels", N_MAIN), ("sos_kernels", N_MAIN),
-               ("aa_kernels", AA_N), ("eig_kernels", AA_N), ("eig_kernels", 8))
+               ("aa_kernels", AA_N), ("eig_kernels", AA_N), ("eig_kernels", 8),
+               ("phase2_micro", 1))
     seconds = cuda_build.build(targets)
     names = [cuda_build.library_path(n, lib).name for lib, n in targets]
     for lib, n in targets:
@@ -756,6 +820,58 @@ def phase_kernels_aa(o, errs: dict) -> None:
         if not pivot and off == 0:  # the variant aa_fused_taps_step runs
             errs["aa_taps_tf_mse"] = max(e)
     torch.cuda.synchronize()
+
+
+def phase_kernels_p2(errs: dict) -> dict:
+    """The four K10 variants against their plain versions at the
+    micro-benchmark's sizes, on its operands and on a seeded random t;
+    adds each variant's max abs error to ``errs`` and returns its kernel
+    value on the benchmark's operands."""
+    t1, c = p2bench.inputs("cuda")
+    tr = torch.tensor(np.random.default_rng(SEED + 3).normal(
+        size=tuple(t1.shape)).astype(np.float32), device="cuda")
+    print(f"  K10 phase2_micro at nfft={p2bench.NFFT}, P={p2bench.P}, "
+          f"K={p2bench.K}, N={p2bench.N}, {t1.shape[1]} bins")
+    values = {}
+    for v in pm.VARIANTS:
+        e = []
+        for label, t in (("t of ones", t1), ("random t", tr)):
+            got = pm.phase2_micro(v, t, c, p2bench.NFFT)
+            ref = pm.phase2_micro_plain(v, t, c, p2bench.NFFT)
+            scale = pm.phase2_micro_plain(v, t, c, p2bench.NFFT,
+                                          magnitude=True)
+            err = (got - ref).abs()
+            rel = float((err / scale.clamp_min(1e-30)).max())
+            print(f"  K10 {v} ({label}): kernel {got.tolist()}, plain "
+                  f"{ref.tolist()}, max abs err {float(err.max()):.3e}, "
+                  f"{rel:.3e} of the terms' magnitudes (tol {P2_TOL:g})")
+            check(rel <= P2_TOL, f"K10 {v} ({label}): {rel:.3e} > {P2_TOL}")
+            e.append(float(err.max()))
+            if label == "t of ones":
+                values[v] = got
+        errs[f"phase2_{v}"] = max(e)
+    torch.cuda.synchronize()
+    return values
+
+
+def phase_micro(card: str, values: dict) -> dict:
+    """The micro-benchmark path: bench_phase2_micro.run for each K10
+    variant on the card.  Returns each row's launches in the run."""
+    print(f"phase 4e the phase-2 micro-benchmark: bench_phase2_micro.run "
+          f"on {card}")
+    launches = {}
+    for v in pm.VARIANTS:
+        pm.reset_launch_counts()
+        value, _ = p2bench.run(v)
+        counts = dict(pm.LAUNCHES)
+        launches[f"phase2_{v}"] = counts[v]
+        check(counts == {k: (counts[v] if k == v else 0) for k in counts}
+              and counts[v] > 0, f"run({v!r}) should launch its kernel "
+              f"and no other: {counts}")
+        check(torch.equal(value, values[v]), f"run({v!r}) gave "
+              f"{value.tolist()}, phase 2's kernel {values[v].tolist()}")
+    print(f"  launches in the runs: {launches}")
+    return launches
 
 
 def grads_of(model):
@@ -1242,6 +1358,32 @@ def phase_timing(o, launches, errs, card) -> list:
             print(f"  fdn_sos_tf_mse pivot={pivot} fuse_taps={fuse_taps} "
                   f"with_dbar={with_dbar}: kernel {ms_v:.4f} ms{extra}, "
                   f"bound {bms:.5f} ms ({by})")
+    # K10 on the micro-benchmark's operands; no PyTorch call computes it
+    t, c = p2bench.inputs("cuda")
+    nfft = p2bench.NFFT
+    p2_rows = [timing_row(
+        f"phase2_{v}", f"phase2_{v}", t.shape[1],
+        lambda v=v: pm.phase2_micro(v, t, c, nfft),
+        lambda v=v: pm.phase2_micro_plain(v, t, c, nfft), None,
+        dict(K=p2bench.K, P=p2bench.P), launches, errs, N=p2bench.N,
+        plain_reps=2) for v in pm.VARIANTS]
+    ms = {r["name"]: r["ms"] for r in rows + p2_rows}
+    print(f"  K10 beside K5 and K4b in this call (device ms): "
+          + ", ".join(f"{v} {ms[f'phase2_{v}']:.6f}" for v in pm.VARIANTS)
+          + f"; full - noreduce {ms['phase2_full'] - ms['phase2_noreduce']:.6f}"
+          f", lanered - noreduce "
+          f"{ms['phase2_lanered'] - ms['phase2_noreduce']:.6f}; K5 "
+          f"{ms['fdn_sos_tf_mse']:.6f}, K4b {ms['sos_cascade_bwd']:.6f}")
+    # the kernels' own work, every pass a distinct section as in K5's tap
+    # phase; bound_ms counts only the distinct passes the function needs
+    for r in p2_rows:
+        k5ms, k5by = bound(r["name"], t.shape[1], p2bench.N, K=p2bench.K,
+                           P=p2bench.P, k5_sections=True)
+        print(f"  {r['name']}: bound_ms {r['bound_ms']:.6f} (distinct "
+              f"passes, kernel at {r['ms'] / r['bound_ms']:.1f}x); with "
+              f"every pass a K5 section {k5ms:.6f} ms ({k5by}), kernel at "
+              f"{r['ms'] / k5ms:.2f}x")
+    rows += p2_rows
     # K7 on the eigenvalue step's char-polys (torch.linalg.eigvals of their
     # companion matrices computes the same roots in one call), K8 and K9
     # on the magnitude rig's rows, in the variants the trainers run; last,
@@ -1402,6 +1544,7 @@ def main() -> int:
     o["aa"] = aa_kernel_operands(rig)
     errs = phase_kernels(o)
     phase_kernels_aa(o["aa"], errs)
+    p2_values = phase_kernels_p2(errs)
     took["2 kernels"] = seconds_since_last()
     launches, step_ms = phase_slice(card)
     took["3 colorless"] = seconds_since_last()
@@ -1419,6 +1562,8 @@ def main() -> int:
         card)
     errs["dk_roots"] = max(errs["dk_roots"], dk_err)
     took["4d aa eigenvalues"] = seconds_since_last()
+    launches.update(phase_micro(card, p2_values))
+    took["4e micro-benchmark"] = seconds_since_last()
     rows = phase_timing(o, launches, errs, card)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)

@@ -18,10 +18,8 @@
 // _iir_guard_prods; a single section whose |B_k|^2 or |A_k|^2 is 0 adds
 // nothing to the tap cotangents.  Taps are (P, K, N) float32, row-major.
 // K and P are runtime sizes (loops, no per-section arrays): P <= kMaxP,
-// K <= kMaxK.  The phasor is made per bin from the bin index, in float32
-// as the TPU kernel's _bin_phasor: w = (2 pi / nfft) (m + off), with the
-// accurate sincosf (near m = nfft/2 the angle is close to pi, where the
-// fast intrinsics lose digits).
+// K <= kMaxK.  The phasor, the Horner sum and the warp reductions are
+// sos_common.cuh's, which phase2_micro.cu shares.
 //
 // What bounds them on an H100: arithmetic.  At N = 6, K = 12, P = 3 a bin
 // costs ~3.0 kFLOP of Horner and products in K4f, ~7.7 kFLOP in K4b (the
@@ -47,38 +45,13 @@
 #include <cfloat>
 #include <cstddef>
 
-#include "fdn_ge.cuh"
+#include "sos_common.cuh"
 
 namespace sos {
 
-using fdn::cabs2;
-using fdn::cmul;
-using fdn::kThreads;
-
 constexpr int kBadN = -1;
 constexpr int kBadSize = -2;
-constexpr int kMaxP = 8;
-constexpr int kMaxK = 64;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSharedFloats = 48 * 1024 / 4;
-
-__device__ __forceinline__ float2 bin_phasor(int m, float w_scale, float off) {
-  const float w = w_scale * (static_cast<float>(m) + off);
-  float s, c;
-  sincosf(w, &s, &c);
-  return make_float2(c, -s);
-}
-
-// sum_p c[p * stride] z^p by Horner, from the highest tap down
-__device__ __forceinline__ float2 horner(const float* __restrict__ c, int stride, int P,
-                                         float2 z) {
-  float2 out = make_float2(__ldg(c + (P - 1) * stride), 0.0f);
-  for (int p = P - 2; p >= 0; --p) {
-    out = cmul(out, z);
-    out.x += __ldg(c + p * stride);
-  }
-  return out;
-}
 
 // Guarded cascade response of channel n; ok is false where the
 // denominator product vanished (the response is then FLT_EPSILON).
@@ -96,24 +69,6 @@ __device__ __forceinline__ float2 cascade(const float* __restrict__ b, const flo
   const float inv = 1.0f / (ok ? den : 1.0f);
   return ok ? make_float2((pb.x * pa.x + pb.y * pa.y) * inv, (pb.y * pa.x - pb.x * pa.y) * inv)
             : make_float2(FLT_EPSILON, 0.0f);
-}
-
-// Sum one per-thread value over the warp; lane 0 parks it in the warp's
-// shared-memory row of nv values.  Every thread of the block calls it.
-__device__ __forceinline__ void put(float* red, int nv, int idx, float v) {
-  v = fdn::warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[(threadIdx.x >> 5) * nv + idx] = v;
-}
-
-// After all put calls: add the warps' rows into this block's row.
-__device__ __forceinline__ void store_row(const float* red, int nv, float* __restrict__ row) {
-  __syncthreads();
-  for (int v = threadIdx.x; v < nv; v += kThreads) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * nv + v];
-    row[v] = s;
-  }
 }
 
 // Tap cotangents of channel n from t = (cotangent of H_n) * H_n, masked:

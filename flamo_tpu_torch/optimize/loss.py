@@ -10,7 +10,7 @@ import torch
 
 from flamo_tpu_torch.functional import eigvals
 from flamo_tpu_torch.optimize.utils import generate_partitions
-from flamo_tpu_torch.utils import next_key
+from flamo_tpu_torch.utils import next_key, resolve_device
 
 
 class sparsity_loss:
@@ -61,8 +61,9 @@ class masked_mse_loss:
     a base seed (drawn once from ``generator``) and c: a fresh
     ``torch.Generator`` seeded from both draws them, so every caller that
     names a step sees the same mask.  They are not JAX's masks (another
-    PRNG).  The masks live on ``device`` (default the CPU); the last
-    cycle's are kept, so a training loop draws each cycle once."""
+    PRNG).  The masks live on ``device`` (default the CUDA card, raising
+    without one, as every entry point; ``device="cpu"`` to run there); the
+    last cycle's are kept, so a training loop draws each cycle once."""
 
     name = "maskedMSE"
     stateful = True
@@ -74,7 +75,7 @@ class masked_mse_loss:
         self.n_samples = n_samples
         self.n_sets = n_sets
         self.regenerate_mask = regenerate_mask
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self._base_seed = int(torch.randint(
             0, 2**62, (1,), generator=next_key(generator)))
         self._cached = None

@@ -18,6 +18,9 @@ The Durand-Kerner roots (K7) are held to the JAX package's 1e-4 max abs
 version should agree exactly); the active-acoustics steps K8 and K9 to
 1e-5 on the loss and 1e-4 of the max on the S rows and the tap
 cotangent (a second solve, and K9's sums over bins in another order).
+The phase-2 micro-benchmark kernels (K10) are held to 1e-5 of the sum of
+their terms' magnitudes (float32 sums of ~7e6 terms of both signs in
+another order).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from flamo_tpu_torch.functional import charpoly, expm_skew, poly_roots_rows
 from flamo_tpu_torch.ops import aa_kernels as ak
 from flamo_tpu_torch.ops import eig_kernels as ek
 from flamo_tpu_torch.ops import fdn_kernels as fk
+from flamo_tpu_torch.ops import phase2_micro as pm
 from flamo_tpu_torch.ops import sos_kernels as sk
 from flamo_tpu_torch.processor import dsp
 
@@ -427,3 +431,41 @@ def test_cuda_aa_and_eig_kernels_reject_unsupported_sizes(cuda):
         ek.dk_roots_rows(z, z)
     with pytest.raises(TypeError, match="float32"):
         ek.dk_roots_rows(z[:4].double(), z[:4].double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", pm.VARIANTS)
+@pytest.mark.parametrize("P,K,N,M,nfft,ones", [
+    (3, 12, 6, 48128, 96000, True),   # the micro-benchmark's operands
+    (3, 12, 6, 48128, 96000, False),
+    (2, 5, 3, 1000, 2000, False),
+    (5, 16, 2, 4097, 8192, False),    # ps at its register limit
+])
+def test_cuda_phase2_micro_matches_plain(cuda, variant, P, K, N, M, nfft,
+                                         ones):
+    rng = np.random.default_rng(P * K * N + M)
+    t = (np.ones((2, M)) if ones else rng.normal(size=(2, M)))
+    t = torch.tensor(t.astype(np.float32), device="cuda")
+    c = torch.tensor(rng.uniform(0.5, 1.5, (P, K, N)).astype(np.float32),
+                     device="cuda")
+    pm.reset_launch_counts()
+    got = pm.phase2_micro(variant, t, c, nfft)
+    assert pm.LAUNCHES[variant] == 1
+    assert torch.equal(got, pm.phase2_micro(variant, t, c, nfft))
+    ref = pm.phase2_micro_plain(variant, t, c, nfft)
+    scale = pm.phase2_micro_plain(variant, t, c, nfft, magnitude=True)
+    assert got.shape == ref.shape == (3,)
+    assert bool(torch.all((got - ref).abs() <= 1e-5 * scale)), (got, ref)
+
+
+@pytest.mark.gpu
+def test_cuda_phase2_micro_rejects_unsupported_sizes(cuda):
+    t = torch.ones((2, 256), device="cuda")
+    with pytest.raises(ValueError, match="1..64"):
+        pm.phase2_micro("full", t, torch.ones((3, 65, 2), device="cuda"), 512)
+    with pytest.raises(ValueError, match="1..16"):
+        pm.phase2_micro("ps", t, torch.ones((3, 17, 2), device="cuda"), 512)
+    with pytest.raises(ValueError, match="2..8"):
+        pm.phase2_micro("full", t, torch.ones((9, 4, 2), device="cuda"), 512)
+    with pytest.raises(ValueError, match="different devices"):
+        pm.phase2_micro("full", t, torch.ones((3, 4, 2)), 512)

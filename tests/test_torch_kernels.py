@@ -291,7 +291,9 @@ def test_import_loads_no_jax():
             "flamo_tpu_torch.models.attenuated_fdn, "
             "flamo_tpu_torch.ops.sos_kernels, flamo_tpu_torch.auxiliary.eq, "
             "flamo_tpu_torch.models.active_acoustics, "
-            "flamo_tpu_torch.ops.aa_kernels, flamo_tpu_torch.ops.eig_kernels; "
+            "flamo_tpu_torch.ops.aa_kernels, flamo_tpu_torch.ops.eig_kernels, "
+            "flamo_tpu_torch.ops.phase2_micro, "
+            "flamo_tpu_torch.scripts.bench_phase2_micro; "
             "bad = [m for m in sys.modules if m in ('jax', 'flamo_tpu') or "
             "m.startswith(('jax.', 'flamo_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -309,7 +311,8 @@ def test_sources_import_no_jax():
     port = REPO / "flamo_tpu_torch"
     for new in ("ops/sos_kernels.py", "auxiliary/eq.py",
                 "models/attenuated_fdn.py", "ops/aa_kernels.py",
-                "ops/eig_kernels.py", "models/active_acoustics.py"):
+                "ops/eig_kernels.py", "models/active_acoustics.py",
+                "ops/phase2_micro.py", "scripts/bench_phase2_micro.py"):
         assert port / new in files, new
     for f in files:
         assert not pattern.search(f.read_text()), f

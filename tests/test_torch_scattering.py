@@ -325,11 +325,14 @@ def test_masks_are_disjoint_partitions_and_pure():
     for s in (parts[:8], parts[8:]):
         assert len(torch.unique(s)) == 8 * 128
     ml = masked_mse_loss(nfft=NFFT, n_samples=N_SAMPLES,
-                         generator=torch.Generator().manual_seed(7))
+                         generator=torch.Generator().manual_seed(7),
+                         device="cpu")
     same = masked_mse_loss(nfft=NFFT, n_samples=N_SAMPLES,
-                           generator=torch.Generator().manual_seed(7))
+                           generator=torch.Generator().manual_seed(7),
+                           device="cpu")
     other = masked_mse_loss(nfft=NFFT, n_samples=N_SAMPLES,
-                            generator=torch.Generator().manual_seed(8))
+                            generator=torch.Generator().manual_seed(8),
+                            device="cpu")
     assert ml.n_masks == 8 and ml.mask_indices.shape == (8, N_SAMPLES)
     c3 = ml.masks_for_cycle(3).clone()
     assert torch.equal(ml.masks_for_cycle(0), same.masks_for_cycle(0))
@@ -340,6 +343,16 @@ def test_masks_are_disjoint_partitions_and_pure():
     y, t = torch.rand((1, M, 1)), torch.zeros((1, M, 1))
     assert torch.equal(ml(y, t, step=8 * 3 + 5),
                        torch.mean(y[:, c3[5]] ** 2))
+
+
+def test_masked_mse_loss_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the masks go to the CUDA card, as every entry
+    point's default: where there is none, it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        masked_mse_loss(nfft=NFFT, n_samples=N_SAMPLES)
+    ml = masked_mse_loss(nfft=NFFT, n_samples=N_SAMPLES, device="cpu")
+    assert ml.mask_indices.device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +376,7 @@ def test_sfdn_graph_loss_and_grads_match_jax(sfdn, jax_steps, jax_masks):
     losses, gj, _ = jax_steps[False]
     lj = losses[0]
     mt = _port(sfdn)
-    ml_t = masked_mse_loss(nfft=NFFT, n_samples=N_SAMPLES)
+    ml_t = masked_mse_loss(nfft=NFFT, n_samples=N_SAMPLES, device="cpu")
     x, t = _io_torch()
     est = mt(x)
     lt = ml_t(est, t, step=0) + 0.2 * sparsity_loss()(est, t, mt)

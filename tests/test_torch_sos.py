@@ -260,7 +260,8 @@ def test_sos_guard_gives_eps_and_zero_gradient(pallas_interpret):
 def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
                                                           monkeypatch):
     """Each kernel source builds one library per channel count (1..16; the
-    active-acoustics and eigenvalue kernels 1..8), named by a hash of every
+    active-acoustics and eigenvalue kernels 1..8; the phase-2
+    micro-benchmark one library, as N = 1), named by a hash of every
     source file, and every entry point that the loader binds is defined in
     its source with as many parameters."""
     import re
@@ -269,10 +270,12 @@ def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
     from flamo_tpu_torch.ops import cuda_build as cb
 
     libs = tuple(cb._SIGNATURES)
-    assert libs == ("fdn_kernels", "sos_kernels", "aa_kernels", "eig_kernels")
+    assert libs == ("fdn_kernels", "sos_kernels", "aa_kernels", "eig_kernels",
+                    "phase2_micro")
+    assert cb.LIB_MAX_N["phase2_micro"] == 1
     names = {cb.library_path(n, lib).name for lib in libs
-             for n in (1, 6, cb.LIB_MAX_N[lib])}
-    assert len(names) == 12
+             for n in {1, min(6, cb.LIB_MAX_N[lib]), cb.LIB_MAX_N[lib]}}
+    assert len(names) == 13
     for lib in libs:
         for bad in (0, cb.LIB_MAX_N[lib] + 1):
             with pytest.raises(ValueError, match="channels"):
@@ -290,16 +293,18 @@ def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
             params = found.group(1).strip()
             assert len(argtypes) == (params.count(",") + 1 if params else 0), \
                 name
-    # an edit of the shared header renames both libraries
+    # an edit of either shared header renames every library
     csrc = tmp_path / "csrc"
     shutil.copytree(cb.CSRC, csrc)
     before = [cb.library_path(6, lib) for lib in libs]
     monkeypatch.setattr(cb, "CSRC", csrc)
     assert [cb.library_path(6, lib) for lib in libs] == before
-    with open(csrc / "fdn_ge.cuh", "a") as f:
-        f.write("\n")
-    assert all(a != b for a, b in zip(
-        (cb.library_path(6, lib) for lib in libs), before))
+    for header in ("fdn_ge.cuh", "sos_common.cuh"):
+        with open(csrc / header, "a") as f:
+            f.write("\n")
+        after = [cb.library_path(6, lib) for lib in libs]
+        assert all(a != b for a, b in zip(after, before)), header
+        before = after
 
 
 def test_sos_kernels_reject_bad_operands():
