@@ -23,7 +23,13 @@ float32): ``hr``/``hi`` (N L, M), row i L + j = H[i, j]; ``gr``/``gi``
   mixer taps ``tw`` (order, L N), ``G = tw^T P`` with the DFT powers
   ``P_t(m) = e^{-j 2 pi t (m + bin_offset) / nfft}`` made inside the
   kernel; the gradient is the tap cotangent
-  ``tb[t, jk] = sum_m Re S_jk Re P_t - Im S_jk Im P_t``.
+  ``tb[t, jk] = sum_m Re S_jk Re P_t - Im S_jk Im P_t``.  ``precision``
+  sets the arithmetic of those two contractions: 'highest' is FP32 on
+  CUDA cores (``aa_taps_tf_mse_kernel``); 'high' (the default) is three
+  TF32 tensor-core products of split operands, ``a_hi b_hi + a_hi b_lo +
+  a_lo b_hi`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, the scheme
+  of JAX's 'high' with TF32 in place of bf16; 'default' is ``a_hi b_hi``
+  alone (both ``aa_taps_tf_mse_tc_kernel``).
 
 Each ``*_kernel`` wrapper launches its CUDA kernel for CUDA tensors (and
 counts the launch in :data:`LAUNCHES`) and runs the plain version for CPU
@@ -50,13 +56,18 @@ from flamo_tpu_torch.ops.solve import (_gauss_solve_raw, _ge_nopivot_factor,
 LIB = "aa_kernels"
 MAX_N = cuda_build.LIB_MAX_N[LIB]
 PRECISIONS = ("default", "high", "highest")
-# K9's tile of bins, register tile and dynamic shared memory limit (as
-# in aa_kernels.cu)
+# K9's TF32 passes at each precision (0: the FP32 kernel)
+PASSES = {"high": 3, "default": 1, "highest": 0}
+# K9's tile of bins, register tile and dynamic shared memory limit, and
+# the row stride of the tensor-core kernel's tiles (as in aa_kernels.cu)
 _TAP_BINS, _Q, _MAX_SMEM = 64, 4, 232448
+_TC_STRIDE = 2 * 64 + 4
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
-# count)
-LAUNCHES = {"aa_tf_mse": 0, "aa_taps_tf_mse": 0}
+# count); K9 counts its FP32 kernel ('highest') and its tensor-core kernel
+# at each TF32 precision apart
+LAUNCHES = {"aa_tf_mse": 0, "aa_taps_tf_mse": 0, "aa_taps_tf_mse_tc_high": 0,
+            "aa_taps_tf_mse_tc_default": 0}
 
 
 def reset_launch_counts() -> None:
@@ -108,14 +119,45 @@ def dft_powers(order: int, M: int, nfft: int, bin_offset: int = 0,
     return torch.cos(w), -torch.sin(w)
 
 
+def tf32_round(x):
+    """``x`` (float32) rounded to TF32, 10 mantissa bits, to nearest with
+    ties away from zero, as PTX ``cvt.rna.tf32.f32``: on the int32 bits,
+    ``(bits + 0x1000) & 0xFFFFE000`` (for finite values; the carry rounds
+    into the exponent)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, precision: str):
+    """``a @ b`` as K9's tensor-core kernel computes it: 'high' is
+    ``a_hi b_hi + a_hi b_lo + a_lo b_hi``, 'default' ``a_hi b_hi``, with
+    ``hi = tf32(x)`` and ``lo = tf32(x - hi)``; each product of TF32
+    values is exact in float32, so float32 matmuls repeat it."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if precision == "default":
+        return ah @ bh
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
 def aa_taps_tf_mse_plain(hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
-                         pivot: bool = False, bin_offset: int = 0):
-    """K9's function: ``(loss, tb)``, the tap cotangent (order, L N)."""
+                         pivot: bool = False, bin_offset: int = 0,
+                         precision: str = "high"):
+    """K9's function: ``(loss, tb)``, the tap cotangent (order, L N), with
+    the two contractions in ``precision``'s arithmetic."""
+    if precision not in PRECISIONS:
+        raise ValueError("precision must be 'default', 'high' or 'highest'")
     M = hr.shape[-1]
     Pr, Pi = dft_powers(tw.shape[0], M, nfft, bin_offset, hr.device)
-    loss, Sr, Si = aa_tf_mse_plain(hr, hi, tw.T @ Pr, tw.T @ Pi, rr, ri, t,
+    if precision == "highest":
+        loss, Sr, Si = aa_tf_mse_plain(hr, hi, tw.T @ Pr, tw.T @ Pi, rr, ri,
+                                       t, N, L, pivot)
+        return loss, Pr @ Sr.T - Pi @ Si.T
+    P2 = torch.cat([Pr, Pi], dim=1)  # (order, 2 M)
+    G2 = _tf32_matmul(tw.T, P2, precision)
+    loss, Sr, Si = aa_tf_mse_plain(hr, hi, G2[:, :M], G2[:, M:], rr, ri, t,
                                    N, L, pivot)
-    return loss, Pr @ Sr.T - Pi @ Si.T
+    return loss, _tf32_matmul(P2, torch.cat([Sr, -Si], dim=1).T, precision)
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +215,13 @@ def taps_smem_bytes(order: int, LN: int) -> int:
     return _TAP_BINS * 8 * (op + 1 + lp + 1) + 4 * op * lp
 
 
+def taps_tc_smem_bytes(order: int, LN: int) -> int:
+    """The tensor-core K9's dynamic shared memory per block (as in
+    aa_kernels.cu): a tile's powers (order padded to 16) and its G/S rows
+    (L N padded to 8), rows of 2 x 64 bins + 4."""
+    return 4 * _TC_STRIDE * (-(-order // 16) * 16 + -(-LN // 8) * 8)
+
+
 def _check_taps_args(precision: str, bin_offset, nfft: int):
     if precision not in PRECISIONS:
         raise ValueError("precision must be 'default', 'high' or 'highest'")
@@ -188,33 +237,38 @@ def _check_taps_args(precision: str, bin_offset, nfft: int):
 def aa_taps_tf_mse_kernel(hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
                           pivot: bool = False, precision: str = "high",
                           bin_offset=None):
-    """K9 wrapper: ``(loss, tb)``.  Every ``precision`` is FP32 here."""
+    """K9 wrapper: ``(loss, tb)``.  On the card 'highest' launches the FP32
+    kernel and 'high'/'default' the tensor-core kernel with 3 or 1 TF32
+    passes; on the CPU the plain version of the same precision runs."""
     off = _check_taps_args(precision, bin_offset, nfft)
     M = _check_rows(N, L, dict(hr=hr, hi=hi, tw=tw, rr=rr, ri=ri, t=t))
     if not _on_cuda(hr, hi, tw, rr, ri, t):
         return aa_taps_tf_mse_plain(hr, hi, tw, rr, ri, t, N, L, nfft, pivot,
-                                    off)
-    order = tw.shape[0]
-    need = taps_smem_bytes(order, L * N)
+                                    off, precision)
+    order, passes = tw.shape[0], PASSES[precision]
+    key = f"aa_taps_tf_mse_tc_{precision}" if passes else "aa_taps_tf_mse"
+    name = "aa_taps_tf_mse_tc_kernel" if passes else "aa_taps_tf_mse_kernel"
+    need = (taps_tc_smem_bytes if passes else taps_smem_bytes)(order, L * N)
     if need > _MAX_SMEM:
-        raise ValueError(f"kernel K9 needs {need} bytes of shared memory "
-                         f"for order = {order} and L N = {L * N}; a block "
-                         f"has {_MAX_SMEM}")
+        raise ValueError(f"kernel K9 ({name}, precision={precision!r}) "
+                         f"needs {need} bytes of shared memory for order = "
+                         f"{order} and L N = {L * N}; a block has "
+                         f"{_MAX_SMEM}")
     lib = cuda_build.load(N, LIB)
     hr, hi, tw, rr, ri, t = (x.contiguous() for x in (hr, hi, tw, rr, ri, t))
     with torch.cuda.device(hr.device):
-        grid = lib.aa_taps_grid(N, int(pivot), order, L, M)
-        cuda_build.check(grid if grid < 0 else 0, "aa_taps_grid", N, LIB)
+        grid = lib.aa_taps_grid(N, int(pivot), passes, order, L, M)
+        cuda_build.check(grid if grid < 0 else 0, f"{name} grid", N, LIB)
         loss_row = torch.empty((M,), dtype=torch.float32, device=hr.device)
         partials = torch.empty((grid, order, L * N), dtype=torch.float32,
                                device=hr.device)
         rc = lib.aa_taps_tf_mse_launch(
-            N, int(pivot), hr.data_ptr(), hi.data_ptr(), tw.data_ptr(),
-            rr.data_ptr(), ri.data_ptr(), t.data_ptr(), loss_row.data_ptr(),
-            partials.data_ptr(), 2.0 / (M * N), L, M, order, nfft,
-            off % nfft, 2.0 * math.pi / nfft, grid, _stream(hr))
-    cuda_build.check(rc, "aa_taps_tf_mse_kernel", N, LIB)
-    LAUNCHES["aa_taps_tf_mse"] += 1
+            N, int(pivot), passes, hr.data_ptr(), hi.data_ptr(),
+            tw.data_ptr(), rr.data_ptr(), ri.data_ptr(), t.data_ptr(),
+            loss_row.data_ptr(), partials.data_ptr(), 2.0 / (M * N), L, M,
+            order, nfft, off % nfft, 2.0 * math.pi / nfft, grid, _stream(hr))
+    cuda_build.check(rc, name, N, LIB)
+    LAUNCHES[key] += 1
     return torch.sum(loss_row) / (M * N), torch.sum(partials, dim=0)
 
 
@@ -271,8 +325,10 @@ def aa_taps_tf_mse(hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
     Counterpart of ``pallas_aa_taps_tf_mse``, same arguments.
 
     ``precision`` must be 'default', 'high' or 'highest' (anything else
-    raises ``ValueError``); all three compute in FP32 on CUDA cores, i.e.
-    as the JAX package's 'highest'.  ``bin_offset`` (a whole number,
+    raises ``ValueError``): on the card 'highest' is FP32 on CUDA cores,
+    'high' three TF32 tensor-core passes of split operands (JAX's 3-pass
+    bf16 'high' with TF32 in place of bf16) and 'default' one TF32 pass.
+    ``bin_offset`` (a whole number,
     default 0) evaluates row j at global bin ``j + bin_offset``; the loss
     is normalized by the local row count."""
     return _AaTapsTfMse.apply(hr, hi, tw, rr, ri, t, N, L, nfft, pivot,

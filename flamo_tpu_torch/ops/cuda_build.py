@@ -82,10 +82,10 @@ _SIGNATURES = {
         "aa_error_string": (ctypes.c_char_p, [_I]),
         "aa_tf_mse_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _F, _I, _I, _P]),
-        "aa_taps_grid": (_I, [_I, _I, _I, _I, _I]),
-        "aa_taps_tf_mse_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                       _P, _F, _I, _I, _I, _I, _I, _F, _I,
-                                       _P]),
+        "aa_taps_grid": (_I, [_I, _I, _I, _I, _I, _I]),
+        "aa_taps_tf_mse_launch": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _F, _I, _I, _I, _I, _I, _F,
+                                       _I, _P]),
     }),
     "eig_kernels": ("eig", {
         "eig_threads_per_block": (_I, []),

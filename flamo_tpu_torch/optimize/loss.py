@@ -133,19 +133,22 @@ class mse_evs:
     bins, so every bin is seen once per cycle; the eigenvalues come from
     :func:`flamo_tpu_torch.functional.eigvals` (``torch.linalg.eigvals``
     and its autograd).  The partitions are drawn from ``generator``
-    (another PRNG than JAX's); ``mask_indices`` may be replaced by the
-    caller's."""
+    (another PRNG than JAX's) and live on ``device`` (default the CUDA
+    card, raising without one, as every entry point; ``device="cpu"`` to
+    run there), so a step on that device copies none; ``mask_indices``
+    may be replaced by the caller's."""
 
     name = "MSE_evs"
     stateful = True
 
     def __init__(self, iter_num: int, freq_points: int, generator=None,
-                 **kwargs):
+                 device=None, **kwargs):
         self.iter_num = int(iter_num)
         self.freq_points = int(freq_points)
+        self.device = resolve_device(device)
         n_samples = int(math.ceil(freq_points / iter_num))
         self.mask_indices = generate_partitions(
-            torch.arange(self.freq_points), n_samples, 1,
+            torch.arange(self.freq_points, device=self.device), n_samples, 1,
             generator=generator)
         self.n_masks = self.mask_indices.shape[0]
 

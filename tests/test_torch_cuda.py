@@ -17,7 +17,8 @@ The Durand-Kerner roots (K7) are held to the JAX package's 1e-4 max abs
 (the library is built without FMA contraction, so kernel and plain
 version should agree exactly); the active-acoustics steps K8 and K9 to
 1e-5 on the loss and 1e-4 of the max on the S rows and the tap
-cotangent (a second solve, and K9's sums over bins in another order).
+cotangent (a second solve, and K9's sums over bins in another order),
+K9 at each precision against the plain version of that precision.
 The phase-2 micro-benchmark kernels (K10) are held to 1e-5 of the sum of
 their terms' magnitudes (float32 sums of ~7e6 terms of both signs in
 another order).
@@ -31,6 +32,7 @@ import torch
 
 from flamo_tpu_torch.functional import charpoly, expm_skew, poly_roots_rows
 from flamo_tpu_torch.ops import aa_kernels as ak
+from flamo_tpu_torch.ops import cuda_build
 from flamo_tpu_torch.ops import eig_kernels as ek
 from flamo_tpu_torch.ops import fdn_kernels as fk
 from flamo_tpu_torch.ops import phase2_micro as pm
@@ -368,16 +370,20 @@ def test_cuda_aa_tf_mse_matches_plain(cuda, N, L, pivot):
                                        (3, 5, 37)])
 @pytest.mark.parametrize("pivot", [True, False])
 @pytest.mark.parametrize("bin_offset", [0, 1000])
+@pytest.mark.parametrize("precision", ak.PRECISIONS)
 def test_cuda_aa_taps_tf_mse_matches_plain(cuda, N, L, order, pivot,
-                                           bin_offset):
-    """K9 against its plain version at M = 4097, nfft = 8192, with and
-    without a bin offset (1e-5 on the loss, 1e-4 of the max on the tap
-    cotangent)."""
+                                           bin_offset, precision):
+    """K9 against its plain version of the same precision at M = 4097,
+    nfft = 8192, with and without a bin offset (1e-5 on the loss, 1e-4 of
+    the max on the tap cotangent): the FP32 kernel at 'highest', the
+    tensor-core kernel at 'high' (3 TF32 passes) and 'default' (1).  The
+    odd sizes (order 1 and 37, L N 1 and 15) pad every fragment."""
     o = _aa_operands(order + N, N, L, 4097, order)
     args = [o[k] for k in ("hr", "hi", "tw", "rr", "ri", "t")]
-    got = ak.aa_taps_tf_mse_kernel(*args, N, L, 8192, pivot,
-                                   bin_offset=bin_offset)
-    ref = ak.aa_taps_tf_mse_plain(*args, N, L, 8192, pivot, bin_offset)
+    got = ak.aa_taps_tf_mse_kernel(*args, N, L, 8192, pivot, precision,
+                                   bin_offset)
+    ref = ak.aa_taps_tf_mse_plain(*args, N, L, 8192, pivot, bin_offset,
+                                  precision)
     assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5
     assert _rel(got[1], ref[1]) < 1e-4
     torch.cuda.synchronize()
@@ -385,9 +391,9 @@ def test_cuda_aa_taps_tf_mse_matches_plain(cuda, N, L, order, pivot,
 
 @pytest.mark.gpu
 def test_cuda_aa_autograd_matches_plain_and_counts_launches(cuda):
-    """aa_tf_mse, aa_taps_tf_mse and poly_roots_rows on the card:
-    gradients equal those of the same functions on the CPU (plain
-    versions), and each launch is counted."""
+    """aa_tf_mse, aa_taps_tf_mse (precision 'high') and poly_roots_rows
+    on the card: gradients equal those of the same functions on the CPU
+    (plain versions), and each launch is counted."""
     o = _aa_operands(5, 4, 13, 1000, 20)
     rng = np.random.default_rng(6)
     c0 = rng.normal(size=(2, 4, 300)).astype(np.float32)
@@ -410,12 +416,61 @@ def test_cuda_aa_autograd_matches_plain_and_counts_launches(cuda):
     ak.reset_launch_counts()
     ek.reset_launch_counts()
     on_card = run("cuda")
-    assert ak.LAUNCHES == {"aa_tf_mse": 1, "aa_taps_tf_mse": 1}
+    assert ak.LAUNCHES == {"aa_tf_mse": 1, "aa_taps_tf_mse": 0,
+                           "aa_taps_tf_mse_tc_high": 1,
+                           "aa_taps_tf_mse_tc_default": 0}
     assert ek.LAUNCHES == {"dk_roots": 1}
     on_cpu = run("cpu")
-    assert ak.LAUNCHES["aa_taps_tf_mse"] == 1  # the CPU run launches none
+    assert ak.LAUNCHES["aa_taps_tf_mse_tc_high"] == 1  # none on the CPU
     for g, r in zip(on_card, on_cpu):
         assert _rel(g, r) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ak.PRECISIONS)
+def test_cuda_aa_taps_tf_mse_counts_the_precisions_kernel(cuda, precision):
+    """One aa_taps_tf_mse call on the card launches the kernel of its
+    precision once, and no other: the FP32 kernel for 'highest', the
+    tensor-core kernel with 3 or 1 passes for 'high' or 'default'."""
+    o = _aa_operands(3, 4, 13, 1000, 100)
+    tw = o["tw"].detach().requires_grad_(True)
+    ak.reset_launch_counts()
+    loss = ak.aa_taps_tf_mse(o["hr"], o["hi"], tw, o["rr"], o["ri"], o["t"],
+                             4, 13, 8192, precision=precision)
+    loss.backward()
+    key = ("aa_taps_tf_mse" if precision == "highest"
+           else f"aa_taps_tf_mse_tc_{precision}")
+    assert ak.LAUNCHES == {k: int(k == key) for k in ak.LAUNCHES}
+    assert torch.isfinite(tw.grad).all()
+
+
+@pytest.mark.gpu
+def test_cuda_aa_taps_tc_kernel_rejects_unsupported_sizes(cuda):
+    """The tensor-core K9 raises by name outside its limits: a working
+    set above a block's shared memory, more than 8 microphones, a
+    fractional bin offset; its library refuses a pass count other than 0
+    (the FP32 kernel), 1 or 3.  No CUDA tensor goes to the FP32 kernel or the plain version
+    instead."""
+    o = _aa_operands(1, 4, 13, 100, 400)
+    args = [o[k] for k in ("hr", "hi", "tw", "rr", "ri", "t")]
+    ak.reset_launch_counts()
+    for precision in ("high", "default"):
+        with pytest.raises(ValueError, match="aa_taps_tf_mse_tc_kernel.*"
+                           "shared memory"):
+            ak.aa_taps_tf_mse_kernel(*args, 4, 13, 8192,
+                                     precision=precision)
+        with pytest.raises(ValueError, match="whole number"):
+            ak.aa_taps_tf_mse_kernel(*args[:2], o["tw"][:100], *args[3:], 4,
+                                     13, 8192, precision=precision,
+                                     bin_offset=0.5)
+    z = torch.zeros((9, 10), device="cuda")
+    with pytest.raises(ValueError, match="1..8"):
+        ak.aa_taps_tf_mse_kernel(z, z, z[:2, :9], z, z, z, 9, 1, 64)
+    assert all(v == 0 for v in ak.LAUNCHES.values())
+    lib = cuda_build.load(4, ak.LIB)
+    assert lib.aa_taps_grid(4, 0, 2, 100, 13, 1000) == -2
+    assert all(lib.aa_taps_grid(4, 0, p, 100, 13, 1000) > 0
+               for p in (0, 1, 3))
 
 
 @pytest.mark.gpu
