@@ -5,14 +5,17 @@ CUDA card.
 
 Run from the root of the repository:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ptxas]
 
 Phases, in order; any failure raises and exits non-zero without a result:
 
 1. device and build: needs CUDA, prints the card's name and power limit,
    compiles the hand-written kernels of flamo_tpu_torch/csrc (nvcc,
    sm_90a, one process per library, all at once) and prints the build
-   time;
+   time and each library's own seconds; with --ptxas it compiles them all
+   with nvcc's register report (written to build/ptxas_smoke.txt)
+   and prints the registers, spills and register-bound warps an SM of
+   each K5 and K7 instantiation;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U; K = 12
    sections of P = 3 taps, random well-conditioned ones and those of the
@@ -26,7 +29,10 @@ Phases, in order; any failure raises and exits non-zero without a result:
    'default''s tap cotangent held to 1.5 times the plain version's own
    spread, and each TF32 mode's distance from 'highest' printed) at
    M = 48001, N = 4 microphones, L = 13 loudspeakers, 100 taps, on the
-   magnitude rig's own rows; the four variants of the phase-2
+   magnitude rig's own rows; K5 in all eight (pivot, with_dbar,
+   fuse_taps) variants, its training variant launched twice with equal
+   results, and K7's bit-identity with its plain version printed; the
+   four variants of the phase-2
    micro-benchmark K10 at its published sizes (nfft = 96000, P = 3, K = 12, N = 6, 48128 bins), on
    its own operands (t of ones) and on a seeded random t;
 3. the colorless slice at full width: build_colorless_fdn(nfft=96000) on
@@ -75,7 +81,10 @@ Phases, in order; any failure raises and exits non-zero without a result:
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
-   at each precision, its FP32 and tensor-core kernels in the same run);
+   at each precision, its FP32 and tensor-core kernels in the same run),
+   and K5's training variant and K7 against their aims beside the
+   kernels left on the old code (K4b, K10) as the call's control, with
+   K7's time at 0 and 1 iterations (its fixed cost and an iteration's);
 6. torch.profiler traces of a few training steps of each path: the
    device's busy and idle share and the kernels that take its time;
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
@@ -112,9 +121,11 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -147,6 +158,8 @@ from flamo_tpu_torch.scripts import bench_phase2_micro as p2bench
 M_MAIN, N_MAIN, NFFT = 48001, 6, 96000
 K_MAIN, P_MAIN = 12, 3  # GEQ sections (octave bands + 3) and SOS taps
 SEED = 0
+# with --ptxas the libraries are built with nvcc's register report here
+PTXAS_LOG = Path("build/ptxas_smoke.txt")
 FIT_STEPS = 100
 ATT_STEPS = 100
 ATT_LR = 1e-4
@@ -556,7 +569,7 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
-def phase_build() -> str:
+def phase_build(ptxas: bool = False) -> str:
     check(torch.cuda.is_available(), "no CUDA device: this script needs one")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -567,14 +580,44 @@ def phase_build() -> str:
     targets = (("fdn_kernels", N_MAIN), ("sos_kernels", N_MAIN),
                ("aa_kernels", AA_N), ("eig_kernels", AA_N), ("eig_kernels", 8),
                ("phase2_micro", 1))
-    seconds = cuda_build.build(targets)
+    log = PTXAS_LOG if ptxas else None
+    seconds = cuda_build.build(targets, ptxas_log=log)
     names = [cuda_build.library_path(n, lib).name for lib, n in targets]
     for lib, n in targets:
         cuda_build.load(n, lib)
-    print(f"phase 1 build: {seconds:.1f} s, {len(names)} libraries in "
-          f"parallel ({', '.join(names)}; "
+    print(f"phase 1 build: {max(seconds.values(), default=0.0):.1f} s, "
+          f"{len(names)} libraries in parallel ({', '.join(names)}; "
           f"{cuda_build.threads_per_block(N_MAIN)} threads/block for K1-K6)")
+    print("  each library's seconds (its nvcc beside the others): "
+          + ", ".join(f"{lib} N={n} {s:.1f}"
+                      for (lib, n), s in seconds.items()))
+    if ptxas:
+        print_ptxas(log.read_text())
     return card
+
+
+def print_ptxas(report: str) -> None:
+    """Registers and spills of K5's and K7's instantiations from nvcc's
+    -Xptxas -v report, with the warps an SM that the registers allow."""
+    name, spills = None, ""
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+        elif "spill stores" in line:
+            spills = line.split(",", 1)[1].strip()
+        used = re.search(r"Used (\d+) registers", line)
+        which = name and re.search(r"(fdn_sos_tf_mse|dk_roots)_kernel", name)
+        if not (used and which):
+            continue
+        kernel = which.group(0)
+        targs = ", ".join(re.findall(r"L[ib](\d+)E", name))
+        regs = int(used.group(1))
+        warps = 2 if kernel == "dk_roots_kernel" else 4  # a block's
+        per_warp = -(-regs * 32 // 256) * 256  # allocated per warp, in 256s
+        blocks = min(65536 // (per_warp * warps), 64 // warps)
+        print(f"  ptxas {kernel}<{targs}>: {regs} registers, {spills}; "
+              f"{blocks * warps} warps an SM by registers")
 
 
 def _stable_taps(rng, P: int, K: int, N: int):
@@ -747,7 +790,7 @@ def phase_kernels(o) -> dict:
             errs["sos_cascade_fwd"], errs["sos_cascade_bwd"] = e_f, e_b
     U6 = 0.6 * U  # a loop gain well below 1 with |Gam| near 1
     names = ("D_bar", "bt_bar", "at_bar", "U_bar", "b_bar", "c_bar")
-    for pivot, fuse_taps in ((True, False), (False, False), (False, True)):
+    for pivot, fuse_taps in itertools.product((True, False), repeat=2):
         for with_dbar in (True, False):
             args = (D, o["bt"], o["at"], U6, b, c, X, t, NFFT, with_dbar,
                     pivot, fuse_taps)
@@ -763,6 +806,12 @@ def phase_kernels(o) -> dict:
                 e.append(compare(f"{tag} {n}", g_, r_, GRAD_TOL))
             if fuse_taps and not pivot and not with_dbar:  # the training one
                 errs["fdn_sos_tf_mse"] = max(e)
+                again = sk.fdn_sos_tf_mse_kernel(*args)
+                same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again)
+                           if g_ is not None)
+                print(f"  {tag}: a second launch gives the same loss and "
+                      f"cotangents: {same}")
+                check(same, f"{tag}: two launches differ")
     args = (D, o["geq_bt"], o["geq_at"], U6, b, c, X, t, NFFT)
     got = sk.fdn_sos_tf_mse_kernel(*args)
     ref = sk.fdn_sos_tf_mse_plain(*args)
@@ -870,7 +919,8 @@ def phase_kernels_aa(o, errs: dict) -> None:
         zr, zi = ek.dk_roots_rows(cr, ci)
         pr, pi = ek.dk_roots_rows_plain(cr, ci)
         err = max(float((zr - pr).abs().max()), float((zi - pi).abs().max()))
-        print(f"  K7 N={N}: max abs err {err:.3e} (tol {DK_TOL:g})")
+        print(f"  K7 N={N}: max abs err {err:.3e} (tol {DK_TOL:g}), "
+              f"bit-identical {torch.equal(zr, pr) and torch.equal(zi, pi)}")
         check(err < DK_TOL, f"K7 N={N}: max abs error {err:.3e}")
         e.append(err)
     errs["dk_roots"] = max(e)
@@ -1388,7 +1438,8 @@ def phase_aa_evs(card: str):
     pr, pi = ek.dk_roots_rows_plain(cr, ci)
     err = max(float((zr - pr).abs().max()), float((zi - pi).abs().max()))
     print(f"  K7 on the rig's centred and scaled char-polys of step 0 "
-          f"({tuple(cr.shape)}): max abs err {err:.3e} (tol {DK_TOL:g})")
+          f"({tuple(cr.shape)}): max abs err {err:.3e} (tol {DK_TOL:g}), "
+          f"bit-identical {torch.equal(zr, pr) and torch.equal(zi, pi)}")
     check(err < DK_TOL, f"K7 on the rig's char-polys: {err:.3e}")
     return aa, launches, step_ms, (cr, ci), err
 
@@ -1533,11 +1584,31 @@ def phase_timing(o, launches, errs, card) -> list:
                    None, {"passes": ak.PASSES[p]}, launches, errs,
                    N=AA_N)
         for p, row in K9_ROWS.items()]
+    # K7's fixed cost (loads, start circle, stores) and its time per
+    # Durand-Kerner iteration
+    k7 = {n: device_ms(lambda n=n: ek.dk_roots_rows(cr, ci, n),
+                       "dk_roots_kernel") for n in (0, 1)}
+    k7_ms = next(r["ms"] for r in rows if r["name"] == "dk_roots")
+    print(f"  dk_roots at 0 and 1 iterations: {k7[0]:.6f}, {k7[1]:.6f} ms; "
+          f"{(k7_ms - k7[0]) / DK_ITERS * 1e6:.1f} ns an iteration over "
+          f"{DK_ITERS}")
     k9 = {r["name"]: r["ms"] for r in rows}
     k9 = {p: k9[row] for p, row in K9_ROWS.items()}
     print("  K9 in this call (device ms): "
           + ", ".join(f"{p} {ms:.6f}" for p, ms in k9.items())
           + f"; FP32 / TF32x3 {k9['highest'] / k9['high']:.2f}x")
+    by = {r["name"]: r for r in rows}
+    print("  the redesigned kernels in this call (device ms): "
+          + "; ".join(f"{label} {by[n]['ms']:.6f} (aim {aim}, "
+                      f"{by[n]['ms'] / by[n]['bound_ms']:.1f}x its bound "
+                      f"{by[n]['bound_ms']:.6f})"
+                      for label, n, aim in (
+                          ("K5 training variant", "fdn_sos_tf_mse", 0.035),
+                          ("K7", "dk_roots", 0.012)))
+          + "; controls on the old code: K4b "
+          + f"{by['sos_cascade_bwd']['ms']:.6f}, K10 "
+          + ", ".join(f"{v} {by[f'phase2_{v}']['ms']:.6f}"
+                      for v in pm.VARIANTS))
     return rows
 
 
@@ -1663,7 +1734,7 @@ def main() -> int:
         return round(marks[-1] - marks[-2], 1)
 
     took = {}
-    card = phase_build()
+    card = phase_build(ptxas="--ptxas" in sys.argv[1:])
     took["1 build"] = seconds_since_last()
     o = main_path_operands(M_MAIN, N_MAIN)
     o["dense"] = dense_operands()

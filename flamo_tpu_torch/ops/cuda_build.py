@@ -29,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -137,19 +138,21 @@ def library_path(n: int, lib: str = "fdn_kernels") -> Path:
     return BUILD_DIR / f"lib{lib}-n{n}-{digest.hexdigest()[:16]}.so"
 
 
-def build(targets, ptxas_log: Path | None = None) -> float:
+def build(targets, ptxas_log: Path | None = None) -> dict:
     """Compile the (library, N) pairs of ``targets`` that are not built
-    yet, one ``nvcc`` each, all started together; returns the wall
-    seconds spent (0.0 when nothing was built).  With ``ptxas_log`` every
-    named library is compiled and the compiler's per-kernel register and
-    spill report goes there."""
+    yet, one ``nvcc`` each, all started together; returns the seconds
+    from the start to the end of each compiled library's ``nvcc``, by
+    (library, N) (empty when nothing was built: the largest is the
+    call's wall time).  With ``ptxas_log`` every named library is
+    compiled and the compiler's per-kernel register and spill report
+    goes there."""
     todo = []
     for lib, n in dict.fromkeys((lib, int(n)) for lib, n in targets):
         _check_target(lib, n)
         if ptxas_log is not None or not library_path(n, lib).exists():
             todo.append((lib, n))
     if not todo:
-        return 0.0
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
@@ -160,12 +163,21 @@ def build(targets, ptxas_log: Path | None = None) -> float:
                "-o", str(tmp), str(CSRC / f"{lib}.cu")]
         if ptxas_log is not None:
             cmd[1:1] = ["-Xptxas", "-v"]
-        jobs.append((lib, n, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        log = tempfile.TemporaryFile(mode="w+")
+        jobs.append((lib, n, tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    seconds, pending = {}, list(jobs)
+    while pending:  # each library's own time, taken when its nvcc ends
+        for job in [j for j in pending if j[4].poll() is not None]:
+            seconds[job[:2]] = time.perf_counter() - t0
+            pending.remove(job)
+        if pending:
+            time.sleep(0.05)
     reports, failures = [], []
-    for lib, n, tmp, proc in jobs:
-        out, _ = proc.communicate()
+    for lib, n, tmp, log, proc in jobs:
+        log.seek(0)
+        out = log.read()
+        log.close()
         if proc.returncode != 0:
             failures.append(f"{lib} N={n} (exit {proc.returncode}):\n{out}")
             continue
@@ -176,7 +188,7 @@ def build(targets, ptxas_log: Path | None = None) -> float:
     if ptxas_log is not None:
         ptxas_log.parent.mkdir(parents=True, exist_ok=True)
         ptxas_log.write_text("\n".join(reports))
-    return time.perf_counter() - t0
+    return seconds
 
 
 def load(n: int, lib: str = "fdn_kernels") -> ctypes.CDLL:

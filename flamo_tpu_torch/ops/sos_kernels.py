@@ -36,10 +36,11 @@ from flamo_tpu_torch.ops import cuda_build
 from flamo_tpu_torch.ops.fdn_kernels import (_check, _cotangents, _on_cuda,
                                              _stream, _tf_mse_solves)
 
-# the kernels' limits (sos_kernels.cu: kMaxP, kMaxK, kMaxSharedFloats)
+# the kernels' limits (sos_kernels.cu: kMaxP, kMaxK, kMaxSmemFloats)
 MAX_P = 8
 MAX_K = 64
-_MAX_SHARED_FLOATS = 48 * 1024 // 4
+_MAX_SMEM = 232448  # a block's 227 KB of shared memory, opted in
+_THREADS = 128  # bins a K5 block (sos_kernels.cu: kThreads)
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
 # count)
@@ -156,6 +157,16 @@ def _check_taps(b, a, N=None):
     return P, K, Nb
 
 
+def tf_mse_smem_bytes(N: int, K: int, P: int, fuse_taps: bool = True) -> int:
+    """K5's least dynamic shared memory per block (as ``k5_smem_floats``
+    in sos_kernels.cu with one run of tap sums): the staged taps, the
+    warps' head rows and, with ``fuse_taps``, the bins' rows of z and the N
+    values t_n.  At most 87568 bytes for N <= 16, K <= 64, P <= 8."""
+    taps = 2 * P * K * N
+    bins = 2 * _THREADS * (N + 1) if fuse_taps else 0
+    return 4 * (bins + taps + _THREADS // 32 * (N * N + 2 * N + 1))
+
+
 def _phase_args(nfft: int, bin_offset):
     return 2.0 * math.pi / nfft, 0.0 if bin_offset is None else float(
         bin_offset)
@@ -222,12 +233,14 @@ def fdn_sos_tf_mse_kernel(D, bt, at, U, b, c, X, t, nfft: int,
                                     with_dbar, pivot, fuse_taps, bin_offset)
     nv0 = N * N + 2 * N + 1
     nv = nv0 + (2 * P * K * N if fuse_taps else 0)
+    need = tf_mse_smem_bytes(N, K, P, fuse_taps)
+    if need > _MAX_SMEM:
+        raise ValueError(f"kernel K5 needs {need} bytes of shared memory "
+                         f"per block at N = {N}, K = {K}, P = {P}, "
+                         f"fuse_taps={fuse_taps}; a block has {_MAX_SMEM} "
+                         "(227 KB)")
     lib = cuda_build.load(N, "sos_kernels")
     threads = cuda_build.threads_per_block(N, "sos_kernels")
-    if threads // 32 * nv > _MAX_SHARED_FLOATS:
-        raise ValueError(f"fuse_taps with P*K*N = {P * K * N} needs more "
-                         "than 48 KB of shared memory per block; use "
-                         "fuse_taps=False")
     D, bt, at, U, b, c, X, t = (x.contiguous()
                                 for x in (D, bt, at, U, b, c, X, t))
     D_bar = torch.empty_like(D) if with_dbar else None

@@ -26,6 +26,8 @@ another order).
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -275,6 +277,99 @@ def test_cuda_fdn_sos_tf_mse_matches_plain(cuda, N, nfft):
     torch.cuda.synchronize()
 
 
+def _k5_taps(seed: int, P: int, K: int, N: int):
+    """Well-conditioned taps at any P and K: denominators 1 + 0.1 noise
+    on the higher taps, numerators within 0.02 / sqrt(K) of them, so
+    that each channel's cascade of K sections stays near 1 and the
+    attenuated loop stays far from singular."""
+    rng = np.random.default_rng(seed)
+    a = np.concatenate([np.ones((1, K, N)),
+                        0.1 * rng.normal(size=(P - 1, K, N))])
+    b = a + 0.02 / np.sqrt(K) * rng.normal(size=(P, K, N))
+    return (torch.tensor(b.astype(np.float32), device="cuda"),
+            torch.tensor(a.astype(np.float32), device="cuda"))
+
+
+def _check_k5(o, bt, at, nfft, loss_tol, grad_tol, bin_offset=None,
+              variants=None):
+    """K5 against its plain version in each (pivot, with_dbar, fuse_taps)
+    variant; returns the kernel's results by variant."""
+    D, U, b, c, X, t = (o[n] for n in "DUbcXt")
+    out = {}
+    for v in variants or itertools.product((True, False), repeat=3):
+        pivot, with_dbar, fuse_taps = v
+        args = (D, bt, at, 0.6 * U, b, c, X, t, nfft, with_dbar, pivot,
+                fuse_taps, bin_offset)
+        got = sk.fdn_sos_tf_mse_kernel(*args)
+        ref = sk.fdn_sos_tf_mse_plain(*args)
+        assert abs(float(got[0] - ref[0])) / float(ref[0]) < loss_tol, v
+        for g, r in zip(got[1:], ref[1:]):
+            if r is None:
+                assert g is None
+            else:
+                assert _rel(g, r) < grad_tol, v
+        out[v] = got
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", range(1, 9))
+@pytest.mark.parametrize("N", [1, 3, 6, 16])
+def test_cuda_fdn_sos_tf_mse_sizes_match_plain(cuda, N, P):
+    """K5 in all eight (pivot, with_dbar, fuse_taps) variants at every P
+    (one unrolled copy each in the fused kernels), K = 1, 12 and 64
+    sections, ragged M = 1, 100 (with a bin offset) and 1001 bins (one
+    block, a partial one, eight); at P = 3 also on a GEQ's taps, at the
+    JAX package's GEQ bounds (5e-3 on the loss, 1e-3 on cotangents).  At
+    M = 1 the loss is one bin's (|tf X| - t)^2, which float32 cancels
+    where |tf X| is near t (a random t at 1.2e-3 of it put one ulp of
+    |tf X| at 1e-4 of the loss), so that bin's target is 0."""
+    nfft = 2000
+    for K in (1, 12, 64):
+        for M, off in ((1, None), (100, 17.0), (1001, None)):
+            o = _operands(1000 * N + 10 * P + K + M, M, N)
+            if M == 1:
+                o["t"] = torch.zeros_like(o["t"])
+            _check_k5(o, *_k5_taps(N + P + K, P, K, N), nfft, 1e-5, 1e-4,
+                      off)
+    if P == 3:
+        o = _operands(N, nfft // 2 + 1, N)
+        _check_k5(o, *_geq_taps(N, nfft), nfft, 5e-3, 1e-3)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_fdn_sos_tf_mse_is_deterministic(cuda):
+    """Two launches of K5 give the same results to the bit in every
+    variant at the main path's size (no atomics: each block's partials
+    row is summed in a fixed order)."""
+    o = _operands(5, 48001, 6)
+    bt, at = _sos_taps(5, 3, 12, 6)
+    first = _check_k5(o, bt, at, 96000, 1e-5, 1e-4)
+    for v, got in _check_k5(o, bt, at, 96000, 1e-5, 1e-4).items():
+        assert all(torch.equal(g, f) for g, f in zip(got, first[v])
+                   if g is not None), v
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [6, 16])
+def test_cuda_fdn_sos_tf_mse_launches_every_old_size(cuda, N):
+    """With fuse_taps, every P at the largest K that the old limit took
+    (four warps' rows of head and tap sums in 48 KB: P K <= 251 at N = 6,
+    <= 86 at N = 16) still launches and matches its plain version, and so
+    does the largest size of all, K = 64, P = 8, which needs more than 48
+    KB of shared memory."""
+    o = _operands(N, 300, N)
+    sizes = [(P, min(64, (3072 - (N + 1) ** 2) // (2 * P * N)))
+             for P in range(1, 9)] + [(8, 64)]
+    for P, K in sizes:
+        assert 4 * ((N + 1) ** 2 + 2 * P * K * N) <= 12288 or (P, K) == (8, 64)
+        _check_k5(o, *_k5_taps(P + K, P, K, N), 600, 1e-5, 1e-4,
+                  variants=[(False, False, True), (True, True, True)])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_cuda_sos_autograd_matches_plain_and_counts_launches(cuda):
     """sos_cascade and fdn_sos_tf_mse on the card: gradients equal those
@@ -308,29 +403,31 @@ def test_cuda_sos_autograd_matches_plain_and_counts_launches(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N", [1, 2, 4, 8])
+@pytest.mark.parametrize("N", range(1, 9))
 def test_cuda_dk_roots_matches_plain(cuda, N):
-    """K7 against its plain version at the eigenvalue step's B = 1601
-    polynomials (1e-4 max abs), in rows and in the complex layout; each
+    """K7 gives exactly its plain version's roots (the library is built
+    without FMA contraction and repeats the plain arithmetic) at B = 1, 7
+    (partial lane groups) and the eigenvalue step's 1601 polynomials,
+    after 0, 1 and 96 iterations, in rows and in the complex layout; each
     launch counted.  The polynomials are those eigvals_dk makes: the
     char-polys of centred and scaled random complex matrices."""
     rng = np.random.default_rng(N)
-    B = 1601
-    A = torch.tensor((rng.normal(size=(B, N, N)) + 1j * rng.normal(
-        size=(B, N, N))).astype(np.complex64), device="cuda")
-    Bm = A - torch.diagonal(A, dim1=-2, dim2=-1).mean(-1)[:, None, None] \
-        * torch.eye(N, dtype=A.dtype, device="cuda")
-    s = torch.sqrt(torch.sum(torch.abs(Bm) ** 2, dim=(-2, -1)) / N)
-    c = charpoly(Bm / torch.clamp(s, min=1e-30)[:, None, None]).T
-    cr, ci = torch.real(c).contiguous(), torch.imag(c).contiguous()
-    ek.reset_launch_counts()
-    zr, zi = ek.dk_roots_rows(cr, ci)
-    pr, pi = ek.dk_roots_rows_plain(cr, ci)
-    assert ek.LAUNCHES["dk_roots"] == 1
-    assert float((zr - pr).abs().max()) < 1e-4
-    assert float((zi - pi).abs().max()) < 1e-4
-    z = ek.dk_roots(torch.complex(cr, ci).T.contiguous())
-    torch.testing.assert_close(z, torch.complex(zr, zi).T, rtol=0, atol=0)
+    for B in (1, 7, 1601):
+        A = torch.tensor((rng.normal(size=(B, N, N)) + 1j * rng.normal(
+            size=(B, N, N))).astype(np.complex64), device="cuda")
+        Bm = A - torch.diagonal(A, dim1=-2, dim2=-1).mean(-1)[:, None, None] \
+            * torch.eye(N, dtype=A.dtype, device="cuda")
+        s = torch.sqrt(torch.sum(torch.abs(Bm) ** 2, dim=(-2, -1)) / N)
+        c = charpoly(Bm / torch.clamp(s, min=1e-30)[:, None, None]).T
+        cr, ci = torch.real(c).contiguous(), torch.imag(c).contiguous()
+        for iters in (0, 1, 96):
+            ek.reset_launch_counts()
+            zr, zi = ek.dk_roots_rows(cr, ci, iters)
+            pr, pi = ek.dk_roots_rows_plain(cr, ci, iters)
+            assert ek.LAUNCHES["dk_roots"] == 1
+            assert torch.equal(zr, pr) and torch.equal(zi, pi), (B, iters)
+        z = ek.dk_roots(torch.complex(cr, ci).T.contiguous())
+        torch.testing.assert_close(z, torch.complex(zr, zi).T, rtol=0, atol=0)
     torch.cuda.synchronize()
 
 
