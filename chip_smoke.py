@@ -11,17 +11,21 @@ Phases, in order; any failure raises and exits non-zero without a result:
 
 1. device and build: needs CUDA, prints the card's name and power limit,
    compiles the hand-written kernels of flamo_tpu_torch/csrc (nvcc,
-   sm_90a, one process per library, all at once) and prints the build
+   sm_90a, one process per library, all at once) and, beside them,
+   controls/fdn_kernels_prev/fdn_kernels.cu, the K1-K3 and K6 kernels
+   before K6's and K1's redesign (phase 5's control), and prints the build
    time and each library's own seconds; with --ptxas it compiles them all
    with nvcc's register report (written to build/ptxas_smoke.txt)
    and prints the registers, spills and register-bound warps an SM of
-   each K5 and K7 instantiation;
+   each K1, K3b, K5, K6 and K7 instantiation, the previous library's too;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U; K = 12
    sections of P = 3 taps, random well-conditioned ones and those of the
    attenuated FDN's GEQ; K6 on dense systems at M = 48001 and at the
    masked step's P = 2000 bins, random well-conditioned ones and the
-   scattering FDN's own loop matrices); the Durand-Kerner roots K7 at
+   scattering FDN's own loop matrices, and 2000 tied-pivot systems, whose
+   exact ones must equal the plain version bit for bit; K1's training
+   variant launched twice with equal results); the Durand-Kerner roots K7 at
    B = 1601 polynomials of degree 4 and 8, the active-acoustics steps K8
    (pivot on and off) and K9 (pivot on and off, bin offset 0 and 24000;
    its tensor-core kernel at precision 'high' and 'default', its FP32
@@ -85,6 +89,12 @@ Phases, in order; any failure raises and exits non-zero without a result:
    and K5's training variant and K7 against their aims beside the
    kernels left on the old code (K4b, K10) as the call's control, with
    K7's time at 0 and 1 iterations (its fixed cost and an iteration's);
+   K1-K3 and K6 also on one bin or row (``floor_ms``: one block and one
+   bin's chain, the least a launch of that kernel takes), and K1 (all four
+   variants), K3b and K6 (both shapes, each way) beside the previous
+   library's kernels on the same operands (``previous_ms``; previous, new,
+   new, previous, each pair averaged), K6 at P = 2000 and K1 against
+   their aims and K6 at M = 48001 against 1.05x the previous kernel;
 6. torch.profiler traces of a few training steps of each path: the
    device's busy and idle share and the kernels that take its time;
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
@@ -118,6 +128,7 @@ contractions at precision 'high' and 'default'.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import json
 import math
@@ -312,6 +323,80 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# the kernels of fdn_kernels.cu before K6's and K1's redesign, built in
+# phase 1 beside the package's and timed in phase 5 as the control
+# ---------------------------------------------------------------------------
+PREVIOUS_SRC = (Path(__file__).resolve().parent / "controls"
+                / "fdn_kernels_prev" / "fdn_kernels.cu")
+PREVIOUS_SO = (cuda_build.BUILD_DIR.parent / "controls"
+               / f"libfdn_kernels_prev-n{N_MAIN}.so")
+
+
+class Previous:
+    """The previous library's K1, K3b and K6 for N_MAIN channels: the same
+    C entry points as the package's (fdn_tf_mse_launch, fdn_tf_bwd_launch,
+    fdn_dense_solve_launch), launched on operands the package's wrappers
+    have checked, outputs allocated here, nothing counted."""
+
+    def __init__(self, proc, log: Path | None):
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for {PREVIOUS_SRC}:\n{out}")
+        if log is not None:
+            with log.open("a") as f:
+                f.write(f"# previous fdn_kernels N = {N_MAIN}\n{out}")
+        self.lib = ctypes.CDLL(str(PREVIOUS_SO))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.lib.fdn_tf_mse_launch.argtypes = [I] * 3 + [P] * 8 + [F, I, P]
+        self.lib.fdn_tf_bwd_launch.argtypes = [I] + [P] * 8 + [I, P]
+        self.lib.fdn_dense_solve_launch.argtypes = [I, I, P, P, P, I, P]
+
+    @staticmethod
+    def start(ptxas: bool):
+        PREVIOUS_SO.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+               f"-DFDN_N={N_MAIN}", "-o", str(PREVIOUS_SO), str(PREVIOUS_SRC)]
+        if ptxas:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    @staticmethod
+    def _stream() -> int:
+        return torch.cuda.current_stream().cuda_stream
+
+    def dense_solve(self, A, B, transpose: bool):
+        Y = torch.empty_like(B)
+        check(self.lib.fdn_dense_solve_launch(
+            N_MAIN, int(transpose), A.data_ptr(), B.data_ptr(), Y.data_ptr(),
+            B.shape[0], self._stream()) == 0, "previous K6 launch")
+        return Y
+
+    def tf_mse(self, D, U, b, c, X, t, with_dbar: bool, pivot: bool):
+        M = D.shape[0]
+        D_bar = torch.empty_like(D)
+        partials = torch.empty((-(-M // 128), N_MAIN * N_MAIN + 2 * N_MAIN
+                                + 1), device="cuda")
+        check(self.lib.fdn_tf_mse_launch(
+            N_MAIN, int(pivot), int(with_dbar), D.data_ptr(), U.data_ptr(),
+            b.data_ptr(), c.data_ptr(), X.data_ptr(), t.data_ptr(),
+            D_bar.data_ptr(), partials.data_ptr(), 2.0 / M, M,
+            self._stream()) == 0, "previous K1 launch")
+        return partials
+
+    def tf_bwd(self, D, U, b, c, y, tf_bar):
+        M = D.shape[0]
+        D_bar = torch.empty_like(D)
+        partials = torch.empty((-(-M // 128), N_MAIN * N_MAIN + 2 * N_MAIN
+                                + 1), device="cuda")
+        check(self.lib.fdn_tf_bwd_launch(
+            N_MAIN, D.data_ptr(), U.data_ptr(), b.data_ptr(), c.data_ptr(),
+            y.data_ptr(), tf_bar.data_ptr(), D_bar.data_ptr(),
+            partials.data_ptr(), M, self._stream()) == 0,
+            "previous K3b launch")
+        return partials
 
 
 # ---------------------------------------------------------------------------
@@ -581,43 +666,57 @@ def phase_build(ptxas: bool = False) -> str:
                ("aa_kernels", AA_N), ("eig_kernels", AA_N), ("eig_kernels", 8),
                ("phase2_micro", 1))
     log = PTXAS_LOG if ptxas else None
+    t0 = time.perf_counter()
+    previous_build = Previous.start(ptxas)
     seconds = cuda_build.build(targets, ptxas_log=log)
+    previous = Previous(previous_build, log)
+    seconds[("previous fdn_kernels", N_MAIN)] = time.perf_counter() - t0
     names = [cuda_build.library_path(n, lib).name for lib, n in targets]
     for lib, n in targets:
         cuda_build.load(n, lib)
-    print(f"phase 1 build: {max(seconds.values(), default=0.0):.1f} s, "
-          f"{len(names)} libraries in parallel ({', '.join(names)}; "
-          f"{cuda_build.threads_per_block(N_MAIN)} threads/block for K1-K6)")
+    print(f"phase 1 build: {max(seconds.values()):.1f} s, "
+          f"{len(names) + 1} libraries in parallel ({', '.join(names)}, "
+          f"and {PREVIOUS_SO.name} from "
+          f"{PREVIOUS_SRC.relative_to(PREVIOUS_SRC.parents[2])}, phase 5's "
+          f"control; {cuda_build.threads_per_block(N_MAIN)} threads/block "
+          "for K1-K3)")
     print("  each library's seconds (its nvcc beside the others): "
           + ", ".join(f"{lib} N={n} {s:.1f}"
                       for (lib, n), s in seconds.items()))
     if ptxas:
         print_ptxas(log.read_text())
-    return card
+    return card, previous
 
 
 def print_ptxas(report: str) -> None:
-    """Registers and spills of K5's and K7's instantiations from nvcc's
-    -Xptxas -v report, with the warps an SM that the registers allow."""
-    name, spills = None, ""
+    """Registers and spills of the K1, K3b, K5, K6 and K7 instantiations
+    from nvcc's -Xptxas -v report (the previous library's tagged as such),
+    with the warps an SM that the registers allow."""
+    name, spills, tag = None, "", ""
     for line in report.splitlines():
+        if line.startswith("# "):
+            tag = "previous " if line.startswith("# previous") else ""
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = entry.group(1)
         elif "spill stores" in line:
             spills = line.split(",", 1)[1].strip()
         used = re.search(r"Used (\d+) registers", line)
-        which = name and re.search(r"(fdn_sos_tf_mse|dk_roots)_kernel", name)
+        which = name and re.search(
+            r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_bwd|dense_solve)"
+            r"_kernel", name)
         if not (used and which):
             continue
         kernel = which.group(0)
-        targs = ", ".join(re.findall(r"L[ib](\d+)E", name))
+        targs = re.findall(r"L[ib](\d+)E", name)
         regs = int(used.group(1))
-        warps = 2 if kernel == "dk_roots_kernel" else 4  # a block's
+        # a block's warps; K6's blocks are one warp, the previous ones four
+        warps = {"dk_roots_kernel": 2,
+                 "dense_solve_kernel": 4 if tag else 1}.get(kernel, 4)
         per_warp = -(-regs * 32 // 256) * 256  # allocated per warp, in 256s
-        blocks = min(65536 // (per_warp * warps), 64 // warps)
-        print(f"  ptxas {kernel}<{targs}>: {regs} registers, {spills}; "
-              f"{blocks * warps} warps an SM by registers")
+        blocks = min(65536 // (per_warp * warps), 64 // warps, 32)
+        print(f"  ptxas {tag}{kernel}<{', '.join(targs)}>: {regs} registers, "
+              f"{spills}; {blocks * warps} warps an SM by registers")
 
 
 def _stable_taps(rng, P: int, K: int, N: int):
@@ -719,6 +818,41 @@ def random_dense(rng, rows: int, N: int):
             torch.tensor(B.astype(np.complex64), device="cuda"))
 
 
+def tied_pivot_systems(rng, rows: int, N: int):
+    """(A (rows, N, N), B (rows, N), exact (rows,)) in numpy complex128:
+    systems whose pivot columns tie in |a|.  The exact ones, lower- and
+    upper-triangular matrices of ones with rows scaled by powers of i and
+    scaled permutations, tie at every step one of the two ways with unit
+    multipliers: the first maximal row keeps every operation exact, so a
+    right kernel equals its plain version bit for bit, and any other rule
+    rounds their rhs (magnitudes 1 and 2^27) another way.  The others, sign
+    matrices (condition number below 50) and DFT matrices times a unit
+    phase, tie up to rounding; their rhs is normal."""
+    low = np.tril(np.ones((N, N)))
+    k = np.arange(N)
+    dft = np.exp(-2j * np.pi * np.outer(k, k) / N)
+    mats, exact = [], []
+    while len(mats) < rows:
+        rot = 1j ** rng.integers(0, 4, size=(N, 1))
+        perm = np.zeros((N, N), complex)
+        perm[np.arange(N), rng.permutation(N)] = 2.0 * 1j ** rng.integers(
+            0, 4, N)
+        while True:
+            signs = rng.choice([-1.0, 1.0], size=(N, N)).astype(complex)
+            if np.linalg.cond(signs) < 50:
+                break
+        mats += [rot * low, rot * low.T, perm, signs,
+                 dft * np.exp(1j * rng.uniform(0, 2 * np.pi))]
+        exact += [True, True, True, False, False]
+    exact = np.array(exact[:rows])
+    scale = np.where(rng.random((rows, N)) < 0.5, 1.0, 2.0 ** 27)
+    B_exact = (scale * 1j ** rng.integers(0, 4, size=(rows, N))
+               * (rng.integers(1, 8, size=(rows, N)) + 0.25))
+    B_normal = rng.normal(size=(rows, N)) + 1j * rng.normal(size=(rows, N))
+    return (np.stack(mats[:rows]), np.where(exact[:, None], B_exact, B_normal),
+            exact)
+
+
 def dense_operands(seed: int = SEED) -> dict:
     """K6's operands at the scattering slice's two shapes: the loop
     systems of its model at every bin and at the first mask's bins, and
@@ -730,6 +864,16 @@ def dense_operands(seed: int = SEED) -> dict:
                       random=random_dense(rng, M_MAIN, N_MAIN)),
             "P": dict(model=sfdn_loop_systems(model, mask),
                       random=random_dense(rng, SFDN_SAMPLES, N_MAIN))}
+
+
+def tied_operands(seed: int = SEED):
+    """The tied-pivot batch at the masked step's row count, on the card,
+    and the mask of its exact systems (on the CPU)."""
+    A, B, exact = tied_pivot_systems(np.random.default_rng(seed + 4),
+                                     SFDN_SAMPLES, N_MAIN)
+    return (torch.tensor(A.astype(np.complex64), device="cuda"),
+            torch.tensor(B.astype(np.complex64), device="cuda"),
+            torch.from_numpy(exact))
 
 
 def compare(label, got, ref, tol) -> float:
@@ -773,6 +917,13 @@ def phase_kernels(o) -> dict:
                 e.append(compare(f"{tag} {n}", g, r, GRAD_TOL))
             if not pivot and not with_dbar:  # the variant colorless_fit runs
                 errs["fdn_tf_mse"] = max(e)
+                again = fk.fdn_tf_mse_kernel(D, U, b, c, X, t, with_dbar,
+                                             pivot)
+                same = all(torch.equal(g, a) for g, a in zip(got, again)
+                           if g is not None)
+                print(f"  {tag}: a second launch gives the same loss and "
+                      f"cotangents: {same}")
+                check(same, f"{tag}: two launches differ")
 
     print(f"  SOS kernels at K={K_MAIN}, P={P_MAIN}")
     for label, bt, at, vtol, gtol in (
@@ -830,6 +981,18 @@ def phase_kernels(o) -> dict:
                             fk.dense_solve_plain(A, B, tr), tol)
                 if label == "model":  # the systems the slice solves
                     errs[dense_row(name, shape)] = e
+    A, B, exact = o["tied"]
+    for tr in (False, True):
+        name = "dense_solve_transposed" if tr else "dense_solve"
+        got = fk.dense_solve_kernel(A, B, tr)
+        compare(f"K6 {name} tied pivots ({A.shape[0]} rows)", got,
+                fk.dense_solve_plain(A, B, tr), VAL_TOL)
+        # the exact systems against the plain version on the CPU, to the bit
+        ref = fk.dense_solve_plain(A.cpu(), B.cpu(), tr)
+        same = torch.equal(got.cpu()[exact], ref[exact])
+        print(f"  K6 {name} on the {int(exact.sum())} exact tied systems: "
+              f"equal to the plain version bit for bit: {same}")
+        check(same, f"K6 {name}: another pivot than the first maximal row")
     torch.cuda.synchronize()
     return errs
 
@@ -1444,10 +1607,25 @@ def phase_aa_evs(card: str):
     return aa, launches, step_ms, (cr, ci), err
 
 
-def phase_timing(o, launches, errs, card) -> list:
+def phase_timing(o, launches, errs, card, previous) -> list:
     print(f"phase 5 timing at M={M_MAIN}, N={N_MAIN} on {card}")
     D, U, b, c, B, X, t = (o[k] for k in "DUbcBXt")
     _, y = fk.fdn_tf_fwd_kernel(D, U, b, c)
+    # the same kernels on one bin (one block, one bin's chain: the floor)
+    # and the previous library's K1 and K3b on the same operands
+    D1, B1, X1, t1 = (o[k][:1].contiguous() for k in "DBXt")
+    y1, tb1 = y[:1].contiguous(), o["tf_bar"][:1].contiguous()
+    floors = {
+        "fdn_tf_mse": lambda: fk.fdn_tf_mse_kernel(D1, U, b, c, X1, t1,
+                                                   False, False),
+        "fdn_solve": lambda: fk.fdn_solve_kernel(D1, U, B1),
+        "fdn_tf_fwd": lambda: fk.fdn_tf_fwd_kernel(D1, U, b, c),
+        "fdn_tf_bwd": lambda: fk.fdn_tf_bwd_kernel(D1, U, b, c, y1, tb1),
+    }
+    previous_runs = {
+        "fdn_tf_mse": lambda: previous.tf_mse(D, U, b, c, X, t, False, False),
+        "fdn_tf_bwd": lambda: previous.tf_bwd(D, U, b, c, y, o["tf_bar"]),
+    }
     A = (torch.eye(N_MAIN, dtype=torch.complex64, device="cuda")[None]
          - D[:, :, None] * U[None].to(torch.complex64))
     runs = {
@@ -1482,7 +1660,9 @@ def phase_timing(o, launches, errs, card) -> list:
         "fdn_sos_tf_mse": (lambda: sk.fdn_sos_tf_mse_kernel(*k5),
                            lambda: sk.fdn_sos_tf_mse_plain(*k5), None, {}),
     })
-    rows = [timing_row(name, name, M_MAIN, *run, launches, errs)
+    rows = [timing_row(name, name, M_MAIN, *run, launches, errs,
+                       floor=floors.get(name),
+                       previous=previous_runs.get(name))
             for name, run in runs.items()]
     # K6 on the scattering slice's own loop systems, at the graph step's
     # M bins and at the masked step's P; torch.linalg.solve computes the
@@ -1492,23 +1672,32 @@ def phase_timing(o, launches, errs, card) -> list:
         for name in K6:
             tr = name == "dense_solve_transposed"
             At = As.transpose(-1, -2) if tr else As
+            A1, B1 = As[:1].contiguous(), Bs[:1].contiguous()
             rows.append(timing_row(
                 name, dense_row(name, shape), As.shape[0],
                 lambda As=As, Bs=Bs, tr=tr: fk.dense_solve_kernel(As, Bs, tr),
                 lambda As=As, Bs=Bs, tr=tr: fk.dense_solve_plain(As, Bs, tr),
                 lambda At=At, Bs=Bs: torch.linalg.solve(At, Bs[..., None]),
-                {}, launches, errs))
+                {}, launches, errs,
+                floor=lambda A1=A1, B1=B1, tr=tr: fk.dense_solve_kernel(
+                    A1, B1, tr),
+                previous=lambda As=As, Bs=Bs, tr=tr: previous.dense_solve(
+                    As, Bs, tr)))
     ms_t = device_ms(lambda: fk.fdn_solve_kernel(D, U, B, True),
                      "fdn_solve_kernel")
     print(f"  fdn_solve transpose=True: kernel {ms_t:.4f} ms")
     for pivot in (True, False):
         for with_dbar in (True, False):
-            ms_v = device_ms(lambda: fk.fdn_tf_mse_kernel(
-                D, U, b, c, X, t, with_dbar, pivot), "fdn_tf_mse_kernel")
+            ms_v, prev_v = versus_previous(
+                lambda: fk.fdn_tf_mse_kernel(D, U, b, c, X, t, with_dbar,
+                                             pivot),
+                lambda: previous.tf_mse(D, U, b, c, X, t, with_dbar, pivot),
+                "fdn_tf_mse_kernel")
             bms, by = bound("fdn_tf_mse", M_MAIN, N_MAIN, pivot=pivot,
                             with_dbar=with_dbar)
             print(f"  fdn_tf_mse pivot={pivot} with_dbar={with_dbar}: "
-                  f"kernel {ms_v:.4f} ms, bound {bms:.5f} ms ({by})")
+                  f"kernel {ms_v:.6f} ms, previous {prev_v:.6f} "
+                  f"({ms_v / prev_v:.3f}x), bound {bms:.5f} ms ({by})")
     for pivot, fuse_taps in ((True, False), (False, False), (True, True),
                              (False, True)):
         for with_dbar in (True, False):
@@ -1598,7 +1787,27 @@ def phase_timing(o, launches, errs, card) -> list:
           + ", ".join(f"{p} {ms:.6f}" for p, ms in k9.items())
           + f"; FP32 / TF32x3 {k9['highest'] / k9['high']:.2f}x")
     by = {r["name"]: r for r in rows}
-    print("  the redesigned kernels in this call (device ms): "
+    print("  K6 and K1 beside the previous kernels in this call (device ms; "
+          "previous each side of the new, averaged): " + "; ".join(
+              f"{n} {by[n]['ms']:.6f} against {by[n]['previous_ms']:.6f} "
+              f"({by[n]['ms'] / by[n]['previous_ms']:.3f}x), floor "
+              f"{by[n]['floor_ms']:.6f}, bound {by[n]['bound_ms']:.6f}"
+              for n in ("dense_solve@P2000", "dense_solve_transposed@P2000",
+                        "dense_solve", "dense_solve_transposed",
+                        "fdn_tf_mse", "fdn_tf_bwd")))
+    for n in ("dense_solve@P2000", "dense_solve_transposed@P2000"):
+        aim = max(0.0022, by[n]["floor_ms"] + 0.0005)
+        print(f"  {n}: {by[n]['ms']:.6f} ms against the aim {aim:.6f} "
+              f"(0.0022, or the floor + 0.0005 when that is larger): "
+              f"{'met' if by[n]['ms'] <= aim else 'missed'}")
+    for n in ("dense_solve", "dense_solve_transposed"):
+        ratio = by[n]["ms"] / by[n]["previous_ms"]
+        print(f"  {n} at M={M_MAIN}: {ratio:.3f}x the previous kernel "
+              f"(at most 1.05x: {'held' if ratio <= 1.05 else 'exceeded'})")
+    print(f"  fdn_tf_mse: {by['fdn_tf_mse']['ms']:.6f} ms against the aim "
+          f"0.0040: {'met' if by['fdn_tf_mse']['ms'] <= 0.004 else 'missed'}")
+    print("  the redesigned kernels of the previous slice in this call "
+          "(device ms): "
           + "; ".join(f"{label} {by[n]['ms']:.6f} (aim {aim}, "
                       f"{by[n]['ms'] / by[n]['bound_ms']:.1f}x its bound "
                       f"{by[n]['bound_ms']:.6f})"
@@ -1612,9 +1821,17 @@ def phase_timing(o, launches, errs, card) -> list:
     return rows
 
 
+def versus_previous(kern, previous, kernel: str) -> tuple[float, float]:
+    """Device ms of ``kern`` and of the previous library's ``previous``
+    in turns, previous, new, new, previous; each pair averaged."""
+    p1, k1, k2, p2 = (device_ms(f, kernel)
+                      for f in (previous, kern, kern, previous))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
                N=N_MAIN, plain_reps=5, lib_reps=20,
-               lib_events=False) -> dict:
+               lib_events=False, floor=None, previous=None) -> dict:
     """The kernels-line row ``row`` of kernel ``name`` at M rows and N
     channels: device and call times of the kernel, its plain version and
     the library call (None when there is none), its bound, launches and
@@ -1626,7 +1843,12 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
     device, and after a profiler trace of it later traces came back
     empty or partial."""
     retries = TRACE_RETRIES[0]
-    ms = device_ms(kern, f"{name.removesuffix('_transposed')}_kernel")
+    kernel = f"{name.removesuffix('_transposed')}_kernel"
+    if previous is None:
+        ms, previous_ms = device_ms(kern, kernel), None
+    else:
+        ms, previous_ms = versus_previous(kern, previous, kernel)
+    floor_ms = None if floor is None else device_ms(floor, kernel)
     plain_ms = device_ms(plain, reps=plain_reps)
     call_ms = time_ms(kern, reps=200)
     plain_call_ms = time_ms(plain, reps=plain_reps, warmup=1)
@@ -1640,10 +1862,15 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
     retries = TRACE_RETRIES[0] - retries
     lib_txt = ("n/a" if library_ms is None else
                f"{library_ms:.4f} (call {library_call_ms:.4f})")
-    print(f"  {row} (M={M}): device ms (call ms): kernel {ms:.4f} "
+    extra = ("" if floor_ms is None else f", floor (M=1) {floor_ms:.6f}") + (
+        "" if previous_ms is None else f", previous {previous_ms:.6f}")
+    print(f"  {row} (M={M}): device ms (call ms): kernel {ms:.6f} "
           f"({call_ms:.4f}), plain {plain_ms:.4f} ({plain_call_ms:.3f}), "
-          f"library {lib_txt}; bound {bound_ms:.5f} ({bound_by})"
+          f"library {lib_txt}; bound {bound_ms:.6f} ({bound_by}){extra}"
           + (f"; {retries} trace(s) taken again" if retries else ""))
+    extra_keys = {k: v for k, v in (("floor_ms", floor_ms),
+                                    ("previous_ms", previous_ms))
+                  if v is not None}
     return {"name": row, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[row],
             "max_abs_err": errs[row], "ms": ms, "plain_ms": plain_ms,
@@ -1653,7 +1880,7 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
             "library_call_ms": library_call_ms, "rows": M,
             "library_ms_by": (None if lib is None else
                               "cuda_events" if lib_events else "profiler"),
-            "trace_retries": retries}
+            "trace_retries": retries, **extra_keys}
 
 
 def phase_trace(card: str, label: str, run_steps, step_ms: float,
@@ -1734,10 +1961,11 @@ def main() -> int:
         return round(marks[-1] - marks[-2], 1)
 
     took = {}
-    card = phase_build(ptxas="--ptxas" in sys.argv[1:])
+    card, previous = phase_build(ptxas="--ptxas" in sys.argv[1:])
     took["1 build"] = seconds_since_last()
     o = main_path_operands(M_MAIN, N_MAIN)
     o["dense"] = dense_operands()
+    o["tied"] = tied_operands()
     rig = aa_rig()
     o["aa"] = aa_kernel_operands(rig)
     errs = phase_kernels(o)
@@ -1762,7 +1990,7 @@ def main() -> int:
     took["4d aa eigenvalues"] = seconds_since_last()
     launches.update(phase_micro(card, p2_values))
     took["4e micro-benchmark"] = seconds_since_last()
-    rows = phase_timing(o, launches, errs, card)
+    rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
     phase_trace(card, "attenuated_train_step (K5)", attenuated_steps(),

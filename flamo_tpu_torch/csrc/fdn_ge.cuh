@@ -17,15 +17,26 @@
 // formulas as the TPU kernel's re/im pairs.  Pivoting is select-based
 // (branch-free), exactly as there: the strictly larger |a|^2 wins, so
 // the first maximal row is the pivot.
+//
+// The gradient kernels K1 and K3b end with sums over the block's bins of
+// N^2 + 2N + 1 per-bin values (49 at N = 6).  On an H100 K1 is bound by
+// issue slots, not by bytes: ~1,450 instructions a thread at N = 6 with 3
+// warps a scheduler on most SMs, and one shuffle tree a value (5 SHFL and
+// 5 FADD each, a predicated store) took a third of them.  warp_sums sums
+// them by recursive halving instead: 51 shuffles and 51 adds at N = 6,
+// each lane then holding the warp sums of at most two values.  A
+// transposed sum through shared memory (every thread parks its values,
+// then runs of 64 bins are summed by a thread a value) measured no faster
+// (controls/k6_k1_designs/time_designs.py).
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace fdn {
 
-// Threads (= bins) per block.  Four warps: the per-block reductions of
-// the gradient kernels take one shuffle tree per warp and one pass over
-// kThreads / 32 partial sums in shared memory.
+// Threads (= bins) per block of K1-K3.  Four warps: the per-block sums of
+// the gradient kernels take warp_sums in each warp and one pass over
+// kThreads / 32 partial rows in shared memory.
 constexpr int kThreads = 128;
 constexpr int kMaxN = 16;
 
@@ -184,15 +195,53 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum one per-thread value over the warp; lane 0 parks it in shared memory.
-// Every thread of the block must call it (no early return before).
-template <int NV>
-__device__ __forceinline__ void warp_put(float (*red)[NV], int idx, float v) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5][idx] = v;
+// One stage of the halving: a lane keeps one half of its V values (the
+// lower half where lane & MASK is 0) and sends the other half to
+// lane ^ MASK, which sends it the matching half of its own; the kept half
+// adds what arrives.  An odd V is padded with a zero.  [base, end) is the
+// range of value indices that the lane's slots stand for.
+template <int NV, int V, int MASK>
+__device__ __forceinline__ void halve(float (&v)[NV], int lane, int& base, int& end) {
+  constexpr int H = (V + 1) / 2;
+  const bool upper = (lane & MASK) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float lo = v[i];
+    const float hi = i + H < V ? v[i + H] : 0.0f;
+    const float send = upper ? lo : hi;
+    v[i] = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, send, MASK);
+  }
+  if (upper) {
+    base += H;
+  } else {
+    end = min(end, base + H);
+  }
 }
 
-// After all warp_put calls: add the warps' sums into this block's row.
+__host__ __device__ constexpr int half_up(int v) { return (v + 1) / 2; }
+
+// The warp's sums of NV per-thread values by recursive halving (a
+// transpose-reduce): after five stages of halve each lane holds at most
+// ceil(NV / 32) of the sums and parks them in the warp's row of red.  At
+// N = 6 the 49 values take 51 shuffles and 51 adds, where a shuffle tree
+// a value took 245 of each.  Every thread of the block must call it.
+template <int NV>
+__device__ __forceinline__ void warp_sums(float (&v)[NV], float (*red)[NV]) {
+  constexpr int V1 = half_up(NV), V2 = half_up(V1), V3 = half_up(V2), V4 = half_up(V3);
+  const int lane = threadIdx.x & 31;
+  int base = 0, end = NV;
+  halve<NV, NV, 16>(v, lane, base, end);
+  halve<NV, V1, 8>(v, lane, base, end);
+  halve<NV, V2, 4>(v, lane, base, end);
+  halve<NV, V3, 2>(v, lane, base, end);
+  halve<NV, V4, 1>(v, lane, base, end);
+#pragma unroll
+  for (int i = 0; i < half_up(V4); ++i) {
+    if (base + i < end) red[threadIdx.x >> 5][base + i] = v[i];
+  }
+}
+
+// After warp_sums: add the warps' sums into this block's row.
 template <int NV>
 __device__ __forceinline__ void block_store(float (*red)[NV], float* __restrict__ row) {
   __syncthreads();
@@ -210,7 +259,8 @@ __device__ __forceinline__ void block_store(float (*red)[NV], float* __restrict_
 //   U_bar_ij = Re sum_m tb w_i d_i y_j              block partial
 //   b_bar_i  = Re sum_m tb w_i d_i                  block partial
 //   c_bar_i  = Re sum_m tb y_i                      block partial
-// followed by the loss partial and the block store of the row.
+// followed by the loss partial; the block's sums of the row go to its
+// partials row.
 template <int N, bool WITH_DBAR>
 __device__ __forceinline__ void cotangents(const float2 (&d)[N], const float* __restrict__ U,
                                            const float* __restrict__ b, const float2 (&y)[N],
@@ -219,6 +269,7 @@ __device__ __forceinline__ void cotangents(const float2 (&d)[N], const float* __
                                            float (*red)[n_partials(N)],
                                            float* __restrict__ partials_row) {
   constexpr int NV = n_partials(N);
+  float v[NV];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const float2 bb = cmul(tb, w[i]);
@@ -234,12 +285,13 @@ __device__ __forceinline__ void cotangents(const float2 (&d)[N], const float* __
       if (live) dbar_row[i] = db;
     }
     const float2 bbD = cmul(bb, d[i]);
-    warp_put<NV>(red, N * N + i, bbD.x);
-    warp_put<NV>(red, N * N + N + i, cmul(tb, y[i]).x);
+    v[N * N + i] = bbD.x;
+    v[N * N + N + i] = cmul(tb, y[i]).x;
 #pragma unroll
-    for (int j = 0; j < N; ++j) warp_put<NV>(red, i * N + j, cmul(bbD, y[j]).x);
+    for (int j = 0; j < N; ++j) v[i * N + j] = cmul(bbD, y[j]).x;
   }
-  warp_put<NV>(red, NV - 1, loss);
+  v[NV - 1] = loss;
+  warp_sums<NV>(v, red);
   block_store<NV>(red, partials_row);
 }
 

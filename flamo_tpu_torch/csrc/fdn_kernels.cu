@@ -23,15 +23,28 @@
 // more than either.  The design answers the arithmetic bound by keeping
 // everything per bin in registers (nothing but D, X, t in and the outputs
 // out) and by the no-pivot K1 variant, which reuses the forward factors
-// instead of a second elimination.
+// instead of a second elimination.  K1 is bound by issue slots: with 376
+// blocks of 4 warps on 132 SMs most schedulers run 3 warps of ~1,200
+// instructions each, so its block sums (fdn_ge.cuh, warp_sums) are
+// recursive halvings, not one shuffle tree a value.
 //
-// K6 takes a dense matrix per bin instead of assembling it, and is bound
-// by bytes: at N = 6 a bin reads 288 bytes of A and 48 of B and writes 48
-// of y against ~1 kFLOP (18.4 MB, ~5.5 us at M = 48001).  It reads A in
-// the caller's (rows, N, N) layout, with no transposed copy: each thread
-// loads its own 288 contiguous bytes, so a warp's loads are strided and
-// lean on L1 to use each cache line fully; staging through shared memory
-// would coalesce them.
+// K6 takes a dense matrix per bin instead of assembling it.  At M = 48001
+// (the graph step) it is bound by bytes: at N = 6 a bin reads 288 bytes of
+// A and 48 of B and writes 48 of y against ~1 kFLOP (18.4 MB, ~5.5 us).
+// At the masked step's P = 2000 rows its bound is 0.23 us and it is bound
+// by latency: a launch as the profiler sees it (~0.9 us for an empty
+// kernel), one load round trip, one system's ~1.2 us chain of dependent
+// elimination steps and the store, 2.2 us in all for a single system on
+// this card (NVIDIA H100 80GB HBM3, 700.00 W; controls/k6_k1_designs).
+// So K6 runs one thread a system in blocks of kSolveRows = 32: 63 blocks
+// on 63 SMs at P = 2000, where blocks of 128 put 16 SMs' L1s under all of
+// the strided loads (each thread loads its own 288 contiguous bytes, so a
+// warp's load touches 32 lines).  Staging A through shared memory with
+// 16-byte loads measured slower at every P up to 32000 (its barriers and
+// round trip add to the chain) and no faster at 48001; a group of 8 lanes
+// a system (a lane a row, the pivot found by shuffles) lengthened the
+// chain further.  K6 reads A in the caller's (rows, N, N) layout, with no
+// transposed copy.
 //
 // The ragged edge m >= M is masked: there is no padding to a tile.
 // Masked threads of the gradient kernels run with D = X = t = tb = 0,
@@ -45,6 +58,10 @@
 namespace fdn {
 
 constexpr int kBadN = -1;
+
+// K6's rows (= threads) per block: one warp, so that the masked step's
+// 2000 rows spread over 63 SMs (see the notes above).
+constexpr int kSolveRows = 32;
 
 __device__ __forceinline__ float2 load_or_zero(const float2* __restrict__ p, bool live) {
   return live ? p[0] : make_float2(0.0f, 0.0f);
@@ -203,12 +220,13 @@ __global__ void __launch_bounds__(kThreads)
 // K6: A_m y_m = B_m for a dense complex N x N matrix per row m (batch and
 // bins folded into the rows), or with TRANSPOSE A_m^T y_m = B_m, which the
 // gradient needs: the kernel then reads A[j][i], so A^T is never stored.
-// A is (M, N, N) row-major per row, B and Y are (M, N).
+// A is (M, N, N) row-major per row, B and Y are (M, N).  One thread a
+// row, kSolveRows rows a block.
 template <int N, bool TRANSPOSE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSolveRows)
     dense_solve_kernel(const float2* __restrict__ A, const float2* __restrict__ B,
                        float2* __restrict__ Y, int M) {
-  const int m = blockIdx.x * kThreads + threadIdx.x;
+  const int m = blockIdx.x * kSolveRows + threadIdx.x;
   if (m >= M) return;
   const float2* __restrict__ a = A + static_cast<size_t>(m) * (N * N);
   const size_t row = static_cast<size_t>(m) * N;
@@ -224,7 +242,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < N; ++i) Y[row + i] = y[i];
 }
 
-inline unsigned n_blocks(int M) { return static_cast<unsigned>((M + kThreads - 1) / kThreads); }
+inline unsigned n_blocks(int M, int per_block = kThreads) {
+  return static_cast<unsigned>((M + per_block - 1) / per_block);
+}
 
 template <int N>
 void launch_tf_mse(bool pivot, bool with_dbar, const float2* D, const float* U,
@@ -254,7 +274,7 @@ void launch_solve(bool transpose, const float2* D, const float* U, const float2*
 template <int N>
 void launch_dense_solve(bool transpose, const float2* A, const float2* B, float2* Y, int M,
                         cudaStream_t s) {
-  const dim3 grid(n_blocks(M)), block(kThreads);
+  const dim3 grid(n_blocks(M, kSolveRows)), block(kSolveRows);
   if (transpose)
     dense_solve_kernel<N, true><<<grid, block, 0, s>>>(A, B, Y, M);
   else

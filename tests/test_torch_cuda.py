@@ -621,3 +621,80 @@ def test_cuda_phase2_micro_rejects_unsupported_sizes(cuda):
         pm.phase2_micro("full", t, torch.ones((9, 4, 2), device="cuda"), 512)
     with pytest.raises(ValueError, match="different devices"):
         pm.phase2_micro("full", t, torch.ones((3, 4, 2)), 512)
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 2, 6, 8, 16])
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 2000, 2001, 48001])
+def test_cuda_dense_solve_rows_and_ties(cuda, N, rows):
+    """K6 (one thread a row, blocks of 32 rows) around its block edges and
+    at the slice's row counts, both ways, against its plain version (1e-5
+    of the max), one launch counted each; and on tied-pivot systems
+    (chip_smoke.tied_pivot_systems), whose exact ones equal the plain
+    version on the CPU bit for bit: another pivot than the first maximal
+    row shows there."""
+    A, B = _dense_system(N * 100000 + rows, (rows,), N)
+    At, Bt, exact = _smoke().tied_pivot_systems(
+        np.random.default_rng(rows + N), min(rows, 2001), N)
+    At = torch.tensor(At.astype(np.complex64), device="cuda")
+    Bt = torch.tensor(Bt.astype(np.complex64), device="cuda")
+    exact = torch.from_numpy(exact)
+    for transpose in (False, True):
+        name = "dense_solve_transposed" if transpose else "dense_solve"
+        fk.reset_launch_counts()
+        assert _rel(fk.dense_solve_kernel(A, B, transpose),
+                    fk.dense_solve_plain(A, B, transpose)) < 1e-5
+        got = fk.dense_solve_kernel(At, Bt, transpose)
+        assert fk.LAUNCHES[name] == 2
+        assert _rel(got, fk.dense_solve_plain(At, Bt, transpose)) < 1e-5
+        ref = fk.dense_solve_plain(At.cpu(), Bt.cpu(), transpose)
+        assert torch.equal(got.cpu()[exact], ref[exact])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 3, 6, 16])
+@pytest.mark.parametrize("M", [1, 63, 65, 4097])
+def test_cuda_tf_mse_and_bwd_ragged(cuda, N, M):
+    """K1 in its four (pivot, with_dbar) variants and K3b, whose block sums
+    are recursive halvings, at bin counts off the 128-bin blocks: against
+    their plain versions (the loss 1e-5, the cotangents 1e-4 of the max),
+    two launches equal bit for bit, each launch counted."""
+    o = _operands(7 * M + N, M, N)
+    D, U, b, c, X, t = (o[n] for n in "DUbcXt")
+    if M == 1:  # a target near |tf X| would make one bin's loss ~0
+        t = torch.zeros_like(t)
+    fk.reset_launch_counts()
+    for pivot in (True, False):
+        for with_dbar in (True, False):
+            got = fk.fdn_tf_mse_kernel(D, U, b, c, X, t, with_dbar, pivot)
+            again = fk.fdn_tf_mse_kernel(D, U, b, c, X, t, with_dbar, pivot)
+            ref = fk.fdn_tf_mse_plain(D, U, b, c, X, t, with_dbar, pivot)
+            assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5
+            for g, a, r in zip(got[1:], again[1:], ref[1:]):
+                if r is None:
+                    assert g is None
+                    continue
+                assert _rel(g, r) < 1e-4
+                assert torch.equal(g, a)
+            assert torch.equal(got[0], again[0])
+    assert fk.LAUNCHES["fdn_tf_mse"] == 8
+    _, yp = fk.fdn_tf_fwd_plain(D, U, b, c)
+    got = fk.fdn_tf_bwd_kernel(D, U, b, c, yp, X)
+    again = fk.fdn_tf_bwd_kernel(D, U, b, c, yp, X)
+    for g, a, r in zip(got, again, fk.fdn_tf_bwd_plain(D, U, b, c, yp, X)):
+        assert _rel(g, r) < 1e-4
+        assert torch.equal(g, a)
+    assert fk.LAUNCHES["fdn_tf_bwd"] == 2
+    torch.cuda.synchronize()
