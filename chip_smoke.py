@@ -13,15 +13,19 @@ Phases, in order; any failure raises and exits non-zero without a result:
    compiles the hand-written kernels of flamo_tpu_torch/csrc (nvcc,
    sm_90a, one process per library, all at once) and, beside them,
    controls/fdn_kernels_prev/fdn_kernels.cu, the K1-K3 and K6 kernels
-   before K6's and K1's redesign (phase 5's control), and prints the build
-   time and each library's own seconds; with --ptxas it compiles them all
-   with nvcc's register report (written to build/ptxas_smoke.txt)
-   and prints the registers, spills and register-bound warps an SM of
-   each K1, K3b, K5, K6 and K7 instantiation, the previous library's too;
+   before K6's and K1's redesign, and controls/sos_kernels_prev/
+   sos_kernels.cu, K4f and K4b before theirs (phase 5's controls), and
+   prints the build time and each library's own seconds; with --ptxas it
+   compiles them all with nvcc's register report (written to
+   build/ptxas_smoke.txt) and prints the registers, spills and
+   register-bound warps an SM of each K1, K3b, K4f, K4b, K5, K6 and K7
+   instantiation, the previous libraries' too;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U; K = 12
    sections of P = 3 taps, random well-conditioned ones and those of the
-   attenuated FDN's GEQ; K6 on dense systems at M = 48001 and at the
+   attenuated FDN's GEQ, and K4f/K4b also at 25 channels, on random taps
+   and on a 5 x 5 GEQ's, K4b launched twice with equal results; K6 on
+   dense systems at M = 48001 and at the
    masked step's P = 2000 bins, random well-conditioned ones and the
    scattering FDN's own loop matrices, and 2000 tied-pivot systems, whose
    exact ones must equal the plain version bit for bit; K1's training
@@ -50,8 +54,12 @@ Phases, in order; any failure raises and exits non-zero without a result:
    gradients of the 'xla'/'ge' route (plain cascade and elimination)
    against the 'pallas'/'pallas' route (K4f + K2, backward K4b + K2
    transposed) and the fused step (K5), then ATT_STEPS Adam steps of
-   attenuated_train_step(fused_step=True) (K5, no pivot), timed; K2, K4f,
-   K4b and K5 must have been launched in this phase;
+   attenuated_train_step(fused_step=True) (K5, no pivot) and
+   ATT_GRAPH_STEPS of attenuated_train_step on the 'pallas'/'pallas' model
+   (bench.py's mode='pallas': K4f, K2, K2 transposed and K4b once each a
+   step, checked; its first loss equals the graph loss to 1e-5, its loss
+   falls), both timed; K2, K4f, K4b and K5 must have been launched in this
+   phase;
 4b. the scattering slice at full width: build_colorless_sfdn(nfft=96000,
    solve_method='pallas') on the card; the graph loss and gradients
    through K6 against the 'ge' route at the same mask, the masked loss
@@ -87,16 +95,18 @@ Phases, in order; any failure raises and exits non-zero without a result:
    K10 also the work of its passes counted as K5's distinct sections; K9
    at each precision, its FP32 and tensor-core kernels in the same run),
    and K5's training variant and K7 against their aims beside the
-   kernels left on the old code (K4b, K10) as the call's control, with
-   K7's time at 0 and 1 iterations (its fixed cost and an iteration's);
-   K1-K3 and K6 also on one bin or row (``floor_ms``: one block and one
-   bin's chain, the least a launch of that kernel takes), and K1 (all four
-   variants), K3b and K6 (both shapes, each way) beside the previous
-   library's kernels on the same operands (``previous_ms``; previous, new,
-   new, previous, each pair averaged), K6 at P = 2000 and K1 against
-   their aims and K6 at M = 48001 against 1.05x the previous kernel;
+   kernel left on the old code (K10) as the call's control, with K7's
+   time at 0 and 1 iterations (its fixed cost and an iteration's); K1-K4
+   and K6 also on one bin or row (``floor_ms``: one block and one bin's
+   chain, the least a launch of that kernel takes), and K1 (all four
+   variants), K3b, K4f, K4b and K6 (both shapes, each way) beside the
+   previous libraries' kernels on the same operands (``previous_ms``;
+   previous, new, new, previous, each pair averaged), K4f, K4b, K6 at
+   P = 2000 and K1 against their aims and K6 at M = 48001 against 1.05x
+   the previous kernel;
 6. torch.profiler traces of a few training steps of each path: the
-   device's busy and idle share and the kernels that take its time;
+   device's busy and idle share and the kernels that take its time (for
+   the attenuated graph step also K4f's, K4b's and K2's share);
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -115,11 +125,13 @@ the rows without a suffix) and sfdn_fit(masked=True) (P = 2000, the
 and K7 in the timed aa_evs_fit, each once per step (K6 once each way; K9
 at each precision in its own run: ``aa_taps_tf_mse`` is the FP32 kernel
 at 'highest', ``aa_taps_tf_mse_tc_high`` and ``aa_taps_tf_mse_tc_default``
-the tensor-core kernel at 3 and 1 TF32 passes); K2,
-K3f, K3b, K4f and K4b, which no training step runs, in the graph-route and
-fused-tf calls of phases 3 and 4; the K10 variants in phase 4e's
-bench_phase2_micro.run (151 calls each).  ``trace_retries`` counts a row's profiler traces
-that were taken again because they held none of its kernel.
+the tensor-core kernel at 3 and 1 TF32 passes); K4f and K4b in the
+timed graph steps of phase 4 (once each per step), K2 there (twice per
+step) and in the graph-route calls of phases 3 and 4, K3f and K3b, which
+no training step runs, in phase 3's fused-tf calls; the K10 variants in
+phase 4e's bench_phase2_micro.run (151 calls each).  ``trace_retries``
+counts a row's profiler traces that were taken again because they held
+none of its kernel.
 
 TF32 is off throughout: expm's matmuls and the references stay float32.
 Only K9's tensor-core kernel uses TF32, inside the kernel, for its own two
@@ -164,6 +176,7 @@ from flamo_tpu_torch.ops import fdn_kernels as fk
 from flamo_tpu_torch.ops import phase2_micro as pm
 from flamo_tpu_torch.ops import sos_kernels as sk
 from flamo_tpu_torch.optimize import masked_mse_loss, mse_evs, sparsity_loss
+from flamo_tpu_torch.processor import dsp
 from flamo_tpu_torch.scripts import bench_phase2_micro as p2bench
 
 M_MAIN, N_MAIN, NFFT = 48001, 6, 96000
@@ -173,7 +186,9 @@ SEED = 0
 PTXAS_LOG = Path("build/ptxas_smoke.txt")
 FIT_STEPS = 100
 ATT_STEPS = 100
+ATT_GRAPH_STEPS = 100  # the graph step through K4 and K2
 ATT_LR = 1e-4
+GEQ25 = (5, 5)  # a full GEQ whose 25 channels fold into K4's channel axis
 SFDN_SAMPLES = 2000  # bins per masked step (the masked_mse mask)
 SFDN_FIT_STEPS = 200
 SFDN_GRAPH_STEPS = 20
@@ -201,8 +216,8 @@ SOURCES = {
     "fdn_solve": "flamo_tpu_torch/csrc/fdn_kernels.cu",
     "fdn_tf_fwd": "flamo_tpu_torch/csrc/fdn_kernels.cu",
     "fdn_tf_bwd": "flamo_tpu_torch/csrc/fdn_kernels.cu",
-    "sos_cascade_fwd": "flamo_tpu_torch/csrc/sos_kernels.cu",
-    "sos_cascade_bwd": "flamo_tpu_torch/csrc/sos_kernels.cu",
+    "sos_cascade_fwd": "flamo_tpu_torch/csrc/sos_cascade.cu",
+    "sos_cascade_bwd": "flamo_tpu_torch/csrc/sos_cascade.cu",
     "fdn_sos_tf_mse": "flamo_tpu_torch/csrc/sos_kernels.cu",
     "dense_solve": "flamo_tpu_torch/csrc/fdn_kernels.cu",
     "dense_solve_transposed": "flamo_tpu_torch/csrc/fdn_kernels.cu",
@@ -326,42 +341,61 @@ def gpu_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# the kernels of fdn_kernels.cu before K6's and K1's redesign, built in
-# phase 1 beside the package's and timed in phase 5 as the control
+# the kernels before their redesign, built in phase 1 beside the package's
+# and timed in phase 5 as the control: fdn_kernels.cu before K6's and
+# K1's, and K4f/K4b before theirs
 # ---------------------------------------------------------------------------
-PREVIOUS_SRC = (Path(__file__).resolve().parent / "controls"
-                / "fdn_kernels_prev" / "fdn_kernels.cu")
+CONTROLS = Path(__file__).resolve().parent / "controls"
+PREVIOUS_SRC = CONTROLS / "fdn_kernels_prev" / "fdn_kernels.cu"
 PREVIOUS_SO = (cuda_build.BUILD_DIR.parent / "controls"
                / f"libfdn_kernels_prev-n{N_MAIN}.so")
+PREVIOUS_SOS_SRC = CONTROLS / "sos_kernels_prev" / "sos_kernels.cu"
+PREVIOUS_SOS_SO = (cuda_build.BUILD_DIR.parent / "controls"
+                   / f"libsos_kernels_prev-n{N_MAIN}.so")
 
 
 class Previous:
-    """The previous library's K1, K3b and K6 for N_MAIN channels: the same
-    C entry points as the package's (fdn_tf_mse_launch, fdn_tf_bwd_launch,
-    fdn_dense_solve_launch), launched on operands the package's wrappers
-    have checked, outputs allocated here, nothing counted."""
+    """The previous libraries' K1, K3b and K6 (fdn_kernels_prev) and K4f,
+    K4b (sos_kernels_prev) for N_MAIN channels: the same C entry points
+    as the package's before the redesigns, launched on operands the
+    package's wrappers have checked, outputs allocated here, nothing
+    counted."""
 
-    def __init__(self, proc, log: Path | None):
-        out, _ = proc.communicate()
-        check(proc.returncode == 0, f"nvcc failed for {PREVIOUS_SRC}:\n{out}")
-        if log is not None:
-            with log.open("a") as f:
-                f.write(f"# previous fdn_kernels N = {N_MAIN}\n{out}")
+    def __init__(self, procs, log: Path | None):
+        for (src, so), proc in zip(((PREVIOUS_SRC, PREVIOUS_SO),
+                                    (PREVIOUS_SOS_SRC, PREVIOUS_SOS_SO)),
+                                   procs):
+            out, _ = proc.communicate()
+            check(proc.returncode == 0, f"nvcc failed for {src}:\n{out}")
+            if log is not None:
+                with log.open("a") as f:
+                    f.write(f"# previous {src.stem} N = {N_MAIN}\n{out}")
         self.lib = ctypes.CDLL(str(PREVIOUS_SO))
+        self.sos = ctypes.CDLL(str(PREVIOUS_SOS_SO))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib.fdn_tf_mse_launch.argtypes = [I] * 3 + [P] * 8 + [F, I, P]
         self.lib.fdn_tf_bwd_launch.argtypes = [I] + [P] * 8 + [I, P]
         self.lib.fdn_dense_solve_launch.argtypes = [I, I, P, P, P, I, P]
+        self.sos.sos_cascade_fwd_launch.argtypes = [P] * 3 + [I] * 4 + [
+            F, F, P]
+        self.sos.sos_cascade_bwd_launch.argtypes = [P] * 4 + [I] * 4 + [
+            F, F, P]
 
     @staticmethod
-    def start(ptxas: bool):
+    def start(ptxas: bool) -> list:
+        """One nvcc a library, both started at once."""
         PREVIOUS_SO.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
-               f"-DFDN_N={N_MAIN}", "-o", str(PREVIOUS_SO), str(PREVIOUS_SRC)]
-        if ptxas:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+        procs = []
+        for src, so in ((PREVIOUS_SRC, PREVIOUS_SO),
+                        (PREVIOUS_SOS_SRC, PREVIOUS_SOS_SO)):
+            cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+                   f"-DFDN_N={N_MAIN}", "-o", str(so), str(src)]
+            if ptxas:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        return procs
 
     @staticmethod
     def _stream() -> int:
@@ -397,6 +431,30 @@ class Previous:
             partials.data_ptr(), M, self._stream()) == 0,
             "previous K3b launch")
         return partials
+
+    def sos_fwd(self, b, a, nfft: int):
+        """The previous K4f: H (nfft // 2 + 1, N_MAIN)."""
+        P, K, N = b.shape
+        M = nfft // 2 + 1
+        H = torch.empty((M, N), dtype=torch.complex64, device="cuda")
+        check(self.sos.sos_cascade_fwd_launch(
+            b.data_ptr(), a.data_ptr(), H.data_ptr(), M, N, K, P,
+            2 * math.pi / nfft, 0.0, self._stream()) == 0,
+            "previous K4f launch")
+        return H
+
+    def sos_bwd(self, b, a, g, nfft: int):
+        """The previous K4b and the sum of its partials rows, as its
+        wrapper took them: (b_bar, a_bar)."""
+        P, K, N = b.shape
+        M = g.shape[0]
+        partials = torch.empty((-(-M // 128), N, 2 * P * K), device="cuda")
+        check(self.sos.sos_cascade_bwd_launch(
+            b.data_ptr(), a.data_ptr(), g.data_ptr(), partials.data_ptr(), M,
+            N, K, P, 2 * math.pi / nfft, 0.0, self._stream()) == 0,
+            "previous K4b launch")
+        s = torch.sum(partials, dim=0).reshape(N, 2, P, K).permute(1, 2, 3, 0)
+        return s[0].contiguous(), s[1].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -600,13 +658,15 @@ TRACE_RETRIES = [0]  # traces taken again by device_ms, over the whole run
 def device_ms(fn, kernel: str | None = None, reps: int = 50) -> float:
     """Mean device time per call of the device operations whose name holds
     ``kernel`` (all of them when None), from a torch.profiler trace of
-    ``reps`` calls of ``fn``.  A trace that holds no such operation is
-    taken again, up to three times in all, and counted in TRACE_RETRIES:
-    on the H100 the profiler has once come back without any kernel of a
-    trace that launched them."""
+    ``reps`` calls of ``fn``.  On the H100 the profiler has come back
+    without any kernel of a trace that launched them, and with 49 of a
+    named kernel's 50 launches: such a trace (none, or fewer launches of
+    the kernel than calls) is taken again, up to three times in all, and
+    counted in TRACE_RETRIES.  A named kernel is launched once a call, so
+    a trace kept with fewer launches is read per launch it holds."""
     fn()
     torch.cuda.synchronize()
-    us = 0.0
+    us, n = 0.0, 0
     for attempt in range(3):
         if attempt:
             TRACE_RETRIES[0] += 1
@@ -615,16 +675,19 @@ def device_ms(fn, kernel: str | None = None, reps: int = 50) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in _device_events(prof)
-                 if kernel is None or kernel in e.key)
-        if us > 0:
+        ops = [e for e in _device_events(prof)
+               if kernel is None or kernel in e.key]
+        us = sum(e.self_device_time_total for e in ops)
+        n = sum(e.count for e in ops)
+        if us > 0 and (kernel is None or n >= reps):
             break
         seen = sorted({e.key[:40] for e in _device_events(prof)})
-        print(f"  the profiler saw no device time for {kernel or fn} "
-              f"(it saw {len(seen)} other device operations: {seen[:4]}); "
-              "tracing again")
+        print(f"  the profiler saw {n} launches and {us:.1f} us of device "
+              f"time for {kernel or fn} in {reps} calls (and "
+              f"{len(seen)} device operations in all: {seen[:4]}); "
+              + ("tracing again" if attempt < 2 else "read per launch"))
     check(us > 0, f"the profiler saw no device time for {kernel or fn}")
-    return us / reps / 1e3
+    return us / (reps if kernel is None else min(n, reps)) / 1e3
 
 
 def timed(run):
@@ -663,23 +726,25 @@ def phase_build(ptxas: bool = False) -> str:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     targets = (("fdn_kernels", N_MAIN), ("sos_kernels", N_MAIN),
-               ("aa_kernels", AA_N), ("eig_kernels", AA_N), ("eig_kernels", 8),
-               ("phase2_micro", 1))
+               ("sos_cascade", 1), ("aa_kernels", AA_N), ("eig_kernels", AA_N),
+               ("eig_kernels", 8), ("phase2_micro", 1))
     log = PTXAS_LOG if ptxas else None
     t0 = time.perf_counter()
     previous_build = Previous.start(ptxas)
     seconds = cuda_build.build(targets, ptxas_log=log)
     previous = Previous(previous_build, log)
-    seconds[("previous fdn_kernels", N_MAIN)] = time.perf_counter() - t0
+    seconds[("previous controls", N_MAIN)] = time.perf_counter() - t0
     names = [cuda_build.library_path(n, lib).name for lib, n in targets]
     for lib, n in targets:
         cuda_build.load(n, lib)
+    controls = " and ".join(
+        f"{so.name} from {src.relative_to(src.parents[2])}"
+        for src, so in ((PREVIOUS_SRC, PREVIOUS_SO),
+                        (PREVIOUS_SOS_SRC, PREVIOUS_SOS_SO)))
     print(f"phase 1 build: {max(seconds.values()):.1f} s, "
-          f"{len(names) + 1} libraries in parallel ({', '.join(names)}, "
-          f"and {PREVIOUS_SO.name} from "
-          f"{PREVIOUS_SRC.relative_to(PREVIOUS_SRC.parents[2])}, phase 5's "
-          f"control; {cuda_build.threads_per_block(N_MAIN)} threads/block "
-          "for K1-K3)")
+          f"{len(names) + 2} libraries in parallel ({', '.join(names)}, "
+          f"and {controls}, phase 5's controls; "
+          f"{cuda_build.threads_per_block(N_MAIN)} threads/block for K1-K3)")
     print("  each library's seconds (its nvcc beside the others): "
           + ", ".join(f"{lib} N={n} {s:.1f}"
                       for (lib, n), s in seconds.items()))
@@ -689,10 +754,10 @@ def phase_build(ptxas: bool = False) -> str:
 
 
 def print_ptxas(report: str) -> None:
-    """Registers and spills of the K1, K3b, K5, K6 and K7 instantiations
-    from nvcc's -Xptxas -v report (the previous library's tagged as such),
-    with the warps an SM that the registers allow."""
-    name, spills, tag = None, "", ""
+    """Registers and spills of the K1, K3b, K4f, K4b, K5, K6 and K7
+    instantiations from nvcc's -Xptxas -v report (the previous libraries'
+    tagged as such), with the warps an SM that the registers allow."""
+    name, spills, tag, k4 = None, "", "", {}
     for line in report.splitlines():
         if line.startswith("# "):
             tag = "previous " if line.startswith("# previous") else ""
@@ -703,13 +768,19 @@ def print_ptxas(report: str) -> None:
             spills = line.split(",", 1)[1].strip()
         used = re.search(r"Used (\d+) registers", line)
         which = name and re.search(
-            r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_bwd|dense_solve)"
-            r"_kernel", name)
+            r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_bwd|dense_solve|"
+            r"sos_cascade_fwd|sos_cascade_bwd)_kernel", name)
         if not (used and which):
             continue
         kernel = which.group(0)
         targs = re.findall(r"L[ib](\d+)E", name)
         regs = int(used.group(1))
+        if kernel.startswith("sos_cascade") and targs:
+            # K4's 64 copies a kernel: the main path's, and the most
+            # registers and any spill over all of them
+            k4.setdefault(kernel, []).append((regs, spills))
+            if targs != [str(N_MAIN), str(P_MAIN)]:
+                continue
         # a block's warps; K6's blocks are one warp, the previous ones four
         warps = {"dk_roots_kernel": 2,
                  "dense_solve_kernel": 4 if tag else 1}.get(kernel, 4)
@@ -717,6 +788,12 @@ def print_ptxas(report: str) -> None:
         blocks = min(65536 // (per_warp * warps), 64 // warps, 32)
         print(f"  ptxas {tag}{kernel}<{', '.join(targs)}>: {regs} registers, "
               f"{spills}; {blocks * warps} warps an SM by registers")
+    for kernel, copies in k4.items():
+        spilled = [sp for _, sp in copies if not sp.startswith("0 bytes spill "
+                                                                "stores")]
+        print(f"  ptxas {kernel}, all {len(copies)} <NC, P> copies: at most "
+              f"{max(r for r, _ in copies)} registers, "
+              f"{len(spilled)} with spills")
 
 
 def _stable_taps(rng, P: int, K: int, N: int):
@@ -739,8 +816,15 @@ def main_path_operands(M: int, N: int, seed: int = SEED):
     att = att_model(seed).get_core().feedback_loop.feedback.attenuation
     with torch.no_grad():
         geq_bt, geq_at = att.sos_taps(att.map(att.param))
+    # K4 at 25 channels: random taps and a full 5 x 5 GEQ's
+    rng25 = np.random.default_rng(seed + 5)
+    bt25, at25 = _stable_taps(rng25, P_MAIN, K_MAIN, 25)
+    geq25_bt, geq25_at = geq25_taps(geq25(seed))
     return dict(
         bt=bt, at=at, geq_bt=geq_bt.contiguous(), geq_at=geq_at.contiguous(),
+        bt25=bt25, at25=at25, geq25_bt=geq25_bt, geq25_at=geq25_at,
+        g25=torch.tensor((rng25.normal(size=(M, 25)) + 1j * rng25.normal(
+            size=(M, 25))).astype(np.complex64), device="cuda"),
         g=torch.tensor((rng.normal(size=(M, N)) + 1j * rng.normal(
             size=(M, N))).astype(np.complex64), device="cuda"),
         D=torch.tensor(D.astype(np.complex64), device="cuda"),
@@ -755,6 +839,22 @@ def main_path_operands(M: int, N: int, seed: int = SEED):
         tf_bar=torch.tensor((rng.normal(size=M) + 1j * rng.normal(size=M))
                             .astype(np.complex64), device="cuda"),
     )
+
+
+def geq25(seed: int = SEED):
+    """A full GEQ of GEQ25 = (5, 5) channels on the 'pallas' backend: its
+    25 channels fold into K4's channel axis (dsp._guarded_cascade)."""
+    return dsp.GEQ(size=GEQ25, nfft=NFFT, cascade_backend="pallas",
+                   device="cuda",
+                   generator=torch.Generator().manual_seed(seed))
+
+
+def geq25_taps(geq):
+    """A GEQ's (P, K, 25) taps, as its response hands them to K4."""
+    with torch.no_grad():
+        b, a = geq.sos_taps(geq.map(geq.param))
+    return (b.reshape(*b.shape[:2], -1).contiguous(),
+            a.reshape(*a.shape[:2], -1).contiguous())
 
 
 def sfdn_model(seed: int = SEED):
@@ -926,19 +1026,29 @@ def phase_kernels(o) -> dict:
                 check(same, f"{tag}: two launches differ")
 
     print(f"  SOS kernels at K={K_MAIN}, P={P_MAIN}")
-    for label, bt, at, vtol, gtol in (
-            ("random taps", o["bt"], o["at"], VAL_TOL, GRAD_TOL),
-            ("GEQ taps", o["geq_bt"], o["geq_at"], GEQ_VAL_TOL,
+    for label, bt, at, g, vtol, gtol in (
+            ("random taps", o["bt"], o["at"], o["g"], VAL_TOL, GRAD_TOL),
+            ("GEQ taps", o["geq_bt"], o["geq_at"], o["g"], GEQ_VAL_TOL,
+             GEQ_GRAD_TOL),
+            ("random taps, 25 channels", o["bt25"], o["at25"], o["g25"],
+             VAL_TOL, GRAD_TOL),
+            (f"{GEQ25[0]} x {GEQ25[1]} GEQ's taps, 25 channels",
+             o["geq25_bt"], o["geq25_at"], o["g25"], GEQ_VAL_TOL,
              GEQ_GRAD_TOL)):
         e_f = compare(f"K4f sos_cascade_fwd ({label})",
                       sk.sos_cascade_fwd_kernel(bt, at, NFFT),
                       sk.sos_cascade_fwd_plain(bt, at, NFFT), vtol)
-        got = sk.sos_cascade_bwd_kernel(bt, at, o["g"], NFFT)
-        ref = sk.sos_cascade_bwd_plain(bt, at, o["g"], NFFT)
+        got = sk.sos_cascade_bwd_kernel(bt, at, g, NFFT)
+        ref = sk.sos_cascade_bwd_plain(bt, at, g, NFFT)
         e_b = max(compare(f"K4b sos_cascade_bwd {n} ({label})", g_, r_, gtol)
                   for n, g_, r_ in zip(("b_bar", "a_bar"), got, ref))
         if label == "GEQ taps":  # the attenuated FDN's own taps
             errs["sos_cascade_fwd"], errs["sos_cascade_bwd"] = e_f, e_b
+            again = sk.sos_cascade_bwd_kernel(bt, at, g, NFFT)
+            same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
+            print(f"  K4b ({label}): a second launch gives the same tap "
+                  f"cotangents: {same}")
+            check(same, "K4b: two launches differ")
     U6 = 0.6 * U  # a loop gain well below 1 with |Gam| near 1
     names = ("D_bar", "bt_bar", "at_bar", "U_bar", "b_bar", "c_bar")
     for pivot, fuse_taps in itertools.product((True, False), repeat=2):
@@ -1270,8 +1380,9 @@ def att_model(seed: int = SEED, **routes):
 
 def phase_attenuated(card: str):
     """The attenuated slice: the graph routes and the fused step agree,
-    then ATT_STEPS Adam steps through K5.  Returns the launch counts of
-    this phase and the untraced ms per training step."""
+    then ATT_STEPS Adam steps through K5 and ATT_GRAPH_STEPS graph steps
+    through K4 and K2.  Returns the launch counts of this phase and the
+    untraced ms per fused and per graph training step."""
     print(f"phase 4 the attenuated slice: build_attenuated_fdn(nfft={NFFT}, "
           f"octave_interval=1, cache_delays=True) on cuda")
     model = att_model()
@@ -1295,9 +1406,7 @@ def phase_attenuated(card: str):
         for k in g_ge:
             compare(f"{label} grad {k}", grads[k], g_ge[k], FUSED_GRAD_TOL)
 
-    launches = {"fdn_solve": fk.LAUNCHES["fdn_solve"],
-                "sos_cascade_fwd": sk.LAUNCHES["sos_cascade_fwd"],
-                "sos_cascade_bwd": sk.LAUNCHES["sos_cascade_bwd"]}
+    launches = {"fdn_solve": fk.LAUNCHES["fdn_solve"]}
 
     # training through K5: a short warm-up on a copy, then the timed run
     warm = att_model(seed=2)
@@ -1326,11 +1435,46 @@ def phase_attenuated(card: str):
     print(f"  attenuated_train_step: {ATT_STEPS / seconds:.1f} steps/s "
           f"({seconds * 1e3 / ATT_STEPS:.4f} ms/step, CUDA events, after a "
           f"10-step warm-up) on {card}")
-    print(f"  launches in phase 4 (K2/K4 in the graph calls, K5 in the "
-          f"timed steps): {launches}")
+    step_ms = seconds * 1e3 / ATT_STEPS
+
+    # the graph step through K4 and K2 (bench.py's mode='pallas'): a
+    # warm-up on a copy, then the timed steps from model_k's weights
+    warm = att_model(seed=2, solve_method="pallas", cascade_backend="pallas")
+    step, _ = attenuated_train_step(warm, lr=ATT_LR)
+    for _ in range(10):
+        step(x, t)
+    step, _ = attenuated_train_step(model_k, lr=ATT_LR)
+    fk.reset_launch_counts()
+    sk.reset_launch_counts()
+    losses, seconds = timed(lambda: [step(x, t)
+                                      for _ in range(ATT_GRAPH_STEPS)])
+    counts = {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items() if v}
+    want = {"fdn_solve": 2 * ATT_GRAPH_STEPS,
+            "sos_cascade_fwd": ATT_GRAPH_STEPS,
+            "sos_cascade_bwd": ATT_GRAPH_STEPS}
+    print(f"  launches in the timed graph steps: {counts}")
+    check(counts == want, "the graph step should launch K4f, K4b once and "
+          f"K2 twice (forward, transposed) per step: {counts}")
+    launches["fdn_solve"] += counts["fdn_solve"]
+    launches["sos_cascade_fwd"] = counts["sos_cascade_fwd"]
+    launches["sos_cascade_bwd"] = counts["sos_cascade_bwd"]
+    hist = torch.stack(losses).cpu().numpy()
+    graph_ms = seconds * 1e3 / ATT_GRAPH_STEPS
+    rel = abs(hist[0] - l_k) / l_k
+    print(f"  attenuated_train_step (graph, K4f + K2, backward K4b + K2 "
+          f"transposed, lr {ATT_LR:g}): loss {hist[0]:.7f} -> {hist[-1]:.7f} "
+          f"over {ATT_GRAPH_STEPS} steps, first loss vs the pallas/pallas "
+          f"graph loss rel {rel:.3e} (tol 1e-05), {graph_ms:.4f} ms/step "
+          f"(CUDA events, after a 10-step warm-up) on {card}")
+    check(bool(np.isfinite(hist).all()), "graph step loss is not finite")
+    check(rel < 1e-5, "first graph step loss differs from the graph loss")
+    check(hist[-1] < hist[0], "the graph steps' loss did not fall")
+    print(f"  launches in phase 4 (K2 in the graph calls and the timed "
+          f"graph steps, K4 in the timed graph steps, K5 in the timed fused "
+          f"steps): {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the attenuated path")
-    return launches, seconds * 1e3 / ATT_STEPS
+    return launches, step_ms, graph_ms
 
 
 def _k6_counts() -> dict:
@@ -1622,9 +1766,18 @@ def phase_timing(o, launches, errs, card, previous) -> list:
         "fdn_tf_fwd": lambda: fk.fdn_tf_fwd_kernel(D1, U, b, c),
         "fdn_tf_bwd": lambda: fk.fdn_tf_bwd_kernel(D1, U, b, c, y1, tb1),
     }
+    gb, ga, g = o["geq_bt"], o["geq_at"], o["g"]
+    g1 = g[:1].contiguous()
+    floors.update({  # K4 on one bin (nfft = 1: M = 1)
+        "sos_cascade_fwd": lambda: sk.sos_cascade_fwd_kernel(gb, ga, 1),
+        "sos_cascade_bwd": lambda: sk.sos_cascade_bwd_kernel(gb, ga, g1,
+                                                             NFFT),
+    })
     previous_runs = {
         "fdn_tf_mse": lambda: previous.tf_mse(D, U, b, c, X, t, False, False),
         "fdn_tf_bwd": lambda: previous.tf_bwd(D, U, b, c, y, o["tf_bar"]),
+        "sos_cascade_fwd": lambda: previous.sos_fwd(gb, ga, NFFT),
+        "sos_cascade_bwd": lambda: previous.sos_bwd(gb, ga, g, NFFT),
     }
     A = (torch.eye(N_MAIN, dtype=torch.complex64, device="cuda")[None]
          - D[:, :, None] * U[None].to(torch.complex64))
@@ -1645,7 +1798,6 @@ def phase_timing(o, launches, errs, card, previous) -> list:
                                                    o["tf_bar"]), None, {}),
     }
     # the SOS kernels on the attenuated path's taps and variants
-    gb, ga, g = o["geq_bt"], o["geq_at"], o["g"]
     U6 = 0.6 * U
     k5 = (D, gb, ga, U6, b, c, X, t, NFFT)
     runs.update({
@@ -1806,16 +1958,26 @@ def phase_timing(o, launches, errs, card, previous) -> list:
               f"(at most 1.05x: {'held' if ratio <= 1.05 else 'exceeded'})")
     print(f"  fdn_tf_mse: {by['fdn_tf_mse']['ms']:.6f} ms against the aim "
           f"0.0040: {'met' if by['fdn_tf_mse']['ms'] <= 0.004 else 'missed'}")
-    print("  the redesigned kernels of the previous slice in this call "
-          "(device ms): "
+    for n, label, aim in (("sos_cascade_fwd", "K4f", 0.0070),
+                          ("sos_cascade_bwd", "K4b", 0.020)):
+        r = by[n]
+        ratio = r["ms"] / r["previous_ms"]
+        print(f"  {label} {n}: {r['ms']:.6f} ms against the aim {aim:.4f}: "
+              f"{'met' if r['ms'] <= aim else 'missed'}; previous "
+              f"{r['previous_ms']:.6f} ({ratio:.3f}x: "
+              f"{'at most' if ratio <= 1 else 'above'} the previous kernel), "
+              f"floor (M=1) {r['floor_ms']:.6f}, bound {r['bound_ms']:.6f} "
+              f"({r['ms'] / r['bound_ms']:.1f}x), launches {r['launches']}")
+    print("  the kernels redesigned in earlier slices, in this call (device "
+          "ms): "
           + "; ".join(f"{label} {by[n]['ms']:.6f} (aim {aim}, "
                       f"{by[n]['ms'] / by[n]['bound_ms']:.1f}x its bound "
                       f"{by[n]['bound_ms']:.6f})"
                       for label, n, aim in (
                           ("K5 training variant", "fdn_sos_tf_mse", 0.035),
                           ("K7", "dk_roots", 0.012)))
-          + "; controls on the old code: K4b "
-          + f"{by['sos_cascade_bwd']['ms']:.6f}, K10 "
+          + "; controls on the old code: the previous libraries' K1, K3b, "
+          "K6, K4f and K4b (previous_ms above) and K10 "
           + ", ".join(f"{v} {by[f'phase2_{v}']['ms']:.6f}"
                       for v in pm.VARIANTS))
     return rows
@@ -1884,14 +2046,16 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
 
 
 def phase_trace(card: str, label: str, run_steps, step_ms: float,
-                steps: int = 10) -> None:
+                steps: int = 10, share: tuple = ()) -> None:
     """Where a training step's time goes: a torch.profiler trace of the
     card's operations in ``run_steps(steps)``, the device's busy time per
     step, its idle share against the traced wall time (the profiler slows
     the host) and against ``step_ms``, the untraced step time, and the
     kernels that take the most device time.  The host's operations are
     not traced: nothing here reads them, and with them the trace's
-    post-processing took most of this phase's time."""
+    post-processing took most of this phase's time.  ``share`` names
+    kernels (parts of their names) whose device time is printed with its
+    share of the busy time."""
     run_steps(3)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -1909,6 +2073,12 @@ def phase_trace(card: str, label: str, run_steps, step_ms: float,
           f"{1 - busy_ms / wall_ms:.4f} (traced), "
           f"{1 - busy_ms / steps / step_ms:.4f} (against the untraced "
           f"{step_ms:.4f} ms/step), {n_kernels / steps:.1f} device ops/step")
+    for name in share:
+        ms = sum(e.self_device_time_total for e in events
+                 if name in e.key) / 1e3
+        ops = sum(e.count for e in events if name in e.key)
+        print(f"  {name}: {ms / steps:.4f} ms/step x{ops / steps:g}, "
+              f"{ms / busy_ms:.4f} of the busy time")
     events.sort(key=lambda e: -e.self_device_time_total)
     for e in events[:8]:
         print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
@@ -1939,6 +2109,14 @@ def colorless_steps():
 def attenuated_steps():
     step, _ = attenuated_train_step(att_model(seed=3), lr=ATT_LR,
                                     fused_step=True)
+    x, t = impulse_pair(NFFT)
+    return lambda n: [step(x, t) for _ in range(n)]
+
+
+def attenuated_graph_steps():
+    step, _ = attenuated_train_step(
+        att_model(seed=3, solve_method="pallas", cascade_backend="pallas"),
+        lr=ATT_LR)
     x, t = impulse_pair(NFFT)
     return lambda n: [step(x, t) for _ in range(n)]
 
@@ -1974,7 +2152,7 @@ def main() -> int:
     took["2 kernels"] = seconds_since_last()
     launches, step_ms = phase_slice(card)
     took["3 colorless"] = seconds_since_last()
-    att_launches, att_step_ms = phase_attenuated(card)
+    att_launches, att_step_ms, att_graph_ms = phase_attenuated(card)
     took["4 attenuated"] = seconds_since_last()
     for name, n in att_launches.items():
         launches[name] = launches.get(name, 0) + n
@@ -1995,6 +2173,9 @@ def main() -> int:
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
     phase_trace(card, "attenuated_train_step (K5)", attenuated_steps(),
                 att_step_ms)
+    phase_trace(card, "attenuated_train_step (graph: K4f, K4b, K2)",
+                attenuated_graph_steps(), att_graph_ms,
+                share=("sos_cascade_fwd", "sos_cascade_bwd", "fdn_solve"))
     phase_trace(card, "sfdn masked (K6)", sfdn_masked_steps(),
                 sfdn_masked_ms)
     for p in ("high", "highest"):  # the tensor-core K9, then the FP32 one

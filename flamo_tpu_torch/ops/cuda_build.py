@@ -5,14 +5,16 @@ shared libraries with a plain C interface (no PyTorch headers), under
 ``build/flamo_tpu_torch/`` at the root of the checkout, and loaded with
 ``ctypes``.  There is one library per kernel source and channel count
 N (``-DFDN_N=<n>``): ``fdn_kernels.cu`` holds the per-bin eliminations
-K1, K2, K3 and K6 and ``sos_kernels.cu`` the SOS-cascade kernels K4f/K4b
-and K5 (n in 1..16 for both), ``aa_kernels.cu`` the active-acoustics
-steps K8 and K9 (N the microphone count, 1..8; the loudspeaker count and
-the FIR order are runtime sizes), ``eig_kernels.cu`` the
-Durand-Kerner roots K7 (N the degree, 1..8, built without FMA
-contraction so that it repeats its plain version's rounding) and
-``phase2_micro.cu`` the four variants of the phase-2 micro-benchmark
-K10 (one library, built as N = 1: its sizes are all runtime ones).
+K1, K2, K3 and K6 and ``sos_kernels.cu`` the attenuated-FDN step K5 (n
+in 1..16 for both), ``aa_kernels.cu`` the active-acoustics steps K8 and
+K9 (N the microphone count, 1..8; the loudspeaker count and the FIR
+order are runtime sizes), ``eig_kernels.cu`` the Durand-Kerner roots K7
+(N the degree, 1..8, built without FMA contraction so that it repeats
+its plain version's rounding).  Two sources take every size at run time
+and are one library each, built as N = 1: ``sos_cascade.cu``, the SOS
+cascade K4f and its tap VJP K4b (any channel count), and
+``phase2_micro.cu``, the four variants of the phase-2 micro-benchmark
+K10.
 
 The eliminations are unrolled over N and the large-N instantiations
 compile slowly, so each (source, N) is its own library, built when a
@@ -35,15 +37,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flamo_tpu_torch"
-SOURCES = ("fdn_kernels.cu", "sos_kernels.cu", "aa_kernels.cu",
-           "eig_kernels.cu", "phase2_micro.cu", "fdn_ge.cuh",
+SOURCES = ("fdn_kernels.cu", "sos_kernels.cu", "sos_cascade.cu",
+           "aa_kernels.cu", "eig_kernels.cu", "phase2_micro.cu", "fdn_ge.cuh",
            "sos_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_N = 16
 # the channel counts (degrees for K7) each library is built for
-LIB_MAX_N = {"fdn_kernels": MAX_N, "sos_kernels": MAX_N, "aa_kernels": 8,
-             "eig_kernels": 8, "phase2_micro": 1}
+LIB_MAX_N = {"fdn_kernels": MAX_N, "sos_kernels": MAX_N, "sos_cascade": 1,
+             "aa_kernels": 8, "eig_kernels": 8, "phase2_micro": 1}
 # flags of one library only
 LIB_FLAGS = {"eig_kernels": ("-fmad=false",)}
 
@@ -69,13 +71,18 @@ _SIGNATURES = {
         "sos_threads_per_block": (_I, []),
         "sos_channels": (_I, []),
         "sos_error_string": (ctypes.c_char_p, [_I]),
-        "sos_cascade_fwd_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _F, _F,
-                                        _P]),
-        "sos_cascade_bwd_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                        _F, _P]),
         "fdn_sos_tf_mse_launch": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _P, _P, _P, _F, _I, _I,
                                        _I, _F, _F, _P]),
+    }),
+    "sos_cascade": ("sc", {
+        "sc_threads_per_block": (_I, []),
+        "sc_channels": (_I, []),
+        "sc_error_string": (ctypes.c_char_p, [_I]),
+        "sos_cascade_fwd_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                        _F, _P]),
+        "sos_cascade_bwd_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _F, _F, _P]),
     }),
     "aa_kernels": ("aa", {
         "aa_threads_per_block": (_I, []),

@@ -9,7 +9,8 @@ X (M,) complex64, t (M,) float32):
 
 * :func:`sos_cascade` (K4f forward, K4b gradient): the guarded cascade
   response ``H_n(z_m) = prod_k B_kn(z_m) / prod_k A_kn(z_m)``, (M, N)
-  complex64, ``FLT_EPSILON`` where the denominator product vanishes;
+  complex64, ``FLT_EPSILON`` where the denominator product vanishes
+  (kernels of ``flamo_tpu_torch/csrc/sos_cascade.cu``);
 * :func:`fdn_sos_tf_mse` (K5): the attenuated-FDN loss
   ``L = (1/M) sum_m (|tf_m X_m| - t_m)^2``,
   ``tf_m = c^T (I - diag(D_m Gam_m) U)^{-1} diag(D_m) b`` with
@@ -19,8 +20,10 @@ X (M,) complex64, t (M,) float32):
 ``j + bin_offset``.  Each ``*_kernel`` wrapper launches its CUDA kernel
 for CUDA tensors (and counts the launch in :data:`LAUNCHES`) and runs the
 plain version for CPU tensors; it never falls back from one to the other.
-On the card every kernel takes 1..16 channels (one library per channel
-count, as ``fdn_kernels``), at most ``MAX_P`` taps and ``MAX_K`` sections.
+On the card K4 takes any channel count (one library, the channels in
+blocks of at most ``K4_MAX_CB`` side by side in the grid) and K5 1..16
+(one library per channel count, as ``fdn_kernels``), each at most
+``MAX_P`` taps and ``MAX_K`` sections.
 Cotangents follow ``fdn_kernels``: the kernels compute JAX's cotangent of
 a complex tensor and each backward conjugates at the boundary.
 """
@@ -40,7 +43,13 @@ from flamo_tpu_torch.ops.fdn_kernels import (_check, _cotangents, _on_cuda,
 MAX_P = 8
 MAX_K = 64
 _MAX_SMEM = 232448  # a block's 227 KB of shared memory, opted in
-_THREADS = 128  # bins a K5 block (sos_kernels.cu: kThreads)
+# bins a K4 or K5 block (kThreads of sos_cascade.cu and sos_kernels.cu)
+_THREADS = 128
+# K4's channels a block and the shared memory a block gets without opting
+# in (sos_cascade.cu: kMaxCB, kMaxSharedFloats)
+K4_MAX_CB = 8
+_K4_SMEM_FLOATS = 48 * 1024 // 4
+_K4_LIB = "sos_cascade"
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
 # count)
@@ -172,21 +181,62 @@ def _phase_args(nfft: int, bin_offset):
         bin_offset)
 
 
+def k4_channel_block(N: int) -> int:
+    """K4's channels a block: N in the fewest blocks of at most
+    ``K4_MAX_CB`` channels, as even as they come (25 -> 7, 7, 7, 4)."""
+    n_blocks = -(-N // K4_MAX_CB)
+    return -(-N // n_blocks)
+
+
+def k4b_smem_floats(cb: int, K: int, P: int, parts: int) -> int:
+    """K4b's dynamic shared memory per block in floats (as
+    ``bwd_smem_floats`` in sos_cascade.cu): the staged taps of cb
+    channels, the bins' rows of z and the cb values t, and with
+    ``parts > 1`` the runs' tap sums."""
+    taps = 2 * P * K * cb
+    return taps + 2 * _THREADS * (cb + 1) + (parts * taps if parts > 1 else 0)
+
+
+def k4b_tap_parts(cb: int, K: int, P: int) -> int:
+    """The runs a K4b block's bins split into for its tap sums (a power of
+    two, each run ``128 / parts`` bins; K5's rule, ``k5_tap_parts``): the
+    2 K cb sections x parts work items should cover the block's threads
+    evenly.  The fewest bin visits for the busiest thread wins, ties to
+    fewer runs, within the 48 KB a block gets without opting in (2 K cb =
+    144: 8 runs of 16 bins, 9 items a thread)."""
+    S = 2 * K * cb
+    best, best_cost = 1, -(-S // _THREADS) * _THREADS
+    parts = 2
+    while parts <= _THREADS:
+        if k4b_smem_floats(cb, K, P, parts) > _K4_SMEM_FLOATS:
+            break
+        cost = -(-S * parts // _THREADS) * (_THREADS // parts)
+        if cost < best_cost:
+            best, best_cost = parts, cost
+        parts *= 2
+    return best
+
+
+def _k4_check(rc: int, what: str) -> None:
+    cuda_build.check(rc, what, 1, _K4_LIB)
+
+
 def sos_cascade_fwd_kernel(b, a, nfft: int, bin_offset=None):
     """K4f wrapper: H (nfft//2+1, N) complex64."""
     P, K, N = _check_taps(b, a)
     if not _on_cuda(b, a):
         return sos_cascade_fwd_plain(b, a, nfft, bin_offset)
     M = nfft // 2 + 1
-    lib = cuda_build.load(N, "sos_kernels")
+    lib = cuda_build.load(1, _K4_LIB)
     b, a = b.contiguous(), a.contiguous()
     H = torch.empty((M, N), dtype=torch.complex64, device=b.device)
     with torch.cuda.device(b.device):
         rc = lib.sos_cascade_fwd_launch(b.data_ptr(), a.data_ptr(),
                                         H.data_ptr(), M, N, K, P,
+                                        k4_channel_block(N),
                                         *_phase_args(nfft, bin_offset),
                                         _stream(b))
-    cuda_build.check(rc, "sos_cascade_fwd_kernel", N, "sos_kernels")
+    _k4_check(rc, "sos_cascade_fwd_kernel")
     LAUNCHES["sos_cascade_fwd"] += 1
     return H
 
@@ -201,22 +251,23 @@ def sos_cascade_bwd_kernel(b, a, g, nfft: int, bin_offset=None):
     if not _on_cuda(b, a, g):
         return sos_cascade_bwd_plain(b, a, g, nfft, bin_offset)
     M = g.shape[0]
-    lib = cuda_build.load(N, "sos_kernels")
+    lib = cuda_build.load(1, _K4_LIB)
     b, a, g = b.contiguous(), a.contiguous(), g.contiguous()
-    n_blocks = -(-M // cuda_build.threads_per_block(N, "sos_kernels"))
-    partials = torch.empty((n_blocks, N, 2 * P * K), dtype=torch.float32,
-                           device=b.device)
+    cb = k4_channel_block(N)
+    # one row of tap sums per block of bins, in the taps' own order
+    partials = torch.empty((-(-M // _THREADS), 2, P, K, N),
+                           dtype=torch.float32, device=b.device)
     with torch.cuda.device(b.device):
         rc = lib.sos_cascade_bwd_launch(b.data_ptr(), a.data_ptr(),
                                         g.data_ptr(), partials.data_ptr(),
-                                        M, N, K, P,
+                                        M, N, K, P, cb,
+                                        k4b_tap_parts(cb, K, P),
                                         *_phase_args(nfft, bin_offset),
                                         _stream(b))
-    cuda_build.check(rc, "sos_cascade_bwd_kernel", N, "sos_kernels")
+    _k4_check(rc, "sos_cascade_bwd_kernel")
     LAUNCHES["sos_cascade_bwd"] += 1
-    # (N, part, p, k) -> (part, p, k, n)
-    s = torch.sum(partials, dim=0).reshape(N, 2, P, K).permute(1, 2, 3, 0)
-    return s[0].contiguous(), s[1].contiguous()
+    s = torch.sum(partials, dim=0)
+    return s[0], s[1]
 
 
 def fdn_sos_tf_mse_kernel(D, bt, at, U, b, c, X, t, nfft: int,

@@ -136,9 +136,6 @@ def test_cuda_kernel_rejects_unsupported_n(cuda):
     D = torch.zeros((8, 17), dtype=torch.complex64, device="cuda")
     with pytest.raises(ValueError, match="channels"):
         fk.fdn_solve_kernel(D, torch.zeros((17, 17), device="cuda"), D)
-    taps = torch.zeros((3, 2, 17), device="cuda")
-    with pytest.raises(ValueError, match="channels"):
-        sk.sos_cascade_fwd_kernel(taps, taps, 64)
     A = torch.zeros((8, 17, 17), dtype=torch.complex64, device="cuda")
     with pytest.raises(ValueError, match="channels"):
         fk.dense_solve_kernel(A, D)
@@ -240,13 +237,42 @@ def _check_k4(b, a, nfft, val_tol, grad_tol, bin_offset=None):
 @pytest.mark.parametrize("nfft", [2000, 96000])
 def test_cuda_sos_cascade_matches_plain(cuda, nfft):
     """K4f and K4b at a small M and at M = 48001: random taps (P = 3,
-    K = 12, N = 6; P = 5; a bin offset; N = 16, the largest library) and
-    a GEQ's taps."""
+    K = 12, N = 6; P = 5; a bin offset; N = 16; N = 17, 25 and 40, more
+    than one block of K4's channels) and a GEQ's taps."""
     _check_k4(*_sos_taps(0, 3, 12, 6), nfft, 1e-5, 1e-4)
     _check_k4(*_sos_taps(1, 5, 2, 2), nfft, 1e-5, 1e-4)
     _check_k4(*_sos_taps(2, 3, 4, 3), nfft, 1e-5, 1e-4, bin_offset=17.0)
     _check_k4(*_sos_taps(3, 3, 3, 16), nfft, 1e-5, 1e-4)
+    for N in (17, 25, 40):
+        _check_k4(*_sos_taps(N, 3, 12, N), nfft, 1e-5, 1e-4)
     _check_k4(*_geq_taps(6, nfft), nfft, 5e-3, 1e-3)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", range(1, 9))
+def test_cuda_sos_cascade_every_channel_block(cuda, P):
+    """K4f and K4b at every P and every channel block (one compiled copy of
+    each kernel per (channels a block, P)): N = 1..8 is one block of N
+    channels, N = 9 two of 5 and 4, at a ragged M = 301 (three blocks of
+    bins, the last partial) and 8 sections."""
+    for N in range(1, 10):
+        _check_k4(*_k5_taps(10 * P + N, P, 8, N), 600, 1e-5, 1e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [6, 25])
+def test_cuda_sos_cascade_bwd_is_deterministic(cuda, N):
+    """Two launches of K4b give the same tap cotangents to the bit (no
+    atomics: each block's row is summed in a fixed order)."""
+    b, a = _sos_taps(N, 3, 12, N)
+    rng = np.random.default_rng(N)
+    g = torch.tensor((rng.normal(size=(48001, N)) + 1j * rng.normal(
+        size=(48001, N))).astype(np.complex64), device="cuda")
+    first = sk.sos_cascade_bwd_kernel(b, a, g, 96000)
+    again = sk.sos_cascade_bwd_kernel(b, a, g, 96000)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
     torch.cuda.synchronize()
 
 
@@ -255,7 +281,8 @@ def test_cuda_sos_cascade_matches_plain(cuda, nfft):
 @pytest.mark.parametrize("nfft", [2000, 96000])
 def test_cuda_fdn_sos_tf_mse_matches_plain(cuda, N, nfft):
     """K5 in every (pivot, with_dbar, fuse_taps) combination against its
-    plain version, with random well-conditioned taps (K = 12, P = 3)."""
+    plain version, with random well-conditioned taps (K = 12, P = 3);
+    fuse_taps=False takes its tap cotangents from K4b."""
     M = nfft // 2 + 1
     o = _operands(N + M, M, N)
     D, U, b, c, X, t = (o[n] for n in "DUbcXt")

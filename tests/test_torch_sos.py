@@ -260,22 +260,23 @@ def test_sos_guard_gives_eps_and_zero_gradient(pallas_interpret):
 def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
                                                           monkeypatch):
     """Each kernel source builds one library per channel count (1..16; the
-    active-acoustics and eigenvalue kernels 1..8; the phase-2
-    micro-benchmark one library, as N = 1), named by a hash of every
-    source file, and every entry point that the loader binds is defined in
-    its source with as many parameters."""
+    active-acoustics and eigenvalue kernels 1..8; the SOS cascade K4 and
+    the phase-2 micro-benchmark one library each, as N = 1, for every
+    size), named by a hash of every source file, and every entry point
+    that the loader binds is defined in its source with as many
+    parameters."""
     import re
     import shutil
 
     from flamo_tpu_torch.ops import cuda_build as cb
 
     libs = tuple(cb._SIGNATURES)
-    assert libs == ("fdn_kernels", "sos_kernels", "aa_kernels", "eig_kernels",
-                    "phase2_micro")
-    assert cb.LIB_MAX_N["phase2_micro"] == 1
+    assert libs == ("fdn_kernels", "sos_kernels", "sos_cascade",
+                    "aa_kernels", "eig_kernels", "phase2_micro")
+    assert cb.LIB_MAX_N["phase2_micro"] == cb.LIB_MAX_N["sos_cascade"] == 1
     names = {cb.library_path(n, lib).name for lib in libs
              for n in {1, min(6, cb.LIB_MAX_N[lib]), cb.LIB_MAX_N[lib]}}
-    assert len(names) == 13
+    assert len(names) == 14
     for lib in libs:
         for bad in (0, cb.LIB_MAX_N[lib] + 1):
             with pytest.raises(ValueError, match="channels"):
