@@ -13,15 +13,20 @@ Phases, in order; any failure raises and exits non-zero without a result:
    compiles the hand-written kernels of flamo_tpu_torch/csrc (nvcc,
    sm_90a, one process per library, all at once) and, beside them,
    controls/fdn_kernels_prev/fdn_kernels.cu, the K1-K3 and K6 kernels
-   before K6's and K1's redesign, and controls/sos_kernels_prev/
-   sos_kernels.cu, K4f and K4b before theirs (phase 5's controls), and
-   prints the build time and each library's own seconds; with --ptxas it
-   compiles them all with nvcc's register report (written to
+   before K6's, K1's and K2's redesign, controls/sos_kernels_prev/
+   sos_kernels.cu, K4f and K4b before theirs, and controls/aa_kernels_prev/
+   aa_kernels.cu, K8 and K9 before K9 'highest''s (phase 5's controls),
+   and prints the build time and each library's own seconds; with --ptxas
+   it compiles them all with nvcc's register report (written to
    build/ptxas_smoke.txt) and prints the registers, spills and
-   register-bound warps an SM of each K1, K3b, K4f, K4b, K5, K6 and K7
-   instantiation, the previous libraries' too;
+   register-bound warps an SM of each K1, K2, K3b, K4f, K4b, K5, K6, K7
+   and K9 instantiation, the previous libraries' too;
 2. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U; K = 12
+   paths' shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U; K2
+   also equal to the previous K2 bit for bit, both ways, on those
+   operands and on k2_systems (random, pivoting at every step, tied
+   pivots, a cycle) at M = 33, 4097 and 48001, the exact tied ones also to
+   the plain version, each set's pivot-vote share printed; K = 12
    sections of P = 3 taps, random well-conditioned ones and those of the
    attenuated FDN's GEQ, and K4f/K4b also at 25 channels, on random taps
    and on a 5 x 5 GEQ's, K4b launched twice with equal results; K6 on
@@ -35,7 +40,8 @@ Phases, in order; any failure raises and exits non-zero without a result:
    its tensor-core kernel at precision 'high' and 'default', its FP32
    kernel at 'highest', each against the plain version of its precision,
    'default''s tap cotangent held to 1.5 times the plain version's own
-   spread, and each TF32 mode's distance from 'highest' printed) at
+   spread, 'high' and 'default' equal to the previous library's bit for
+   bit, and each TF32 mode's distance from 'highest' printed) at
    M = 48001, N = 4 microphones, L = 13 loudspeakers, 100 taps, on the
    magnitude rig's own rows; K5 in all eight (pivot, with_dbar,
    fuse_taps) variants, its training variant launched twice with equal
@@ -58,8 +64,9 @@ Phases, in order; any failure raises and exits non-zero without a result:
    ATT_GRAPH_STEPS of attenuated_train_step on the 'pallas'/'pallas' model
    (bench.py's mode='pallas': K4f, K2, K2 transposed and K4b once each a
    step, checked; its first loss equals the graph loss to 1e-5, its loss
-   falls), both timed; K2, K4f, K4b and K5 must have been launched in this
-   phase;
+   falls), both timed; K2's pivot-vote share on the graph step's own
+   operands, forward and transposed, is printed; K2, K4f, K4b and K5
+   must have been launched in this phase;
 4b. the scattering slice at full width: build_colorless_sfdn(nfft=96000,
    solve_method='pallas') on the card; the graph loss and gradients
    through K6 against the 'ge' route at the same mask, the masked loss
@@ -103,17 +110,24 @@ Phases, in order; any failure raises and exits non-zero without a result:
    previous libraries' kernels on the same operands (``previous_ms``;
    previous, new, new, previous, each pair averaged), K4f, K4b, K6 at
    P = 2000 and K1 against their aims and K6 at M = 48001 against 1.05x
-   the previous kernel;
+   the previous kernel; K9 'highest' and K2 both ways (also on the graph
+   step's own operands) beside the previous libraries' in turns, and on
+   one tile of 64 bins or one bin, the previous kernels' too, their aims
+   printed and each held to PREVIOUS_GATE = 1.05x its previous kernel;
 6. torch.profiler traces of a few training steps of each path: the
    device's busy and idle share and the kernels that take its time (for
-   the attenuated graph step also K4f's, K4b's and K2's share);
+   the attenuated graph step also K4f's, K4b's and K2's share, for the
+   K9 steps K9's);
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 ``ms``, ``plain_ms`` and ``library_ms`` are all device time per call from
 torch.profiler: the sum over every operation the call runs on the card;
 K7's library call (torch.linalg.eigvals, mostly off the device) is timed
-by CUDA events only (``library_ms_by``).
+by CUDA events only (``library_ms_by``).  Where the profiler came back
+without a kernel in every one of its traces, ``ms`` is that call's time
+by CUDA events and ``ms_by`` says so (beside a previous kernel, both are
+then timed so).
 The whole call, host side included (checks, allocation, launches, the
 partials sum), is timed with CUDA events beside each of them as
 ``call_ms``, ``plain_call_ms`` and ``library_call_ms``.  ``launches``
@@ -200,6 +214,10 @@ AA_K9_STEPS, AA_K8_STEPS, AA_EVS_STEPS = 100, 50, 100
 AA_ITER_NUM, AA_TARGET = 30, 0.3
 AA_OFFSET = 24000  # K9 on bins 24000.. as a shard at its global bins
 DK_B, DK_ITERS = 1601, 96
+# the aims of the kernels redesigned last (device ms, printed, not gated)
+# and the gate against the previous kernel in the same call
+K9_HIGHEST_AIM, K2_AIM, PREVIOUS_GATE = 0.100, 0.0038, 1.05
+K2_RAGGED = (33, 4097, M_MAIN)  # phase 2's bin counts for K2's systems
 K1_K3 = ("fdn_tf_mse", "fdn_solve", "fdn_tf_fwd", "fdn_tf_bwd")
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
@@ -343,58 +361,73 @@ def gpu_line() -> str:
 # ---------------------------------------------------------------------------
 # the kernels before their redesign, built in phase 1 beside the package's
 # and timed in phase 5 as the control: fdn_kernels.cu before K6's and
-# K1's, and K4f/K4b before theirs
+# K1's (its K2 is the K2 before its redesign), K4f/K4b before theirs, and
+# aa_kernels.cu before K9 'highest''s
 # ---------------------------------------------------------------------------
 CONTROLS = Path(__file__).resolve().parent / "controls"
-PREVIOUS_SRC = CONTROLS / "fdn_kernels_prev" / "fdn_kernels.cu"
-PREVIOUS_SO = (cuda_build.BUILD_DIR.parent / "controls"
-               / f"libfdn_kernels_prev-n{N_MAIN}.so")
-PREVIOUS_SOS_SRC = CONTROLS / "sos_kernels_prev" / "sos_kernels.cu"
-PREVIOUS_SOS_SO = (cuda_build.BUILD_DIR.parent / "controls"
-                   / f"libsos_kernels_prev-n{N_MAIN}.so")
+PREVIOUS_SRC = {"fdn": CONTROLS / "fdn_kernels_prev" / "fdn_kernels.cu",
+                "sos": CONTROLS / "sos_kernels_prev" / "sos_kernels.cu",
+                "aa": CONTROLS / "aa_kernels_prev" / "aa_kernels.cu"}
+PREVIOUS_N = {"fdn": N_MAIN, "sos": N_MAIN, "aa": AA_N}  # phase 1's builds
+
+
+def previous_so(key: str, n: int) -> Path:
+    return (cuda_build.BUILD_DIR.parent / "controls"
+            / f"lib{PREVIOUS_SRC[key].parent.name}-n{n}.so")
 
 
 class Previous:
-    """The previous libraries' K1, K3b and K6 (fdn_kernels_prev) and K4f,
-    K4b (sos_kernels_prev) for N_MAIN channels: the same C entry points
-    as the package's before the redesigns, launched on operands the
-    package's wrappers have checked, outputs allocated here, nothing
-    counted."""
+    """The previous libraries' K1, K2, K3b and K6 (fdn_kernels_prev), K4f,
+    K4b (sos_kernels_prev) and K8, K9 (aa_kernels_prev), each for one N
+    (channels, or microphones): the same C entry points as the package's
+    before the redesigns, launched on operands the package's wrappers
+    have checked, outputs allocated here, nothing counted."""
 
-    def __init__(self, procs, log: Path | None):
-        for (src, so), proc in zip(((PREVIOUS_SRC, PREVIOUS_SO),
-                                    (PREVIOUS_SOS_SRC, PREVIOUS_SOS_SO)),
-                                   procs):
+    def __init__(self, procs: dict, log: Path | None = None):
+        self.libs = {}
+        for (key, n), proc in procs.items():
             out, _ = proc.communicate()
-            check(proc.returncode == 0, f"nvcc failed for {src}:\n{out}")
+            check(proc.returncode == 0,
+                  f"nvcc failed for {PREVIOUS_SRC[key]} N = {n}:\n{out}")
             if log is not None:
                 with log.open("a") as f:
-                    f.write(f"# previous {src.stem} N = {N_MAIN}\n{out}")
-        self.lib = ctypes.CDLL(str(PREVIOUS_SO))
-        self.sos = ctypes.CDLL(str(PREVIOUS_SOS_SO))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.fdn_tf_mse_launch.argtypes = [I] * 3 + [P] * 8 + [F, I, P]
-        self.lib.fdn_tf_bwd_launch.argtypes = [I] + [P] * 8 + [I, P]
-        self.lib.fdn_dense_solve_launch.argtypes = [I, I, P, P, P, I, P]
-        self.sos.sos_cascade_fwd_launch.argtypes = [P] * 3 + [I] * 4 + [
-            F, F, P]
-        self.sos.sos_cascade_bwd_launch.argtypes = [P] * 4 + [I] * 4 + [
-            F, F, P]
+                    f.write(f"# previous {PREVIOUS_SRC[key].stem} N = {n}\n"
+                            f"{out}")
+            lib = ctypes.CDLL(str(previous_so(key, n)))
+            P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            if key == "fdn":
+                lib.fdn_tf_mse_launch.argtypes = [I] * 3 + [P] * 8 + [F, I, P]
+                lib.fdn_tf_bwd_launch.argtypes = [I] + [P] * 8 + [I, P]
+                lib.fdn_dense_solve_launch.argtypes = [I, I, P, P, P, I, P]
+                lib.fdn_solve_launch.argtypes = [I, I, P, P, P, P, I, P]
+            elif key == "sos":
+                lib.sos_cascade_fwd_launch.argtypes = [P] * 3 + [I] * 4 + [
+                    F, F, P]
+                lib.sos_cascade_bwd_launch.argtypes = [P] * 4 + [I] * 4 + [
+                    F, F, P]
+            else:
+                lib.aa_taps_grid.argtypes = [I] * 6
+                lib.aa_taps_tf_mse_launch.argtypes = ([I] * 3 + [P] * 8
+                                                      + [F] + [I] * 5
+                                                      + [F, I, P])
+            self.libs[key, n] = lib
+        self.lib = self.libs.get(("fdn", N_MAIN))
+        self.sos = self.libs.get(("sos", N_MAIN))
 
     @staticmethod
-    def start(ptxas: bool) -> list:
-        """One nvcc a library, both started at once."""
-        PREVIOUS_SO.parent.mkdir(parents=True, exist_ok=True)
-        procs = []
-        for src, so in ((PREVIOUS_SRC, PREVIOUS_SO),
-                        (PREVIOUS_SOS_SRC, PREVIOUS_SOS_SO)):
+    def start(ptxas: bool = False, targets=tuple(PREVIOUS_N.items())) -> dict:
+        """One nvcc a (library, N) of ``targets``, all started at once."""
+        procs = {}
+        for key, n in targets:
+            so = previous_so(key, n)
+            so.parent.mkdir(parents=True, exist_ok=True)
             cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
-                   f"-DFDN_N={N_MAIN}", "-o", str(so), str(src)]
+                   f"-DFDN_N={n}", "-o", str(so), str(PREVIOUS_SRC[key])]
             if ptxas:
                 cmd[1:1] = ["-Xptxas", "-v"]
-            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
+            procs[key, n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True)
         return procs
 
     @staticmethod
@@ -407,6 +440,36 @@ class Previous:
             N_MAIN, int(transpose), A.data_ptr(), B.data_ptr(), Y.data_ptr(),
             B.shape[0], self._stream()) == 0, "previous K6 launch")
         return Y
+
+    def fdn_solve(self, D, U, B, transpose: bool = False):
+        """The previous K2 (its library for D's channel count)."""
+        N = D.shape[1]
+        Y = torch.empty_like(B)
+        check(self.libs["fdn", N].fdn_solve_launch(
+            N, int(transpose), D.data_ptr(), U.data_ptr(), B.data_ptr(),
+            Y.data_ptr(), D.shape[0], self._stream()) == 0,
+            "previous K2 launch")
+        return Y
+
+    def aa_taps(self, hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
+                pivot: bool = False, precision: str = "high",
+                bin_offset: int = 0):
+        """The previous K9 at ``precision`` (its FP32 kernel at 'highest',
+        its tensor-core kernel at 'high' and 'default') and the sums of
+        its loss row and partials, as its wrapper took them: (loss, tb)."""
+        lib, passes = self.libs["aa", N], ak.PASSES[precision]
+        M, order = hr.shape[1], tw.shape[0]
+        grid = lib.aa_taps_grid(N, int(pivot), passes, order, L, M)
+        check(grid > 0, f"previous K9 grid: {grid}")
+        loss_row = torch.empty((M,), device="cuda")
+        partials = torch.empty((grid, order, L * N), device="cuda")
+        check(lib.aa_taps_tf_mse_launch(
+            N, int(pivot), passes, hr.data_ptr(), hi.data_ptr(),
+            tw.data_ptr(), rr.data_ptr(), ri.data_ptr(), t.data_ptr(),
+            loss_row.data_ptr(), partials.data_ptr(), 2.0 / (M * N), L, M,
+            order, nfft, bin_offset % nfft, 2.0 * math.pi / nfft, grid,
+            self._stream()) == 0, "previous K9 launch")
+        return torch.sum(loss_row) / (M * N), torch.sum(partials, dim=0)
 
     def tf_mse(self, D, U, b, c, X, t, with_dbar: bool, pivot: bool):
         M = D.shape[0]
@@ -653,6 +716,8 @@ def _device_events(prof) -> list:
 
 
 TRACE_RETRIES = [0]  # traces taken again by device_ms, over the whole run
+EVENT_TIMED: list = []  # what device_ms timed by CUDA events instead
+TRACES = 4  # traces device_ms takes before it times by CUDA events
 
 
 def device_ms(fn, kernel: str | None = None, reps: int = 50) -> float:
@@ -661,15 +726,19 @@ def device_ms(fn, kernel: str | None = None, reps: int = 50) -> float:
     ``reps`` calls of ``fn``.  On the H100 the profiler has come back
     without any kernel of a trace that launched them, and with 49 of a
     named kernel's 50 launches: such a trace (none, or fewer launches of
-    the kernel than calls) is taken again, up to three times in all, and
+    the kernel than calls) is taken again, up to TRACES in all, and
     counted in TRACE_RETRIES.  A named kernel is launched once a call, so
-    a trace kept with fewer launches is read per launch it holds."""
+    a trace kept with fewer launches is read per launch it holds.  When
+    every trace came back without it, the call is timed by CUDA events
+    (``time_ms``: the whole of ``fn``, the launches' host time included)
+    and named in EVENT_TIMED."""
     fn()
     torch.cuda.synchronize()
     us, n = 0.0, 0
-    for attempt in range(3):
+    for attempt in range(TRACES):
         if attempt:
             TRACE_RETRIES[0] += 1
+            time.sleep(0.2)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -682,12 +751,16 @@ def device_ms(fn, kernel: str | None = None, reps: int = 50) -> float:
         if us > 0 and (kernel is None or n >= reps):
             break
         seen = sorted({e.key[:40] for e in _device_events(prof)})
+        last = attempt == TRACES - 1
         print(f"  the profiler saw {n} launches and {us:.1f} us of device "
               f"time for {kernel or fn} in {reps} calls (and "
               f"{len(seen)} device operations in all: {seen[:4]}); "
-              + ("tracing again" if attempt < 2 else "read per launch"))
-    check(us > 0, f"the profiler saw no device time for {kernel or fn}")
-    return us / (reps if kernel is None else min(n, reps)) / 1e3
+              + ("tracing again" if not last else "read per launch"
+                 if us > 0 else "timed by CUDA events"))
+    if us > 0:
+        return us / (reps if kernel is None else min(n, reps)) / 1e3
+    EVENT_TIMED.append(kernel or getattr(fn, "__name__", "fn"))
+    return time_ms(fn, reps)
 
 
 def timed(run):
@@ -738,12 +811,12 @@ def phase_build(ptxas: bool = False) -> str:
     for lib, n in targets:
         cuda_build.load(n, lib)
     controls = " and ".join(
-        f"{so.name} from {src.relative_to(src.parents[2])}"
-        for src, so in ((PREVIOUS_SRC, PREVIOUS_SO),
-                        (PREVIOUS_SOS_SRC, PREVIOUS_SOS_SO)))
+        f"{previous_so(key, n).name} from "
+        f"{PREVIOUS_SRC[key].relative_to(CONTROLS.parent)}"
+        for key, n in PREVIOUS_N.items())
     print(f"phase 1 build: {max(seconds.values()):.1f} s, "
-          f"{len(names) + 2} libraries in parallel ({', '.join(names)}, "
-          f"and {controls}, phase 5's controls; "
+          f"{len(names) + len(PREVIOUS_N)} libraries in parallel "
+          f"({', '.join(names)}, and {controls}, phase 5's controls; "
           f"{cuda_build.threads_per_block(N_MAIN)} threads/block for K1-K3)")
     print("  each library's seconds (its nvcc beside the others): "
           + ", ".join(f"{lib} N={n} {s:.1f}"
@@ -754,7 +827,7 @@ def phase_build(ptxas: bool = False) -> str:
 
 
 def print_ptxas(report: str) -> None:
-    """Registers and spills of the K1, K3b, K4f, K4b, K5, K6 and K7
+    """Registers and spills of the K1, K2, K3b, K4f, K4b, K5, K6, K7 and K9
     instantiations from nvcc's -Xptxas -v report (the previous libraries'
     tagged as such), with the warps an SM that the registers allow."""
     name, spills, tag, k4 = None, "", "", {}
@@ -769,7 +842,8 @@ def print_ptxas(report: str) -> None:
         used = re.search(r"Used (\d+) registers", line)
         which = name and re.search(
             r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_bwd|dense_solve|"
-            r"sos_cascade_fwd|sos_cascade_bwd)_kernel", name)
+            r"fdn_solve|aa_taps_tf_mse_tc|aa_taps_tf_mse|sos_cascade_fwd|"
+            r"sos_cascade_bwd)_kernel", name)
         if not (used and which):
             continue
         kernel = which.group(0)
@@ -781,9 +855,12 @@ def print_ptxas(report: str) -> None:
             k4.setdefault(kernel, []).append((regs, spills))
             if targs != [str(N_MAIN), str(P_MAIN)]:
                 continue
-        # a block's warps; K6's blocks are one warp, the previous ones four
+        # a block's warps; K6's blocks are one warp, the previous ones
+        # four; K9's eight, the previous FP32 one's two
         warps = {"dk_roots_kernel": 2,
-                 "dense_solve_kernel": 4 if tag else 1}.get(kernel, 4)
+                 "dense_solve_kernel": 4 if tag else 1,
+                 "aa_taps_tf_mse_kernel": 2 if tag else 8,
+                 "aa_taps_tf_mse_tc_kernel": 8}.get(kernel, 4)
         per_warp = -(-regs * 32 // 256) * 256  # allocated per warp, in 256s
         blocks = min(65536 // (per_warp * warps), 64 // warps, 32)
         print(f"  ptxas {tag}{kernel}<{', '.join(targs)}>: {regs} registers, "
@@ -953,6 +1030,87 @@ def tied_pivot_systems(rng, rows: int, N: int):
             exact)
 
 
+def k2_systems(rng, M: int, N: int, transpose: bool = False) -> dict:
+    """K2's systems (I - diag(D) U) y = B, or their transposes, as numpy
+    (D (M, N) complex, U (N, N) real, B (M, N) complex, exact (M,) bool),
+    by label.  'random': |D| = 0.85 with random phases, an orthogonal U.
+    'pivoting': every bin pivots off row k at every step k < N - 1 (D of
+    modulus 3 with random phases against U, a cyclic shift, down for the
+    forward system and up for the transposed one, plus normal noise of
+    0.05).  'tied lower' and 'tied upper': D of powers of i and U minus
+    the ones below or above the diagonal, a unit triangle whose pivot
+    columns tie in |a| at every step of the forward or of the transposed
+    system: the first maximal row must be taken, which keeps every
+    operation exact (unit multipliers), and their rhs of magnitudes 1 and
+    2^27 round another way under any other rule; every system of these
+    two is exact.  'cycle': D of powers of i and U minus a cyclic shift
+    by one with entries 1 and 2 in turn (0 at N = 1): each column ties,
+    or calls for the row twice the size, and the fill-in is not exact."""
+    def rhs_exact():
+        scale = np.where(rng.random((M, N)) < 0.5, 1.0, 2.0 ** 27)
+        return (scale * 1j ** rng.integers(0, 4, size=(M, N))
+                * (rng.integers(1, 8, size=(M, N)) + 0.25))
+
+    def normal(shape):
+        return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+    units = 1j ** rng.integers(0, 4, size=(M, N))
+    cycle = -np.roll(np.eye(N), 1, axis=1) * np.where(np.arange(N) % 2,
+                                                      2.0, 1.0)[:, None]
+    none, every = np.zeros(M, bool), np.ones(M, bool)
+    if N == 1:  # no off-diagonal: A = 1
+        cycle = np.zeros((1, 1))
+    return {
+        "random": (0.85 * np.exp(1j * rng.uniform(0, 2 * np.pi, (M, N))),
+                   np.linalg.qr(rng.normal(size=(N, N)))[0], normal((M, N)),
+                   none),
+        "pivoting": (3.0 * np.exp(1j * rng.uniform(0, 2 * np.pi, (M, N))),
+                     np.roll(np.eye(N), -1 if transpose else 1, axis=0)
+                     + 0.05 * rng.normal(size=(N, N)), normal((M, N)),
+                     none),
+        "tied lower": (units, -np.tril(np.ones((N, N)), -1), rhs_exact(),
+                       every),
+        "tied upper": (units, -np.triu(np.ones((N, N)), 1), rhs_exact(),
+                       every),
+        "cycle": (units, cycle, rhs_exact(), none),
+    }
+
+
+def k2_tensors(system, device="cuda"):
+    """(D, U, B) of a k2_systems entry as complex64/float32 tensors."""
+    D, U, B, _ = system
+    return (torch.tensor(D.astype(np.complex64), device=device),
+            torch.tensor(U.astype(np.float32), device=device),
+            torch.tensor(B.astype(np.complex64), device=device))
+
+
+def pivot_vote_share(A) -> tuple[float, float]:
+    """(bins, warps): the share of the elimination steps k < N - 1 of the
+    systems A (M, N, N) at which a bin pivots off row k, and at which some
+    bin of a warp of 32 consecutive bins does, so that K2's warp runs its
+    selects (ge_pivot_voted).  The elimination is repeated on the device
+    in float32 with the kernel's rule, the first row of largest |a|^2."""
+    M, N = A.shape[0], A.shape[-1]
+    if N == 1:
+        return 0.0, 0.0
+    A = A.to(torch.complex64).clone()
+    idx = torch.arange(M, device=A.device)
+    need = torch.zeros((M, N - 1), dtype=torch.bool, device=A.device)
+    for k in range(N - 1):
+        col = A[:, k:, k]
+        piv = torch.argmax(col.real * col.real + col.imag * col.imag,
+                           dim=1) + k
+        need[:, k] = piv != k
+        rk, rp = A[idx, k].clone(), A[idx, piv].clone()
+        A[idx, k], A[idx, piv] = rp, rk
+        f = A[:, k + 1:, k] / A[:, k, k][:, None]
+        A[:, k + 1:, :] -= f[:, :, None] * A[:, k, None, :]
+    pad = -M % 32
+    warps = torch.nn.functional.pad(need, (0, 0, 0, pad)).reshape(
+        -1, 32, N - 1).any(dim=1)
+    return float(need.float().mean()), float(warps.float().mean())
+
+
 def dense_operands(seed: int = SEED) -> dict:
     """K6's operands at the scattering slice's two shapes: the loop
     systems of its model at every bin and at the first mask's bins, and
@@ -983,7 +1141,7 @@ def compare(label, got, ref, tol) -> float:
     return err
 
 
-def phase_kernels(o) -> dict:
+def phase_kernels(o, previous) -> dict:
     """Each kernel against its plain version; returns the max abs error of
     each kernel's main-path variant."""
     print(f"phase 2 kernels vs plain versions at M={M_MAIN}, N={N_MAIN}")
@@ -994,6 +1152,7 @@ def phase_kernels(o) -> dict:
                  fk.fdn_solve_plain(D, U, B, tr), VAL_TOL)
          for tr in (False, True)]
     errs["fdn_solve"] = max(e)
+    k2_versus_previous(D, U, B, previous)
     tf, y = fk.fdn_tf_fwd_kernel(D, U, b, c)
     tfp, yp = fk.fdn_tf_fwd_plain(D, U, b, c)
     errs["fdn_tf_fwd"] = max(compare("K3f tf", tf, tfp, VAL_TOL),
@@ -1107,6 +1266,45 @@ def phase_kernels(o) -> dict:
     return errs
 
 
+def k2_versus_previous(D, U, B, previous) -> None:
+    """K2 against the previous K2, bit for bit, both ways: on the main
+    path's operands and on k2_systems at ragged bin counts, whose exact
+    tied systems must also equal the plain version on the CPU bit for
+    bit; the pivot-vote share of each set at M_MAIN is printed."""
+    rng = np.random.default_rng(SEED + 6)
+    for tr in (False, True):
+        same = torch.equal(fk.fdn_solve_kernel(D, U, B, tr),
+                           previous.fdn_solve(D, U, B, tr))
+        bins, warps = pivot_vote_share(fk._loop_matrix(D, U, tr))
+        print(f"  K2 transpose={tr} on the main path's operands: equal to "
+              f"the previous K2 bit for bit: {same}; pivot-vote share: bins "
+              f"{bins:.4f}, warps {warps:.4f}")
+        check(same, f"K2 transpose={tr}: not the previous kernel's bits")
+        for M in K2_RAGGED:
+            for label, system in k2_systems(rng, M, N_MAIN, tr).items():
+                Dk, Uk, Bk = k2_tensors(system)
+                got = fk.fdn_solve_kernel(Dk, Uk, Bk, tr)
+                same = torch.equal(got, previous.fdn_solve(Dk, Uk, Bk, tr))
+                exact = torch.from_numpy(system[3])
+                if exact.any():
+                    ref = fk.fdn_solve_plain(Dk.cpu(), Uk.cpu(), Bk.cpu(), tr)
+                    same_plain = torch.equal(got.cpu()[exact], ref[exact])
+                else:
+                    same_plain = True
+                rel = rel_err(got, fk.fdn_solve_plain(Dk, Uk, Bk, tr))[1]
+                if M == M_MAIN:
+                    bins, warps = pivot_vote_share(fk._loop_matrix(Dk, Uk,
+                                                                   tr))
+                    print(f"  K2 transpose={tr} on {label} systems (M={M}): "
+                          f"bit-identical to the previous K2 {same}, exact "
+                          f"ones to the plain version {same_plain}, rel "
+                          f"{rel:.3e} (tol {VAL_TOL:g}); pivot-vote share: "
+                          f"bins {bins:.4f}, warps {warps:.4f}")
+                check(same and same_plain and rel < VAL_TOL,
+                      f"K2 transpose={tr} on {label} systems at M={M}: "
+                      f"previous {same}, plain {same_plain}, rel {rel:.3e}")
+
+
 def dense_row(name: str, shape: str) -> str:
     """K6's row name at the graph step's shape (M) or the masked step's
     (P)."""
@@ -1179,9 +1377,10 @@ def default_cotangent_gap(tag, got, ref, rows9, pivot, off) -> float:
     return err
 
 
-def phase_kernels_aa(o, errs: dict) -> None:
-    """K7, K8 and K9 against their plain versions; adds each kernel's max
-    abs error on its main-path variant to ``errs``."""
+def phase_kernels_aa(o, errs: dict, previous) -> None:
+    """K7, K8 and K9 against their plain versions, and K9's tensor-core
+    kernel against the previous library's, bit for bit; adds each
+    kernel's max abs error on its main-path variant to ``errs``."""
     print(f"  K7 dk_roots at B={DK_B}, degrees 4 and 8, on the char-polys of "
           "random centred and scaled complex matrices (what eigvals_dk and "
           "the eigenvalue step hand it)")
@@ -1229,6 +1428,14 @@ def phase_kernels_aa(o, errs: dict) -> None:
                                  ref[1], AA_GRAD_TOL))
             if not pivot and off == 0:  # the variant aa_fused_taps_step runs
                 errs[row] = max(e)
+            if precision != "highest":  # the tensor-core kernel, unchanged
+                old = previous.aa_taps(*rows9, AA_N, AA_L, NFFT, pivot,
+                                       precision, off)
+                same = all(torch.equal(g, r)
+                           for g, r in zip(got[precision], old))
+                print(f"  {tag}: equal to the previous library's bit for "
+                      f"bit: {same}")
+                check(same, f"{tag}: not the previous library's bits")
         for precision in ("high", "default"):  # printed, not bounded
             (l_tc, tb_tc), (l_32, tb_32) = got[precision], got["highest"]
             print(f"  K9 {precision} vs highest, pivot={pivot} bin_offset="
@@ -1381,8 +1588,10 @@ def att_model(seed: int = SEED, **routes):
 def phase_attenuated(card: str):
     """The attenuated slice: the graph routes and the fused step agree,
     then ATT_STEPS Adam steps through K5 and ATT_GRAPH_STEPS graph steps
-    through K4 and K2.  Returns the launch counts of this phase and the
-    untraced ms per fused and per graph training step."""
+    through K4 and K2.  Returns the launch counts of this phase, the
+    untraced ms per fused and per graph training step, and K2's operands
+    in the graph step with their pivot-vote shares ({"forward" or
+    "transposed": (D, U, B, (bins, warps))})."""
     print(f"phase 4 the attenuated slice: build_attenuated_fdn(nfft={NFFT}, "
           f"octave_interval=1, cache_delays=True) on cuda")
     model = att_model()
@@ -1394,7 +1603,31 @@ def phase_attenuated(card: str):
     fk.reset_launch_counts()
     sk.reset_launch_counts()
     l_ge, g_ge = loss_and_grads(model, attenuated_loss, x, t)
-    l_k, g_k = loss_and_grads(model_k, attenuated_loss, x, t)
+    # K2's operands in the graph loss, as the first timed graph step sees
+    # them: its pivot-vote share, forward and transposed
+    kernel, seen = fk.fdn_solve_kernel, []
+
+    def keep(D, U, B, transpose=False):
+        seen.append((D.detach().clone(), U.detach().clone(),
+                     B.detach().clone(), transpose))
+        return kernel(D, U, B, transpose)
+
+    fk.fdn_solve_kernel = keep
+    try:
+        l_k, g_k = loss_and_grads(model_k, attenuated_loss, x, t)
+    finally:
+        fk.fdn_solve_kernel = kernel
+    order = [tr for *_, tr in seen]
+    check(order == [False, True], "the graph loss should run K2 forward, "
+          f"then transposed (transpose flags {order})")
+    k2_graph = {"transposed" if tr else "forward": (
+        Dg, Ug, Bg, pivot_vote_share(fk._loop_matrix(Dg, Ug, tr)))
+        for Dg, Ug, Bg, tr in seen}
+    print(f"  K2 pivot-vote share on the graph step's own operands "
+          f"(M={seen[0][0].shape[0]}, N={seen[0][0].shape[1]}; the share of "
+          f"the steps k < N - 1 at which a bin, and a warp of 32, pivots): "
+          + "; ".join(f"{k} bins {v[3][0]:.4f}, warps {v[3][1]:.4f}"
+                      for k, v in k2_graph.items()))
     l_f, g_f = loss_and_grads(model, attenuated_loss_fused_step, x, t)
     print(f"  loss: graph xla/ge {l_ge:.7f}, graph pallas/pallas (K4f + K2) "
           f"{l_k:.7f}, fused step (K5) {l_f:.7f}")
@@ -1474,7 +1707,7 @@ def phase_attenuated(card: str):
           f"steps): {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the attenuated path")
-    return launches, step_ms, graph_ms
+    return launches, step_ms, graph_ms, k2_graph
 
 
 def _k6_counts() -> dict:
@@ -1774,6 +2007,7 @@ def phase_timing(o, launches, errs, card, previous) -> list:
                                                              NFFT),
     })
     previous_runs = {
+        "fdn_solve": lambda: previous.fdn_solve(D, U, B),
         "fdn_tf_mse": lambda: previous.tf_mse(D, U, b, c, X, t, False, False),
         "fdn_tf_bwd": lambda: previous.tf_bwd(D, U, b, c, y, o["tf_bar"]),
         "sos_cascade_fwd": lambda: previous.sos_fwd(gb, ga, NFFT),
@@ -1835,9 +2069,34 @@ def phase_timing(o, launches, errs, card, previous) -> list:
                     A1, B1, tr),
                 previous=lambda As=As, Bs=Bs, tr=tr: previous.dense_solve(
                     As, Bs, tr)))
-    ms_t = device_ms(lambda: fk.fdn_solve_kernel(D, U, B, True),
-                     "fdn_solve_kernel")
-    print(f"  fdn_solve transpose=True: kernel {ms_t:.4f} ms")
+    # K2 transposed (its gradient's launch) beside the previous K2, and
+    # both directions' floors, the previous kernel's too; added to K2's row
+    k2 = next(r for r in rows if r["name"] == "fdn_solve")
+    ms_t, prev_t = versus_previous(
+        lambda: fk.fdn_solve_kernel(D, U, B, True),
+        lambda: previous.fdn_solve(D, U, B, True), "fdn_solve_kernel")
+    D1, B1 = D[:1].contiguous(), B[:1].contiguous()
+    k2.update(
+        transposed_ms=ms_t, transposed_previous_ms=prev_t,
+        transposed_floor_ms=device_ms(
+            lambda: fk.fdn_solve_kernel(D1, U, B1, True), "fdn_solve_kernel"),
+        previous_floor_ms=device_ms(lambda: previous.fdn_solve(D1, U, B1),
+                                    "fdn_solve_kernel"),
+        transposed_previous_floor_ms=device_ms(
+            lambda: previous.fdn_solve(D1, U, B1, True), "fdn_solve_kernel"),
+        vote_share={k: {"bins": v[3][0], "warps": v[3][1]}
+                    for k, v in o["k2_graph"].items()})
+    # and on the graph step's own operands (phase 4), where fewer warps
+    # pivot than on the random ones above
+    for key, (Dg, Ug, Bg, share) in o["k2_graph"].items():
+        tr = key == "transposed"
+        ms_g, prev_g = versus_previous(
+            lambda: fk.fdn_solve_kernel(Dg, Ug, Bg, tr),
+            lambda: previous.fdn_solve(Dg, Ug, Bg, tr), "fdn_solve_kernel")
+        k2[f"graph_{key}_ms"], k2[f"graph_{key}_previous_ms"] = ms_g, prev_g
+        print(f"  fdn_solve {key} on the graph step's own operands (pivot-"
+              f"vote share: warps {share[1]:.4f}): kernel {ms_g:.6f} "
+              f"ms, previous {prev_g:.6f} ({ms_g / prev_g:.3f}x)")
     for pivot in (True, False):
         for with_dbar in (True, False):
             ms_v, prev_v = versus_previous(
@@ -1913,18 +2172,32 @@ def phase_timing(o, launches, errs, card, previous) -> list:
                    lambda: ak.aa_tf_mse_kernel(*r8, AA_N, AA_L),
                    lambda: ak.aa_tf_mse_plain(*r8, AA_N, AA_L), None, {},
                    launches, errs, N=AA_N),
-    ] + [
-        # K9 at each precision, the FP32 kernel first; no PyTorch call
-        # computes it
-        timing_row("aa_taps_tf_mse_tc" if ak.PASSES[p]
-                   else "aa_taps_tf_mse", row, M_MAIN,
-                   lambda p=p: ak.aa_taps_tf_mse_kernel(*r9, AA_N, AA_L, NFFT,
-                                                        precision=p),
-                   lambda p=p: ak.aa_taps_tf_mse_plain(*r9, AA_N, AA_L, NFFT,
-                                                       precision=p),
-                   None, {"passes": ak.PASSES[p]}, launches, errs,
-                   N=AA_N)
-        for p, row in K9_ROWS.items()]
+    ]
+    # K9 at each precision, the FP32 kernel first, it beside the previous
+    # FP32 kernel and on one tile of 64 bins (its floor); no PyTorch call
+    # computes it
+    r9_tile = [x if x is a["tw"] else x[:, :64].contiguous() for x in r9]
+    for p, row in K9_ROWS.items():
+        fp32 = not ak.PASSES[p]
+        rows.append(timing_row(
+            "aa_taps_tf_mse_tc" if ak.PASSES[p] else "aa_taps_tf_mse", row,
+            M_MAIN,
+            lambda p=p: ak.aa_taps_tf_mse_kernel(*r9, AA_N, AA_L, NFFT,
+                                                 precision=p),
+            lambda p=p: ak.aa_taps_tf_mse_plain(*r9, AA_N, AA_L, NFFT,
+                                                precision=p),
+            None, {"passes": ak.PASSES[p]}, launches, errs, N=AA_N,
+            floor=(lambda: ak.aa_taps_tf_mse_kernel(
+                *r9_tile, AA_N, AA_L, NFFT, precision="highest"))
+            if fp32 else None,
+            previous=(lambda: previous.aa_taps(
+                *r9, AA_N, AA_L, NFFT, precision="highest"))
+            if fp32 else None))
+        if fp32:
+            rows[-1]["previous_floor_ms"] = device_ms(
+                lambda: previous.aa_taps(*r9_tile, AA_N, AA_L, NFFT,
+                                         precision="highest"),
+                "aa_taps_tf_mse_kernel")
     # K7's fixed cost (loads, start circle, stores) and its time per
     # Durand-Kerner iteration
     k7 = {n: device_ms(lambda n=n: ek.dk_roots_rows(cr, ci, n),
@@ -1939,6 +2212,7 @@ def phase_timing(o, launches, errs, card, previous) -> list:
           + ", ".join(f"{p} {ms:.6f}" for p, ms in k9.items())
           + f"; FP32 / TF32x3 {k9['highest'] / k9['high']:.2f}x")
     by = {r["name"]: r for r in rows}
+    redesigned_last(by)
     print("  K6 and K1 beside the previous kernels in this call (device ms; "
           "previous each side of the new, averaged): " + "; ".join(
               f"{n} {by[n]['ms']:.6f} against {by[n]['previous_ms']:.6f} "
@@ -1983,11 +2257,49 @@ def phase_timing(o, launches, errs, card, previous) -> list:
     return rows
 
 
+def redesigned_last(by: dict) -> None:
+    """K9 'highest' and K2 both ways beside their previous kernels in this
+    call: their aims printed, and each held to PREVIOUS_GATE times the
+    previous kernel's time."""
+    r9, r2 = by[K9_ROWS["highest"]], by["fdn_solve"]
+    cases = [("K9 'highest' aa_taps_tf_mse", r9["ms"], r9["previous_ms"],
+              r9["floor_ms"], r9["previous_floor_ms"], r9["bound_ms"],
+              K9_HIGHEST_AIM),
+             ("K2 fdn_solve", r2["ms"], r2["previous_ms"], r2["floor_ms"],
+              r2["previous_floor_ms"], r2["bound_ms"], K2_AIM),
+             ("K2 fdn_solve transposed", r2["transposed_ms"],
+              r2["transposed_previous_ms"], r2["transposed_floor_ms"],
+              r2["transposed_previous_floor_ms"], r2["bound_ms"], K2_AIM)]
+    for label, ms, prev, floor, prev_floor, bms, aim in cases:
+        ratio = ms / prev
+        print(f"  {label}: {ms:.6f} ms against the aim {aim:.4f}: "
+              f"{'met' if ms <= aim else 'missed'}; previous {prev:.6f} "
+              f"({ratio:.3f}x, at most {PREVIOUS_GATE}x: "
+              f"{'held' if ratio <= PREVIOUS_GATE else 'exceeded'}); floor "
+              f"{floor:.6f} (previous {prev_floor:.6f}); bound {bms:.6f} "
+              f"({ms / bms:.1f}x)")
+    print(f"  K9 'highest' {r9['ms']:.6f} ms against 'high' (the tensor-core "
+          f"kernel, 3 TF32 passes) {by[K9_ROWS['high']]['ms']:.6f} in this "
+          f"call: {r9['ms'] / by[K9_ROWS['high']]['ms']:.3f}x")
+    for label, ms, prev, *_ in cases:
+        check(ms <= PREVIOUS_GATE * prev, f"{label}: {ms:.6f} ms is more "
+              f"than {PREVIOUS_GATE} x the previous kernel's {prev:.6f}")
+
+
 def versus_previous(kern, previous, kernel: str) -> tuple[float, float]:
     """Device ms of ``kern`` and of the previous library's ``previous``
-    in turns, previous, new, new, previous; each pair averaged."""
+    in turns, previous, new, new, previous; each pair averaged.  When
+    device_ms had to time any of the four by CUDA events, all four are
+    timed so, so that the two are read on one clock."""
+    timed_before = len(EVENT_TIMED)
     p1, k1, k2, p2 = (device_ms(f, kernel)
                       for f in (previous, kern, kern, previous))
+    if len(EVENT_TIMED) > timed_before:
+        print(f"  {kernel}: the new and previous kernels both timed by "
+              "CUDA events, previous, new, new, previous")
+        EVENT_TIMED.append(f"{kernel} beside its previous kernel")
+        p1, k1, k2, p2 = (time_ms(f, 50)
+                          for f in (previous, kern, kern, previous))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -1997,19 +2309,22 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
     """The kernels-line row ``row`` of kernel ``name`` at M rows and N
     channels: device and call times of the kernel, its plain version and
     the library call (None when there is none), its bound, launches and
-    error.  ``plain_reps``/``lib_reps`` calls are traced and timed (fewer
+    error; with ``floor`` the kernel's time on one bin, row or tile, with
+    ``previous`` the previous library's beside it.  ``plain_reps``/``lib_reps`` calls are traced and timed (fewer
     for calls that issue thousands of operations: K7's plain version
     runs ~7,000 small kernels).  With ``lib_events`` the library call is
     timed by CUDA events only, and ``library_ms`` is that call time:
     torch.linalg.eigvals on the card takes ~0.8 s a call, mostly off the
     device, and after a profiler trace of it later traces came back
     empty or partial."""
-    retries = TRACE_RETRIES[0]
+    retries, timed_before = TRACE_RETRIES[0], len(EVENT_TIMED)
     kernel = f"{name.removesuffix('_transposed')}_kernel"
     if previous is None:
         ms, previous_ms = device_ms(kern, kernel), None
     else:
         ms, previous_ms = versus_previous(kern, previous, kernel)
+    ms_by = ("cuda_events" if len(EVENT_TIMED) > timed_before
+             else "profiler")
     floor_ms = None if floor is None else device_ms(floor, kernel)
     plain_ms = device_ms(plain, reps=plain_reps)
     call_ms = time_ms(kern, reps=200)
@@ -2024,18 +2339,20 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
     retries = TRACE_RETRIES[0] - retries
     lib_txt = ("n/a" if library_ms is None else
                f"{library_ms:.4f} (call {library_call_ms:.4f})")
-    extra = ("" if floor_ms is None else f", floor (M=1) {floor_ms:.6f}") + (
+    extra = ("" if floor_ms is None else f", floor {floor_ms:.6f}") + (
         "" if previous_ms is None else f", previous {previous_ms:.6f}")
     print(f"  {row} (M={M}): device ms (call ms): kernel {ms:.6f} "
           f"({call_ms:.4f}), plain {plain_ms:.4f} ({plain_call_ms:.3f}), "
           f"library {lib_txt}; bound {bound_ms:.6f} ({bound_by}){extra}"
-          + (f"; {retries} trace(s) taken again" if retries else ""))
+          + (f"; {retries} trace(s) taken again" if retries else "")
+          + ("; kernel timed by CUDA events" if ms_by != "profiler" else ""))
     extra_keys = {k: v for k, v in (("floor_ms", floor_ms),
                                     ("previous_ms", previous_ms))
                   if v is not None}
     return {"name": row, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[row],
-            "max_abs_err": errs[row], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": errs[row], "ms": ms, "ms_by": ms_by,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "call_ms": call_ms,
             "plain_call_ms": plain_call_ms,
@@ -2059,13 +2376,29 @@ def phase_trace(card: str, label: str, run_steps, step_ms: float,
     run_steps(3)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run_steps(steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = _device_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    for attempt in range(TRACES):  # a trace may come back empty
+        if attempt:
+            TRACE_RETRIES[0] += 1
+            time.sleep(0.2)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run_steps(steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = _device_events(prof)
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        if busy_ms > 0 and all(any(n in e.key for e in events)
+                               for n in share):
+            break
+        print(f"  the profiler saw {len(events)} device operations in "
+              f"{steps} {label} steps"
+              + (", none of them " + "/".join(share) if share else "")
+              + ("; tracing again" if attempt < TRACES - 1 else ""))
+    if busy_ms == 0:
+        print(f"phase 6 trace of {steps} {label} steps on {card}: not "
+              f"measured, the profiler saw no device time in {TRACES} "
+              "traces")
+        return
     n_kernels = sum(e.count for e in events)
     print(f"phase 6 trace of {steps} {label} steps on {card}: wall "
           f"{wall_ms / steps:.4f} ms/step (profiler on), device busy "
@@ -2146,13 +2479,14 @@ def main() -> int:
     o["tied"] = tied_operands()
     rig = aa_rig()
     o["aa"] = aa_kernel_operands(rig)
-    errs = phase_kernels(o)
-    phase_kernels_aa(o["aa"], errs)
+    errs = phase_kernels(o, previous)
+    phase_kernels_aa(o["aa"], errs, previous)
     p2_values = phase_kernels_p2(errs)
     took["2 kernels"] = seconds_since_last()
     launches, step_ms = phase_slice(card)
     took["3 colorless"] = seconds_since_last()
-    att_launches, att_step_ms, att_graph_ms = phase_attenuated(card)
+    att_launches, att_step_ms, att_graph_ms, o["k2_graph"] = (
+        phase_attenuated(card))
     took["4 attenuated"] = seconds_since_last()
     for name, n in att_launches.items():
         launches[name] = launches.get(name, 0) + n
@@ -2181,14 +2515,17 @@ def main() -> int:
     for p in ("high", "highest"):  # the tensor-core K9, then the FP32 one
         phase_trace(card, f"aa_fused_taps_step (K9, {p})",
                     aa_magnitude_steps(rig, k9_build(p)),
-                    aa_step_ms[K9_ROWS[p]])
+                    aa_step_ms[K9_ROWS[p]],
+                    share=("aa_taps_tf_mse_tc_kernel" if ak.PASSES[p]
+                           else "aa_taps_tf_mse_kernel",))
     phase_trace(card, "aa_fused_step (K8)",
                 aa_magnitude_steps(rig, aa_fused_step),
                 aa_step_ms["aa_tf_mse"])
     phase_trace(card, "aa_evs_train_step (K7)", aa_evs_steps(aa), evs_ms)
     took["6 traces"] = seconds_since_last()
     print(f"seconds per phase: {took}; traces taken again: "
-          f"{TRACE_RETRIES[0]}")
+          f"{TRACE_RETRIES[0]}; timed by CUDA events after {TRACES} empty "
+          f"traces: {EVENT_TIMED or 'none'}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -46,25 +46,25 @@
 // P_i,t is a sum over every bin.  What bounds it: operations.  Two order x
 // L N real contractions on re and im per bin (~41.6 kFLOP at order = 100,
 // L N = 52) plus the solve (~3 kFLOP): ~2.2 GFLOP at M = 48001, ~0.033 ms
-// at 67 TFLOP/s of FP32 (the rows are ~23 MB, ~0.007 ms).  The design:
-//   - a block owns a tile of kTapBins bins at a time (a grid-stride loop
-//     over the tiles, the grid sized to fill the SMs);
-//   - each thread writes its bin's powers into a row of shared memory
-//     (odd row strides: the per-thread row writes and reads are free of
-//     bank conflicts), synthesizes G kJB loudspeakers at a time (kJB N
-//     complex accumulators, the taps read as warp-wide broadcasts), runs
-//     K8's per-bin work and writes its S row to shared memory;
-//   - the block then contracts the tile's S against its powers (a small
-//     GEMM over the tile's bins, kQ x kQ outputs per thread, the powers
-//     read conflict-free and the S values as broadcasts) and adds the
-//     result into a shared (order, L N) sum that each output's owning
-//     thread alone updates;
-//   - each block writes its sum once: per-block partials (blocks, order,
-//     L N) that the wrapper adds with torch.sum, in a fixed order, so the
-//     result is deterministic on a given card.
-// Shared memory at order = 100, L N = 52: 99.6 KB a block (opted in
-// above 48 KB), two blocks an SM.  This kernel is precision 'highest',
-// FP32 on CUDA cores.
+// at 67 TFLOP/s of FP32 (the rows are ~23 MB, ~0.007 ms).  Two kernels
+// compute it: aa_taps_tf_mse_kernel, FP32 on the CUDA cores (precision
+// 'highest'), and aa_taps_tf_mse_tc_kernel, TF32 on the tensor cores
+// ('high', 'default').  They share the frame of a tile (tile_powers,
+// tile_solve below):
+//   - a block of kTapThreads = 256 threads (8 warps) takes a tile of
+//     kTapBins = 64 bins at a time, grid-stride over the tiles, the grid
+//     sized to fill the SMs (two blocks an SM);
+//   - the powers go to shared memory tap-major (row t: Re P_t of the
+//     tile's bins, then Im P_t), four lanes a bin, exact integer phases;
+//   - G goes to shared memory row jk (the tile's Gr, then Gi), the N x N
+//     solve runs on four lanes a bin whose sums are added by xor
+//     shuffles, and S overwrites G as [Sr | -Si];
+//   - the tap cotangent [Pr | Pi]^T [Sr; -Si] is held in registers over
+//     all the block's tiles; each block writes its partial (blocks, order,
+//     L N) once, and the wrapper adds them with torch.sum in a fixed order,
+//     so the result is deterministic on a given card.  More of tb than the
+//     registers hold takes another pass over the bins.
+// This kernel is precision 'highest', FP32 on CUDA cores.
 //
 // The ragged edge m >= M is masked: K8's dead threads return; K9's run
 // with H = r = t = 0, which makes A = I, y = 0 and every cotangent exactly
@@ -81,9 +81,6 @@ using fdn::cabs2;
 using fdn::cmul;
 
 constexpr int kThreads = 128;  // K8: bins per block
-constexpr int kTapBins = 64;   // K9: bins per tile (= threads per block)
-constexpr int kJB = 4;         // K9: loudspeakers per synthesis chunk
-constexpr int kQ = 4;          // K9: register tile of the tap contraction
 constexpr int kMaxN = 8;
 constexpr int kBadN = -1;
 constexpr int kBadSize = -2;
@@ -91,13 +88,6 @@ constexpr int kCudaError = -3;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
 
 __host__ __device__ inline int round_up(int x, int q) { return (x + q - 1) / q * q; }
-
-// K9's shared memory: the power rows and S rows of a tile (odd strides,
-// float2) and the (order, L N) sum (padded to kQ).
-__host__ __device__ inline int taps_smem_bytes(int order, int LN) {
-  const int OS = round_up(order, kQ) + 1, LS = round_up(LN, kQ) + 1;
-  return kTapBins * 8 * (OS + LS) + 4 * round_up(order, kQ) * round_up(LN, kQ);
-}
 
 __device__ __forceinline__ void cadd_to(float2& acc, float2 v) {
   acc.x += v.x;
@@ -227,156 +217,332 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K9: loss row and per-block tap-cotangent partials from the taps.
-// off_mod = bin offset mod nfft (>= 0); w_scale = float(2 pi / nfft).
-template <int N, bool PIVOT>
-__global__ void __launch_bounds__(kTapBins)
+// ---------------------------------------------------------------------------
+// K9's tile frame, shared by its two kernels
+// ---------------------------------------------------------------------------
+constexpr int kTapBins = 64;                        // bins per tile
+constexpr int kTapThreads = 256;                    // threads per block (8 warps)
+constexpr int kTapWarps = kTapThreads / 32;
+constexpr int kTapSplit = kTapThreads / kTapBins;   // lanes per bin (powers, solve)
+constexpr int kTapStride = 2 * kTapBins + 4;        // floats a row of sP and sGS
+static_assert(kTapStride % 32 == 4, "rows four banks apart");
+
+// sP and sGS keep values as they are (FP32) or rounded to TF32 (the
+// tensor-core kernel's one pass): the functors below
+struct KeepF32 {
+  __device__ __forceinline__ float operator()(float x) const { return x; }
+};
+
+// The powers P_t = e^{-j w_scale idx_t}, idx_t = t (m + off) mod nfft, of
+// the tile at bin m0 into sP (rows [0, rows), stride kTapStride),
+// tap-major: row t holds Re P_t of the tile's bins in columns [0, 64)
+// and Im P_t in [64, 128); rows t >= order are zero.  Thread (b, q) makes
+// t = q, q + kTapSplit, ... of bin b, stepped exactly in integers; sP
+// keeps store(value).
+template <class Store>
+__device__ __forceinline__ void tile_powers(float* __restrict__ sP, int rows, int order, int m0,
+                                            int nfft, int off_mod, float w_scale, Store store) {
+  const int b = threadIdx.x % kTapBins, q = threadIdx.x / kTapBins;
+  const int gm = static_cast<int>((static_cast<long long>(m0 + b) % nfft + off_mod) % nfft);
+  int step = 0, idx = 0;
+  for (int s = 0; s < kTapSplit; ++s) {
+    step += gm;
+    if (step >= nfft) step -= nfft;
+    if (s < q) {
+      idx += gm;
+      if (idx >= nfft) idx -= nfft;
+    }
+  }
+  for (int tt = q; tt < rows; tt += kTapSplit) {
+    float sn = 0.0f, cs = 0.0f;
+    if (tt < order) {
+      sincosf(w_scale * static_cast<float>(idx), &sn, &cs);
+      idx += step;
+      if (idx >= nfft) idx -= nfft;
+    }
+    sP[tt * kTapStride + b] = store(cs);
+    sP[tt * kTapStride + kTapBins + b] = store(-sn);
+  }
+}
+
+// The solve of the tile at bin m0 from its G in sGS (row j N + k: the
+// tile's Gr in columns [0, 64), Gi in [64, 128)): lanes 4 b .. 4 b + 3
+// own bin b, lane q the loudspeakers j = q, q + kTapSplit, ...; they
+// split H G over their loudspeakers, add their N x N sums by two xor
+// shuffles (commutative, so every lane holds the same sum), run K8's
+// solve (fdn_ge.cuh, pivot or no pivot) each, and write the S rows of
+// their loudspeakers over G in sGS as store([Sr | -Si]).  Bins m >= M run
+// with H = r = t = 0: A = I, y = 0 and S = 0.  Lane 0 of a bin writes its
+// loss when `write_loss`.
+template <int N, bool PIVOT, class Store>
+__device__ __forceinline__ void tile_solve(const float* __restrict__ hr,
+                                           const float* __restrict__ hi,
+                                           const float* __restrict__ rr,
+                                           const float* __restrict__ ri,
+                                           const float* __restrict__ t,
+                                           float* __restrict__ loss_row, float* __restrict__ sGS,
+                                           float scale, int L, int M, int m0, bool write_loss,
+                                           Store store) {
+  const int b = threadIdx.x / kTapSplit, q = threadIdx.x % kTapSplit;
+  const size_t Ms = static_cast<size_t>(M);
+  const int m = m0 + b;
+  const bool live = m < M;
+  float2 s[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) s[i][k] = make_float2(0.0f, 0.0f);
+  }
+#pragma unroll 1
+  for (int j = q; j < L; j += kTapSplit) {
+    float2 h[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      h[i] = load2(hr, hi, static_cast<size_t>(i * L + j) * Ms + m, live);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float* gr = sGS + (j * N + k) * kTapStride + b;
+      const float2 gv = make_float2(gr[0], gr[kTapBins]);
+#pragma unroll
+      for (int i = 0; i < N; ++i) cadd_to(s[i][k], cmul(h[i], gv));
+    }
+  }
+#pragma unroll
+  for (int x = 1; x < kTapSplit; x *= 2) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        s[i][k].x += __shfl_xor_sync(0xffffffffu, s[i][k].x, x);
+        s[i][k].y += __shfl_xor_sync(0xffffffffu, s[i][k].y, x);
+      }
+    }
+  }
+  float2 r[N], y[N], xi[N];
+  float tv[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    r[i] = load2(rr, ri, static_cast<size_t>(i) * Ms + m, live);
+    tv[i] = live ? __ldg(t + static_cast<size_t>(i) * Ms + m) : 0.0f;
+  }
+  const float loss = solve_loss_adjoint<N, PIVOT>(s, r, tv, scale, y, xi);
+  if (live && q == 0 && write_loss) loss_row[m] = loss;
+#pragma unroll 1
+  for (int j = q; j < L; j += kTapSplit) {
+    const float2 a = h_transpose_xi<N>(hr, hi, xi, j, L, Ms, m, live);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float2 sv = cmul(a, y[k]);
+      float* so = sGS + (j * N + k) * kTapStride + b;
+      so[0] = store(sv.x);
+      so[kTapBins] = store(-sv.y);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9 'highest': aa_taps_tf_mse_kernel<N, PIVOT, STAGE_TW>, FP32 on the CUDA
+// cores, in the tile frame above.  Both contractions are register-tiled
+// SIMT GEMMs out of shared memory, float4 loads into per-thread tiles of
+// FP32 FMAs:
+//   - synthesis [Gr; Gi] = [Pr; Pi] (128 x order) tw (order x L N): a
+//     thread's tile is 4 bins (their Re and Im rows) by kSynJ = 4
+//     columns jk, an outer product per tap t from one float4 of Pr, one
+//     of Pi (row t of sP) and one of tw; the 16 x ceil(L N / 4) tiles go
+//     round the block's threads, and each writes its G as float4s;
+//   - tap cotangent tb = [Pr | Pi]^T [Sr; -Si]: a thread owns kCotT = 6
+//     taps t = tq + a nT by kCotJ = 4 columns jk = jq + c nJ (nT =
+//     ceil(order / 6), nJ = ceil(L N / 4)) and runs the 128 rows of bins
+//     four at a time as dot products, float4s of rows t of sP and rows jk
+//     of sGS; its 24 sums stay in registers over all the block's tiles.
+//     The lanes take the tiles columns first: a quarter warp shares its
+//     taps' rows (broadcasts) and reads consecutive rows jk, which the
+//     stride of 132 floats puts on distinct banks.  At order = 100, L N =
+//     52 that is 17 x 13 = 221 tiles for 256 threads (8 x 4 tiles, 169 of
+//     them, taken taps first, measured 0.111 ms against 0.0997 on an
+//     NVIDIA H100 80GB HBM3 at 700 W; 7 x 4, 6 x 5, 4 x 6, 8 x 3 and
+//     4 x 8 all lay between: controls/k9_k2_designs).  More than 256 such
+//     tiles (order x L N above 6144 of tb) take another pass over the
+//     bins, recomputing powers, G and the solve.
+// tw (order x L N, zero-padded to 4 columns a row) is staged in shared
+// memory once a block where that leaves the SM its two blocks (f32_stage_tw;
+// 20.8 KB at order = 100, L N = 52); otherwise its float4s come through
+// L1 (__ldg).  Shared memory at order = 100, L N = 52: 4 x 132 x (100 +
+// 52) + 20.8 KB = 101.1 KB a block, two blocks (16 warps) an SM, at most
+// 128 registers a thread.  G is summed over t in order, an FMA a tap, as
+// the previous kernel did; S comes from the four-lane solve and its sums.
+// What holds it back (NVIDIA H100 80GB HBM3, 700 W; the design probes of
+// controls/k9_k2_designs, each leaving one phase out of the first, 8 x 4
+// version at 0.111 ms): the tap cotangent took ~0.042 ms, the synthesis
+// ~0.030, the solve ~0.016 and the powers ~0.011; the contractions run
+// at a third to a half of the FP32 rate, their float4 shared loads and
+// the barriers between the phases in the way.
+// ---------------------------------------------------------------------------
+constexpr int kSynJ = 4;   // synthesis: columns jk of a thread's tile
+constexpr int kSynR = 16;  // synthesis: tiles of 4 bins across the tile's 64
+constexpr int kCotT = 6;   // cotangent: taps of a thread's tile
+constexpr int kCotJ = 4;   // cotangent: columns jk of a thread's tile
+static_assert(kSynR * 4 == kTapBins && kSynJ == 4, "float4s of 4 bins, 4 columns");
+
+// The FP32 kernel's dynamic shared memory: the powers (order rows) and the
+// G/S rows (L N), kTapStride floats each, and tw (order x round_up(L N, 4))
+// when staged.
+__host__ __device__ inline int f32_smem_bytes(int order, int LN, bool stage_tw) {
+  return 4 * (kTapStride * (order + LN) + (stage_tw ? order * round_up(LN, 4) : 0));
+}
+
+// Stage tw when that leaves an SM as many blocks as without it (two while
+// a block takes at most 115712 bytes: 228 KB an SM, 1 KB of it reserved a
+// block) and a block can have it.
+__host__ __device__ inline bool f32_stage_tw(int order, int LN) {
+  constexpr int kTwoBlocks = 115712;
+  const int with = f32_smem_bytes(order, LN, true), without = f32_smem_bytes(order, LN, false);
+  return with <= kMaxSmem && (with <= kTwoBlocks || without > kTwoBlocks);
+}
+
+template <int N, bool PIVOT, bool STAGE_TW>
+__global__ void __launch_bounds__(kTapThreads, 2)
     aa_taps_tf_mse_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
                           const float* __restrict__ tw, const float* __restrict__ rr,
                           const float* __restrict__ ri, const float* __restrict__ t,
                           float* __restrict__ loss_row, float* __restrict__ partials, float scale,
                           int L, int M, int order, int nfft, int off_mod, float w_scale) {
   extern __shared__ float4 smem4[];
-  const int LN = L * N;
-  const int OP = round_up(order, kQ), LP = round_up(LN, kQ);
-  const int OS = OP + 1, LS = LP + 1;
-  float2* sP = reinterpret_cast<float2*>(smem4);  // [kTapBins][OS]
-  float2* sS = sP + kTapBins * OS;                 // [kTapBins][LS]
-  float* sTB = reinterpret_cast<float*>(sS + kTapBins * LS);  // [OP][LP]
+  const int LN = L * N, LN4 = round_up(LN, 4);
+  float* sP = reinterpret_cast<float*>(smem4);  // [order][kTapStride]
+  float* sGS = sP + order * kTapStride;          // [LN][kTapStride]
+  float* sTW = sGS + LN * kTapStride;            // [order][LN4], when staged
   const int tid = threadIdx.x;
-  for (int v = tid; v < OP * LP; v += kTapBins) sTB[v] = 0.0f;
-  const size_t Ms = static_cast<size_t>(M);
   const int n_tiles = (M + kTapBins - 1) / kTapBins;
-  const int nq_t = OP / kQ, nq_j = LP / kQ;
-  float2* prow = sP + tid * OS;
-  float2* srow = sS + tid * LS;
+  if constexpr (STAGE_TW) {  // read by the first synthesis, after a barrier
+    for (int v = tid; v < order * LN4; v += kTapThreads) {
+      const int c = v % LN4;
+      sTW[v] = c < LN ? __ldg(tw + (v / LN4) * LN + c) : 0.0f;
+    }
+  }
+  const int nT = (order + kCotT - 1) / kCotT, nJ = (LN + kCotJ - 1) / kCotJ;
+  const int n_items = nT * nJ, n_syn = kSynR * ((LN + kSynJ - 1) / kSynJ);
 
 #pragma unroll 1
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int m = tile * kTapBins + tid;
-    const bool live = m < M;
-
-    // the powers P_t = e^{-j w_scale idx_t}, idx_t = t (m + off) mod nfft,
-    // stepped exactly in integers
-    const int gm = static_cast<int>((static_cast<long long>(m) % nfft + off_mod) % nfft);
-    int idx = 0;
-    for (int tt = 0; tt < OP; ++tt) {
-      float2 p = make_float2(0.0f, 0.0f);
-      if (tt < order) {
-        float sn, cs;
-        sincosf(w_scale * static_cast<float>(idx), &sn, &cs);
-        p = make_float2(cs, -sn);
-        idx += gm;
-        if (idx >= nfft) idx -= nfft;
-      }
-      prow[tt] = p;
+  for (int i0 = 0; i0 < n_items; i0 += kTapThreads) {
+    const int item = i0 + tid;
+    const bool has_item = item < n_items;
+    const int tq = has_item ? item / nJ : 0, jq = item % nJ;  // columns first
+    // the rows of sP and sGS this thread's tb tile reads, clamped into
+    // range (the clamped ones are not stored)
+    int po[kCotT], so[kCotJ];
+#pragma unroll
+    for (int a = 0; a < kCotT; ++a) po[a] = min(tq + a * nT, order - 1) * kTapStride;
+#pragma unroll
+    for (int c = 0; c < kCotJ; ++c) so[c] = min(jq + c * nJ, LN - 1) * kTapStride;
+    float acc[kCotT][kCotJ];
+#pragma unroll
+    for (int a = 0; a < kCotT; ++a) {
+#pragma unroll
+      for (int c = 0; c < kCotJ; ++c) acc[a][c] = 0.0f;
     }
 
-    // s = H G, G[j, k] = sum_t tw[t, j N + k] P_t, kJB loudspeakers at a time
-    float2 s[N][N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int k = 0; k < N; ++k) s[i][k] = make_float2(0.0f, 0.0f);
-    }
 #pragma unroll 1
-    for (int j0 = 0; j0 < L; j0 += kJB) {
-      float2 g[kJB][N];
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = tile * kTapBins;
+      tile_powers(sP, order, order, m0, nfft, off_mod, w_scale, KeepF32{});
+      __syncthreads();
+
+      // [Gr; Gi] = [Pr; Pi] tw: tile q is bins 4 rq .. 4 rq + 3, columns
+      // 4 cq .. 4 cq + 3 (those past L N read zero taps and are not stored)
+#pragma unroll 1
+      for (int q = tid; q < n_syn; q += kTapThreads) {
+        const int rq = q % kSynR, cq = q / kSynR;
+        float gr[4][kSynJ], gi[4][kSynJ];
 #pragma unroll
-      for (int jb = 0; jb < kJB; ++jb) {
+        for (int e = 0; e < 4; ++e) {
 #pragma unroll
-        for (int k = 0; k < N; ++k) g[jb][k] = make_float2(0.0f, 0.0f);
+          for (int c = 0; c < kSynJ; ++c) gr[e][c] = gi[e][c] = 0.0f;
+        }
+        const float* pa = sP + 4 * rq;
+        const float* wa = sTW + kSynJ * cq;
+        const int n0 = kSynJ * cq;
+#pragma unroll 4
+        for (int tt = 0; tt < order; ++tt) {
+          const float4 pr = *reinterpret_cast<const float4*>(pa + tt * kTapStride);
+          const float4 pi = *reinterpret_cast<const float4*>(pa + tt * kTapStride + kTapBins);
+          float w[kSynJ];
+          if constexpr (STAGE_TW) {
+            const float4 w4 = *reinterpret_cast<const float4*>(wa + tt * LN4);
+            w[0] = w4.x, w[1] = w4.y, w[2] = w4.z, w[3] = w4.w;
+          } else {
+#pragma unroll
+            for (int c = 0; c < kSynJ; ++c)
+              w[c] = n0 + c < LN ? __ldg(tw + static_cast<size_t>(tt) * LN + n0 + c) : 0.0f;
+          }
+          const float p_r[4] = {pr.x, pr.y, pr.z, pr.w}, p_i[4] = {pi.x, pi.y, pi.z, pi.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+#pragma unroll
+            for (int c = 0; c < kSynJ; ++c) {
+              gr[e][c] += w[c] * p_r[e];
+              gi[e][c] += w[c] * p_i[e];
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kSynJ; ++c) {
+          if (n0 + c < LN) {
+            float* o = sGS + (n0 + c) * kTapStride + 4 * rq;
+            *reinterpret_cast<float4*>(o) = make_float4(gr[0][c], gr[1][c], gr[2][c], gr[3][c]);
+            *reinterpret_cast<float4*>(o + kTapBins) =
+                make_float4(gi[0][c], gi[1][c], gi[2][c], gi[3][c]);
+          }
+        }
       }
-#pragma unroll 2
-      for (int tt = 0; tt < order; ++tt) {
-        const float2 p = prow[tt];
-        const float* __restrict__ twr = tw + static_cast<size_t>(tt) * LN + j0 * N;
+      __syncthreads();
+
+      tile_solve<N, PIVOT>(hr, hi, rr, ri, t, loss_row, sGS, scale, L, M, m0, i0 == 0,
+                           KeepF32{});
+      __syncthreads();
+
+      // tb += [Pr | Pi]^T [Sr; -Si] on this thread's tile, four rows of
+      // bins at a time
+      if (has_item) {
+#pragma unroll 4
+        for (int k0 = 0; k0 < 2 * kTapBins; k0 += 4) {
+          float4 p[kCotT], sv[kCotJ];
 #pragma unroll
-        for (int jb = 0; jb < kJB; ++jb) {
-          if (j0 + jb < L) {
+          for (int a = 0; a < kCotT; ++a) p[a] = *reinterpret_cast<const float4*>(sP + po[a] + k0);
 #pragma unroll
-            for (int k = 0; k < N; ++k) {
-              const float v = __ldg(twr + jb * N + k);
-              g[jb][k].x += v * p.x;
-              g[jb][k].y += v * p.y;
+          for (int c = 0; c < kCotJ; ++c)
+            sv[c] = *reinterpret_cast<const float4*>(sGS + so[c] + k0);
+#pragma unroll
+          for (int a = 0; a < kCotT; ++a) {
+#pragma unroll
+            for (int c = 0; c < kCotJ; ++c) {
+              acc[a][c] += p[a].x * sv[c].x;
+              acc[a][c] += p[a].y * sv[c].y;
+              acc[a][c] += p[a].z * sv[c].z;
+              acc[a][c] += p[a].w * sv[c].w;
             }
           }
         }
       }
-#pragma unroll
-      for (int jb = 0; jb < kJB; ++jb) {
-        const int j = j0 + jb;
-        if (j < L) {
-#pragma unroll
-          for (int i = 0; i < N; ++i) {
-            const float2 h = load2(hr, hi, static_cast<size_t>(i * L + j) * Ms + m, live);
-#pragma unroll
-            for (int k = 0; k < N; ++k) cadd_to(s[i][k], cmul(h, g[jb][k]));
-          }
-        }
-      }
+      __syncthreads();  // the next tile overwrites sP and sGS
     }
 
-    float2 r[N], y[N], xi[N];
-    float tv[N];
+    float* __restrict__ out = partials + static_cast<size_t>(blockIdx.x) * order * LN;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      r[i] = load2(rr, ri, static_cast<size_t>(i) * Ms + m, live);
-      tv[i] = live ? __ldg(t + static_cast<size_t>(i) * Ms + m) : 0.0f;
-    }
-    const float loss = solve_loss_adjoint<N, PIVOT>(s, r, tv, scale, y, xi);
-    if (live) loss_row[m] = loss;
-
-    // the bin's S row into shared memory, zero-padded to LP
-#pragma unroll 1
-    for (int j = 0; j < L; ++j) {
-      const float2 a = h_transpose_xi<N>(hr, hi, xi, j, L, Ms, m, live);
+    for (int a = 0; a < kCotT; ++a) {
 #pragma unroll
-      for (int k = 0; k < N; ++k) srow[j * N + k] = cmul(a, y[k]);
-    }
-    for (int v = LN; v < LP; ++v) srow[v] = make_float2(0.0f, 0.0f);
-    __syncthreads();
-
-    // tb[t, jk] += sum_b Re S[b, jk] Re P[b, t] - Im S[b, jk] Im P[b, t]:
-    // thread q owns t = tq + a nq_t and jk = jq + c nq_j (a, c < kQ)
-    for (int q = tid; q < nq_t * nq_j; q += kTapBins) {
-      const int tq = q % nq_t, jq = q / nq_t;
-      float acc[kQ][kQ];
-#pragma unroll
-      for (int a = 0; a < kQ; ++a) {
-#pragma unroll
-        for (int c = 0; c < kQ; ++c) acc[a][c] = 0.0f;
-      }
-#pragma unroll 4
-      for (int b = 0; b < kTapBins; ++b) {
-        float2 p[kQ], sv[kQ];
-#pragma unroll
-        for (int a = 0; a < kQ; ++a) p[a] = sP[b * OS + tq + a * nq_t];
-#pragma unroll
-        for (int c = 0; c < kQ; ++c) sv[c] = sS[b * LS + jq + c * nq_j];
-#pragma unroll
-        for (int a = 0; a < kQ; ++a) {
-#pragma unroll
-          for (int c = 0; c < kQ; ++c) acc[a][c] += sv[c].x * p[a].x - sv[c].y * p[a].y;
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < kQ; ++a) {
-#pragma unroll
-        for (int c = 0; c < kQ; ++c) sTB[(tq + a * nq_t) * LP + jq + c * nq_j] += acc[a][c];
+      for (int c = 0; c < kCotJ; ++c) {
+        const int tt = tq + a * nT, jk = jq + c * nJ;
+        if (has_item && tt < order && jk < LN) out[static_cast<size_t>(tt) * LN + jk] = acc[a][c];
       }
     }
-    __syncthreads();
   }
-
-  float* __restrict__ out = partials + static_cast<size_t>(blockIdx.x) * order * LN;
-  for (int v = tid; v < order * LN; v += kTapBins) out[v] = sTB[(v / LN) * LP + v % LN];
 }
 
 // ---------------------------------------------------------------------------
 // K9 on the tensor cores: aa_taps_tf_mse_tc_kernel<N, PIVOT, PASSES>, for
 // precision 'high' (PASSES = 3) and 'default' (PASSES = 1); 'highest'
-// stays aa_taps_tf_mse_kernel above.  The same function as K9, with its
+// is aa_taps_tf_mse_kernel above.  The same function as K9, with its
 // two real contractions as TF32 mma.sync.m16n8k8 products of split
 // operands, hi = tf32(x) and lo = tf32(x - hi) (nearest, ties away from
 // zero): 'high' adds a_lo b_hi, a_hi b_lo and a_hi b_hi (JAX's 3-pass
@@ -389,10 +555,10 @@ __global__ void __launch_bounds__(kTapBins)
 // passes: 0.0121 ms at the 495 TFLOP/s of dense TF32 for 'high'; for
 // 'default' the 22.5 MB of rows (0.0067 ms at 3.35 TB/s) outweigh its
 // 0.0040 ms of tensor work; mma.sync runs TF32 below that dense rate.
-// The design:
-//   - a block of kTcThreads = 256 threads (8 warps) takes a tile of
-//     kTcBins = 64 bins at a time, grid-stride over the tiles;
-//   - powers: each thread makes every kTcSplit-th power of one bin (exact
+// The design, in K9's tile frame (tile_powers, tile_solve):
+//   - a block of kTapThreads = 256 threads (8 warps) takes a tile of
+//     kTapBins = 64 bins at a time, grid-stride over the tiles;
+//   - powers: each thread makes every kTapSplit-th power of one bin (exact
 //     integer phase, sincosf) into sP, tap-major: row t holds Re P_t of
 //     the tile's bins in columns [0, 64) and Im P_t in [64, 128);
 //   - synthesis: [Pr; Pi] (128 x order) x tw (order x L N) -> [Gr; Gi],
@@ -400,7 +566,7 @@ __global__ void __launch_bounds__(kTapBins)
 //     fragment; tw's fragments come through L1 (__ldg, 21 KB at the rig's
 //     size) and are split as they are loaded; G goes to sGS, row jk
 //     holding the tile's Gr and Gi;
-//   - solve: kTcSplit = 4 adjacent lanes per bin split H G over the
+//   - solve: kTapSplit = 4 adjacent lanes per bin split H G over the
 //     loudspeakers (j = q, q + 4, ...), add their N x N sums by two xor
 //     shuffles (commutative, so every lane holds the same sum), run K8's
 //     solve (fdn_ge.cuh, pivot or no pivot) each, and write the S rows of
@@ -430,8 +596,8 @@ __global__ void __launch_bounds__(kTapBins)
 // accesses free of bank conflicts; the synthesis's A loads (columns on
 // the group) take two ways, once per warp and k-step.  At order = 100,
 // L N = 52: 4 x 132 x (112 + 56) = 88.7 KB a block, so two blocks, 16
-// warps, fit an SM (the FP32 kernel: 99.6 KB, two blocks of 2 warps),
-// at most 128 registers a thread (__launch_bounds__(256, 2)).
+// warps, fit an SM (the FP32 kernel: 101.1 KB, also two blocks of 8
+// warps), at most 128 registers a thread (__launch_bounds__(256, 2)).
 // What holds it back (H100, 'high'): the contractions' fragment work
 // more than their mma; every warp reloads and splits tw's fragments for
 // every tile, since a split copy in shared memory (25-50 KB) would leave
@@ -440,19 +606,13 @@ __global__ void __launch_bounds__(kTapBins)
 // memory and want staged, swizzled operands; the contractions here are
 // 128 x 112 x 56 and 112 x 128 x 56 per tile, split on the fly, and the
 // solve between them needs the block's warps anyway.
-constexpr int kTcBins = 64;
-constexpr int kTcThreads = 256;
-constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kTcSplit = kTcThreads / kTcBins;  // lanes per bin in the solve
-constexpr int kTcStride = 2 * kTcBins + 4;
 constexpr int kTcNG = 8;  // n-tiles a warp runs per A fragment, no branch
                           // between them: a strip of tb tiles, held in
                           // registers, or of G tiles
-static_assert(2 * kTcBins == 16 * kTcWarps, "one synthesis m-tile per warp");
-static_assert(kTcStride % 32 == 4, "conflict-free cotangent fragments");
+static_assert(2 * kTapBins == 16 * kTapWarps, "one synthesis m-tile per warp");
 
 __host__ __device__ inline int tc_smem_bytes(int order, int LN) {
-  return 4 * kTcStride * (round_up(order, 16) + round_up(LN, 8));
+  return 4 * kTapStride * (round_up(order, 16) + round_up(LN, 8));
 }
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
@@ -478,6 +638,11 @@ __device__ __forceinline__ float stored(float x) {
   if constexpr (PASSES == 1) return __uint_as_float(tf32_rna(x));
   return x;
 }
+
+template <int PASSES>
+struct KeepTf32 {
+  __device__ __forceinline__ float operator()(float x) const { return stored<PASSES>(x); }
+};
 
 template <int PASSES>
 __device__ __forceinline__ void split_stored(float x, uint32_t& hi, uint32_t& lo) {
@@ -556,7 +721,7 @@ __device__ __forceinline__ void mma_add(float (&acc)[4], const FragA<PASSES> (&a
 }
 
 template <int N, bool PIVOT, int PASSES>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kTapThreads, 2)
     aa_taps_tf_mse_tc_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
                              const float* __restrict__ tw, const float* __restrict__ rr,
                              const float* __restrict__ ri, const float* __restrict__ t,
@@ -566,12 +731,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   extern __shared__ float4 smem4[];
   const int LN = L * N;
   const int OP = round_up(order, 16), LNP = round_up(LN, 8);
-  float* sP = reinterpret_cast<float*>(smem4);  // [OP][kTcStride]
-  float* sGS = sP + OP * kTcStride;              // [LNP][kTcStride]
+  float* sP = reinterpret_cast<float*>(smem4);  // [OP][kTapStride]
+  float* sGS = sP + OP * kTapStride;              // [LNP][kTapStride]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
-  const size_t Ms = static_cast<size_t>(M);
-  const int n_tiles = (M + kTcBins - 1) / kTcBins;
+  const int n_tiles = (M + kTapBins - 1) / kTapBins;
   const int MT = OP / 16, NT = LNP / 8;
 
   // tb's strips: m-tile mt and n-tiles [nb, nb + kTcNG), one a warp per
@@ -579,7 +743,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   // w and n-tiles 0..7, of which 7 are stored)
   const int n_sg = (NT + kTcNG - 1) / kTcNG, n_strips = MT * n_sg;
 #pragma unroll 1
-  for (int s0 = 0; s0 < n_strips; s0 += kTcWarps) {
+  for (int s0 = 0; s0 < n_strips; s0 += kTapWarps) {
     const int strip = s0 + warp;
     const bool has_strip = strip < n_strips;
     const int mt = strip / n_sg, nb = (strip % n_sg) * kTcNG;
@@ -592,34 +756,9 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 
 #pragma unroll 1
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int m0 = tile * kTcBins;
+      const int m0 = tile * kTapBins;
 
-      // the powers P_t = e^{-j w_scale idx_t}, idx_t = t (m + off) mod nfft
-      // stepped exactly in integers: thread (b, q) makes t = q, q + kTcSplit, ..
-      {
-        const int b = tid % kTcBins, q = tid / kTcBins;
-        const int gm =
-            static_cast<int>((static_cast<long long>(m0 + b) % nfft + off_mod) % nfft);
-        int step = 0, idx = 0;
-        for (int s = 0; s < kTcSplit; ++s) {
-          step += gm;
-          if (step >= nfft) step -= nfft;
-          if (s < q) {
-            idx += gm;
-            if (idx >= nfft) idx -= nfft;
-          }
-        }
-        for (int tt = q; tt < OP; tt += kTcSplit) {
-          float sn = 0.0f, cs = 0.0f;
-          if (tt < order) {
-            sincosf(w_scale * static_cast<float>(idx), &sn, &cs);
-            idx += step;
-            if (idx >= nfft) idx -= nfft;
-          }
-          sP[tt * kTcStride + b] = stored<PASSES>(cs);
-          sP[tt * kTcStride + kTcBins + b] = stored<PASSES>(-sn);
-        }
-      }
+      tile_powers(sP, OP, order, m0, nfft, off_mod, w_scale, KeepTf32<PASSES>{});
       __syncthreads();
 
       // [Gr; Gi] = [Pr; Pi] tw: warp w computes rows [16 w, 16 w + 16)
@@ -638,8 +777,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
             FragA<PASSES> a[2];
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const float* p0 = sP + (k0 + 8 * h + c) * kTcStride + r0 + g;
-              const float* p4 = p0 + 4 * kTcStride;
+              const float* p0 = sP + (k0 + 8 * h + c) * kTapStride + r0 + g;
+              const float* p4 = p0 + 4 * kTapStride;
               a[h].set_stored(p0[0], p0[8], p4[0], p4[8]);
             }
 #pragma unroll
@@ -660,87 +799,31 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 #pragma unroll
           for (int j = 0; j < kTcNG; ++j) {
             if (n0 + j < NT) {
-              float* o = sGS + ((n0 + j) * 8 + 2 * c) * kTcStride + r0 + g;
+              float* o = sGS + ((n0 + j) * 8 + 2 * c) * kTapStride + r0 + g;
               o[0] = d[j][0];
-              o[kTcStride] = d[j][1];
+              o[kTapStride] = d[j][1];
               o[8] = d[j][2];
-              o[kTcStride + 8] = d[j][3];
+              o[kTapStride + 8] = d[j][3];
             }
           }
         }
       }
       __syncthreads();
 
-      // the solve: lanes 4 b .. 4 b + 3 own bin b, lane q the loudspeakers
-      // j = q, q + kTcSplit, ...
-      {
-        const int b = tid / kTcSplit, q = tid % kTcSplit;
-        const int m = m0 + b;
-        const bool live = m < M;
-        float2 s[N][N];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-          for (int k = 0; k < N; ++k) s[i][k] = make_float2(0.0f, 0.0f);
-        }
-#pragma unroll 1
-        for (int j = q; j < L; j += kTcSplit) {
-          float2 h[N];
-#pragma unroll
-          for (int i = 0; i < N; ++i)
-            h[i] = load2(hr, hi, static_cast<size_t>(i * L + j) * Ms + m, live);
-#pragma unroll
-          for (int k = 0; k < N; ++k) {
-            const float* gr = sGS + (j * N + k) * kTcStride + b;
-            const float2 gv = make_float2(gr[0], gr[kTcBins]);
-#pragma unroll
-            for (int i = 0; i < N; ++i) cadd_to(s[i][k], cmul(h[i], gv));
-          }
-        }
-#pragma unroll
-        for (int x = 1; x < kTcSplit; x *= 2) {
-#pragma unroll
-          for (int i = 0; i < N; ++i) {
-#pragma unroll
-            for (int k = 0; k < N; ++k) {
-              s[i][k].x += __shfl_xor_sync(0xffffffffu, s[i][k].x, x);
-              s[i][k].y += __shfl_xor_sync(0xffffffffu, s[i][k].y, x);
-            }
-          }
-        }
-        float2 r[N], y[N], xi[N];
-        float tv[N];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          r[i] = load2(rr, ri, static_cast<size_t>(i) * Ms + m, live);
-          tv[i] = live ? __ldg(t + static_cast<size_t>(i) * Ms + m) : 0.0f;
-        }
-        const float loss = solve_loss_adjoint<N, PIVOT>(s, r, tv, scale, y, xi);
-        if (live && q == 0 && s0 == 0) loss_row[m] = loss;
-#pragma unroll 1
-        for (int j = q; j < L; j += kTcSplit) {
-          const float2 a = h_transpose_xi<N>(hr, hi, xi, j, L, Ms, m, live);
-#pragma unroll
-          for (int k = 0; k < N; ++k) {
-            const float2 sv = cmul(a, y[k]);
-            float* so = sGS + (j * N + k) * kTcStride + b;
-            so[0] = stored<PASSES>(sv.x);
-            so[kTcBins] = stored<PASSES>(-sv.y);
-          }
-        }
-      }
+      tile_solve<N, PIVOT>(hr, hi, rr, ri, t, loss_row, sGS, scale, L, M, m0, s0 == 0,
+                           KeepTf32<PASSES>{});
       __syncthreads();
 
       // tb += [Pr | Pi]^T [Sr; -Si] over the tile's 128 rows of bins on
       // this warp's strip; its n-tiles past L N reread the last one and are
       // not stored
 #pragma unroll 1
-      for (int k0 = 0; has_strip && k0 < 2 * kTcBins; k0 += 16) {
+      for (int k0 = 0; has_strip && k0 < 2 * kTapBins; k0 += 16) {
         FragA<PASSES> a[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float* pa = sP + (mt * 16 + g) * kTcStride + k0 + 8 * h + c;
-          a[h].set_stored(pa[0], pa[8 * kTcStride], pa[4], pa[8 * kTcStride + 4]);
+          const float* pa = sP + (mt * 16 + g) * kTapStride + k0 + 8 * h + c;
+          a[h].set_stored(pa[0], pa[8 * kTapStride], pa[4], pa[8 * kTapStride + 4]);
         }
 #pragma unroll
         for (int j = 0; j < kTcNG; ++j) {
@@ -748,7 +831,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
           FragB<PASSES> bf[2];
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float* sb = sGS + row * kTcStride + k0 + 8 * h + c;
+            const float* sb = sGS + row * kTapStride + k0 + 8 * h + c;
             bf[h].set_stored(sb[0], sb[4]);
           }
           mma_add<PASSES>(acc[j], a, bf);
@@ -813,13 +896,16 @@ struct TapsConfig {
 
 template <int N, bool PIVOT>
 TapsConfig taps_config(int passes, int order, int LN) {
-  if (passes == 0)
-    return {reinterpret_cast<const void*>(&aa_taps_tf_mse_kernel<N, PIVOT>), kTapBins,
-            taps_smem_bytes(order, LN), kTapBins};
+  if (passes == 0) {
+    const bool stage = f32_stage_tw(order, LN);
+    const void* k = stage ? reinterpret_cast<const void*>(&aa_taps_tf_mse_kernel<N, PIVOT, true>)
+                          : reinterpret_cast<const void*>(&aa_taps_tf_mse_kernel<N, PIVOT, false>);
+    return {k, kTapThreads, f32_smem_bytes(order, LN, stage), kTapBins};
+  }
   const void* k = passes == 3
                       ? reinterpret_cast<const void*>(&aa_taps_tf_mse_tc_kernel<N, PIVOT, 3>)
                       : reinterpret_cast<const void*>(&aa_taps_tf_mse_tc_kernel<N, PIVOT, 1>);
-  return {k, kTcThreads, tc_smem_bytes(order, LN), kTcBins};
+  return {k, kTapThreads, tc_smem_bytes(order, LN), kTapBins};
 }
 
 template <int N>

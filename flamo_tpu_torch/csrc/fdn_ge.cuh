@@ -67,15 +67,21 @@ __device__ __forceinline__ float2 cdiv(float2 x, float2 y) {
 __device__ __forceinline__ float2 csel(bool m, float2 a, float2 b) { return m ? a : b; }
 
 // A = I - diag(d) U (rows of U scaled by d_i), or its transpose
-// I - U^T diag(d) (A[i][j] = delta_ij - U[j][i] d_j).  U is (N, N) row-major.
-template <int N, bool TRANSPOSE>
+// I - U^T diag(d) (A[i][j] = delta_ij - U[j][i] d_j).  U is (N, N) row-major,
+// in global memory (read through L1) or, with SHARED, in shared memory.
+template <int N, bool TRANSPOSE, bool SHARED = false>
 __device__ __forceinline__ void assemble(const float2 (&d)[N], const float* __restrict__ U,
                                          float2 (&A)[N][N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const float u = TRANSPOSE ? __ldg(U + j * N + i) : __ldg(U + i * N + j);
+      const int idx = TRANSPOSE ? j * N + i : i * N + j;
+      float u;
+      if constexpr (SHARED)
+        u = U[idx];
+      else
+        u = __ldg(U + idx);
       const float2 dd = TRANSPOSE ? d[j] : d[i];
       float re = -dd.x * u;
       const float im = -dd.y * u;
@@ -132,6 +138,56 @@ __device__ __forceinline__ void ge_pivot(float2 (&A)[N][N], float2 (&b)[N], floa
 #pragma unroll
     for (int j = k; j < N; ++j) A[k][j] = pa[j];
     b[k] = pb;
+    const float2 pinv = crecip(A[k][k]);
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      const float2 f = cmul(A[i][k], pinv);
+#pragma unroll
+      for (int j = k + 1; j < N; ++j) A[i][j] = csub(A[i][j], cmul(f, A[k][j]));
+      b[i] = csub(b[i], cmul(f, b[k]));
+    }
+  }
+  back_substitute<N>(A, b, y);
+}
+
+// ge_pivot with a warp's vote on each exchange.  At step k every lane finds
+// its pivot row as ge_pivot does (the first row of largest |a|^2); then,
+// for each candidate row i, the warp votes, and the exchange of rows k and
+// i runs (as selects) only when a lane of the warp pivots to row i.  Where
+// no lane pivots at a step, the step is the elimination alone; where some
+// do, only the rows they chose are exchanged, where ge_pivot selects over
+// every candidate row twice.  Each lane's values are ge_pivot's.  Every
+// lane of the warp must call it (masked lanes on A = I, which never
+// pivot).
+template <int N>
+__device__ __forceinline__ void ge_pivot_voted(float2 (&A)[N][N], float2 (&b)[N],
+                                               float2 (&y)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float best = cabs2(A[k][k]);
+    int piv = k;
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      const float cand = cabs2(A[i][k]);
+      const bool better = cand > best;
+      best = better ? cand : best;
+      piv = better ? i : piv;
+    }
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      if (__any_sync(0xffffffffu, piv == i)) {
+        const bool sw = piv == i;
+#pragma unroll
+        for (int j = k; j < N; ++j) {
+          const float2 a = A[k][j];
+          A[k][j] = csel(sw, A[i][j], a);
+          A[i][j] = csel(sw, a, A[i][j]);
+        }
+        const float2 bk = b[k];
+        b[k] = csel(sw, b[i], bk);
+        b[i] = csel(sw, bk, b[i]);
+      }
+    }
     const float2 pinv = crecip(A[k][k]);
 #pragma unroll
     for (int i = k + 1; i < N; ++i) {

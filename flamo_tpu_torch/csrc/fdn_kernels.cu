@@ -137,25 +137,66 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K2: (I - diag(D_m) U) y_m = B_m, or with TRANSPOSE the system
-// (I - diag(D_m) U)^T y_m = B_m that its gradient needs.
+// (I - diag(D_m) U)^T y_m = B_m that its gradient needs.  One thread a
+// bin, as K1-K3; at N = 6 it is bound by issue slots, and ge_pivot's
+// selects and swaps (~340 of its ~1,100 instructions at N = 6) run only
+// for the rows some lane of the warp pivots to (ge_pivot_voted, a vote a
+// candidate row): the values and the pivots are ge_pivot's, and on the
+// card its results are ge_pivot's bit for bit (a vote a step measured as
+// fast but rounded ~1 bin in 4 differently: the compiler fused other
+// multiplies and adds around its branch; controls/k9_k2_designs).  U is
+// staged in shared memory once a block (its 36 values read as
+// broadcasts, not 36 loads through L1 a thread), and a bin's rows of D,
+// B and Y move as float4s where N is even (the wrapper hands them 16-byte
+// aligned).  Masked lanes (m >= M) solve A = I, B = 0 and stay in the
+// warp for its votes.
+template <int N>
+__device__ __forceinline__ void load_row(const float2* __restrict__ p, bool live,
+                                         float2 (&v)[N]) {
+  if constexpr (N % 2 == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float4 q = live ? p4[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[2 * i] = make_float2(q.x, q.y);
+      v[2 * i + 1] = make_float2(q.z, q.w);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = load_or_zero(p + i, live);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(float2* __restrict__ p, const float2 (&v)[N]) {
+  if constexpr (N % 2 == 0) {
+    float4* p4 = reinterpret_cast<float4*>(p);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      p4[i] = make_float4(v[2 * i].x, v[2 * i].y, v[2 * i + 1].x, v[2 * i + 1].y);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = v[i];
+  }
+}
+
 template <int N, bool TRANSPOSE>
 __global__ void __launch_bounds__(kThreads)
     fdn_solve_kernel(const float2* __restrict__ D, const float* __restrict__ U,
                      const float2* __restrict__ B, float2* __restrict__ Y, int M) {
+  __shared__ float sU[N * N];
+  for (int v = threadIdx.x; v < N * N; v += kThreads) sU[v] = __ldg(U + v);
   const int m = blockIdx.x * kThreads + threadIdx.x;
-  if (m >= M) return;
-  const size_t row = static_cast<size_t>(m) * N;
+  const bool live = m < M;
+  const size_t row = static_cast<size_t>(live ? m : 0) * N;
   float2 d[N], rhs[N], y[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    d[i] = D[row + i];
-    rhs[i] = B[row + i];
-  }
+  load_row<N>(D + row, live, d);
+  load_row<N>(B + row, live, rhs);
+  __syncthreads();
   float2 A[N][N];
-  assemble<N, TRANSPOSE>(d, U, A);
-  ge_pivot<N>(A, rhs, y);
-#pragma unroll
-  for (int i = 0; i < N; ++i) Y[row + i] = y[i];
+  assemble<N, TRANSPOSE, true>(d, sU, A);
+  ge_pivot_voted<N>(A, rhs, y);
+  if (live) store_row<N>(Y + row, y);
 }
 
 // K3f: tf_m = c^T (I - diag(D_m) U)^{-1} diag(D_m) b, pivoted; y is

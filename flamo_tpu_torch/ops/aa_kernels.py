@@ -58,10 +58,11 @@ MAX_N = cuda_build.LIB_MAX_N[LIB]
 PRECISIONS = ("default", "high", "highest")
 # K9's TF32 passes at each precision (0: the FP32 kernel)
 PASSES = {"high": 3, "default": 1, "highest": 0}
-# K9's tile of bins, register tile and dynamic shared memory limit, and
-# the row stride of the tensor-core kernel's tiles (as in aa_kernels.cu)
-_TAP_BINS, _Q, _MAX_SMEM = 64, 4, 232448
-_TC_STRIDE = 2 * 64 + 4
+# K9's dynamic shared memory limit, the most a block may take with two
+# blocks an SM, and the row stride of both kernels' tiles of 64 bins (as
+# in aa_kernels.cu)
+_MAX_SMEM, _TWO_BLOCKS = 232448, 115712
+_TAP_STRIDE = 2 * 64 + 4
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
 # count); K9 counts its FP32 kernel ('highest') and its tensor-core kernel
@@ -209,17 +210,28 @@ def aa_tf_mse_kernel(hr, hi, gr, gi, rr, ri, t, N: int, L: int,
     return torch.sum(loss_row) / (M * N), Sr, Si
 
 
+def _f32_smem_bytes(order: int, LN: int, stage_tw: bool) -> int:
+    return 4 * (_TAP_STRIDE * (order + LN)
+                + (order * -(-LN // 4) * 4 if stage_tw else 0))
+
+
 def taps_smem_bytes(order: int, LN: int) -> int:
-    """K9's dynamic shared memory per block (as in aa_kernels.cu)."""
-    op, lp = -(-order // _Q) * _Q, -(-LN // _Q) * _Q
-    return _TAP_BINS * 8 * (op + 1 + lp + 1) + 4 * op * lp
+    """The FP32 K9's dynamic shared memory per block (as in
+    aa_kernels.cu): a tile's powers (order rows) and G/S rows (L N rows)
+    of 2 x 64 bins + 4 floats, and the taps tw (order x L N, rows padded
+    to 4) when staging them leaves an SM as many blocks as without."""
+    with_tw = _f32_smem_bytes(order, LN, True)
+    without = _f32_smem_bytes(order, LN, False)
+    stage = with_tw <= _MAX_SMEM and (with_tw <= _TWO_BLOCKS
+                                      or without > _TWO_BLOCKS)
+    return with_tw if stage else without
 
 
 def taps_tc_smem_bytes(order: int, LN: int) -> int:
     """The tensor-core K9's dynamic shared memory per block (as in
     aa_kernels.cu): a tile's powers (order padded to 16) and its G/S rows
     (L N padded to 8), rows of 2 x 64 bins + 4."""
-    return 4 * _TC_STRIDE * (-(-order // 16) * 16 + -(-LN // 8) * 8)
+    return 4 * _TAP_STRIDE * (-(-order // 16) * 16 + -(-LN // 8) * 8)
 
 
 def _check_taps_args(precision: str, bin_offset, nfft: int):

@@ -191,13 +191,20 @@ def _sum_partials(partials, N: int):
             s[N * N + N:N * N + 2 * N], s[-1])
 
 
+def _aligned16(x):
+    """``x`` contiguous and starting on 16 bytes (a copy where it does not):
+    K2 moves a bin's row as float4s where N is even."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def fdn_solve_kernel(D, U, B, transpose: bool = False):
     """K2 wrapper: y (M, N) complex64."""
     M, N = _check(D, U, cplx_mats=[("B", B)])
     if not _on_cuda(D, U, B):
         return fdn_solve_plain(D, U, B, transpose)
     lib = cuda_build.load(N)
-    D, U, B = D.contiguous(), U.contiguous(), B.contiguous()
+    D, U, B = _aligned16(D), U.contiguous(), _aligned16(B)
     Y = torch.empty_like(B)
     with torch.cuda.device(D.device):
         rc = lib.fdn_solve_launch(N, int(transpose), D.data_ptr(),

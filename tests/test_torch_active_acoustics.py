@@ -439,7 +439,7 @@ def test_aa_kernels_reject_unsupported_sizes():
     with pytest.raises(TypeError, match="float32"):
         ek.dk_roots_rows(torch.zeros((4, 4), dtype=torch.float64),
                          torch.zeros((4, 4), dtype=torch.float64))
-    assert ak.taps_smem_bytes(100, 52) == 99648
+    assert ak.taps_smem_bytes(100, 52) == 4 * (132 * (100 + 52) + 100 * 52)
     assert ak.taps_tc_smem_bytes(100, 52) == 4 * 132 * (112 + 56)
 
 

@@ -725,3 +725,144 @@ def test_cuda_tf_mse_and_bwd_ragged(cuda, N, M):
         assert torch.equal(g, a)
     assert fk.LAUNCHES["fdn_tf_bwd"] == 2
     torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def previous():
+    """The previous libraries (controls/aa_kernels_prev, K9 before its FP32
+    kernel's redesign, and controls/fdn_kernels_prev, whose K2 is the one
+    before its redesign) for the channel counts below, one nvcc each, all
+    at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    return smoke.Previous(smoke.Previous.start(
+        False, [("aa", n) for n in (1, 4, 8)]
+        + [("fdn", n) for n in (1, 3, 6)]))
+
+
+def _taps_args(o):
+    return [o[k] for k in ("hr", "hi", "tw", "rr", "ri", "t")]
+
+
+def _k9_cases(args, N, L, nfft=8192):
+    """K9 'highest' against its plain version (1e-5 on the loss, 1e-4 of
+    the max on the tap cotangent), pivot both ways, bin offset 0 and 1000,
+    each launched twice with equal results."""
+    ak.reset_launch_counts()
+    for pivot in (False, True):
+        for off in (0, 1000):
+            got = ak.aa_taps_tf_mse_kernel(*args, N, L, nfft, pivot,
+                                           "highest", off)
+            again = ak.aa_taps_tf_mse_kernel(*args, N, L, nfft, pivot,
+                                             "highest", off)
+            ref = ak.aa_taps_tf_mse_plain(*args, N, L, nfft, pivot, off,
+                                          "highest")
+            assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5
+            assert _rel(got[1], ref[1]) < 1e-4, (pivot, off)
+            assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert ak.LAUNCHES["aa_taps_tf_mse"] == 8
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 63, 65, 4097])
+@pytest.mark.parametrize("order", [1, 17, 100, 200, 284])
+def test_cuda_aa_taps_highest_orders_and_ragged_bins(cuda, M, order):
+    """K9 'highest' (the FP32 kernel: 64-bin tiles, 6 x 4 cotangent tiles
+    in registers) on the 4 x 13 rig's shape at bin counts off its tiles
+    and orders around its shared-memory paths: tw staged with two blocks
+    an SM (orders 1, 17, 100), staged with one (200), through L1 at 284,
+    the largest order the previous kernel's size rule took at L N = 52,
+    where its 624 cotangent tiles take three passes over the bins."""
+    o = _aa_operands(7 * M + order, 4, 13, M, order)
+    assert ak.taps_smem_bytes(order, 52) <= 232448
+    _k9_cases(_taps_args(o), 4, 13)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,L,order,M", [(n, 3, 17, 4097) for n in range(1, 9)]
+                         + [(8, 54, 1, 65), (8, 54, 4, 130), (1, 1, 300, 65)])
+def test_cuda_aa_taps_highest_every_mic_count(cuda, N, L, order, M):
+    """K9 'highest' at every microphone count 1..8, and at the edges of
+    the previous kernel's size rule: L N = 432 at orders 1 and 4 (its
+    synthesis tiles go round the block more than once), L N = 1 at order
+    300 (tw staged with one block an SM).  The loop gain |H G| grows with
+    the square root of L, so the taps are scaled by sqrt(13 / L) to keep
+    the 4 x 13 rig's gain: unscaled, L = 54 at order 1 puts the loop's
+    condition number at ~600, and the float32 plain version alone lies
+    2e-5 from a float64 one on the loss, past the 1e-5 that rounding in
+    another order is held to."""
+    o = _aa_operands(N * 100 + L + order, N, L, M, order)
+    o["tw"] = o["tw"] * min(1.0, (13 / L) ** 0.5)
+    _k9_cases(_taps_args(o), N, L)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 4, 8])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_cuda_aa_taps_tc_bit_identical_to_previous(cuda, previous, N,
+                                                   precision):
+    """K9 'high' and 'default' (the tensor-core kernel, which now shares
+    its tile frame with the FP32 kernel) equal the previous library's
+    bit for bit: loss and tap cotangent, pivot both ways, bin offset 0 and
+    1000, at ragged M."""
+    L = 13 if N == 4 else 3
+    for M in (63, 4097):
+        o = _aa_operands(N + M, N, L, M, 100)
+        args = _taps_args(o)
+        for pivot in (False, True):
+            for off in (0, 1000):
+                got = ak.aa_taps_tf_mse_kernel(*args, N, L, 8192, pivot,
+                                               precision, off)
+                ref = previous.aa_taps(*args, N, L, 8192, pivot, precision,
+                                       off)
+                assert all(torch.equal(g, r) for g, r in zip(got, ref)), (
+                    M, pivot, off)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 3, 6])
+@pytest.mark.parametrize("M", [1, 31, 33, 4097])
+def test_cuda_fdn_solve_bit_identical_to_previous(cuda, previous, N, M):
+    """K2 (a warp's vote on each row exchange, U staged, float4 rows)
+    forward and transposed equals the previous K2 bit for bit on random,
+    pivot-every-step and tied-pivot systems (chip_smoke.k2_systems) at
+    bin counts off its warps and blocks, and on the exact tied systems
+    its plain version on the CPU too: another pivot than the first
+    maximal row shows there.  One launch counted a call."""
+    smoke = _smoke()
+    rng = np.random.default_rng(N * 10000 + M)
+    for transpose in (False, True):
+        for label, system in smoke.k2_systems(rng, M, N, transpose).items():
+            D, U, B = smoke.k2_tensors(system)
+            fk.reset_launch_counts()
+            got = fk.fdn_solve_kernel(D, U, B, transpose)
+            assert fk.LAUNCHES["fdn_solve"] == 1
+            assert torch.equal(got, previous.fdn_solve(D, U, B, transpose)), (
+                label, transpose)
+            ref = fk.fdn_solve_plain(D, U, B, transpose)
+            assert _rel(got, ref) < 1e-5, (label, transpose)
+            exact = torch.from_numpy(system[3])
+            if exact.any():
+                ref_cpu = fk.fdn_solve_plain(D.cpu(), U.cpu(), B.cpu(),
+                                             transpose)
+                assert torch.equal(got.cpu()[exact], ref_cpu[exact]), label
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_fdn_solve_takes_misaligned_rows(cuda):
+    """K2 moves a bin's rows as float4s at even N: rows that start 8 bytes
+    off 16 (a view into a larger buffer) are copied first, and solve to
+    the same bits as aligned ones."""
+    o = _operands(3, 1000, 6)
+    D, U, B = o["D"], o["U"], o["B"]
+    buf = torch.zeros(D.numel() + 1, dtype=D.dtype, device="cuda")
+    buf[1:] = D.reshape(-1)
+    D_off = buf[1:].view(D.shape)
+    assert D_off.data_ptr() % 16 == 8
+    for transpose in (False, True):
+        assert torch.equal(fk.fdn_solve_kernel(D_off, U, B, transpose),
+                           fk.fdn_solve_kernel(D, U, B, transpose))
