@@ -13,20 +13,29 @@ Phases, in order; any failure raises and exits non-zero without a result:
    compiles the hand-written kernels of flamo_tpu_torch/csrc (nvcc,
    sm_90a, one process per library, all at once) and, beside them,
    controls/fdn_kernels_prev/fdn_kernels.cu, the K1-K3 and K6 kernels
-   before K6's, K1's and K2's redesign, controls/sos_kernels_prev/
+   before K6's, K1's and K2's redesign, controls/fdn_tf_prev/
+   fdn_kernels.cu, K3f and K3b before theirs (N = 3, 5 and 6; the
+   package's fdn_kernels too at N = 3 and 5), controls/sos_kernels_prev/
    sos_kernels.cu, K4f and K4b before theirs, and controls/aa_kernels_prev/
    aa_kernels.cu, K8 and K9 before K9 'highest''s (phase 5's controls),
    and prints the build time and each library's own seconds; with --ptxas
    it compiles them all with nvcc's register report (written to
    build/ptxas_smoke.txt) and prints the registers, spills and
-   register-bound warps an SM of each K1, K2, K3b, K4f, K4b, K5, K6, K7
-   and K9 instantiation, the previous libraries' too;
+   register-bound warps an SM of each K1, K2, K3f, K3b, K4f, K4b, K5, K6,
+   K7 and K9 instantiation, the previous libraries' too;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U; K2
    also equal to the previous K2 bit for bit, both ways, on those
    operands and on k2_systems (random, pivoting at every step, tied
    pivots, a cycle) at M = 33, 4097 and 48001, the exact tied ones also to
-   the plain version, each set's pivot-vote share printed; K = 12
+   the plain version, each set's pivot-vote share printed; K3f and K3b
+   equal to the previous K3f and K3b bit for bit on the main path's
+   operands and on k3_systems (k2_systems with gains b and c) at the same
+   bin counts and N = 3, 5 and 6, each set also within VAL_TOL/GRAD_TOL of
+   the plain version, the exact tied systems' y to the plain version on
+   the CPU bit for bit, each set's pivot-vote share printed, and K1's four
+   variants (whose cotangents share fdn_ge.cuh with K3b's) equal to that
+   library's K1 bit for bit; K = 12
    sections of P = 3 taps, random well-conditioned ones and those of the
    attenuated FDN's GEQ, and K4f/K4b also at 25 channels, on random taps
    and on a 5 x 5 GEQ's, K4b launched twice with equal results; K6 on
@@ -52,9 +61,14 @@ Phases, in order; any failure raises and exits non-zero without a result:
 3. the colorless slice at full width: build_colorless_fdn(nfft=96000) on
    the card; the graph loss through K2 against the 'ge' solve, the fused
    frequency response (K3f) against Shell.get_freq_response, the
-   gradients of the fused-tf loss (K3b) against the graph gradients, and
-   colorless_fit (K1, no pivot) for FIT_STEPS steps, timed; K1-K3 must
-   have been launched in this phase;
+   gradients of the fused-tf loss (K3b) against the graph gradients;
+   FUSED_TF_STEPS Adam steps of colorless_train_step(fused_tf=True) from
+   the graph model's weights (K3f and K3b once each a step, checked; its
+   first loss equals the graph loss to 1e-4, its loss falls) and
+   FUSED_EVALS calls of colorless_freq_response_fused under no_grad (K3f
+   once a call, checked; the response equals get_freq_response to 1e-5),
+   both timed, after a warm-up; and colorless_fit (K1, no pivot) for
+   FIT_STEPS steps, timed; K1-K3 must have been launched in this phase;
 4. the attenuated slice at full width: build_attenuated_fdn(nfft=96000,
    octave_interval=1, cache_delays=True) on the card; the graph loss and
    gradients of the 'xla'/'ge' route (plain cascade and elimination)
@@ -110,14 +124,16 @@ Phases, in order; any failure raises and exits non-zero without a result:
    previous libraries' kernels on the same operands (``previous_ms``;
    previous, new, new, previous, each pair averaged), K4f, K4b, K6 at
    P = 2000 and K1 against their aims and K6 at M = 48001 against 1.05x
-   the previous kernel; K9 'highest' and K2 both ways (also on the graph
-   step's own operands) beside the previous libraries' in turns, and on
-   one tile of 64 bins or one bin, the previous kernels' too, their aims
-   printed and each held to PREVIOUS_GATE = 1.05x its previous kernel;
-6. torch.profiler traces of a few training steps of each path: the
-   device's busy and idle share and the kernels that take its time (for
-   the attenuated graph step also K4f's, K4b's and K2's share, for the
-   K9 steps K9's);
+   the previous kernel; K9 'highest', K2 both ways (also on the graph
+   step's own operands), K3f and K3b beside the previous libraries' in
+   turns, and on one tile of 64 bins or one bin, the previous kernels'
+   too, their aims printed and each held to PREVIOUS_GATE = 1.05x its
+   previous kernel;
+6. torch.profiler traces of a few training steps of each path (and of a
+   few fused responses): the device's busy and idle share and the
+   kernels that take its time (for the attenuated graph step also K4f's,
+   K4b's and K2's share, for the fused-tf step K3f's and K3b's, for the
+   fused response K3f's, for the K9 steps K9's);
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -141,9 +157,10 @@ at each precision in its own run: ``aa_taps_tf_mse`` is the FP32 kernel
 at 'highest', ``aa_taps_tf_mse_tc_high`` and ``aa_taps_tf_mse_tc_default``
 the tensor-core kernel at 3 and 1 TF32 passes); K4f and K4b in the
 timed graph steps of phase 4 (once each per step), K2 there (twice per
-step) and in the graph-route calls of phases 3 and 4, K3f and K3b, which
-no training step runs, in phase 3's fused-tf calls; the K10 variants in
-phase 4e's bench_phase2_micro.run (151 calls each).  ``trace_retries``
+step) and in the graph-route calls of phases 3 and 4, K3f and K3b in
+phase 3's timed fused-tf steps (once each per step) and K3f also in its
+timed fused responses (once per call); the K10 variants in phase 4e's
+bench_phase2_micro.run (151 calls each).  ``trace_retries``
 counts a row's profiler traces that were taken again because they held
 none of its kernel.
 
@@ -180,8 +197,9 @@ from flamo_tpu_torch.models import (ActiveAcoustics, aa_dft_basis,
                                     build_colorless_sfdn, colorless_fit,
                                     colorless_freq_response_fused,
                                     colorless_loss, colorless_loss_fused_tf,
-                                    sfdn_fit, sfdn_masked_loss,
-                                    sfdn_masked_train_step, sfdn_train_step)
+                                    colorless_train_step, sfdn_fit,
+                                    sfdn_masked_loss, sfdn_masked_train_step,
+                                    sfdn_train_step)
 from flamo_tpu_torch.models.active_acoustics import _mixer_taps
 from flamo_tpu_torch.ops import aa_kernels as ak
 from flamo_tpu_torch.ops import cuda_build
@@ -217,8 +235,11 @@ DK_B, DK_ITERS = 1601, 96
 # the aims of the kernels redesigned last (device ms, printed, not gated)
 # and the gate against the previous kernel in the same call
 K9_HIGHEST_AIM, K2_AIM, PREVIOUS_GATE = 0.100, 0.0038, 1.05
-K2_RAGGED = (33, 4097, M_MAIN)  # phase 2's bin counts for K2's systems
-K1_K3 = ("fdn_tf_mse", "fdn_solve", "fdn_tf_fwd", "fdn_tf_bwd")
+K3F_AIM, K3B_AIM = 0.0040, 0.0050
+K2_RAGGED = (33, 4097, M_MAIN)  # phase 2's bin counts for K2's and K3's
+K3_NS = (3, 5, N_MAIN)  # K3's channel counts in phase 2: odd N moves float2s
+# phase 3's timed fused-tf steps and fused responses
+FUSED_TF_STEPS, FUSED_EVALS = 100, 200
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
@@ -361,14 +382,18 @@ def gpu_line() -> str:
 # ---------------------------------------------------------------------------
 # the kernels before their redesign, built in phase 1 beside the package's
 # and timed in phase 5 as the control: fdn_kernels.cu before K6's and
-# K1's (its K2 is the K2 before its redesign), K4f/K4b before theirs, and
-# aa_kernels.cu before K9 'highest''s
+# K1's (its K2 is the K2 before its redesign), fdn_kernels.cu before K3f's
+# and K3b's, K4f/K4b before theirs, and aa_kernels.cu before K9
+# 'highest''s
 # ---------------------------------------------------------------------------
 CONTROLS = Path(__file__).resolve().parent / "controls"
 PREVIOUS_SRC = {"fdn": CONTROLS / "fdn_kernels_prev" / "fdn_kernels.cu",
+                "tf": CONTROLS / "fdn_tf_prev" / "fdn_kernels.cu",
                 "sos": CONTROLS / "sos_kernels_prev" / "sos_kernels.cu",
                 "aa": CONTROLS / "aa_kernels_prev" / "aa_kernels.cu"}
-PREVIOUS_N = {"fdn": N_MAIN, "sos": N_MAIN, "aa": AA_N}  # phase 1's builds
+# phase 1's builds: (library, N)
+PREVIOUS_BUILDS = (("fdn", N_MAIN), ("sos", N_MAIN), ("aa", AA_N),
+                   *(("tf", n) for n in K3_NS))
 
 
 def previous_so(key: str, n: int) -> Path:
@@ -377,11 +402,12 @@ def previous_so(key: str, n: int) -> Path:
 
 
 class Previous:
-    """The previous libraries' K1, K2, K3b and K6 (fdn_kernels_prev), K4f,
-    K4b (sos_kernels_prev) and K8, K9 (aa_kernels_prev), each for one N
-    (channels, or microphones): the same C entry points as the package's
-    before the redesigns, launched on operands the package's wrappers
-    have checked, outputs allocated here, nothing counted."""
+    """The previous libraries' K1, K2 and K6 (fdn_kernels_prev), K3f and
+    K3b (fdn_tf_prev), K4f, K4b (sos_kernels_prev) and K8, K9
+    (aa_kernels_prev), each for one N (channels, or microphones): the same
+    C entry points as the package's before the redesigns, launched on
+    operands the package's wrappers have checked, outputs allocated here,
+    nothing counted."""
 
     def __init__(self, procs: dict, log: Path | None = None):
         self.libs = {}
@@ -391,15 +417,18 @@ class Previous:
                   f"nvcc failed for {PREVIOUS_SRC[key]} N = {n}:\n{out}")
             if log is not None:
                 with log.open("a") as f:
-                    f.write(f"# previous {PREVIOUS_SRC[key].stem} N = {n}\n"
+                    f.write(f"# previous {PREVIOUS_SRC[key].parent.name} "
+                            f"N = {n}\n"
                             f"{out}")
             lib = ctypes.CDLL(str(previous_so(key, n)))
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            if key == "fdn":
+            if key in ("fdn", "tf"):
                 lib.fdn_tf_mse_launch.argtypes = [I] * 3 + [P] * 8 + [F, I, P]
-                lib.fdn_tf_bwd_launch.argtypes = [I] + [P] * 8 + [I, P]
                 lib.fdn_dense_solve_launch.argtypes = [I, I, P, P, P, I, P]
                 lib.fdn_solve_launch.argtypes = [I, I, P, P, P, P, I, P]
+                if key == "tf":
+                    lib.fdn_tf_fwd_launch.argtypes = [I] + [P] * 6 + [I, P]
+                    lib.fdn_tf_bwd_launch.argtypes = [I] + [P] * 8 + [I, P]
             elif key == "sos":
                 lib.sos_cascade_fwd_launch.argtypes = [P] * 3 + [I] * 4 + [
                     F, F, P]
@@ -415,7 +444,7 @@ class Previous:
         self.sos = self.libs.get(("sos", N_MAIN))
 
     @staticmethod
-    def start(ptxas: bool = False, targets=tuple(PREVIOUS_N.items())) -> dict:
+    def start(ptxas: bool = False, targets=PREVIOUS_BUILDS) -> dict:
         """One nvcc a (library, N) of ``targets``, all started at once."""
         procs = {}
         for key, n in targets:
@@ -471,29 +500,48 @@ class Previous:
             self._stream()) == 0, "previous K9 launch")
         return torch.sum(loss_row) / (M * N), torch.sum(partials, dim=0)
 
-    def tf_mse(self, D, U, b, c, X, t, with_dbar: bool, pivot: bool):
+    def tf_mse(self, D, U, b, c, X, t, with_dbar: bool, pivot: bool,
+               key: str = "fdn"):
+        """The previous K1 (before its redesign; with key 'tf', the K1
+        beside the previous K3f and K3b) and its partials summed as its
+        wrapper summed them: (loss, D_bar or None, U_bar, b_bar, c_bar)."""
         M = D.shape[0]
         D_bar = torch.empty_like(D)
         partials = torch.empty((-(-M // 128), N_MAIN * N_MAIN + 2 * N_MAIN
                                 + 1), device="cuda")
-        check(self.lib.fdn_tf_mse_launch(
+        check(self.libs[key, N_MAIN].fdn_tf_mse_launch(
             N_MAIN, int(pivot), int(with_dbar), D.data_ptr(), U.data_ptr(),
             b.data_ptr(), c.data_ptr(), X.data_ptr(), t.data_ptr(),
             D_bar.data_ptr(), partials.data_ptr(), 2.0 / M, M,
             self._stream()) == 0, "previous K1 launch")
-        return partials
+        U_bar, b_bar, c_bar, sq = fk._sum_partials(partials, N_MAIN)
+        return (sq / M, D_bar if with_dbar else None, U_bar, b_bar, c_bar)
+
+    def tf_fwd(self, D, U, b, c):
+        """The previous K3f (its library for D's channel count): (tf, y)."""
+        M, N = D.shape
+        tf = torch.empty((M,), dtype=D.dtype, device=D.device)
+        Y = torch.empty_like(D)
+        check(self.libs["tf", N].fdn_tf_fwd_launch(
+            N, D.data_ptr(), U.data_ptr(), b.data_ptr(), c.data_ptr(),
+            tf.data_ptr(), Y.data_ptr(), M, self._stream()) == 0,
+            "previous K3f launch")
+        return tf, Y
 
     def tf_bwd(self, D, U, b, c, y, tf_bar):
-        M = D.shape[0]
+        """The previous K3b (its library for D's channel count) and its
+        partials summed as its wrapper summed them: (D_bar, U_bar, b_bar,
+        c_bar)."""
+        M, N = D.shape
         D_bar = torch.empty_like(D)
-        partials = torch.empty((-(-M // 128), N_MAIN * N_MAIN + 2 * N_MAIN
-                                + 1), device="cuda")
-        check(self.lib.fdn_tf_bwd_launch(
-            N_MAIN, D.data_ptr(), U.data_ptr(), b.data_ptr(), c.data_ptr(),
+        partials = torch.empty((-(-M // 128), N * N + 2 * N + 1),
+                               device=D.device)
+        check(self.libs["tf", N].fdn_tf_bwd_launch(
+            N, D.data_ptr(), U.data_ptr(), b.data_ptr(), c.data_ptr(),
             y.data_ptr(), tf_bar.data_ptr(), D_bar.data_ptr(),
             partials.data_ptr(), M, self._stream()) == 0,
             "previous K3b launch")
-        return partials
+        return (D_bar, *fk._sum_partials(partials, N)[:3])
 
     def sos_fwd(self, b, a, nfft: int):
         """The previous K4f: H (nfft // 2 + 1, N_MAIN)."""
@@ -798,7 +846,7 @@ def phase_build(ptxas: bool = False) -> str:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    targets = (("fdn_kernels", N_MAIN), ("sos_kernels", N_MAIN),
+    targets = (*(("fdn_kernels", n) for n in K3_NS), ("sos_kernels", N_MAIN),
                ("sos_cascade", 1), ("aa_kernels", AA_N), ("eig_kernels", AA_N),
                ("eig_kernels", 8), ("phase2_micro", 1))
     log = PTXAS_LOG if ptxas else None
@@ -813,9 +861,9 @@ def phase_build(ptxas: bool = False) -> str:
     controls = " and ".join(
         f"{previous_so(key, n).name} from "
         f"{PREVIOUS_SRC[key].relative_to(CONTROLS.parent)}"
-        for key, n in PREVIOUS_N.items())
+        for key, n in PREVIOUS_BUILDS)
     print(f"phase 1 build: {max(seconds.values()):.1f} s, "
-          f"{len(names) + len(PREVIOUS_N)} libraries in parallel "
+          f"{len(names) + len(PREVIOUS_BUILDS)} libraries in parallel "
           f"({', '.join(names)}, and {controls}, phase 5's controls; "
           f"{cuda_build.threads_per_block(N_MAIN)} threads/block for K1-K3)")
     print("  each library's seconds (its nvcc beside the others): "
@@ -827,8 +875,8 @@ def phase_build(ptxas: bool = False) -> str:
 
 
 def print_ptxas(report: str) -> None:
-    """Registers and spills of the K1, K2, K3b, K4f, K4b, K5, K6, K7 and K9
-    instantiations from nvcc's -Xptxas -v report (the previous libraries'
+    """Registers and spills of the K1, K2, K3f, K3b, K4f, K4b, K5, K6, K7 and
+    K9 instantiations from nvcc's -Xptxas -v report (the previous libraries'
     tagged as such), with the warps an SM that the registers allow."""
     name, spills, tag, k4 = None, "", "", {}
     for line in report.splitlines():
@@ -841,7 +889,8 @@ def print_ptxas(report: str) -> None:
             spills = line.split(",", 1)[1].strip()
         used = re.search(r"Used (\d+) registers", line)
         which = name and re.search(
-            r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_bwd|dense_solve|"
+            r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_fwd|fdn_tf_bwd|"
+            r"dense_solve|"
             r"fdn_solve|aa_taps_tf_mse_tc|aa_taps_tf_mse|sos_cascade_fwd|"
             r"sos_cascade_bwd)_kernel", name)
         if not (used and which):
@@ -1084,6 +1133,42 @@ def k2_tensors(system, device="cuda"):
             torch.tensor(B.astype(np.complex64), device=device))
 
 
+def k3_systems(rng, M: int, N: int, transpose: bool = False) -> dict:
+    """K3's operands by label, as numpy (D (M, N) complex, U (N, N) real,
+    b (N,), c (N,) real, tf_bar (M,) complex, exact (M,) bool): D, U and
+    exact are k2_systems(rng, M, N, transpose)'s, whose elimination K3f
+    runs (transpose False) or K3b (True).  On the exact tied systems b
+    and c are real of magnitudes 1 and 2^27 (times a whole number plus
+    0.25, signs random): D (powers of i) times b is exact, and the
+    elimination of D b (K3f) or of c (K3b) rounds another way under any
+    other pivot rule.  Elsewhere b and c are normal; tf_bar is normal."""
+    systems = k2_systems(rng, M, N, transpose)
+
+    def gains():
+        scale = np.where(rng.random(N) < 0.5, 1.0, 2.0 ** 27)
+        return (scale * rng.choice([-1.0, 1.0], N)
+                * (rng.integers(1, 8, N) + 0.25))
+
+    out = {}
+    for label, (D, U, _, exact) in systems.items():
+        b, c = ((gains(), gains()) if exact.all()
+                else (rng.normal(size=N), rng.normal(size=N)))
+        tf_bar = rng.normal(size=M) + 1j * rng.normal(size=M)
+        out[label] = (D, U, b, c, tf_bar, exact)
+    return out
+
+
+def k3_tensors(system, device="cuda"):
+    """(D, U, b, c, tf_bar) of a k3_systems entry as complex64/float32
+    tensors."""
+    D, U, b, c, tf_bar, _ = system
+    return (torch.tensor(D.astype(np.complex64), device=device),
+            torch.tensor(U.astype(np.float32), device=device),
+            torch.tensor(b.astype(np.float32), device=device),
+            torch.tensor(c.astype(np.float32), device=device),
+            torch.tensor(tf_bar.astype(np.complex64), device=device))
+
+
 def pivot_vote_share(A) -> tuple[float, float]:
     """(bins, warps): the share of the elimination steps k < N - 1 of the
     systems A (M, N, N) at which a bin pivots off row k, and at which some
@@ -1162,6 +1247,7 @@ def phase_kernels(o, previous) -> dict:
     errs["fdn_tf_bwd"] = max(
         compare(f"K3b {n}", g, r, GRAD_TOL)
         for n, g, r in zip(("D_bar", "U_bar", "b_bar", "c_bar"), got, ref))
+    k3_versus_previous(D, U, b, c, o["tf_bar"], previous)
     for pivot in (True, False):
         for with_dbar in (True, False):
             got = fk.fdn_tf_mse_kernel(D, U, b, c, X, t, with_dbar, pivot)
@@ -1174,6 +1260,13 @@ def phase_kernels(o, previous) -> dict:
                     check(g is None, f"{tag}: D_bar should be absent")
                     continue
                 e.append(compare(f"{tag} {n}", g, r, GRAD_TOL))
+            # K1's cotangents share fdn_ge.cuh with K3b's: its bits stay
+            same = all(g is r if r is None else torch.equal(g, r)
+                       for g, r in zip(got, previous.tf_mse(
+                           D, U, b, c, X, t, with_dbar, pivot, "tf")))
+            print(f"  {tag}: equal to the K1 of controls/fdn_tf_prev bit "
+                  f"for bit: {same}")
+            check(same, f"{tag}: not the bits of controls/fdn_tf_prev's K1")
             if not pivot and not with_dbar:  # the variant colorless_fit runs
                 errs["fdn_tf_mse"] = max(e)
                 again = fk.fdn_tf_mse_kernel(D, U, b, c, X, t, with_dbar,
@@ -1303,6 +1396,73 @@ def k2_versus_previous(D, U, B, previous) -> None:
                 check(same and same_plain and rel < VAL_TOL,
                       f"K2 transpose={tr} on {label} systems at M={M}: "
                       f"previous {same}, plain {same_plain}, rel {rel:.3e}")
+
+
+def k3_versus_previous(D, U, b, c, tf_bar, previous) -> None:
+    """K3f and K3b against the previous K3f and K3b (controls/fdn_tf_prev)
+    bit for bit: on the main path's operands, and on k3_systems at ragged
+    bin counts and N = 3, 5 and 6 (odd N moves float2 rows), where each
+    is also held to its plain version (VAL_TOL on tf and y, GRAD_TOL on
+    the cotangents) and K3f's y on the exact tied systems to the plain
+    version on the CPU bit for bit; the pivot-vote share of each set at
+    M_MAIN, N_MAIN is printed (K3f's forward elimination, K3b's
+    transposed one)."""
+    tf, y = fk.fdn_tf_fwd_kernel(D, U, b, c)
+    same_f = all(torch.equal(g, r) for g, r in
+                 zip((tf, y), previous.tf_fwd(D, U, b, c)))
+    got = fk.fdn_tf_bwd_kernel(D, U, b, c, y, tf_bar)
+    same_b = all(torch.equal(g, r) for g, r in
+                 zip(got, previous.tf_bwd(D, U, b, c, y, tf_bar)))
+    shares = [pivot_vote_share(fk._loop_matrix(D, U, tr))
+              for tr in (False, True)]
+    print(f"  K3f and K3b on the main path's operands: equal to the previous "
+          f"K3f {same_f}, K3b {same_b} bit for bit; pivot-vote share of "
+          f"warps: K3f {shares[0][1]:.4f}, K3b {shares[1][1]:.4f}")
+    check(same_f and same_b, "K3f/K3b: not the previous kernels' bits on the "
+          "main path's operands")
+    rng = np.random.default_rng(SEED + 7)
+    for N in K3_NS:
+        for M in K2_RAGGED:
+            for tr in (False, True):
+                name = "K3b" if tr else "K3f"
+                for label, system in k3_systems(rng, M, N, tr).items():
+                    Dk, Uk, bk, ck, tbk = k3_tensors(system)
+                    tf, y = fk.fdn_tf_fwd_kernel(Dk, Uk, bk, ck)
+                    tfp, yp = fk.fdn_tf_fwd_plain(Dk, Uk, bk, ck)
+                    if tr:
+                        got = fk.fdn_tf_bwd_kernel(Dk, Uk, bk, ck, yp, tbk)
+                        ref = previous.tf_bwd(Dk, Uk, bk, ck, yp, tbk)
+                        plain = fk.fdn_tf_bwd_plain(Dk, Uk, bk, ck, yp, tbk)
+                        tol = GRAD_TOL
+                    else:
+                        got, ref, plain = ((tf, y), previous.tf_fwd(
+                            Dk, Uk, bk, ck), (tfp, yp))
+                        tol = VAL_TOL
+                    same = all(torch.equal(g, r) for g, r in zip(got, ref))
+                    rel = max(rel_err(g, r)[1] for g, r in zip(got, plain))
+                    exact = torch.from_numpy(system[5])
+                    same_plain = True
+                    if exact.any() and not tr:
+                        y_cpu = fk.fdn_tf_fwd_plain(Dk.cpu(), Uk.cpu(),
+                                                    bk.cpu(), ck.cpu())[1]
+                        same_plain = torch.equal(y.cpu()[exact],
+                                                 y_cpu[exact])
+                    if M == M_MAIN and N == N_MAIN:
+                        bins, warps = pivot_vote_share(fk._loop_matrix(
+                            Dk, Uk, tr))
+                        print(f"  {name} on {label} systems (M={M}, N={N}): "
+                              f"bit-identical to the previous {name} {same}"
+                              + ("" if tr else f", exact ones' y to the "
+                                 f"plain version {same_plain}")
+                              + f", rel {rel:.3e} (tol {tol:g}); pivot-vote "
+                              f"share: bins {bins:.4f}, warps {warps:.4f}")
+                    check(same and same_plain and rel < tol,
+                          f"{name} on {label} systems at M={M}, N={N}: "
+                          f"previous {same}, plain {same_plain}, rel "
+                          f"{rel:.3e}")
+    print(f"  K3f and K3b at M = {', '.join(map(str, K2_RAGGED))} and N = "
+          f"{', '.join(map(str, K3_NS))} on every set: bit-identical to "
+          f"the previous kernels, within tolerance of the plain versions")
 
 
 def dense_row(name: str, shape: str) -> str:
@@ -1509,18 +1669,50 @@ def loss_and_grads(model, loss_fn, x, t):
     return float(loss.detach()), grads_of(model)
 
 
-def phase_slice(card: str) -> dict:
+def colorless_pair(model):
+    """The colorless objective's impulse input and flat target, both
+    (1, M, 1) on the model's device."""
+    M = model.nfft // 2 + 1
+    x = torch.zeros((1, M, 1), device=model.device)
+    x[:, 0, :] = 1.0
+    return x, torch.ones((1, M, 1), device=model.device)
+
+
+def fused_tf_steps(model):
+    """``run(n)``: n Adam steps of colorless_train_step(model,
+    fused_tf=True) (K3f forward, K3b backward) on the impulse -> flat pair;
+    returns their losses, on the device."""
+    step, _ = colorless_train_step(model, fused_tf=True)
+    x, t = colorless_pair(model)
+    return lambda n: [step(x, t) for _ in range(n)]
+
+
+def fused_evals(model):
+    """``run(n)``: n calls of colorless_freq_response_fused(model) (K3f)
+    under no_grad, each result dropped but the last, which it returns."""
+    def run(n):
+        H = None
+        with torch.no_grad():
+            for _ in range(n):
+                H = colorless_freq_response_fused(model)
+        return H
+
+    return run
+
+
+def phase_slice(card: str) -> tuple:
+    """The colorless slice: the graph routes, the fused response and the
+    fused-tf loss agree; FUSED_TF_STEPS fused-tf steps and FUSED_EVALS
+    fused responses, then FIT_STEPS colorless_fit steps, each timed.
+    Returns the launch counts of this phase and the untraced ms per fit
+    step, per fused-tf step and per fused response."""
     print(f"phase 3 the slice: build_colorless_fdn(nfft={NFFT}) on cuda")
-    g = torch.Generator().manual_seed(SEED)
-    model = build_colorless_fdn(nfft=NFFT, generator=g, device="cuda")
+    model = colorless_model(SEED)
     model_k2 = build_colorless_fdn(nfft=NFFT, solve_method="pallas",
                                    device="cuda",
                                    generator=torch.Generator().manual_seed(1))
     model_k2.load_state_dict(model.state_dict())
-    M = NFFT // 2 + 1
-    x = torch.zeros((1, M, 1), device="cuda")
-    x[:, 0, :] = 1.0
-    t = torch.ones((1, M, 1), device="cuda")
+    x, t = colorless_pair(model)
 
     fk.reset_launch_counts()
     l_ge, g_ge = loss_and_grads(model, colorless_loss, x, t)
@@ -1534,7 +1726,8 @@ def phase_slice(card: str) -> dict:
     with torch.no_grad():
         H_graph = model.get_freq_response()
         H_fused = colorless_freq_response_fused(model)
-    check(H_fused.shape == H_graph.shape == (1, M, 1), "response shapes")
+    check(H_fused.shape == H_graph.shape == (1, NFFT // 2 + 1, 1),
+          "response shapes")
     compare("K3f fused response vs get_freq_response", H_fused, H_graph,
             1e-5)
 
@@ -1543,12 +1736,54 @@ def phase_slice(card: str) -> dict:
     check(abs(l_tf - l_ge) / l_ge < 1e-4, "fused-tf loss differs")
     for k in g_ge:
         compare(f"K3b fused-tf grad {k}", g_tf[k], g_ge[k], 5e-3)
+    launches = {"fdn_solve": fk.LAUNCHES["fdn_solve"]}
+
+    # the fused-tf step: a warm-up on a copy, then the timed steps from the
+    # graph model's weights
+    fused_tf_steps(colorless_model(2))(10)
+    model_tf = colorless_model(1)
+    model_tf.load_state_dict(model.state_dict())
+    run = fused_tf_steps(model_tf)
+    fk.reset_launch_counts()
+    losses, seconds = timed(lambda: run(FUSED_TF_STEPS))
+    counts = {k: v for k, v in fk.LAUNCHES.items() if v}
+    print(f"  launches in the timed fused-tf steps: {counts}")
+    check(counts == {"fdn_tf_fwd": FUSED_TF_STEPS,
+                     "fdn_tf_bwd": FUSED_TF_STEPS},
+          f"the fused-tf step should launch K3f and K3b once each per step: "
+          f"{counts}")
+    launches.update(counts)
+    hist = torch.stack(losses).cpu().numpy()
+    tf_ms = seconds * 1e3 / FUSED_TF_STEPS
+    rel = abs(hist[0] - l_ge) / l_ge
+    print(f"  colorless_train_step(fused_tf=True) (K3f, backward K3b): loss "
+          f"{hist[0]:.7f} -> {hist[-1]:.7f} over {FUSED_TF_STEPS} steps, "
+          f"first loss vs the graph loss rel {rel:.3e} (tol 1e-04); "
+          f"{FUSED_TF_STEPS / seconds:.1f} steps/s ({tf_ms:.4f} ms/step, "
+          f"CUDA events, after a 10-step warm-up) on {card}")
+    check(bool(np.isfinite(hist).all()), "fused-tf step loss is not finite")
+    check(rel < 1e-4, "first fused-tf step loss differs from the graph loss")
+    check(hist[-1] < hist[0], "the fused-tf steps' loss did not fall")
+
+    # the fused response (the JAX bench's secondary metric): a warm-up,
+    # then FUSED_EVALS timed calls on the graph model
+    run = fused_evals(model)
+    run(10)
+    fk.reset_launch_counts()
+    H_fused, seconds = timed(lambda: run(FUSED_EVALS))
+    counts = {k: v for k, v in fk.LAUNCHES.items() if v}
+    check(counts == {"fdn_tf_fwd": FUSED_EVALS},
+          f"the fused response should launch K3f once per call: {counts}")
+    launches["fdn_tf_fwd"] += counts["fdn_tf_fwd"]
+    compare(f"K3f fused response (the last of {FUSED_EVALS}) vs "
+            f"get_freq_response", H_fused, H_graph, 1e-5)
+    eval_ms = seconds * 1e3 / FUSED_EVALS
+    print(f"  colorless_freq_response_fused (K3f, no_grad): "
+          f"{FUSED_EVALS / seconds:.1f} evals/s ({eval_ms:.4f} ms/eval, "
+          f"CUDA events, {FUSED_EVALS} calls after 10) on {card}")
 
     # colorless_fit: a short warm-up on a copy, then the timed run
-    warm = build_colorless_fdn(nfft=NFFT, device="cuda",
-                               generator=torch.Generator().manual_seed(2))
-    launches = {k: fk.LAUNCHES[k] for k in K1_K3[1:]}
-    colorless_fit(warm, n_steps=10)
+    colorless_fit(colorless_model(2), n_steps=10)
     fk.reset_launch_counts()
     (model, hist), seconds = timed(lambda: colorless_fit(model,
                                                          n_steps=FIT_STEPS))
@@ -1563,13 +1798,14 @@ def phase_slice(card: str) -> dict:
     print(f"  colorless_fit: {FIT_STEPS / seconds:.1f} steps/s "
           f"({seconds * 1e3 / FIT_STEPS:.4f} ms/step, CUDA events, after "
           f"a 10-step warm-up) on {card}")
-    print(f"  launches in phase 3 (K2/K3 in the graph and fused-tf calls, "
-          f"K1 in the timed fit): {launches}")
+    print(f"  launches in phase 3 (K2 in the graph calls, K3f and K3b in the "
+          f"timed fused-tf steps and K3f in the timed fused responses, K1 in "
+          f"the timed fit): {launches}")
     check(launches["fdn_tf_mse"] == FIT_STEPS,
           "colorless_fit should launch K1 once per step")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
-    return launches, seconds * 1e3 / FIT_STEPS
+    return launches, seconds * 1e3 / FIT_STEPS, tf_ms, eval_ms
 
 
 def impulse_pair(nfft: int):
@@ -1989,7 +2225,7 @@ def phase_timing(o, launches, errs, card, previous) -> list:
     D, U, b, c, B, X, t = (o[k] for k in "DUbcBXt")
     _, y = fk.fdn_tf_fwd_kernel(D, U, b, c)
     # the same kernels on one bin (one block, one bin's chain: the floor)
-    # and the previous library's K1 and K3b on the same operands
+    # and the previous libraries' K1, K2, K3f and K3b on the same operands
     D1, B1, X1, t1 = (o[k][:1].contiguous() for k in "DBXt")
     y1, tb1 = y[:1].contiguous(), o["tf_bar"][:1].contiguous()
     floors = {
@@ -2009,6 +2245,7 @@ def phase_timing(o, launches, errs, card, previous) -> list:
     previous_runs = {
         "fdn_solve": lambda: previous.fdn_solve(D, U, B),
         "fdn_tf_mse": lambda: previous.tf_mse(D, U, b, c, X, t, False, False),
+        "fdn_tf_fwd": lambda: previous.tf_fwd(D, U, b, c),
         "fdn_tf_bwd": lambda: previous.tf_bwd(D, U, b, c, y, o["tf_bar"]),
         "sos_cascade_fwd": lambda: previous.sos_fwd(gb, ga, NFFT),
         "sos_cascade_bwd": lambda: previous.sos_bwd(gb, ga, g, NFFT),
@@ -2050,6 +2287,12 @@ def phase_timing(o, launches, errs, card, previous) -> list:
                        floor=floors.get(name),
                        previous=previous_runs.get(name))
             for name, run in runs.items()]
+    # the previous K3f's and K3b's floors, beside the new ones
+    by = {r["name"]: r for r in rows}
+    by["fdn_tf_fwd"]["previous_floor_ms"] = device_ms(
+        lambda: previous.tf_fwd(D1, U, b, c), "fdn_tf_fwd_kernel")
+    by["fdn_tf_bwd"]["previous_floor_ms"] = device_ms(
+        lambda: previous.tf_bwd(D1, U, b, c, y1, tb1), "fdn_tf_bwd_kernel")
     # K6 on the scattering slice's own loop systems, at the graph step's
     # M bins and at the masked step's P; torch.linalg.solve computes the
     # same function in one call
@@ -2220,7 +2463,7 @@ def phase_timing(o, launches, errs, card, previous) -> list:
               f"{by[n]['floor_ms']:.6f}, bound {by[n]['bound_ms']:.6f}"
               for n in ("dense_solve@P2000", "dense_solve_transposed@P2000",
                         "dense_solve", "dense_solve_transposed",
-                        "fdn_tf_mse", "fdn_tf_bwd")))
+                        "fdn_tf_mse")))
     for n in ("dense_solve@P2000", "dense_solve_transposed@P2000"):
         aim = max(0.0022, by[n]["floor_ms"] + 0.0005)
         print(f"  {n}: {by[n]['ms']:.6f} ms against the aim {aim:.6f} "
@@ -2250,17 +2493,17 @@ def phase_timing(o, launches, errs, card, previous) -> list:
                       for label, n, aim in (
                           ("K5 training variant", "fdn_sos_tf_mse", 0.035),
                           ("K7", "dk_roots", 0.012)))
-          + "; controls on the old code: the previous libraries' K1, K3b, "
-          "K6, K4f and K4b (previous_ms above) and K10 "
+          + "; controls on the old code: the previous libraries' K1, K2, "
+          "K3f, K3b, K6, K4f, K4b and K9 (previous_ms above) and K10 "
           + ", ".join(f"{v} {by[f'phase2_{v}']['ms']:.6f}"
                       for v in pm.VARIANTS))
     return rows
 
 
 def redesigned_last(by: dict) -> None:
-    """K9 'highest' and K2 both ways beside their previous kernels in this
-    call: their aims printed, and each held to PREVIOUS_GATE times the
-    previous kernel's time."""
+    """K9 'highest', K2 both ways, K3f and K3b beside their previous
+    kernels in this call: their aims printed, and each held to
+    PREVIOUS_GATE times the previous kernel's time."""
     r9, r2 = by[K9_ROWS["highest"]], by["fdn_solve"]
     cases = [("K9 'highest' aa_taps_tf_mse", r9["ms"], r9["previous_ms"],
               r9["floor_ms"], r9["previous_floor_ms"], r9["bound_ms"],
@@ -2270,6 +2513,11 @@ def redesigned_last(by: dict) -> None:
              ("K2 fdn_solve transposed", r2["transposed_ms"],
               r2["transposed_previous_ms"], r2["transposed_floor_ms"],
               r2["transposed_previous_floor_ms"], r2["bound_ms"], K2_AIM)]
+    cases += [(f"{label} {n}", by[n]["ms"], by[n]["previous_ms"],
+               by[n]["floor_ms"], by[n]["previous_floor_ms"],
+               by[n]["bound_ms"], aim)
+              for label, n, aim in (("K3f", "fdn_tf_fwd", K3F_AIM),
+                                    ("K3b", "fdn_tf_bwd", K3B_AIM))]
     for label, ms, prev, floor, prev_floor, bms, aim in cases:
         ratio = ms / prev
         print(f"  {label}: {ms:.6f} ms against the aim {aim:.4f}: "
@@ -2433,9 +2681,13 @@ def aa_evs_steps(aa):
     return lambda n: [step(next(i)) for _ in range(n)]
 
 
+def colorless_model(seed: int):
+    return build_colorless_fdn(nfft=NFFT, device="cuda",
+                               generator=torch.Generator().manual_seed(seed))
+
+
 def colorless_steps():
-    model = build_colorless_fdn(nfft=NFFT, device="cuda",
-                                generator=torch.Generator().manual_seed(3))
+    model = colorless_model(3)
     return lambda n: colorless_fit(model, n_steps=n)
 
 
@@ -2483,7 +2735,7 @@ def main() -> int:
     phase_kernels_aa(o["aa"], errs, previous)
     p2_values = phase_kernels_p2(errs)
     took["2 kernels"] = seconds_since_last()
-    launches, step_ms = phase_slice(card)
+    launches, step_ms, fused_tf_ms, fused_eval_ms = phase_slice(card)
     took["3 colorless"] = seconds_since_last()
     att_launches, att_step_ms, att_graph_ms, o["k2_graph"] = (
         phase_attenuated(card))
@@ -2505,6 +2757,12 @@ def main() -> int:
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
+    phase_trace(card, "colorless_train_step (fused_tf: K3f, K3b)",
+                fused_tf_steps(colorless_model(3)), fused_tf_ms,
+                share=("fdn_tf_fwd", "fdn_tf_bwd"))
+    phase_trace(card, "colorless_freq_response_fused (K3f; a call a step)",
+                fused_evals(colorless_model(3)), fused_eval_ms,
+                share=("fdn_tf_fwd",))
     phase_trace(card, "attenuated_train_step (K5)", attenuated_steps(),
                 att_step_ms)
     phase_trace(card, "attenuated_train_step (graph: K4f, K4b, K2)",

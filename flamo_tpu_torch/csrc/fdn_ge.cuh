@@ -66,6 +66,43 @@ __device__ __forceinline__ float2 cdiv(float2 x, float2 y) {
 
 __device__ __forceinline__ float2 csel(bool m, float2 a, float2 b) { return m ? a : b; }
 
+__device__ __forceinline__ float2 load_or_zero(const float2* __restrict__ p, bool live) {
+  return live ? p[0] : make_float2(0.0f, 0.0f);
+}
+
+// A bin's row of N complex values, moved as float4s where N is even (the
+// row must then start on 16 bytes; the wrappers hand such rows in), else
+// as float2s; a masked lane (live false) reads zeros.
+template <int N>
+__device__ __forceinline__ void load_row(const float2* __restrict__ p, bool live,
+                                         float2 (&v)[N]) {
+  if constexpr (N % 2 == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float4 q = live ? p4[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[2 * i] = make_float2(q.x, q.y);
+      v[2 * i + 1] = make_float2(q.z, q.w);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = load_or_zero(p + i, live);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(float2* __restrict__ p, const float2 (&v)[N]) {
+  if constexpr (N % 2 == 0) {
+    float4* p4 = reinterpret_cast<float4*>(p);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      p4[i] = make_float4(v[2 * i].x, v[2 * i].y, v[2 * i + 1].x, v[2 * i + 1].y);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = v[i];
+  }
+}
+
 // A = I - diag(d) U (rows of U scaled by d_i), or its transpose
 // I - U^T diag(d) (A[i][j] = delta_ij - U[j][i] d_j).  U is (N, N) row-major,
 // in global memory (read through L1) or, with SHARED, in shared memory.
@@ -316,8 +353,12 @@ __device__ __forceinline__ void block_store(float (*red)[NV], float* __restrict_
 //   b_bar_i  = Re sum_m tb w_i d_i                  block partial
 //   c_bar_i  = Re sum_m tb y_i                      block partial
 // followed by the loss partial; the block's sums of the row go to its
-// partials row.
-template <int N, bool WITH_DBAR>
+// partials row.  U and b are read through L1 and D_bar is stored a float2
+// a channel (K1); with SHARED, U and b are read from shared memory and
+// D_bar is stored as one row after the loop (store_row: float4s where N
+// is even, so dbar_row must start on 16 bytes; K3b hands in its row of
+// the warp's span in shared memory there).
+template <int N, bool WITH_DBAR, bool SHARED = false>
 __device__ __forceinline__ void cotangents(const float2 (&d)[N], const float* __restrict__ U,
                                            const float* __restrict__ b, const float2 (&y)[N],
                                            const float2 (&w)[N], float2 tb, float loss,
@@ -326,6 +367,7 @@ __device__ __forceinline__ void cotangents(const float2 (&d)[N], const float* __
                                            float* __restrict__ partials_row) {
   constexpr int NV = n_partials(N);
   float v[NV];
+  float2 dbar[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const float2 bb = cmul(tb, w[i]);
@@ -333,12 +375,16 @@ __device__ __forceinline__ void cotangents(const float2 (&d)[N], const float* __
       float ur = 0.0f, ui = 0.0f;
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        const float u = __ldg(U + i * N + j);
+        const float u = SHARED ? U[i * N + j] : __ldg(U + i * N + j);
         ur += u * y[j].x;
         ui += u * y[j].y;
       }
-      const float2 db = cmul(bb, make_float2(ur + __ldg(b + i), ui));
-      if (live) dbar_row[i] = db;
+      const float bi = SHARED ? b[i] : __ldg(b + i);
+      const float2 db = cmul(bb, make_float2(ur + bi, ui));
+      if constexpr (SHARED)
+        dbar[i] = db;
+      else if (live)
+        dbar_row[i] = db;
     }
     const float2 bbD = cmul(bb, d[i]);
     v[N * N + i] = bbD.x;
@@ -346,6 +392,7 @@ __device__ __forceinline__ void cotangents(const float2 (&d)[N], const float* __
 #pragma unroll
     for (int j = 0; j < N; ++j) v[i * N + j] = cmul(bbD, y[j]).x;
   }
+  if (WITH_DBAR && SHARED && live) store_row<N>(dbar_row, dbar);
   v[NV - 1] = loss;
   warp_sums<NV>(v, red);
   block_store<NV>(red, partials_row);

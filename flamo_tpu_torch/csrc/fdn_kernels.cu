@@ -63,10 +63,6 @@ constexpr int kBadN = -1;
 // 2000 rows spread over 63 SMs (see the notes above).
 constexpr int kSolveRows = 32;
 
-__device__ __forceinline__ float2 load_or_zero(const float2* __restrict__ p, bool live) {
-  return live ? p[0] : make_float2(0.0f, 0.0f);
-}
-
 // K1: loss and cotangents of L = (1/M) sum_m (|tf_m X_m| - t_m)^2 in one pass.
 // scale = 2 / M (the true bin count).  partials row per block:
 // [U_bar, b_bar, c_bar, sum of (|tf X| - t)^2].
@@ -150,36 +146,6 @@ __global__ void __launch_bounds__(kThreads)
 // B and Y move as float4s where N is even (the wrapper hands them 16-byte
 // aligned).  Masked lanes (m >= M) solve A = I, B = 0 and stay in the
 // warp for its votes.
-template <int N>
-__device__ __forceinline__ void load_row(const float2* __restrict__ p, bool live,
-                                         float2 (&v)[N]) {
-  if constexpr (N % 2 == 0) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) {
-      const float4 q = live ? p4[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      v[2 * i] = make_float2(q.x, q.y);
-      v[2 * i + 1] = make_float2(q.z, q.w);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = load_or_zero(p + i, live);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_row(float2* __restrict__ p, const float2 (&v)[N]) {
-  if constexpr (N % 2 == 0) {
-    float4* p4 = reinterpret_cast<float4*>(p);
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i)
-      p4[i] = make_float4(v[2 * i].x, v[2 * i].y, v[2 * i + 1].x, v[2 * i + 1].y);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) p[i] = v[i];
-  }
-}
-
 template <int N, bool TRANSPOSE>
 __global__ void __launch_bounds__(kThreads)
     fdn_solve_kernel(const float2* __restrict__ D, const float* __restrict__ U,
@@ -199,39 +165,100 @@ __global__ void __launch_bounds__(kThreads)
   if (live) store_row<N>(Y + row, y);
 }
 
+// U, b and c staged in shared memory once a block (read as broadcasts).
+template <int N>
+__device__ __forceinline__ void stage(const float* __restrict__ U, const float* __restrict__ b,
+                                      const float* __restrict__ c, float* sU, float* sb,
+                                      float* sc) {
+  for (int v = threadIdx.x; v < N * N; v += kThreads) sU[v] = __ldg(U + v);
+  if (threadIdx.x < N) {
+    sb[threadIdx.x] = __ldg(b + threadIdx.x);
+    sc[threadIdx.x] = __ldg(c + threadIdx.x);
+  }
+}
+
+// K3's output rows at even N go out through a span of shared memory: each
+// thread parks its row at row_in_span (float4s), then the warp stores its
+// 32 rows (16 N float4s) as whole 128-byte lines, lane l the float4s l,
+// l + 32, ... of those of bins below M (store_span; ``first`` is the
+// warp's first bin).  A thread's own 48-byte row (N = 6) touched all
+// twelve lines of the warp's span in part with each of its three float4
+// stores.  On the main path's operands the lines took K3f from 0.00420
+// to 0.00390 ms and K3b from 0.00550 to 0.00522 (NVIDIA H100 80GB HBM3,
+// 700 W; controls/k3_designs); loading D and y so as well measured
+// slower, and K3b in blocks of 64 bins faster (0.00503) but its sums in
+// another order, so not the previous kernel's bits.
+template <int N>
+__device__ __forceinline__ float2* row_in_span(float4* span) {
+  return reinterpret_cast<float2*>(span + (threadIdx.x & 31) * (N / 2));
+}
+
+template <int N>
+__device__ __forceinline__ void store_span(float2* __restrict__ g, int first, int M,
+                                           const float4* span) {
+  __syncwarp();
+  const int lane = threadIdx.x & 31;
+  const int n4 = max(0, min(32, M - first)) * (N / 2);
+  float4* dst = reinterpret_cast<float4*>(g + static_cast<size_t>(first) * N);
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const int k = lane + 32 * j;
+    if (k < n4) dst[k] = span[k];
+  }
+}
+
 // K3f: tf_m = c^T (I - diag(D_m) U)^{-1} diag(D_m) b, pivoted; y is
-// stored for the backward.
+// stored for the backward.  K2's forward solve with the right-hand side
+// diag(D_m) b and the c projection added, and K2's design: U, b and c
+// staged, a bin's row of D as float4s where N is even (the wrapper hands
+// D and Y in 16-byte aligned), ge_pivot_voted (ge_pivot's values and
+// pivots; its exchange selects run only for the rows some lane of the
+// warp pivots to); Y leaves as whole lines (store_span).  Masked lanes
+// (m >= M) solve A = I with a zero right-hand side and stay in the warp
+// for its votes.
 template <int N>
 __global__ void __launch_bounds__(kThreads)
     fdn_tf_fwd_kernel(const float2* __restrict__ D, const float* __restrict__ U,
                       const float* __restrict__ b, const float* __restrict__ c,
                       float2* __restrict__ TF, float2* __restrict__ Y, int M) {
+  constexpr bool kLines = N % 2 == 0;
+  __shared__ float sU[N * N], sb[N], sc[N];
+  __shared__ float4 sY[kLines ? kThreads * N / 2 : 1];
+  stage<N>(U, b, c, sU, sb, sc);
   const int m = blockIdx.x * kThreads + threadIdx.x;
-  if (m >= M) return;
-  const size_t row = static_cast<size_t>(m) * N;
+  const bool live = m < M;
+  const size_t row = static_cast<size_t>(live ? m : 0) * N;
   float2 d[N], rhs[N], y[N];
+  load_row<N>(D + row, live, d);
+  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    d[i] = D[row + i];
-    const float bi = __ldg(b + i);
-    rhs[i] = make_float2(d[i].x * bi, d[i].y * bi);
-  }
+  for (int i = 0; i < N; ++i) rhs[i] = make_float2(d[i].x * sb[i], d[i].y * sb[i]);
   float2 A[N][N];
-  assemble<N, false>(d, U, A);
-  ge_pivot<N>(A, rhs, y);
+  assemble<N, false, true>(d, sU, A);
+  ge_pivot_voted<N>(A, rhs, y);
   float2 tf = make_float2(0.0f, 0.0f);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const float ci = __ldg(c + i);
-    tf.x += ci * y[i].x;
-    tf.y += ci * y[i].y;
-    Y[row + i] = y[i];
+    tf.x += sc[i] * y[i].x;
+    tf.y += sc[i] * y[i].y;
   }
-  TF[m] = tf;
+  if constexpr (kLines) {
+    float4* span = sY + (threadIdx.x >> 5) * (32 * N / 2);
+    store_row<N>(row_in_span<N>(span), y);
+    store_span<N>(Y, m - (threadIdx.x & 31), M, span);
+  } else if (live) {
+    store_row<N>(Y + row, y);
+  }
+  if (live) TF[m] = tf;
 }
 
 // K3b: one adjoint elimination w = A^{-T} c per bin, then D_bar per bin and
 // the U/b/c block partials (loss slot 0).  tb is JAX's cotangent of tf.
+// K3f's design on the transposed system: U, b and c staged (cotangents
+// reads U and b there too), float4 rows of D and y, ge_pivot_voted,
+// D_bar out as whole lines where N is even; the block sums are K1's
+// recursive halvings.  Masked lanes run with D = y = tb = 0: every
+// cotangent is exactly 0.
 template <int N>
 __global__ void __launch_bounds__(kThreads)
     fdn_tf_bwd_kernel(const float2* __restrict__ D, const float* __restrict__ U,
@@ -239,23 +266,29 @@ __global__ void __launch_bounds__(kThreads)
                       const float2* __restrict__ Y, const float2* __restrict__ TFB,
                       float2* __restrict__ Dbar, float* __restrict__ partials, int M) {
   constexpr int NV = n_partials(N);
+  constexpr bool kLines = N % 2 == 0;
   __shared__ float red[kThreads / 32][NV];
+  __shared__ float sU[N * N], sb[N], sc[N];
+  __shared__ float4 sDbar[kLines ? kThreads * N / 2 : 1];
+  stage<N>(U, b, c, sU, sb, sc);
   const int m = blockIdx.x * kThreads + threadIdx.x;
   const bool live = m < M;
   const size_t row = static_cast<size_t>(live ? m : 0) * N;
+  float4* span = sDbar + (kLines ? (threadIdx.x >> 5) * (32 * N / 2) : 0);
   float2 d[N], y[N], cc[N], w[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    d[i] = load_or_zero(D + row + i, live);
-    y[i] = load_or_zero(Y + row + i, live);
-    cc[i] = make_float2(__ldg(c + i), 0.0f);
-  }
+  load_row<N>(D + row, live, d);
+  load_row<N>(Y + row, live, y);
   const float2 tb = load_or_zero(TFB + (live ? m : 0), live);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) cc[i] = make_float2(sc[i], 0.0f);
   float2 At[N][N];
-  assemble<N, true>(d, U, At);
-  ge_pivot<N>(At, cc, w);
-  cotangents<N, true>(d, U, b, y, w, tb, 0.0f, live, Dbar + row, red,
-                      partials + static_cast<size_t>(blockIdx.x) * NV);
+  assemble<N, true, true>(d, sU, At);
+  ge_pivot_voted<N>(At, cc, w);
+  cotangents<N, true, true>(d, sU, sb, y, w, tb, 0.0f, live,
+                            kLines ? row_in_span<N>(span) : Dbar + row, red,
+                            partials + static_cast<size_t>(blockIdx.x) * NV);
+  if constexpr (kLines) store_span<N>(Dbar, m - (threadIdx.x & 31), M, span);
 }
 
 // K6: A_m y_m = B_m for a dense complex N x N matrix per row m (batch and

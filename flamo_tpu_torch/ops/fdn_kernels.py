@@ -193,7 +193,7 @@ def _sum_partials(partials, N: int):
 
 def _aligned16(x):
     """``x`` contiguous and starting on 16 bytes (a copy where it does not):
-    K2 moves a bin's row as float4s where N is even."""
+    K2 and K3 move a bin's row as float4s where N is even."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
@@ -248,7 +248,7 @@ def fdn_tf_fwd_kernel(D, U, b, c):
     if not _on_cuda(D, U, b, c):
         return fdn_tf_fwd_plain(D, U, b, c)
     lib = cuda_build.load(N)
-    D, U, b, c = (x.contiguous() for x in (D, U, b, c))
+    D, U, b, c = _aligned16(D), U.contiguous(), b.contiguous(), c.contiguous()
     tf = torch.empty((M,), dtype=D.dtype, device=D.device)
     Y = torch.empty_like(D)
     with torch.cuda.device(D.device):
@@ -267,8 +267,8 @@ def fdn_tf_bwd_kernel(D, U, b, c, y, tf_bar):
     if not _on_cuda(D, U, b, c, y, tf_bar):
         return fdn_tf_bwd_plain(D, U, b, c, y, tf_bar)
     lib = cuda_build.load(N)
-    D, U, b, c, y, tf_bar = (x.contiguous()
-                             for x in (D, U, b, c, y, tf_bar))
+    D, y = _aligned16(D), _aligned16(y)
+    U, b, c, tf_bar = (x.contiguous() for x in (U, b, c, tf_bar))
     D_bar = torch.empty_like(D)
     partials = _partials(M, N, D)
     with torch.cuda.device(D.device):

@@ -25,7 +25,7 @@ class sparsity_loss:
         try:
             mixing_matrix = core.feedback_loop.feedback
             A = mixing_matrix.map(mixing_matrix.param)
-        except AttributeError:
+        except (AttributeError, KeyError):
             mixing_matrix = core.feedback_loop.feedback.mixing_matrix
             A = mixing_matrix.map(mixing_matrix.param)
         A = torch.real(A) if A.is_complex() else A

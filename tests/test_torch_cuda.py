@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from flamo_tpu_torch.functional import charpoly, expm_skew, poly_roots_rows
+from flamo_tpu_torch.models import build_colorless_fdn
 from flamo_tpu_torch.ops import aa_kernels as ak
 from flamo_tpu_torch.ops import cuda_build
 from flamo_tpu_torch.ops import eig_kernels as ek
@@ -730,15 +731,15 @@ def test_cuda_tf_mse_and_bwd_ragged(cuda, N, M):
 @pytest.fixture(scope="module")
 def previous():
     """The previous libraries (controls/aa_kernels_prev, K9 before its FP32
-    kernel's redesign, and controls/fdn_kernels_prev, whose K2 is the one
-    before its redesign) for the channel counts below, one nvcc each, all
-    at once."""
+    kernel's redesign, controls/fdn_kernels_prev, whose K2 is the one
+    before its redesign, and controls/fdn_tf_prev, K3f and K3b before
+    theirs) for the channel counts below, one nvcc each, all at once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     smoke = _smoke()
     return smoke.Previous(smoke.Previous.start(
         False, [("aa", n) for n in (1, 4, 8)]
-        + [("fdn", n) for n in (1, 3, 6)]))
+        + [("fdn", n) for n in (1, 3, 6)] + [("tf", n) for n in (3, 5, 6)]))
 
 
 def _taps_args(o):
@@ -866,3 +867,82 @@ def test_cuda_fdn_solve_takes_misaligned_rows(cuda):
     for transpose in (False, True):
         assert torch.equal(fk.fdn_solve_kernel(D_off, U, B, transpose),
                            fk.fdn_solve_kernel(D, U, B, transpose))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [3, 5, 6])
+@pytest.mark.parametrize("M", [33, 4097, 48001])
+def test_cuda_fdn_tf_bit_identical_to_previous(cuda, previous, N, M):
+    """K3f and K3b (a warp's vote on each row exchange, U, b and c staged,
+    float4 rows where N is even) equal the previous K3f and K3b
+    (controls/fdn_tf_prev) bit for bit on chip_smoke.k3_systems (random,
+    pivoting at every step, tied pivots, a cycle), K3f on the forward
+    systems and K3b on the transposed ones, at bin counts off the warps
+    and blocks and at odd N (float2 rows); each is within 1e-5 (tf, y)
+    or 1e-4 of the max (the cotangents) of its plain version, K3b
+    launched twice gives the same bits, and each launch is counted."""
+    smoke = _smoke()
+    rng = np.random.default_rng(N * 100000 + M)
+    for transpose in (False, True):
+        for label, system in smoke.k3_systems(rng, M, N, transpose).items():
+            D, U, b, c, tb = smoke.k3_tensors(system)
+            fk.reset_launch_counts()
+            tf, y = fk.fdn_tf_fwd_kernel(D, U, b, c)
+            assert fk.LAUNCHES["fdn_tf_fwd"] == 1
+            if not transpose:
+                old = previous.tf_fwd(D, U, b, c)
+                assert torch.equal(tf, old[0]) and torch.equal(y, old[1]), (
+                    label)
+                tfp, yp = fk.fdn_tf_fwd_plain(D, U, b, c)
+                assert _rel(tf, tfp) < 1e-5 and _rel(y, yp) < 1e-5, label
+                continue
+            got = fk.fdn_tf_bwd_kernel(D, U, b, c, y, tb)
+            again = fk.fdn_tf_bwd_kernel(D, U, b, c, y, tb)
+            assert fk.LAUNCHES["fdn_tf_bwd"] == 2
+            for g, a, o, r in zip(got, again,
+                                  previous.tf_bwd(D, U, b, c, y, tb),
+                                  fk.fdn_tf_bwd_plain(D, U, b, c, y, tb)):
+                assert torch.equal(g, o) and torch.equal(g, a), label
+                assert _rel(g, r) < 1e-4, label
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_fdn_tf_takes_misaligned_rows(cuda):
+    """K3f and K3b move a bin's rows as float4s at even N: D and y that
+    start 8 bytes off 16 (views into larger buffers) are copied first,
+    and give the same bits as aligned ones."""
+    o = _operands(4, 1000, 6)
+    D, U, b, c, tb = o["D"], o["U"], o["b"], o["c"], o["X"]
+
+    def off(x):
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device="cuda")
+        buf[1:] = x.reshape(-1)
+        view = buf[1:].view(x.shape)
+        assert view.data_ptr() % 16 == 8
+        return view
+
+    tf, y = fk.fdn_tf_fwd_kernel(D, U, b, c)
+    for g, r in zip(fk.fdn_tf_fwd_kernel(off(D), U, b, c), (tf, y)):
+        assert torch.equal(g, r)
+    for g, r in zip(fk.fdn_tf_bwd_kernel(off(D), U, b, c, off(y), tb),
+                    fk.fdn_tf_bwd_kernel(D, U, b, c, y, tb)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_tf_step_and_response_launch_counts(cuda):
+    """One fused-tf step (chip_smoke.fused_tf_steps, Adam on
+    colorless_loss_fused_tf) launches K3f and K3b once each and nothing
+    else of the FDN kernels; one fused response (chip_smoke.fused_evals)
+    launches K3f once."""
+    smoke = _smoke()
+    model = build_colorless_fdn(nfft=4096, device="cuda",
+                                generator=torch.Generator().manual_seed(0))
+    fk.reset_launch_counts()
+    smoke.fused_tf_steps(model)(1)
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fdn_tf_fwd": 1, "fdn_tf_bwd": 1}
+    fk.reset_launch_counts()
+    smoke.fused_evals(model)(1)
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fdn_tf_fwd": 1}
