@@ -16,13 +16,15 @@ Phases, in order; any failure raises and exits non-zero without a result:
    before K6's, K1's and K2's redesign, controls/fdn_tf_prev/
    fdn_kernels.cu, K3f and K3b before theirs (N = 3, 5 and 6; the
    package's fdn_kernels too at N = 3 and 5), controls/sos_kernels_prev/
-   sos_kernels.cu, K4f and K4b before theirs, and controls/aa_kernels_prev/
-   aa_kernels.cu, K8 and K9 before K9 'highest''s (phase 5's controls),
-   and prints the build time and each library's own seconds; with --ptxas
+   sos_kernels.cu, K4f and K4b before theirs, controls/aa_kernels_prev/
+   aa_kernels.cu, K8 and K9 before K9 'highest''s, and
+   controls/phase2_micro_prev/phase2_micro.cu, K10's four variants before
+   full's and ps's (phase 5's controls), and prints the build time and
+   each library's own seconds; with --ptxas
    it compiles them all with nvcc's register report (written to
    build/ptxas_smoke.txt) and prints the registers, spills and
    register-bound warps an SM of each K1, K2, K3f, K3b, K4f, K4b, K5, K6,
-   K7 and K9 instantiation, the previous libraries' too;
+   K7, K9 and K10 instantiation, the previous libraries' too;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (M = 48001 bins, N = 6, |D| = 0.85, orthogonal U; K2
    also equal to the previous K2 bit for bit, both ways, on those
@@ -57,7 +59,8 @@ Phases, in order; any failure raises and exits non-zero without a result:
    results, and K7's bit-identity with its plain version printed; the
    four variants of the phase-2
    micro-benchmark K10 at its published sizes (nfft = 96000, P = 3, K = 12, N = 6, 48128 bins), on
-   its own operands (t of ones) and on a seeded random t;
+   its own operands (t of ones) and on a seeded random t, noreduce and
+   lanered also equal to the previous library's kernels bit for bit;
 3. the colorless slice at full width: build_colorless_fdn(nfft=96000) on
    the card; the graph loss through K2 against the 'ge' solve, the fused
    frequency response (K3f) against Shell.get_freq_response, the
@@ -116,7 +119,8 @@ Phases, in order; any failure raises and exits non-zero without a result:
    K10 also the work of its passes counted as K5's distinct sections; K9
    at each precision, its FP32 and tensor-core kernels in the same run),
    and K5's training variant and K7 against their aims beside the
-   kernel left on the old code (K10) as the call's control, with K7's
+   kernels left on the old code (K10 noreduce and lanered) as the call's
+   control, with K7's
    time at 0 and 1 iterations (its fixed cost and an iteration's); K1-K4
    and K6 also on one bin or row (``floor_ms``: one block and one bin's
    chain, the least a launch of that kernel takes), and K1 (all four
@@ -128,7 +132,9 @@ Phases, in order; any failure raises and exits non-zero without a result:
    step's own operands), K3f and K3b beside the previous libraries' in
    turns, and on one tile of 64 bins or one bin, the previous kernels'
    too, their aims printed and each held to PREVIOUS_GATE = 1.05x its
-   previous kernel;
+   previous kernel; K10 full and ps likewise, beside the previous
+   library's kernels and on one bin, with each K10 kernel's registers and
+   local (spill) bytes read from the card;
 6. torch.profiler traces of a few training steps of each path (and of a
    few fused responses): the device's busy and idle share and the
    kernels that take its time (for the attenuated graph step also K4f's,
@@ -236,6 +242,9 @@ DK_B, DK_ITERS = 1601, 96
 # and the gate against the previous kernel in the same call
 K9_HIGHEST_AIM, K2_AIM, PREVIOUS_GATE = 0.100, 0.0038, 1.05
 K3F_AIM, K3B_AIM = 0.0040, 0.0050
+# K10's redesigned variants and their aims (device ms), and ps's stretch
+K10_REDESIGNED = {"full": 0.005, "ps": 0.010}
+K10_PS_STRETCH = 0.005
 K2_RAGGED = (33, 4097, M_MAIN)  # phase 2's bin counts for K2's and K3's
 K3_NS = (3, 5, N_MAIN)  # K3's channel counts in phase 2: odd N moves float2s
 # phase 3's timed fused-tf steps and fused responses
@@ -390,10 +399,11 @@ CONTROLS = Path(__file__).resolve().parent / "controls"
 PREVIOUS_SRC = {"fdn": CONTROLS / "fdn_kernels_prev" / "fdn_kernels.cu",
                 "tf": CONTROLS / "fdn_tf_prev" / "fdn_kernels.cu",
                 "sos": CONTROLS / "sos_kernels_prev" / "sos_kernels.cu",
-                "aa": CONTROLS / "aa_kernels_prev" / "aa_kernels.cu"}
-# phase 1's builds: (library, N)
+                "aa": CONTROLS / "aa_kernels_prev" / "aa_kernels.cu",
+                "p2": CONTROLS / "phase2_micro_prev" / "phase2_micro.cu"}
+# phase 1's builds: (library, N); the K10 control takes every size
 PREVIOUS_BUILDS = (("fdn", N_MAIN), ("sos", N_MAIN), ("aa", AA_N),
-                   *(("tf", n) for n in K3_NS))
+                   *(("tf", n) for n in K3_NS), ("p2", 1))
 
 
 def previous_so(key: str, n: int) -> Path:
@@ -403,8 +413,9 @@ def previous_so(key: str, n: int) -> Path:
 
 class Previous:
     """The previous libraries' K1, K2 and K6 (fdn_kernels_prev), K3f and
-    K3b (fdn_tf_prev), K4f, K4b (sos_kernels_prev) and K8, K9
-    (aa_kernels_prev), each for one N (channels, or microphones): the same
+    K3b (fdn_tf_prev), K4f, K4b (sos_kernels_prev), K8, K9
+    (aa_kernels_prev) and K10's four variants (phase2_micro_prev, every
+    size), each for one N (channels, or microphones): the same
     C entry points as the package's before the redesigns, launched on
     operands the package's wrappers have checked, outputs allocated here,
     nothing counted."""
@@ -429,6 +440,8 @@ class Previous:
                 if key == "tf":
                     lib.fdn_tf_fwd_launch.argtypes = [I] + [P] * 6 + [I, P]
                     lib.fdn_tf_bwd_launch.argtypes = [I] + [P] * 8 + [I, P]
+            elif key == "p2":
+                lib.p2_launch.argtypes = [I] + [P] * 3 + [I] * 4 + [F, P]
             elif key == "sos":
                 lib.sos_cascade_fwd_launch.argtypes = [P] * 3 + [I] * 4 + [
                     F, F, P]
@@ -462,6 +475,20 @@ class Previous:
     @staticmethod
     def _stream() -> int:
         return torch.cuda.current_stream().cuda_stream
+
+    def phase2(self, variant: str, t, c, nfft: int):
+        """The previous K10 kernel of ``variant``: one thread a bin over
+        every one of the 2 K N passes, its rows summed as the package's."""
+        lib = self.libs["p2", 1]
+        M = t.shape[1]
+        rows = -(-M // lib.p2_threads_per_block())
+        partials = torch.empty((rows, 3), dtype=torch.float32,
+                               device=t.device)
+        check(lib.p2_launch(pm.VARIANTS.index(variant), t.data_ptr(),
+                            c.data_ptr(), partials.data_ptr(), M,
+                            *c.shape, 2.0 * math.pi / nfft,
+                            self._stream()) == 0, "previous K10 launch")
+        return torch.sum(partials, dim=0)
 
     def dense_solve(self, A, B, transpose: bool):
         Y = torch.empty_like(B)
@@ -636,31 +663,42 @@ def _flops_aa_bin(N, L, pivot):
 
 def _flops_phase2(variant: str, K: int, N: int, P: int,
                   k5_sections: bool = False) -> int:
-    """FLOPs per bin of a K10 variant: the phasor and z^2 once; per
-    section pass the Horner sum, the guarded quotient and the projections
-    Re(q z), Re(q z^2) (3 each), each of the 3 terms added to its sum.
-    ``ps`` per channel: each section's response once, the prefix and
-    suffix products, the product's quotient and, for a pass over k,
-    pre_k suf_{k+1}, q and the same projections.
+    """FLOPs per bin of a K10 variant: the phasor and z^2 once.
 
     What the function needs: the passes s % K, s % N repeat with period
     lcm(K, N), each repeat giving a bit-identical q, so it needs lcm(K, N)
     passes (12 of 144 at K = 12, N = 6), and ps's two passes over k are
-    identical, so it needs one; each is summed once and its 3 sums scaled
-    by the repeat count.  With ``k5_sections`` every pass is counted as a
-    distinct section instead, as K5's tap phase has 2 K N of them: the
-    work the kernels do, and K5's."""
+    identical, so it needs one.  Its three sums are linear in q, so a bin
+    needs Q = sum q = tn sum conj(sec) / |sec|^2 (per pass the Horner sum,
+    |sec|^2, the reciprocal, its conjugate product and the add), and once
+    tn times that sum, the repeat count's scaling and the projections
+    Re Q, Re(Q z), Re(Q z^2), each added to its sum.  ``ps`` per channel:
+    each section's response once, the prefix and suffix products, the
+    sum of pre_k suf_{k+1}, the product's reciprocal times that sum.
+
+    With ``k5_sections`` every pass is counted as a distinct section
+    instead, as K5's tap phase has 2 K N of them, each with its own three
+    sums: per pass the Horner sum, the guarded quotient q and the
+    projections Re(q z), Re(q z^2) (3 each), each of the 3 terms added to
+    its sum; ``ps`` per channel each section's response once, the prefix
+    and suffix products, the product's quotient and, for both passes over
+    k, pre_k suf_{k+1}, q and the same projections."""
     per_bin = PHASOR + CMUL
-    sums = 2 * 3 + 3
+    if k5_sections:
+        sums = 2 * 3 + 3
+        if variant == "ps":
+            per_channel = (K * (_flops_horner(P) + 2 * CMUL) + CABS2 + 1 + 8
+                           + 2 * K * (2 * CMUL + sums))
+            return per_bin + N * per_channel
+        return per_bin + 2 * K * N * (_flops_horner(P) + CABS2 + 1 + 8
+                                      + sums)
+    once = CMUL + 2 + 2 * 3 + 3
     if variant == "ps":
-        passes = 2 if k5_sections else 1
-        per_channel = (K * (_flops_horner(P) + 2 * CMUL) + CABS2 + 1 + 8
-                       + passes * K * (2 * CMUL + sums))
-        return per_bin + N * per_channel + (0 if k5_sections else 3)
-    passes = 2 * K * N if k5_sections else math.lcm(K, N)
-    scale = 0 if passes == 2 * K * N else 3
-    return (per_bin + passes * (_flops_horner(P) + CABS2 + 1 + 8 + sums)
-            + scale)
+        per_channel = (K * (_flops_horner(P) + 3 * CMUL + 2) + CABS2 + 1 + 2
+                       + CMUL + 2)
+        return per_bin + N * per_channel + once
+    return (per_bin + math.lcm(K, N) * (_flops_horner(P) + CABS2 + 1 + 2 + 2)
+            + once)
 
 
 def kernel_work(name: str, M: int, N: int, pivot=False, with_dbar=False,
@@ -875,9 +913,10 @@ def phase_build(ptxas: bool = False) -> str:
 
 
 def print_ptxas(report: str) -> None:
-    """Registers and spills of the K1, K2, K3f, K3b, K4f, K4b, K5, K6, K7 and
-    K9 instantiations from nvcc's -Xptxas -v report (the previous libraries'
-    tagged as such), with the warps an SM that the registers allow."""
+    """Registers and spills of the K1, K2, K3f, K3b, K4f, K4b, K5, K6, K7,
+    K9 and K10 instantiations (K10 full's and ps's at P = 3) from nvcc's
+    -Xptxas -v report (the previous libraries' tagged as such), with the
+    warps an SM that the registers allow."""
     name, spills, tag, k4 = None, "", "", {}
     for line in report.splitlines():
         if line.startswith("# "):
@@ -892,12 +931,15 @@ def print_ptxas(report: str) -> None:
             r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_fwd|fdn_tf_bwd|"
             r"dense_solve|"
             r"fdn_solve|aa_taps_tf_mse_tc|aa_taps_tf_mse|sos_cascade_fwd|"
-            r"sos_cascade_bwd)_kernel", name)
+            r"sos_cascade_bwd|phase2_full|phase2_ps|phase2_noreduce|"
+            r"phase2_lanered)_kernel", name)
         if not (used and which):
             continue
         kernel = which.group(0)
         targs = re.findall(r"L[ib](\d+)E", name)
         regs = int(used.group(1))
+        if kernel.startswith("phase2") and targs and targs != [str(P_MAIN)]:
+            continue  # K10 full's and ps's copies for the other P
         if kernel.startswith("sos_cascade") and targs:
             # K4's 64 copies a kernel: the main path's, and the most
             # registers and any spill over all of them
@@ -1604,11 +1646,13 @@ def phase_kernels_aa(o, errs: dict, previous) -> None:
     torch.cuda.synchronize()
 
 
-def phase_kernels_p2(errs: dict) -> dict:
+def phase_kernels_p2(errs: dict, previous) -> dict:
     """The four K10 variants against their plain versions at the
-    micro-benchmark's sizes, on its operands and on a seeded random t;
-    adds each variant's max abs error to ``errs`` and returns its kernel
-    value on the benchmark's operands."""
+    micro-benchmark's sizes, on its operands and on a seeded random t,
+    noreduce and lanered also against the previous library's kernels bit
+    for bit (full's and ps's distance from theirs printed); adds each
+    variant's max abs error to ``errs`` and returns its kernel value on
+    the benchmark's operands."""
     t1, c = p2bench.inputs("cuda")
     tr = torch.tensor(np.random.default_rng(SEED + 3).normal(
         size=tuple(t1.shape)).astype(np.float32), device="cuda")
@@ -1628,6 +1672,16 @@ def phase_kernels_p2(errs: dict) -> dict:
                   f"{ref.tolist()}, max abs err {float(err.max()):.3e}, "
                   f"{rel:.3e} of the terms' magnitudes (tol {P2_TOL:g})")
             check(rel <= P2_TOL, f"K10 {v} ({label}): {rel:.3e} > {P2_TOL}")
+            old = previous.phase2(v, t, c, p2bench.NFFT)
+            if v in ("noreduce", "lanered"):
+                check(torch.equal(got, old), f"K10 {v} ({label}): "
+                      f"{got.tolist()}, the previous kernel {old.tolist()}")
+                print(f"  K10 {v} ({label}): equal to the previous kernel")
+            else:
+                print(f"  K10 {v} ({label}): the previous kernel "
+                      f"{old.tolist()}, "
+                      f"{float(((old - ref).abs() / scale).max()):.3e} of "
+                      f"the terms' magnitudes from the plain version")
             e.append(float(err.max()))
             if label == "t of ones":
                 values[v] = got
@@ -2366,15 +2420,37 @@ def phase_timing(o, launches, errs, card, previous) -> list:
             print(f"  fdn_sos_tf_mse pivot={pivot} fuse_taps={fuse_taps} "
                   f"with_dbar={with_dbar}: kernel {ms_v:.4f} ms{extra}, "
                   f"bound {bms:.5f} ms ({by})")
-    # K10 on the micro-benchmark's operands; no PyTorch call computes it
+    # K10 on the micro-benchmark's operands; no PyTorch call computes it.
+    # full and ps beside the previous kernels and on one bin (their floor:
+    # full's pass groups or ps's channels, a block each, one bin's chain)
     t, c = p2bench.inputs("cuda")
     nfft = p2bench.NFFT
-    p2_rows = [timing_row(
-        f"phase2_{v}", f"phase2_{v}", t.shape[1],
-        lambda v=v: pm.phase2_micro(v, t, c, nfft),
-        lambda v=v: pm.phase2_micro_plain(v, t, c, nfft), None,
-        dict(K=p2bench.K, P=p2bench.P), launches, errs, N=p2bench.N,
-        plain_reps=2) for v in pm.VARIANTS]
+    t_one = t[:, :1].contiguous()
+    p2_rows = []
+    for v in pm.VARIANTS:
+        redesigned = v in K10_REDESIGNED
+        p2_rows.append(timing_row(
+            f"phase2_{v}", f"phase2_{v}", t.shape[1],
+            lambda v=v: pm.phase2_micro(v, t, c, nfft),
+            lambda v=v: pm.phase2_micro_plain(v, t, c, nfft), None,
+            dict(K=p2bench.K, P=p2bench.P), launches, errs, N=p2bench.N,
+            plain_reps=2,
+            floor=(lambda v=v: pm.phase2_micro(v, t_one, c, nfft))
+            if redesigned else None,
+            previous=(lambda v=v: previous.phase2(v, t, c, nfft))
+            if redesigned else None))
+        row = p2_rows[-1]
+        row["registers"], row["local_bytes"] = pm.kernel_attributes(
+            v, p2bench.P)
+        if redesigned:
+            row["previous_floor_ms"] = device_ms(
+                lambda v=v: previous.phase2(v, t_one, c, nfft),
+                f"phase2_{v}_kernel")
+    print("  K10 registers a thread (local bytes a thread: stack and spills) "
+          "at P = "
+          f"{p2bench.P}: " + ", ".join(
+              f"{r['name']} {r['registers']} ({r['local_bytes']})"
+              for r in p2_rows))
     ms = {r["name"]: r["ms"] for r in rows + p2_rows}
     print(f"  K10 beside K5 and K4b in this call (device ms): "
           + ", ".join(f"{v} {ms[f'phase2_{v}']:.6f}" for v in pm.VARIANTS)
@@ -2387,6 +2463,7 @@ def phase_timing(o, launches, errs, card, previous) -> list:
     for r in p2_rows:
         k5ms, k5by = bound(r["name"], t.shape[1], p2bench.N, K=p2bench.K,
                            P=p2bench.P, k5_sections=True)
+        r["k5_section_bound_ms"] = k5ms
         print(f"  {r['name']}: bound_ms {r['bound_ms']:.6f} (distinct "
               f"passes, kernel at {r['ms'] / r['bound_ms']:.1f}x); with "
               f"every pass a K5 section {k5ms:.6f} ms ({k5by}), kernel at "
@@ -2494,16 +2571,17 @@ def phase_timing(o, launches, errs, card, previous) -> list:
                           ("K5 training variant", "fdn_sos_tf_mse", 0.035),
                           ("K7", "dk_roots", 0.012)))
           + "; controls on the old code: the previous libraries' K1, K2, "
-          "K3f, K3b, K6, K4f, K4b and K9 (previous_ms above) and K10 "
-          + ", ".join(f"{v} {by[f'phase2_{v}']['ms']:.6f}"
-                      for v in pm.VARIANTS))
+          "K3f, K3b, K6, K4f, K4b, K9, K10 full and ps (previous_ms above) "
+          "and K10 " + ", ".join(f"{v} {by[f'phase2_{v}']['ms']:.6f}"
+                                 for v in pm.VARIANTS
+                                 if v not in K10_REDESIGNED))
     return rows
 
 
 def redesigned_last(by: dict) -> None:
-    """K9 'highest', K2 both ways, K3f and K3b beside their previous
-    kernels in this call: their aims printed, and each held to
-    PREVIOUS_GATE times the previous kernel's time."""
+    """K9 'highest', K2 both ways, K3f, K3b and K10 full and ps beside
+    their previous kernels in this call: their aims printed, and each held
+    to PREVIOUS_GATE times the previous kernel's time."""
     r9, r2 = by[K9_ROWS["highest"]], by["fdn_solve"]
     cases = [("K9 'highest' aa_taps_tf_mse", r9["ms"], r9["previous_ms"],
               r9["floor_ms"], r9["previous_floor_ms"], r9["bound_ms"],
@@ -2517,7 +2595,9 @@ def redesigned_last(by: dict) -> None:
                by[n]["floor_ms"], by[n]["previous_floor_ms"],
                by[n]["bound_ms"], aim)
               for label, n, aim in (("K3f", "fdn_tf_fwd", K3F_AIM),
-                                    ("K3b", "fdn_tf_bwd", K3B_AIM))]
+                                    ("K3b", "fdn_tf_bwd", K3B_AIM),
+                                    *((f"K10 {v}", f"phase2_{v}", aim)
+                                      for v, aim in K10_REDESIGNED.items()))]
     for label, ms, prev, floor, prev_floor, bms, aim in cases:
         ratio = ms / prev
         print(f"  {label}: {ms:.6f} ms against the aim {aim:.4f}: "
@@ -2526,6 +2606,11 @@ def redesigned_last(by: dict) -> None:
               f"{'held' if ratio <= PREVIOUS_GATE else 'exceeded'}); floor "
               f"{floor:.6f} (previous {prev_floor:.6f}); bound {bms:.6f} "
               f"({ms / bms:.1f}x)")
+    ps = by["phase2_ps"]["ms"]
+    print(f"  K10 ps {ps:.6f} ms against its stretch aim "
+          f"{K10_PS_STRETCH:.4f} (twice 0.002492, its bound with the "
+          f"projections counted a pass): "
+          f"{'met' if ps <= K10_PS_STRETCH else 'missed'}")
     print(f"  K9 'highest' {r9['ms']:.6f} ms against 'high' (the tensor-core "
           f"kernel, 3 TF32 passes) {by[K9_ROWS['high']]['ms']:.6f} in this "
           f"call: {r9['ms'] / by[K9_ROWS['high']]['ms']:.3f}x")
@@ -2733,7 +2818,7 @@ def main() -> int:
     o["aa"] = aa_kernel_operands(rig)
     errs = phase_kernels(o, previous)
     phase_kernels_aa(o["aa"], errs, previous)
-    p2_values = phase_kernels_p2(errs)
+    p2_values = phase_kernels_p2(errs, previous)
     took["2 kernels"] = seconds_since_last()
     launches, step_ms, fused_tf_ms, fused_eval_ms = phase_slice(card)
     took["3 colorless"] = seconds_since_last()

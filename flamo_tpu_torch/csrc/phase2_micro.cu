@@ -2,53 +2,64 @@
 // with a plain C interface that flamo_tpu_torch/ops/phase2_micro.py loads
 // through ctypes.  The entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError(), or kBadSize (-2) for
-// a variant or sizes out of the limits below.
+// a variant, sizes or a pass plan out of the limits below.
 //
 // Kernels and the TPU kernel they replace: the four variants of _kernel in
 // scripts/bench_phase2_micro.py (pallas_call at :149), which isolate the
 // tap-cotangent phase of K5 (_fdn_sos_tf_mse_kernel; sos_kernels.cu's
 // tap_partials):
-//   phase2_full_kernel     <- 'full'
+//   phase2_full_kernel<P>  <- 'full'
 //   phase2_noreduce_kernel <- 'noreduce'
 //   phase2_lanered_kernel  <- 'lanered'
-//   phase2_ps_kernel       <- 'ps'
+//   phase2_ps_kernel<P>    <- 'ps'
 //
-// One thread per bin m of t (2, M) float32 (re row, then im row); taps c
-// (P, K, N) float32, row-major; z = e^{-j w}, w = (2 pi / nfft) m, and
-// tn = t[0, m] + j t[1, m].  Section pass s (0 <= s < S = 2 K N) takes the
-// taps c[:, s % K, s % N] (the TPU kernel's indexing: where gcd(K, N) > 1
-// it revisits some (k, n) pairs and skips others), sec = sum_p c[p] z^p and
+// t is (2, M) float32 (re row, then im row); taps c (P, K, N) float32,
+// row-major; z = e^{-j w}, w = (2 pi / nfft) m, and tn = t[0, m] + j t[1, m]
+// for bin m.  Section pass s (0 <= s < S = 2 K N) takes the taps
+// c[:, s % K, s % N] (the TPU kernel's indexing: where gcd(K, N) > 1 it
+// revisits some (k, n) pairs and skips others), sec = sum_p c[p] z^p and
 // q = tn conj(sec) / |sec|^2, 0 where |sec|^2 = 0.  Each block writes one
-// row of partial sums; the wrapper adds the rows with torch.sum.  No
+// row of 3 partial sums; the wrapper adds the rows with torch.sum.  No
 // atomics: two runs give the same partials.  Threads m >= M run with
 // tn = 0, so they add exactly 0, and take part in the warp shuffles.
 // Every variant projects q on z^0, z^1 and z^2, as the TPU kernel does
-// (its zs = [z, z^2]), whatever P; each writes a row of 3 per block.
+// (its zs = [z, z^2]), whatever P.
 //
-//   full:     [sum Re q, sum Re q z, sum Re q z^2]; per pass 3 warp
-//             shuffle trees, the warp's sums added by lane 0 into its
-//             shared-memory row, the cross-warp sum deferred to the end
-//             (K5's pattern: 3 S trees per warp).
-//   noreduce: [sum Re q, sum Re q z + sum Re q z^2, 0]; two register
-//             accumulators per thread over all S passes, one block
-//             reduction at the end.
-//   lanered:  [T, T, T], T = the sum of full's three; one warp tree per
-//             pass on the pass's summed value, the cross-warp sum deferred.
-//   ps:       as full, over every (k, n) pair: per channel n the prefix
-//             and suffix products of its K <= kRegK sections in registers
-//             (2 (K + 1) complex values), one guarded quotient of the
-//             product, and for two passes over k, q = tp pre_k suf_{k+1}
-//             with 3 warp trees each.
+//   full:     [sum Re q, sum Re q z, sum Re q z^2].  The passes repeat
+//             with period L = lcm(K, N), each repeat giving the same q, so
+//             the kernel runs the L distinct passes once and scales by
+//             r = 2 K N / L (the wrapper's pass plan: passes, scale).  A
+//             thread takes one bin and a group of kGroupPasses passes; the
+//             groups lie side by side in the grid, each block staging its
+//             group's taps in shared memory.  The sums are linear in q, so
+//             a thread adds W = sum conj(sec) / |sec|^2 over its passes,
+//             forms tn W r and its three projections once, and the block
+//             reduces them once into its row.
+//   noreduce: [sum Re q, sum Re q z + sum Re q z^2, 0]; one thread a bin
+//             over all S passes, two register accumulators per thread,
+//             one block reduction at the end.
+//   lanered:  [T, T, T], T = the sum of full's three; one thread a bin,
+//             one warp tree per pass on the pass's summed value, the
+//             cross-warp sum deferred.
+//   ps:       as full, over every (k, n) pair: a thread takes one bin and
+//             one channel n (the channels side by side in the grid, a
+//             block's K sections' taps staged), forms each section's
+//             response sec_k once, the prefix products pre_k, one guarded
+//             quotient of the product, and the suffix products from the
+//             last section down, adding pre_k suf_{k+1}; its two passes
+//             over k (the b-tap and a-tap passes) are the same, so it runs
+//             one and scales by 2 (the plan's scale).
 //
-// What bounds them on an H100: arithmetic.  A full pass costs a bin ~35
-// FLOP (Horner 14, |sec|^2 3, the divide, q 8, two projections 6, three
-// adds) against 8 bytes of t.  At K = 12, N = 6 the 144 passes repeat the
-// lcm(K, N) = 12 distinct ones, and ps's second pass over k its first, so
-// the function needs far less than the kernels do (chip_smoke.py's
-// kernel_work counts both).  The warp trees are no FLOPs but take
-// instruction slots: 3 S trees of 5 shuffle-add steps per warp in full
-// and ps.  The design keeps every intermediate of a bin in registers, as
-// the TPU kernel keeps its tile.
+// What bounds them on an H100: arithmetic and, at these sizes, the launch.
+// full at K = 12, N = 6 needs 12 distinct passes a bin (~22 FLOP each:
+// Horner 14, |sec|^2 3, the reciprocal, its conjugate product and the sum
+// of W) against 8 bytes of t; ps ~430 FLOP a bin and channel.  The kernels
+// before this design (controls/phase2_micro_prev) ran one thread a bin
+// over all 144 passes with three warp trees a pass; noreduce and lanered
+// keep that frame as the benchmark's measure of the per-pass reductions.
+// P is a template argument of full and ps (2..8), so Horner unrolls and
+// reads the staged taps at fixed offsets; K stays a runtime bound under a
+// guarded unroll to kRegK in ps, whose products live in registers.
 
 #include <cstddef>
 
@@ -63,8 +74,9 @@ using sos::kThreads;
 using sos::kWarps;
 
 constexpr int kBadSize = -2;
-constexpr int kOut = 3;    // sums per block row: projections on z^0, z^1, z^2
-constexpr int kRegK = 16;  // ps keeps its products in registers up to here
+constexpr int kOut = 3;           // sums per block row: projections on z^0, z^1, z^2
+constexpr int kRegK = 16;         // ps keeps its products in registers up to here
+constexpr int kGroupPasses = 12;  // full: distinct passes a thread
 enum Variant { kFull = 0, kNoreduce = 1, kLanered = 2, kPs = 3 };
 
 // tn conj(sec) / |sec|^2, 0 where |sec|^2 = 0
@@ -74,6 +86,14 @@ __device__ __forceinline__ float2 quotient(float2 tn, float2 sec) {
   const float inv = 1.0f / (ok ? d : 1.0f);
   return ok ? make_float2((tn.x * sec.x + tn.y * sec.y) * inv, (tn.y * sec.x - tn.x * sec.y) * inv)
             : make_float2(0.0f, 0.0f);
+}
+
+// conj(sec) / |sec|^2, 0 where |sec|^2 = 0: the quotient of tn = 1
+__device__ __forceinline__ float2 inv_conj(float2 sec) {
+  const float d = cabs2(sec);
+  const bool ok = d > 0.0f;
+  const float inv = 1.0f / (ok ? d : 1.0f);
+  return ok ? make_float2(sec.x * inv, -sec.y * inv) : make_float2(0.0f, 0.0f);
 }
 
 // Lane 0 zeroes its warp's row (only it touches the row until store_row).
@@ -92,28 +112,62 @@ __device__ __forceinline__ void next_pair(int& k, int& n, int K, int N) {
   n = n + 1 == N ? 0 : n + 1;
 }
 
-// Re q z^p for p < 3, one warp tree each, added into slots 0..2
-__device__ __forceinline__ void put_projections(float* red, float2 q, float2 z) {
+// sum_p taps[p] z^p by Horner from the top tap, P known at compile time
+template <int P>
+__device__ __forceinline__ float2 horner_c(const float* taps, float2 z) {
+  float2 out = make_float2(taps[P - 1], 0.0f);
 #pragma unroll
-  for (int p = 0; p < kOut; ++p) {
-    sos::put(red, kOut, p, q.x, true);
-    q = cmul(q, z);
+  for (int p = P - 2; p >= 0; --p) {
+    out = cmul(out, z);
+    out.x += taps[p];
   }
+  return out;
 }
 
+// A thread's (re, im) sum Q scaled by r, projected on z^0, z^1, z^2 and
+// summed over the block into its row (one warp tree a value, once).
+__device__ __forceinline__ void put_row(float* red, float2 q, float r, float2 z,
+                                        float* __restrict__ row) {
+  q = make_float2(q.x * r, q.y * r);
+  const float2 z2 = cmul(z, z);
+  sos::put(red, kOut, 0, q.x);
+  sos::put(red, kOut, 1, q.x * z.x - q.y * z.y);
+  sos::put(red, kOut, 2, q.x * z2.x - q.y * z2.y);
+  sos::store_row(red, kOut, row);
+}
+
+__host__ __device__ inline int n_blocks(int M) { return (M + kThreads - 1) / kThreads; }
+
+// Blocks are (group, bin block) with the bin blocks fastest: group g of
+// full's passes, or ps's channel n.
+template <int P>
 __global__ void __launch_bounds__(kThreads)
     phase2_full_kernel(const float* __restrict__ t, const float* __restrict__ c,
-                       float* __restrict__ partials, int M, int P, int K, int N, float w_scale) {
+                       float* __restrict__ partials, int M, int K, int N, int passes,
+                       float scale, float w_scale) {
+  __shared__ float taps[kGroupPasses * P];
   __shared__ float red[kWarps * kOut];
-  const int m = blockIdx.x * kThreads + threadIdx.x;
+  const int nbx = n_blocks(M);
+  const int g = blockIdx.x / nbx;
+  const int m = (blockIdx.x - g * nbx) * kThreads + threadIdx.x;
+  const int s0 = g * kGroupPasses;
+  const int ns = min(kGroupPasses, passes - s0);
+  if (threadIdx.x < ns * P) {
+    const int s = s0 + threadIdx.x / P, p = threadIdx.x % P;
+    taps[threadIdx.x] = __ldg(c + (p * K + s % K) * N + s % N);
+  }
   const float2 z = sos::bin_phasor(m, w_scale, 0.0f);
   const float2 tn = bin_tn(t, m, M);
-  zero_row(red, kOut);
-  for (int s = 0, k = 0, n = 0; s < 2 * K * N; ++s, next_pair(k, n, K, N)) {
-    const float2 sec = horner(c + k * N + n, K * N, P, z);
-    put_projections(red, quotient(tn, sec), z);
+  __syncthreads();
+  // a runtime loop, as in the fastest design (controls/k10_designs): the
+  // loop unrolled over kGroupPasses measured 0.1-0.3 us slower
+  float2 w = make_float2(0.0f, 0.0f);
+  for (int j = 0; j < ns; ++j) {
+    const float2 v = inv_conj(horner_c<P>(taps + j * P, z));
+    w.x += v.x;
+    w.y += v.y;
   }
-  sos::store_row(red, kOut, partials + static_cast<size_t>(blockIdx.x) * kOut);
+  put_row(red, cmul(tn, w), scale, z, partials + static_cast<size_t>(blockIdx.x) * kOut);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -168,60 +222,111 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Every loop over k is unrolled over kRegK with a k < K guard, so pre[]
-// and suf[] are indexed by constants and stay in registers.
+// Every loop over k is unrolled over kRegK with a k < K guard, so sec[]
+// and pre[] are indexed by constants and stay in registers.
+template <int P>
 __global__ void __launch_bounds__(kThreads)
     phase2_ps_kernel(const float* __restrict__ t, const float* __restrict__ c,
-                     float* __restrict__ partials, int M, int P, int K, int N, float w_scale) {
+                     float* __restrict__ partials, int M, int K, int N, float scale,
+                     float w_scale) {
+  __shared__ float taps[kRegK * P];
   __shared__ float red[kWarps * kOut];
-  const int m = blockIdx.x * kThreads + threadIdx.x;
+  const int nbx = n_blocks(M);
+  const int n = blockIdx.x / nbx;
+  const int m = (blockIdx.x - n * nbx) * kThreads + threadIdx.x;
+  if (threadIdx.x < K * P) {
+    const int k = threadIdx.x / P, p = threadIdx.x % P;
+    taps[threadIdx.x] = __ldg(c + (p * K + k) * N + n);
+  }
   const float2 z = sos::bin_phasor(m, w_scale, 0.0f);
   const float2 tn = bin_tn(t, m, M);
   const float2 one = make_float2(1.0f, 0.0f);
-  const int stride = K * N;
-  zero_row(red, kOut);
-  for (int n = 0; n < N; ++n) {
-    float2 pre[kRegK + 1], suf[kRegK + 1];
-    pre[0] = one;
-    float2 prod = one;
+  __syncthreads();
+  float2 sec[kRegK], pre[kRegK];
+  float2 prod = one;
 #pragma unroll
-    for (int k = 0; k < kRegK; ++k) {
-      if (k < K) {
-        pre[k + 1] = cmul(pre[k], horner(c + k * N + n, stride, P, z));
-        prod = pre[k + 1];
-      }
-    }
-    // suf[k] = prod_{j >= k} sec_j, built from the last section down
-#pragma unroll
-    for (int k = kRegK - 1; k >= 0; --k) {
-      if (k < K) suf[k] = cmul(k + 1 < K ? suf[k + 1] : one, horner(c + k * N + n, stride, P, z));
-    }
-    const float2 tp = quotient(tn, prod);
-    for (int rep = 0; rep < 2; ++rep) {  // the b-tap and a-tap passes
-#pragma unroll
-      for (int k = 0; k < kRegK; ++k) {
-        if (k < K) {
-          const float2 q = cmul(tp, cmul(pre[k], k + 1 < K ? suf[k + 1] : one));
-          put_projections(red, q, z);
-        }
-      }
+  for (int k = 0; k < kRegK; ++k) {
+    if (k < K) {
+      pre[k] = prod;
+      sec[k] = horner_c<P>(taps + k * P, z);
+      prod = cmul(prod, sec[k]);
     }
   }
-  sos::store_row(red, kOut, partials + static_cast<size_t>(blockIdx.x) * kOut);
+  // sum_k pre_k suf_{k+1}, suf_k = prod_{j >= k} sec_j from the last down
+  float2 acc = make_float2(0.0f, 0.0f), suf = one;
+#pragma unroll
+  for (int k = kRegK - 1; k >= 0; --k) {
+    if (k < K) {
+      const float2 v = cmul(pre[k], suf);
+      acc.x += v.x;
+      acc.y += v.y;
+      suf = cmul(suf, sec[k]);
+    }
+  }
+  put_row(red, cmul(quotient(tn, prod), acc), scale, z,
+          partials + static_cast<size_t>(blockIdx.x) * kOut);
 }
 
-inline unsigned n_blocks(int M) { return static_cast<unsigned>((M + kThreads - 1) / kThreads); }
+inline int gcd(int a, int b) {
+  while (b) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  return a;
+}
 
-inline bool sizes_ok(int variant, int M, int P, int K, int N) {
-  return M >= 1 && M <= 0x7fffffff - kThreads && P >= 2 && P <= sos::kMaxP && K >= 1 &&
-         K <= (variant == kPs ? kRegK : sos::kMaxK) && N >= 1 &&
-         static_cast<long long>(2) * K * N <= 0x7fffffffLL;
+// The pass plan the wrapper hands in: full runs `passes` passes, a
+// multiple of lcm(K, N), scaled so that passes * scale = 2 K N; ps one
+// pass over k scaled by 2; noreduce and lanered all 2 K N passes.
+inline bool plan_ok(int variant, int K, int N, int passes, float scale) {
+  const long long S = 2LL * K * N;
+  const long long L = static_cast<long long>(K) / gcd(K, N) * N;
+  switch (variant) {
+    case kFull:
+      return passes >= 1 && passes % L == 0 && passes * static_cast<double>(scale) == S;
+    case kPs:
+      return passes == 1 && scale == 2.0f;
+    default:
+      return passes == S && scale == 1.0f;
+  }
+}
+
+// Partial rows (= blocks) of a launch.
+inline long long rows(int variant, int M, int N, int passes) {
+  const long long nbx = n_blocks(M);
+  if (variant == kFull) return nbx * ((passes + kGroupPasses - 1) / kGroupPasses);
+  if (variant == kPs) return nbx * N;
+  return nbx;
+}
+
+inline bool sizes_ok(int variant, int M, int P, int K, int N, int passes, float scale) {
+  return variant >= kFull && variant <= kPs && M >= 1 && M <= 0x7fffffff - kThreads && P >= 2 &&
+         P <= sos::kMaxP && K >= 1 && K <= (variant == kPs ? kRegK : sos::kMaxK) && N >= 1 &&
+         2LL * K * N <= 0x7fffffffLL && plan_ok(variant, K, N, passes, scale) &&
+         rows(variant, M, N, passes) <= 0x7fffffffLL;
+}
+
+template <int P>
+void launch_p(int variant, const float* t, const float* c, float* out, int M, int K, int N,
+              int passes, float scale, float w_scale, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(rows(variant, M, N, passes))), block(kThreads);
+  if (variant == kFull)
+    phase2_full_kernel<P><<<grid, block, 0, s>>>(t, c, out, M, K, N, passes, scale, w_scale);
+  else
+    phase2_ps_kernel<P><<<grid, block, 0, s>>>(t, c, out, M, K, N, scale, w_scale);
+}
+
+template <int P>
+const void* kernel_of(int variant) {
+  return variant == kFull ? reinterpret_cast<const void*>(&phase2_full_kernel<P>)
+                          : reinterpret_cast<const void*>(&phase2_ps_kernel<P>);
 }
 
 }  // namespace p2
 
-// One library for every size (P, K and N are runtime sizes); cuda_build
-// builds it as the library of N = 1.
+// One library for every size (P, K and N are runtime sizes; full and ps
+// have one copy a P); cuda_build builds it as the library of N = 1.
 extern "C" {
 
 int p2_threads_per_block() { return p2::kThreads; }
@@ -230,33 +335,65 @@ int p2_channels() { return 1; }
 
 const char* p2_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
-// variant: 0 full, 1 noreduce, 2 lanered, 3 ps.  partials holds one row of
-// 3 floats per block of 128 bins.
+// The partial rows of a launch (3 floats each), or kBadSize.
+int p2_rows(int variant, int M, int P, int K, int N, int passes, float scale) {
+  if (!p2::sizes_ok(variant, M, P, K, N, passes, scale)) return p2::kBadSize;
+  return static_cast<int>(p2::rows(variant, M, N, passes));
+}
+
+// variant: 0 full, 1 noreduce, 2 lanered, 3 ps; (passes, scale) the
+// wrapper's pass plan.  partials holds p2_rows(...) rows of 3 floats.
 int p2_launch(int variant, const void* t, const void* c, void* partials, int M, int P, int K,
-              int N, float w_scale, void* stream) {
-  if (!p2::sizes_ok(variant, M, P, K, N)) return p2::kBadSize;
+              int N, int passes, float scale, float w_scale, void* stream) {
+  if (!p2::sizes_ok(variant, M, P, K, N, passes, scale)) return p2::kBadSize;
   const auto* tt = static_cast<const float*>(t);
   const auto* cc = static_cast<const float*>(c);
   auto* out = static_cast<float*>(partials);
-  const dim3 grid(p2::n_blocks(M)), block(p2::kThreads);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case p2::kFull:
-      p2::phase2_full_kernel<<<grid, block, 0, s>>>(tt, cc, out, M, P, K, N, w_scale);
-      break;
-    case p2::kNoreduce:
+  if (variant == p2::kNoreduce || variant == p2::kLanered) {
+    const dim3 grid(static_cast<unsigned>(p2::n_blocks(M))), block(p2::kThreads);
+    if (variant == p2::kNoreduce)
       p2::phase2_noreduce_kernel<<<grid, block, 0, s>>>(tt, cc, out, M, P, K, N, w_scale);
-      break;
-    case p2::kLanered:
+    else
       p2::phase2_lanered_kernel<<<grid, block, 0, s>>>(tt, cc, out, M, P, K, N, w_scale);
-      break;
-    case p2::kPs:
-      p2::phase2_ps_kernel<<<grid, block, 0, s>>>(tt, cc, out, M, P, K, N, w_scale);
-      break;
-    default:
-      return p2::kBadSize;
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (P) {
+    case 2: p2::launch_p<2>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
+    case 3: p2::launch_p<3>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
+    case 4: p2::launch_p<4>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
+    case 5: p2::launch_p<5>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
+    case 6: p2::launch_p<6>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
+    case 7: p2::launch_p<7>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
+    default: p2::launch_p<8>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread and local (spill) bytes of the kernel that variant
+// launches at P taps, from cudaFuncGetAttributes; 0 or the CUDA error.
+int p2_attributes(int variant, int P, int* registers, int* local_bytes) {
+  if (P < 2 || P > sos::kMaxP || variant < p2::kFull || variant > p2::kPs) return p2::kBadSize;
+  const void* fn = nullptr;
+  switch (variant == p2::kNoreduce || variant == p2::kLanered ? 0 : P) {
+    case 0:
+      fn = variant == p2::kNoreduce ? reinterpret_cast<const void*>(&p2::phase2_noreduce_kernel)
+                                    : reinterpret_cast<const void*>(&p2::phase2_lanered_kernel);
+      break;
+    case 2: fn = p2::kernel_of<2>(variant); break;
+    case 3: fn = p2::kernel_of<3>(variant); break;
+    case 4: fn = p2::kernel_of<4>(variant); break;
+    case 5: fn = p2::kernel_of<5>(variant); break;
+    case 6: fn = p2::kernel_of<6>(variant); break;
+    case 7: fn = p2::kernel_of<7>(variant); break;
+    default: fn = p2::kernel_of<8>(variant); break;
+  }
+  cudaFuncAttributes a;
+  const cudaError_t rc = cudaFuncGetAttributes(&a, fn);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  *registers = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return 0;
 }
 
 }  // extern "C"

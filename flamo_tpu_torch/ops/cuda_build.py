@@ -105,7 +105,10 @@ _SIGNATURES = {
         "p2_threads_per_block": (_I, []),
         "p2_channels": (_I, []),
         "p2_error_string": (ctypes.c_char_p, [_I]),
-        "p2_launch": (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+        "p2_rows": (_I, [_I, _I, _I, _I, _I, _I, _F]),
+        "p2_launch": (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                           _P]),
+        "p2_attributes": (_I, [_I, _I, _P, _P]),
     }),
 }
 

@@ -16,16 +16,22 @@ TPU kernel does whatever P, and returns the (3,) vector that the JAX
 script's ``(grid, 1, 3)`` output sums to, over every bin of ``t`` and
 every pass:
 
-* ``full``: ``[sum Re q, sum Re q z, sum Re q z^2]``, three warp
-  reductions per pass, K5's structure;
-* ``noreduce``: ``[sum Re q, sum Re q z + sum Re q z^2, 0]``, per-bin
-  running sums and one reduction at the end;
-* ``lanered``: ``[T, T, T]`` with ``T`` the sum of ``full``'s three, one
-  warp reduction per pass on the pass's summed value;
+* ``full``: ``[sum Re q, sum Re q z, sum Re q z^2]``;
+* ``noreduce``: ``[sum Re q, sum Re q z + sum Re q z^2, 0]``;
+* ``lanered``: ``[T, T, T]`` with ``T`` the sum of ``full``'s three;
 * ``ps``: per channel n the prefix and suffix products of its K sections
   (taps ``c[:, k, n]``, every (k, n) pair), one guarded quotient
   ``tp = tn conj(Pi) / |Pi|^2`` of the product ``Pi``, and for two passes
   over k ``q = tp pre_k suf_{k+1}``, summed as ``full``.
+
+The TPU kernel sums ``full`` and ``ps`` with reductions a pass, and
+``lanered`` with one; ``noreduce`` keeps per-bin sums.  The CUDA kernels
+of ``noreduce`` and ``lanered`` keep those structures (one thread a bin
+over every pass) as the benchmark's measure of them.  Those of ``full``
+and ``ps`` compute the function once: :func:`pass_plan` gives the passes
+each runs and the factor its sums are scaled by, since ``full``'s passes
+repeat with period ``lcm(K, N)`` and ``ps``'s second pass over k repeats
+its first.
 
 :func:`phase2_micro` launches the variant's CUDA kernel for CUDA tensors
 (and counts the launch in :data:`LAUNCHES`) and runs
@@ -37,6 +43,7 @@ products in registers).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -84,6 +91,22 @@ def _check(variant: str, t, c) -> tuple[int, int, int]:
     if N < 1:
         raise ValueError(f"N = {N} channels; the kernels take 1 or more")
     return P, K, N
+
+
+def pass_plan(variant: str, K: int, N: int) -> tuple[int, int]:
+    """(passes, scale): the section passes a variant's CUDA kernel runs and
+    the factor it scales its sums by, ``passes * scale`` being the 2 K N
+    passes of the function.  ``full``'s pass s takes the pair
+    (s % K, s % N), which repeats with period L = lcm(K, N), so it runs
+    the L distinct pairs once and scales by 2 K N / L = 2 gcd(K, N);
+    ``ps`` runs one of its two identical passes over k and scales by 2;
+    ``noreduce`` and ``lanered`` run all 2 K N passes."""
+    if variant == "full":
+        L = math.lcm(K, N)
+        return L, 2 * K * N // L
+    if variant == "ps":
+        return 1, 2
+    return 2 * K * N, 1
 
 
 # ---------------------------------------------------------------------------
@@ -181,13 +204,27 @@ def phase2_micro(variant: str, t, c, nfft: int):
     M = t.shape[1]
     lib = cuda_build.load(1, _LIB)
     t, c = t.contiguous(), c.contiguous()
-    n_blocks = -(-M // cuda_build.threads_per_block(1, _LIB))
-    partials = torch.empty((n_blocks, 3), dtype=torch.float32,
-                           device=t.device)
+    passes, scale = pass_plan(variant, K, N)
+    v = VARIANTS.index(variant)
+    rows = lib.p2_rows(v, M, P, K, N, passes, scale)
+    if rows < 0:
+        cuda_build.check(rows, f"phase2_micro({variant!r})", 1, _LIB)
+    partials = torch.empty((rows, 3), dtype=torch.float32, device=t.device)
     with torch.cuda.device(t.device):
-        rc = lib.p2_launch(VARIANTS.index(variant), t.data_ptr(),
-                           c.data_ptr(), partials.data_ptr(), M, P, K, N,
+        rc = lib.p2_launch(v, t.data_ptr(), c.data_ptr(),
+                           partials.data_ptr(), M, P, K, N, passes, scale,
                            2.0 * math.pi / nfft, _stream(t))
     cuda_build.check(rc, f"phase2_micro({variant!r})", 1, _LIB)
     LAUNCHES[variant] += 1
     return torch.sum(partials, dim=0)
+
+
+def kernel_attributes(variant: str, P: int) -> tuple[int, int]:
+    """(registers a thread, local bytes a thread: spills) of the CUDA
+    kernel that ``variant`` launches at P taps, read from the card."""
+    lib = cuda_build.load(1, _LIB)
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    rc = lib.p2_attributes(VARIANTS.index(variant), P, ctypes.byref(regs),
+                           ctypes.byref(local))
+    cuda_build.check(rc, f"kernel_attributes({variant!r}, {P})", 1, _LIB)
+    return regs.value, local.value

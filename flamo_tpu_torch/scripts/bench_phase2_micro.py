@@ -4,9 +4,12 @@ SOS tap-cotangent loop of K5) on the CUDA card: the counterpart of
 of :mod:`flamo_tpu_torch.ops.phase2_micro` (K10).
 
 It separates the cost of the per-section arithmetic (Horner, divide,
-quotient: ``noreduce``) from that of the per-section reductions
-(``full``: three warp trees per section, K5's structure; ``lanered``: one)
-and from the prefix/suffix formulation (``ps``), at the JAX script's
+quotient: ``noreduce``, per-bin sums over every pass) from that of a
+reduction a pass (``lanered``: one warp tree a pass), and times what the
+function itself costs in its two formulations (``full``: the distinct
+section passes once, their sums in registers and one reduction a block;
+``ps``: the prefix and suffix products of each channel, one divide a
+channel), at the JAX script's
 sizes, which are K5's in the attenuated FDN: nfft = 96000, P = 3 taps,
 K = 12 sections, N = 6 channels (S = 2 K N = 144 section passes), the
 cotangent ``t`` of ones over the script's 48128 bins (48001 padded to

@@ -620,6 +620,9 @@ def test_cuda_aa_and_eig_kernels_reject_unsupported_sizes(cuda):
     (3, 12, 6, 48128, 96000, False),
     (2, 5, 3, 1000, 2000, False),
     (5, 16, 2, 4097, 8192, False),    # ps at its register limit
+    (3, 4, 6, 2048, 4096, False),     # gcd(K, N) = 2: full's passes x 4
+    (4, 7, 1, 3001, 6000, False),     # one channel
+    (8, 12, 6, 4097, 8192, False),    # the most taps full unrolls
 ])
 def test_cuda_phase2_micro_matches_plain(cuda, variant, P, K, N, M, nfft,
                                          ones):
