@@ -19,7 +19,7 @@ Phases, in order; any failure raises and exits non-zero without a result:
    sos_kernels.cu, K4f and K4b before theirs, controls/aa_kernels_prev/
    aa_kernels.cu, K8 and K9 before K9 'highest''s, and
    controls/phase2_micro_prev/phase2_micro.cu, K10's four variants before
-   full's and ps's (phase 5's controls), and prints the build time and
+   their redesign (phase 5's controls), and prints the build time and
    each library's own seconds; with --ptxas
    it compiles them all with nvcc's register report (written to
    build/ptxas_smoke.txt) and prints the registers, spills and
@@ -59,8 +59,8 @@ Phases, in order; any failure raises and exits non-zero without a result:
    results, and K7's bit-identity with its plain version printed; the
    four variants of the phase-2
    micro-benchmark K10 at its published sizes (nfft = 96000, P = 3, K = 12, N = 6, 48128 bins), on
-   its own operands (t of ones) and on a seeded random t, noreduce and
-   lanered also equal to the previous library's kernels bit for bit;
+   its own operands (t of ones) and on a seeded random t, each variant's
+   previous kernel's distance from the plain version printed;
 3. the colorless slice at full width: build_colorless_fdn(nfft=96000) on
    the card; the graph loss through K2 against the 'ge' solve, the fused
    frequency response (K3f) against Shell.get_freq_response, the
@@ -118,9 +118,7 @@ Phases, in order; any failure raises and exits non-zero without a result:
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
    at each precision, its FP32 and tensor-core kernels in the same run),
-   and K5's training variant and K7 against their aims beside the
-   kernels left on the old code (K10 noreduce and lanered) as the call's
-   control, with K7's
+   and K5's training variant and K7 against their aims, with K7's
    time at 0 and 1 iterations (its fixed cost and an iteration's); K1-K4
    and K6 also on one bin or row (``floor_ms``: one block and one bin's
    chain, the least a launch of that kernel takes), and K1 (all four
@@ -132,7 +130,7 @@ Phases, in order; any failure raises and exits non-zero without a result:
    step's own operands), K3f and K3b beside the previous libraries' in
    turns, and on one tile of 64 bins or one bin, the previous kernels'
    too, their aims printed and each held to PREVIOUS_GATE = 1.05x its
-   previous kernel; K10 full and ps likewise, beside the previous
+   previous kernel; K10's four variants likewise, beside the previous
    library's kernels and on one bin, with each K10 kernel's registers and
    local (spill) bytes read from the card;
 6. torch.profiler traces of a few training steps of each path (and of a
@@ -242,8 +240,9 @@ DK_B, DK_ITERS = 1601, 96
 # and the gate against the previous kernel in the same call
 K9_HIGHEST_AIM, K2_AIM, PREVIOUS_GATE = 0.100, 0.0038, 1.05
 K3F_AIM, K3B_AIM = 0.0040, 0.0050
-# K10's redesigned variants and their aims (device ms), and ps's stretch
-K10_REDESIGNED = {"full": 0.005, "ps": 0.010}
+# K10's variants and their aims (device ms), and ps's stretch
+K10_AIMS = {"full": 0.005, "noreduce": 0.0040, "lanered": 0.0050,
+            "ps": 0.010}
 K10_PS_STRETCH = 0.005
 K2_RAGGED = (33, 4097, M_MAIN)  # phase 2's bin counts for K2's and K3's
 K3_NS = (3, 5, N_MAIN)  # K3's channel counts in phase 2: odd N moves float2s
@@ -914,7 +913,7 @@ def phase_build(ptxas: bool = False) -> str:
 
 def print_ptxas(report: str) -> None:
     """Registers and spills of the K1, K2, K3f, K3b, K4f, K4b, K5, K6, K7,
-    K9 and K10 instantiations (K10 full's and ps's at P = 3) from nvcc's
+    K9 and K10 instantiations (K10's at P = 3) from nvcc's
     -Xptxas -v report (the previous libraries' tagged as such), with the
     warps an SM that the registers allow."""
     name, spills, tag, k4 = None, "", "", {}
@@ -939,7 +938,7 @@ def print_ptxas(report: str) -> None:
         targs = re.findall(r"L[ib](\d+)E", name)
         regs = int(used.group(1))
         if kernel.startswith("phase2") and targs and targs != [str(P_MAIN)]:
-            continue  # K10 full's and ps's copies for the other P
+            continue  # K10's copies for the other P
         if kernel.startswith("sos_cascade") and targs:
             # K4's 64 copies a kernel: the main path's, and the most
             # registers and any spill over all of them
@@ -1649,8 +1648,8 @@ def phase_kernels_aa(o, errs: dict, previous) -> None:
 def phase_kernels_p2(errs: dict, previous) -> dict:
     """The four K10 variants against their plain versions at the
     micro-benchmark's sizes, on its operands and on a seeded random t,
-    noreduce and lanered also against the previous library's kernels bit
-    for bit (full's and ps's distance from theirs printed); adds each
+    each beside the previous library's kernel (its distance from the
+    plain version printed); adds each
     variant's max abs error to ``errs`` and returns its kernel value on
     the benchmark's operands."""
     t1, c = p2bench.inputs("cuda")
@@ -1673,15 +1672,11 @@ def phase_kernels_p2(errs: dict, previous) -> dict:
                   f"{rel:.3e} of the terms' magnitudes (tol {P2_TOL:g})")
             check(rel <= P2_TOL, f"K10 {v} ({label}): {rel:.3e} > {P2_TOL}")
             old = previous.phase2(v, t, c, p2bench.NFFT)
-            if v in ("noreduce", "lanered"):
-                check(torch.equal(got, old), f"K10 {v} ({label}): "
-                      f"{got.tolist()}, the previous kernel {old.tolist()}")
-                print(f"  K10 {v} ({label}): equal to the previous kernel")
-            else:
-                print(f"  K10 {v} ({label}): the previous kernel "
-                      f"{old.tolist()}, "
-                      f"{float(((old - ref).abs() / scale).max()):.3e} of "
-                      f"the terms' magnitudes from the plain version")
+            old_rel = float(((old - ref).abs()
+                             / scale.clamp_min(1e-30)).max())
+            print(f"  K10 {v} ({label}): the previous kernel "
+                  f"{old.tolist()}, {old_rel:.3e} of the terms' magnitudes "
+                  "from the plain version")
             e.append(float(err.max()))
             if label == "t of ones":
                 values[v] = got
@@ -2421,31 +2416,27 @@ def phase_timing(o, launches, errs, card, previous) -> list:
                   f"with_dbar={with_dbar}: kernel {ms_v:.4f} ms{extra}, "
                   f"bound {bms:.5f} ms ({by})")
     # K10 on the micro-benchmark's operands; no PyTorch call computes it.
-    # full and ps beside the previous kernels and on one bin (their floor:
-    # full's pass groups or ps's channels, a block each, one bin's chain)
+    # each variant beside its previous kernel and on one bin (its floor:
+    # the pass groups or ps's channels, a block each, one bin's chain)
     t, c = p2bench.inputs("cuda")
     nfft = p2bench.NFFT
     t_one = t[:, :1].contiguous()
     p2_rows = []
     for v in pm.VARIANTS:
-        redesigned = v in K10_REDESIGNED
         p2_rows.append(timing_row(
             f"phase2_{v}", f"phase2_{v}", t.shape[1],
             lambda v=v: pm.phase2_micro(v, t, c, nfft),
             lambda v=v: pm.phase2_micro_plain(v, t, c, nfft), None,
             dict(K=p2bench.K, P=p2bench.P), launches, errs, N=p2bench.N,
             plain_reps=2,
-            floor=(lambda v=v: pm.phase2_micro(v, t_one, c, nfft))
-            if redesigned else None,
-            previous=(lambda v=v: previous.phase2(v, t, c, nfft))
-            if redesigned else None))
+            floor=lambda v=v: pm.phase2_micro(v, t_one, c, nfft),
+            previous=lambda v=v: previous.phase2(v, t, c, nfft)))
         row = p2_rows[-1]
         row["registers"], row["local_bytes"] = pm.kernel_attributes(
             v, p2bench.P)
-        if redesigned:
-            row["previous_floor_ms"] = device_ms(
-                lambda v=v: previous.phase2(v, t_one, c, nfft),
-                f"phase2_{v}_kernel")
+        row["previous_floor_ms"] = device_ms(
+            lambda v=v: previous.phase2(v, t_one, c, nfft),
+            f"phase2_{v}_kernel")
     print("  K10 registers a thread (local bytes a thread: stack and spills) "
           "at P = "
           f"{p2bench.P}: " + ", ".join(
@@ -2571,15 +2562,12 @@ def phase_timing(o, launches, errs, card, previous) -> list:
                           ("K5 training variant", "fdn_sos_tf_mse", 0.035),
                           ("K7", "dk_roots", 0.012)))
           + "; controls on the old code: the previous libraries' K1, K2, "
-          "K3f, K3b, K6, K4f, K4b, K9, K10 full and ps (previous_ms above) "
-          "and K10 " + ", ".join(f"{v} {by[f'phase2_{v}']['ms']:.6f}"
-                                 for v in pm.VARIANTS
-                                 if v not in K10_REDESIGNED))
+          "K3f, K3b, K6, K4f, K4b, K9 and K10 (previous_ms above)")
     return rows
 
 
 def redesigned_last(by: dict) -> None:
-    """K9 'highest', K2 both ways, K3f, K3b and K10 full and ps beside
+    """K9 'highest', K2 both ways, K3f, K3b and K10's four variants beside
     their previous kernels in this call: their aims printed, and each held
     to PREVIOUS_GATE times the previous kernel's time."""
     r9, r2 = by[K9_ROWS["highest"]], by["fdn_solve"]
@@ -2597,7 +2585,7 @@ def redesigned_last(by: dict) -> None:
               for label, n, aim in (("K3f", "fdn_tf_fwd", K3F_AIM),
                                     ("K3b", "fdn_tf_bwd", K3B_AIM),
                                     *((f"K10 {v}", f"phase2_{v}", aim)
-                                      for v, aim in K10_REDESIGNED.items()))]
+                                      for v, aim in K10_AIMS.items()))]
     for label, ms, prev, floor, prev_floor, bms, aim in cases:
         ratio = ms / prev
         print(f"  {label}: {ms:.6f} ms against the aim {aim:.4f}: "

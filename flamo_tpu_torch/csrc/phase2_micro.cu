@@ -8,10 +8,10 @@
 // scripts/bench_phase2_micro.py (pallas_call at :149), which isolate the
 // tap-cotangent phase of K5 (_fdn_sos_tf_mse_kernel; sos_kernels.cu's
 // tap_partials):
-//   phase2_full_kernel<P>  <- 'full'
-//   phase2_noreduce_kernel <- 'noreduce'
-//   phase2_lanered_kernel  <- 'lanered'
-//   phase2_ps_kernel<P>    <- 'ps'
+//   phase2_full_kernel<P>     <- 'full'
+//   phase2_noreduce_kernel<P> <- 'noreduce'
+//   phase2_lanered_kernel<P>  <- 'lanered'
+//   phase2_ps_kernel<P>       <- 'ps'
 //
 // t is (2, M) float32 (re row, then im row); taps c (P, K, N) float32,
 // row-major; z = e^{-j w}, w = (2 pi / nfft) m, and tn = t[0, m] + j t[1, m]
@@ -25,22 +25,25 @@
 // Every variant projects q on z^0, z^1 and z^2, as the TPU kernel does
 // (its zs = [z, z^2]), whatever P.
 //
-//   full:     [sum Re q, sum Re q z, sum Re q z^2].  The passes repeat
-//             with period L = lcm(K, N), each repeat giving the same q, so
-//             the kernel runs the L distinct passes once and scales by
-//             r = 2 K N / L (the wrapper's pass plan: passes, scale).  A
-//             thread takes one bin and a group of kGroupPasses passes; the
-//             groups lie side by side in the grid, each block staging its
-//             group's taps in shared memory.  The sums are linear in q, so
-//             a thread adds W = sum conj(sec) / |sec|^2 over its passes,
-//             forms tn W r and its three projections once, and the block
-//             reduces them once into its row.
-//   noreduce: [sum Re q, sum Re q z + sum Re q z^2, 0]; one thread a bin
-//             over all S passes, two register accumulators per thread,
-//             one block reduction at the end.
-//   lanered:  [T, T, T], T = the sum of full's three; one thread a bin,
-//             one warp tree per pass on the pass's summed value, the
-//             cross-warp sum deferred.
+// full, noreduce and lanered share one body (pass_sums<P, V>).  The passes
+// repeat with period L = lcm(K, N), each repeat giving the same q, so they
+// run the L distinct passes once and scale by r = 2 K N / L (the wrapper's
+// pass plan: passes, scale).  A thread takes one bin and a group of
+// kGroupPasses passes; the groups lie side by side in the grid, each block
+// staging its group's taps in shared memory.  The sums are linear in q =
+// tn u, u = conj(sec) / |sec|^2:
+//   full:     [sum Re q, sum Re q z, sum Re q z^2].  A thread adds
+//             W = sum u over its passes in registers, forms Q = tn W r and
+//             its three projections once, and the block reduces them once
+//             into its row.
+//   noreduce: [sum Re q, sum Re q z + sum Re q z^2, 0]: as full, per-bin
+//             running sums over every pass and no reduction before the one
+//             block sum, of two values (Re Q, Re Q z + Re Q z^2) and a 0.
+//   lanered:  [T, T, T], T = the sum of full's three = sum Re(u tz) with
+//             tz = tn (1 + z + z^2) formed once a bin: one warp tree a pass
+//             on Re(u tz), lane 0 adding it to its warp's slot in shared
+//             memory, and the cross-warp sum deferred to the end, scaled
+//             by r (the benchmark's measure of a reduction a pass).
 //   ps:       as full, over every (k, n) pair: a thread takes one bin and
 //             one channel n (the channels side by side in the grid, a
 //             block's K sections' taps staged), forms each section's
@@ -55,9 +58,9 @@
 // Horner 14, |sec|^2 3, the reciprocal, its conjugate product and the sum
 // of W) against 8 bytes of t; ps ~430 FLOP a bin and channel.  The kernels
 // before this design (controls/phase2_micro_prev) ran one thread a bin
-// over all 144 passes with three warp trees a pass; noreduce and lanered
-// keep that frame as the benchmark's measure of the per-pass reductions.
-// P is a template argument of full and ps (2..8), so Horner unrolls and
+// over all 144 passes, with a runtime P reading the taps through L1, q
+// formed and projected every pass, and full's three warp trees a pass.
+// P is a template argument of every kernel (2..8), so Horner unrolls and
 // reads the staged taps at fixed offsets; K stays a runtime bound under a
 // guarded unroll to kRegK in ps, whose products live in registers.
 
@@ -69,14 +72,13 @@ namespace p2 {
 
 using sos::cabs2;
 using sos::cmul;
-using sos::horner;
 using sos::kThreads;
 using sos::kWarps;
 
 constexpr int kBadSize = -2;
 constexpr int kOut = 3;           // sums per block row: projections on z^0, z^1, z^2
 constexpr int kRegK = 16;         // ps keeps its products in registers up to here
-constexpr int kGroupPasses = 12;  // full: distinct passes a thread
+constexpr int kGroupPasses = 12;  // full, noreduce, lanered: distinct passes a thread
 enum Variant { kFull = 0, kNoreduce = 1, kLanered = 2, kPs = 3 };
 
 // tn conj(sec) / |sec|^2, 0 where |sec|^2 = 0
@@ -96,20 +98,8 @@ __device__ __forceinline__ float2 inv_conj(float2 sec) {
   return ok ? make_float2(sec.x * inv, -sec.y * inv) : make_float2(0.0f, 0.0f);
 }
 
-// Lane 0 zeroes its warp's row (only it touches the row until store_row).
-__device__ __forceinline__ void zero_row(float* red, int nv) {
-  if ((threadIdx.x & 31) == 0)
-    for (int v = 0; v < nv; ++v) red[(threadIdx.x >> 5) * nv + v] = 0.0f;
-}
-
 __device__ __forceinline__ float2 bin_tn(const float* __restrict__ t, int m, int M) {
   return m < M ? make_float2(__ldg(t + m), __ldg(t + M + m)) : make_float2(0.0f, 0.0f);
-}
-
-// (k, n) = (s % K, s % N) of the next pass, without integer divisions
-__device__ __forceinline__ void next_pair(int& k, int& n, int K, int N) {
-  k = k + 1 == K ? 0 : k + 1;
-  n = n + 1 == N ? 0 : n + 1;
 }
 
 // sum_p taps[p] z^p by Horner from the top tap, P known at compile time
@@ -125,26 +115,35 @@ __device__ __forceinline__ float2 horner_c(const float* taps, float2 z) {
 }
 
 // A thread's (re, im) sum Q scaled by r, projected on z^0, z^1, z^2 and
-// summed over the block into its row (one warp tree a value, once).
+// summed over the block into its row (one warp tree a value, once): full
+// and ps (Re Q, Re Q z, Re Q z^2), noreduce (Re Q, Re Q z + Re Q z^2, 0),
+// its 0 parked by lane 0 in the warp's row (0.05-0.06 us faster than a
+// 2-wide row with the 0 stored apart in controls/k10_nl_designs).
+template <int V = kFull>
 __device__ __forceinline__ void put_row(float* red, float2 q, float r, float2 z,
                                         float* __restrict__ row) {
   q = make_float2(q.x * r, q.y * r);
   const float2 z2 = cmul(z, z);
   sos::put(red, kOut, 0, q.x);
-  sos::put(red, kOut, 1, q.x * z.x - q.y * z.y);
-  sos::put(red, kOut, 2, q.x * z2.x - q.y * z2.y);
+  if constexpr (V == kNoreduce) {
+    sos::put(red, kOut, 1, (q.x * z.x - q.y * z.y) + (q.x * z2.x - q.y * z2.y));
+    if ((threadIdx.x & 31) == 0) red[(threadIdx.x >> 5) * kOut + 2] = 0.0f;
+  } else {
+    sos::put(red, kOut, 1, q.x * z.x - q.y * z.y);
+    sos::put(red, kOut, 2, q.x * z2.x - q.y * z2.y);
+  }
   sos::store_row(red, kOut, row);
 }
 
 __host__ __device__ inline int n_blocks(int M) { return (M + kThreads - 1) / kThreads; }
 
-// Blocks are (group, bin block) with the bin blocks fastest: group g of
-// full's passes, or ps's channel n.
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-    phase2_full_kernel(const float* __restrict__ t, const float* __restrict__ c,
-                       float* __restrict__ partials, int M, int K, int N, int passes,
-                       float scale, float w_scale) {
+// The body of full, noreduce and lanered (V).  Blocks are (pass group g,
+// bin block) with the bin blocks fastest.
+template <int P, int V>
+__device__ __forceinline__ void pass_sums(const float* __restrict__ t,
+                                          const float* __restrict__ c,
+                                          float* __restrict__ partials, int M, int K, int N,
+                                          int passes, float scale, float w_scale) {
   __shared__ float taps[kGroupPasses * P];
   __shared__ float red[kWarps * kOut];
   const int nbx = n_blocks(M);
@@ -152,74 +151,67 @@ __global__ void __launch_bounds__(kThreads)
   const int m = (blockIdx.x - g * nbx) * kThreads + threadIdx.x;
   const int s0 = g * kGroupPasses;
   const int ns = min(kGroupPasses, passes - s0);
+  float* const row = partials + static_cast<size_t>(blockIdx.x) * kOut;
   if (threadIdx.x < ns * P) {
     const int s = s0 + threadIdx.x / P, p = threadIdx.x % P;
     taps[threadIdx.x] = __ldg(c + (p * K + s % K) * N + s % N);
   }
   const float2 z = sos::bin_phasor(m, w_scale, 0.0f);
   const float2 tn = bin_tn(t, m, M);
-  __syncthreads();
-  // a runtime loop, as in the fastest design (controls/k10_designs): the
-  // loop unrolled over kGroupPasses measured 0.1-0.3 us slower
-  float2 w = make_float2(0.0f, 0.0f);
-  for (int j = 0; j < ns; ++j) {
-    const float2 v = inv_conj(horner_c<P>(taps + j * P, z));
-    w.x += v.x;
-    w.y += v.y;
+  if constexpr (V == kLanered) {
+    // Re q + Re q z + Re q z^2 = Re(u tz), tz = tn (1 + z + z^2); lane 0
+    // zeroes its warp's slot (only it touches the slot until the end)
+    const float2 z2 = cmul(z, z);
+    const float2 tz = cmul(tn, make_float2(1.0f + z.x + z2.x, z.y + z2.y));
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = 0.0f;
+    __syncthreads();
+    for (int j = 0; j < ns; ++j) {
+      const float2 u = inv_conj(horner_c<P>(taps + j * P, z));
+      sos::put(red, 1, 0, u.x * tz.x - u.y * tz.y, true);
+    }
+    __syncthreads();
+    if (threadIdx.x < kOut) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += red[w];
+      row[threadIdx.x] = sum * scale;
+    }
+  } else {
+    __syncthreads();
+    // a runtime loop, as in the fastest design (controls/k10_designs): the
+    // loop unrolled over kGroupPasses measured 0.1-0.3 us slower
+    float2 w = make_float2(0.0f, 0.0f);
+    for (int j = 0; j < ns; ++j) {
+      const float2 v = inv_conj(horner_c<P>(taps + j * P, z));
+      w.x += v.x;
+      w.y += v.y;
+    }
+    put_row<V>(red, cmul(tn, w), scale, z, row);
   }
-  put_row(red, cmul(tn, w), scale, z, partials + static_cast<size_t>(blockIdx.x) * kOut);
 }
 
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    phase2_full_kernel(const float* __restrict__ t, const float* __restrict__ c,
+                       float* __restrict__ partials, int M, int K, int N, int passes,
+                       float scale, float w_scale) {
+  pass_sums<P, kFull>(t, c, partials, M, K, N, passes, scale, w_scale);
+}
+
+template <int P>
 __global__ void __launch_bounds__(kThreads)
     phase2_noreduce_kernel(const float* __restrict__ t, const float* __restrict__ c,
-                           float* __restrict__ partials, int M, int P, int K, int N,
-                           float w_scale) {
-  __shared__ float red[kWarps * kOut];
-  const int m = blockIdx.x * kThreads + threadIdx.x;
-  const float2 z = sos::bin_phasor(m, w_scale, 0.0f);
-  const float2 tn = bin_tn(t, m, M);
-  float accr = 0.0f, acci = 0.0f;
-  for (int s = 0, k = 0, n = 0; s < 2 * K * N; ++s, next_pair(k, n, K, N)) {
-    float2 q = quotient(tn, horner(c + k * N + n, K * N, P, z));
-    accr += q.x;
-#pragma unroll
-    for (int p = 1; p < kOut; ++p) {
-      q = cmul(q, z);
-      acci += q.x;
-    }
-  }
-  sos::put(red, kOut, 0, accr);
-  sos::put(red, kOut, 1, acci);
-  if ((threadIdx.x & 31) == 0) red[(threadIdx.x >> 5) * kOut + 2] = 0.0f;
-  sos::store_row(red, kOut, partials + static_cast<size_t>(blockIdx.x) * kOut);
+                           float* __restrict__ partials, int M, int K, int N, int passes,
+                           float scale, float w_scale) {
+  pass_sums<P, kNoreduce>(t, c, partials, M, K, N, passes, scale, w_scale);
 }
 
+template <int P>
 __global__ void __launch_bounds__(kThreads)
     phase2_lanered_kernel(const float* __restrict__ t, const float* __restrict__ c,
-                          float* __restrict__ partials, int M, int P, int K, int N,
-                          float w_scale) {
-  __shared__ float red[kWarps];
-  const int m = blockIdx.x * kThreads + threadIdx.x;
-  const float2 z = sos::bin_phasor(m, w_scale, 0.0f);
-  const float2 tn = bin_tn(t, m, M);
-  zero_row(red, 1);
-  for (int s = 0, k = 0, n = 0; s < 2 * K * N; ++s, next_pair(k, n, K, N)) {
-    float2 q = quotient(tn, horner(c + k * N + n, K * N, P, z));
-    float v = q.x;
-#pragma unroll
-    for (int p = 1; p < kOut; ++p) {
-      q = cmul(q, z);
-      v += q.x;
-    }
-    sos::put(red, 1, 0, v, true);
-  }
-  __syncthreads();
-  if (threadIdx.x < kOut) {
-    float sum = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[w];
-    partials[static_cast<size_t>(blockIdx.x) * kOut + threadIdx.x] = sum;
-  }
+                          float* __restrict__ partials, int M, int K, int N, int passes,
+                          float scale, float w_scale) {
+  pass_sums<P, kLanered>(t, c, partials, M, K, N, passes, scale, w_scale);
 }
 
 // Every loop over k is unrolled over kRegK with a k < K guard, so sec[]
@@ -227,8 +219,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int P>
 __global__ void __launch_bounds__(kThreads)
     phase2_ps_kernel(const float* __restrict__ t, const float* __restrict__ c,
-                     float* __restrict__ partials, int M, int K, int N, float scale,
-                     float w_scale) {
+                     float* __restrict__ partials, int M, int K, int N, int passes,
+                     float scale, float w_scale) {
   __shared__ float taps[kRegK * P];
   __shared__ float red[kWarps * kOut];
   const int nbx = n_blocks(M);
@@ -276,28 +268,21 @@ inline int gcd(int a, int b) {
   return a;
 }
 
-// The pass plan the wrapper hands in: full runs `passes` passes, a
-// multiple of lcm(K, N), scaled so that passes * scale = 2 K N; ps one
-// pass over k scaled by 2; noreduce and lanered all 2 K N passes.
+// The pass plan the wrapper hands in: full, noreduce and lanered run
+// `passes` passes, a multiple of lcm(K, N), scaled so that passes * scale
+// = 2 K N; ps one pass over k scaled by 2.
 inline bool plan_ok(int variant, int K, int N, int passes, float scale) {
+  if (variant == kPs) return passes == 1 && scale == 2.0f;
   const long long S = 2LL * K * N;
   const long long L = static_cast<long long>(K) / gcd(K, N) * N;
-  switch (variant) {
-    case kFull:
-      return passes >= 1 && passes % L == 0 && passes * static_cast<double>(scale) == S;
-    case kPs:
-      return passes == 1 && scale == 2.0f;
-    default:
-      return passes == S && scale == 1.0f;
-  }
+  return passes >= 1 && passes % L == 0 && passes * static_cast<double>(scale) == S;
 }
 
 // Partial rows (= blocks) of a launch.
 inline long long rows(int variant, int M, int N, int passes) {
   const long long nbx = n_blocks(M);
-  if (variant == kFull) return nbx * ((passes + kGroupPasses - 1) / kGroupPasses);
   if (variant == kPs) return nbx * N;
-  return nbx;
+  return nbx * ((passes + kGroupPasses - 1) / kGroupPasses);
 }
 
 inline bool sizes_ok(int variant, int M, int P, int K, int N, int passes, float scale) {
@@ -307,26 +292,36 @@ inline bool sizes_ok(int variant, int M, int P, int K, int N, int passes, float 
          rows(variant, M, N, passes) <= 0x7fffffffLL;
 }
 
-template <int P>
-void launch_p(int variant, const float* t, const float* c, float* out, int M, int K, int N,
-              int passes, float scale, float w_scale, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>(rows(variant, M, N, passes))), block(kThreads);
-  if (variant == kFull)
-    phase2_full_kernel<P><<<grid, block, 0, s>>>(t, c, out, M, K, N, passes, scale, w_scale);
-  else
-    phase2_ps_kernel<P><<<grid, block, 0, s>>>(t, c, out, M, K, N, scale, w_scale);
-}
+// the four kernels' one signature (ps takes passes and ignores it)
+using Kernel = void (*)(const float*, const float*, float*, int, int, int, int, float, float);
 
 template <int P>
-const void* kernel_of(int variant) {
-  return variant == kFull ? reinterpret_cast<const void*>(&phase2_full_kernel<P>)
-                          : reinterpret_cast<const void*>(&phase2_ps_kernel<P>);
+Kernel kernel_of(int variant) {
+  switch (variant) {
+    case kFull: return &phase2_full_kernel<P>;
+    case kNoreduce: return &phase2_noreduce_kernel<P>;
+    case kLanered: return &phase2_lanered_kernel<P>;
+    default: return &phase2_ps_kernel<P>;
+  }
+}
+
+// The kernel that variant launches at P taps (P in 2..kMaxP).
+inline Kernel kernel_at(int variant, int P) {
+  switch (P) {
+    case 2: return kernel_of<2>(variant);
+    case 3: return kernel_of<3>(variant);
+    case 4: return kernel_of<4>(variant);
+    case 5: return kernel_of<5>(variant);
+    case 6: return kernel_of<6>(variant);
+    case 7: return kernel_of<7>(variant);
+    default: return kernel_of<8>(variant);
+  }
 }
 
 }  // namespace p2
 
-// One library for every size (P, K and N are runtime sizes; full and ps
-// have one copy a P); cuda_build builds it as the library of N = 1.
+// One library for every size (P, K and N are runtime sizes; each variant
+// has one copy a P); cuda_build builds it as the library of N = 1.
 extern "C" {
 
 int p2_threads_per_block() { return p2::kThreads; }
@@ -346,27 +341,11 @@ int p2_rows(int variant, int M, int P, int K, int N, int passes, float scale) {
 int p2_launch(int variant, const void* t, const void* c, void* partials, int M, int P, int K,
               int N, int passes, float scale, float w_scale, void* stream) {
   if (!p2::sizes_ok(variant, M, P, K, N, passes, scale)) return p2::kBadSize;
-  const auto* tt = static_cast<const float*>(t);
-  const auto* cc = static_cast<const float*>(c);
-  auto* out = static_cast<float*>(partials);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (variant == p2::kNoreduce || variant == p2::kLanered) {
-    const dim3 grid(static_cast<unsigned>(p2::n_blocks(M))), block(p2::kThreads);
-    if (variant == p2::kNoreduce)
-      p2::phase2_noreduce_kernel<<<grid, block, 0, s>>>(tt, cc, out, M, P, K, N, w_scale);
-    else
-      p2::phase2_lanered_kernel<<<grid, block, 0, s>>>(tt, cc, out, M, P, K, N, w_scale);
-    return static_cast<int>(cudaGetLastError());
-  }
-  switch (P) {
-    case 2: p2::launch_p<2>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
-    case 3: p2::launch_p<3>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
-    case 4: p2::launch_p<4>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
-    case 5: p2::launch_p<5>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
-    case 6: p2::launch_p<6>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
-    case 7: p2::launch_p<7>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
-    default: p2::launch_p<8>(variant, tt, cc, out, M, K, N, passes, scale, w_scale, s); break;
-  }
+  const dim3 grid(static_cast<unsigned>(p2::rows(variant, M, N, passes))), block(p2::kThreads);
+  const p2::Kernel kernel = p2::kernel_at(variant, P);
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(t), static_cast<const float*>(c), static_cast<float*>(partials), M,
+      K, N, passes, scale, w_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -374,22 +353,9 @@ int p2_launch(int variant, const void* t, const void* c, void* partials, int M, 
 // launches at P taps, from cudaFuncGetAttributes; 0 or the CUDA error.
 int p2_attributes(int variant, int P, int* registers, int* local_bytes) {
   if (P < 2 || P > sos::kMaxP || variant < p2::kFull || variant > p2::kPs) return p2::kBadSize;
-  const void* fn = nullptr;
-  switch (variant == p2::kNoreduce || variant == p2::kLanered ? 0 : P) {
-    case 0:
-      fn = variant == p2::kNoreduce ? reinterpret_cast<const void*>(&p2::phase2_noreduce_kernel)
-                                    : reinterpret_cast<const void*>(&p2::phase2_lanered_kernel);
-      break;
-    case 2: fn = p2::kernel_of<2>(variant); break;
-    case 3: fn = p2::kernel_of<3>(variant); break;
-    case 4: fn = p2::kernel_of<4>(variant); break;
-    case 5: fn = p2::kernel_of<5>(variant); break;
-    case 6: fn = p2::kernel_of<6>(variant); break;
-    case 7: fn = p2::kernel_of<7>(variant); break;
-    default: fn = p2::kernel_of<8>(variant); break;
-  }
   cudaFuncAttributes a;
-  const cudaError_t rc = cudaFuncGetAttributes(&a, fn);
+  const cudaError_t rc =
+      cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(p2::kernel_at(variant, P)));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   *registers = a.numRegs;
   *local_bytes = static_cast<int>(a.localSizeBytes);

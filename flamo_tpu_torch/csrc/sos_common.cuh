@@ -4,9 +4,8 @@
 // The phasor is made per bin from the bin index, in float32 as the TPU
 // kernels' _bin_phasor (flamo_tpu/ops/pallas_solve.py):
 // w = (2 pi / nfft) (m + off), with the accurate sincosf (near m = nfft/2
-// the angle is close to pi, where the fast intrinsics lose digits).  A
-// section's response is the Horner sum of its P real taps at z.  Sums over
-// bins are reduced one warp shuffle tree per value into a shared-memory
+// the angle is close to pi, where the fast intrinsics lose digits).  Sums
+// over bins are reduced one warp shuffle tree per value into a shared-memory
 // row per warp, then one row per block.
 #pragma once
 
@@ -27,17 +26,6 @@ __device__ __forceinline__ float2 bin_phasor(int m, float w_scale, float off) {
   float s, c;
   sincosf(w, &s, &c);
   return make_float2(c, -s);
-}
-
-// sum_p c[p * stride] z^p by Horner, from the highest tap down
-__device__ __forceinline__ float2 horner(const float* __restrict__ c, int stride, int P,
-                                         float2 z) {
-  float2 out = make_float2(__ldg(c + (P - 1) * stride), 0.0f);
-  for (int p = P - 2; p >= 0; --p) {
-    out = cmul(out, z);
-    out.x += __ldg(c + p * stride);
-  }
-  return out;
 }
 
 // Sum one per-thread value over the warp; lane 0 parks it in the warp's

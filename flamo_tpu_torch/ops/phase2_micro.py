@@ -26,12 +26,13 @@ every pass:
 
 The TPU kernel sums ``full`` and ``ps`` with reductions a pass, and
 ``lanered`` with one; ``noreduce`` keeps per-bin sums.  The CUDA kernels
-of ``noreduce`` and ``lanered`` keep those structures (one thread a bin
-over every pass) as the benchmark's measure of them.  Those of ``full``
-and ``ps`` compute the function once: :func:`pass_plan` gives the passes
-each runs and the factor its sums are scaled by, since ``full``'s passes
-repeat with period ``lcm(K, N)`` and ``ps``'s second pass over k repeats
-its first.
+of ``noreduce`` and ``lanered`` keep those structures as the benchmark's
+measure of them (per-bin running sums with one block sum at the end; one
+warp tree a pass with the cross-warp sum deferred).  All four run each
+distinct pass once: :func:`pass_plan` gives the passes each runs and the
+factor its sums are scaled by, since the passes of ``full``,
+``noreduce`` and ``lanered`` repeat with period ``lcm(K, N)`` and
+``ps``'s second pass over k repeats its first.
 
 :func:`phase2_micro` launches the variant's CUDA kernel for CUDA tensors
 (and counts the launch in :data:`LAUNCHES`) and runs
@@ -96,17 +97,15 @@ def _check(variant: str, t, c) -> tuple[int, int, int]:
 def pass_plan(variant: str, K: int, N: int) -> tuple[int, int]:
     """(passes, scale): the section passes a variant's CUDA kernel runs and
     the factor it scales its sums by, ``passes * scale`` being the 2 K N
-    passes of the function.  ``full``'s pass s takes the pair
-    (s % K, s % N), which repeats with period L = lcm(K, N), so it runs
-    the L distinct pairs once and scales by 2 K N / L = 2 gcd(K, N);
-    ``ps`` runs one of its two identical passes over k and scales by 2;
-    ``noreduce`` and ``lanered`` run all 2 K N passes."""
-    if variant == "full":
-        L = math.lcm(K, N)
-        return L, 2 * K * N // L
+    passes of the function.  Pass s of ``full``, ``noreduce`` and
+    ``lanered`` takes the pair (s % K, s % N), which repeats with period
+    L = lcm(K, N), so they run the L distinct pairs once and scale by
+    2 K N / L = 2 gcd(K, N); ``ps`` runs one of its two identical passes
+    over k and scales by 2."""
     if variant == "ps":
         return 1, 2
-    return 2 * K * N, 1
+    L = math.lcm(K, N)
+    return L, 2 * K * N // L
 
 
 # ---------------------------------------------------------------------------

@@ -3,18 +3,19 @@ SOS tap-cotangent loop of K5) on the CUDA card: the counterpart of
 ``scripts/bench_phase2_micro.py``, through the four hand-written kernels
 of :mod:`flamo_tpu_torch.ops.phase2_micro` (K10).
 
-It separates the cost of the per-section arithmetic (Horner, divide,
-quotient: ``noreduce``, per-bin sums over every pass) from that of a
-reduction a pass (``lanered``: one warp tree a pass), and times what the
-function itself costs in its two formulations (``full``: the distinct
-section passes once, their sums in registers and one reduction a block;
-``ps``: the prefix and suffix products of each channel, one divide a
-channel), at the JAX script's
-sizes, which are K5's in the attenuated FDN: nfft = 96000, P = 3 taps,
-K = 12 sections, N = 6 channels (S = 2 K N = 144 section passes), the
-cotangent ``t`` of ones over the script's 48128 bins (48001 padded to
-whole 1024-bin tiles, so bins past Nyquist are summed too) and taps
-uniform in [0.5, 1.5) from seed 0.
+Every variant runs the distinct section passes once.  It separates the
+cost of the per-section arithmetic (Horner, divide: ``noreduce``, per-bin
+sums over every pass and one reduction a block) from that of a reduction
+a pass (``lanered``: one warp tree a pass, the cross-warp sum deferred),
+and times what the function itself costs in its two formulations
+(``full``: the sums in registers and one reduction a block of three
+values; ``ps``: the prefix and suffix products of each channel, one
+divide a channel), at the JAX script's sizes, which are K5's in the
+attenuated FDN: nfft = 96000, P = 3 taps, K = 12 sections, N = 6
+channels (S = 2 K N = 144 section passes), the cotangent ``t`` of ones
+over the script's 48128 bins (48001 padded to whole 1024-bin tiles, so
+bins past Nyquist are summed too) and taps uniform in [0.5, 1.5) from
+seed 0.
 
 Run on the card (it times by CUDA events, so it needs one):
 

@@ -642,6 +642,29 @@ def test_cuda_phase2_micro_matches_plain(cuda, variant, P, K, N, M, nfft,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", ("full", "noreduce", "lanered"))
+@pytest.mark.parametrize("P,K,N,M,nfft", [
+    (2, 64, 7, 3001, 6000),   # lcm 448: 38 pass groups, the last of 4
+    (8, 64, 7, 2048, 4096),
+    (6, 24, 9, 1500, 3000),   # lcm 72: 6 groups, scaled by 6
+])
+def test_cuda_phase2_micro_pass_groups_match_plain(cuda, variant, P, K, N,
+                                                   M, nfft):
+    """The distinct-pass variants over plans of several pass groups, at
+    the fewest and the most taps; two launches give the same partials."""
+    rng = np.random.default_rng(P * K * N + M)
+    t = torch.tensor(rng.normal(size=(2, M)).astype(np.float32),
+                     device="cuda")
+    c = torch.tensor(rng.uniform(0.5, 1.5, (P, K, N)).astype(np.float32),
+                     device="cuda")
+    got = pm.phase2_micro(variant, t, c, nfft)
+    assert torch.equal(got, pm.phase2_micro(variant, t, c, nfft))
+    ref = pm.phase2_micro_plain(variant, t, c, nfft)
+    scale = pm.phase2_micro_plain(variant, t, c, nfft, magnitude=True)
+    assert bool(torch.all((got - ref).abs() <= 1e-5 * scale)), (got, ref)
+
+
+@pytest.mark.gpu
 def test_cuda_phase2_micro_rejects_unsupported_sizes(cuda):
     t = torch.ones((2, 256), device="cuda")
     with pytest.raises(ValueError, match="1..64"):

@@ -1,25 +1,25 @@
-"""K10 'full' and 'ps' (the phase-2 micro-benchmark's per-section and
-prefix/suffix kernels) after their redesign for the H100, on the CPU:
-what of them the CPU can check.
+"""K10 (the phase-2 micro-benchmark's kernels) after the redesign of all
+four variants for the H100, on the CPU: what of them the CPU can check.
 
-* The wrapper's pass plan (``pass_plan``): ``full``'s kernel runs the
-  passes s < L = lcm(K, N) and scales its sums by r = 2 K N / L, which is
-  right only if those passes are exactly the distinct pairs
-  (s % K, s % N) of the 2 K N, each of which the function visits r =
-  2 gcd(K, N) times; ``ps``'s runs one pass over k scaled by 2.
+* The wrapper's pass plan (``pass_plan``): the kernels of ``full``,
+  ``noreduce`` and ``lanered`` run the passes s < L = lcm(K, N) and scale
+  their sums by r = 2 K N / L, which is right only if those passes are
+  exactly the distinct pairs (s % K, s % N) of the 2 K N, each of which
+  the function visits r = 2 gcd(K, N) times; ``ps``'s runs one pass over
+  k scaled by 2.
 * The kernels' arithmetic in float64: r times the sum over the plan's
-  distinct passes, formed as the kernels form it (``full``: Q = tn sum
-  conj(sec) / |sec|^2; ``ps``: tp sum_k pre_k suf_{k+1} a channel, the
-  suffix products from the last section down), against the JAX script's
-  ``_kernel`` in interpret mode and against the plain version, at
-  nfft = 2048 over 2048 bins, within TOL = 1e-5 of the terms' magnitudes
-  (tests/test_torch_phase2_micro.py's bound and setup, whose helpers are
-  copied here).
+  distinct passes, formed as the kernels form it (``full``: Q = tn W,
+  W = sum conj(sec) / |sec|^2, projected; ``noreduce``: Re Q and
+  Re Q z + Re Q z^2; ``lanered``: the sum over passes of
+  Re(conj(sec) / |sec|^2 tn (1 + z + z^2)); ``ps``: tp sum_k pre_k
+  suf_{k+1} a channel, the suffix products from the last section down),
+  against the JAX script's ``_kernel`` in interpret mode and against the
+  plain version, at nfft = 2048 over 2048 bins, within TOL = 1e-5 of the
+  terms' magnitudes (tests/test_torch_phase2_micro.py's bound and setup,
+  whose helpers are copied here).
 * The wrapper's checks name each limit before it loads a library; the
   control (controls/phase2_micro_prev) keeps the C entry point that
-  chip_smoke.Previous binds, and the package's noreduce and lanered
-  kernels are the control's, text for text (their bits are checked on
-  the card); K10's bounds in chip_smoke.kernel_work.
+  chip_smoke.Previous binds; K10's bounds in chip_smoke.kernel_work.
 
 tests/test_torch_cuda.py holds the CUDA kernels to the plain version on
 the card.
@@ -112,14 +112,37 @@ def _project(Q, z):
     return np.array([np.sum((Q * z ** p).real) for p in range(3)])
 
 
-def _full_by_plan(t, c, nfft):
-    """full as its kernel forms it, in float64: Q = tn sum over the plan's
-    passes of conj(sec) / |sec|^2, scaled by the plan's r, projected."""
+def _plan(variant, t, c, nfft):
+    """(z, tn, r, us) in float64: the bins' phasors and tn, the plan's
+    scale r and, for each of the plan's passes, u = conj(sec) / |sec|^2."""
     _, K, N = c.shape
-    passes, r = pm.pass_plan("full", K, N)
+    passes, r = pm.pass_plan(variant, K, N)
     z, tn = _bins(t, nfft)
-    W = sum(1.0 / _sec(c, s % K, s % N, z) for s in range(passes))
-    return _project(r * tn * W, z)
+    return z, tn, r, [1.0 / _sec(c, s % K, s % N, z) for s in range(passes)]
+
+
+def _full_by_plan(t, c, nfft):
+    """full as its kernel forms it: Q = r tn W, W the sum of the plan's
+    u, projected on z^0, z^1, z^2."""
+    z, tn, r, us = _plan("full", t, c, nfft)
+    return _project(r * tn * sum(us), z)
+
+
+def _noreduce_by_plan(t, c, nfft):
+    """noreduce as its kernel forms it: Q = r tn W as full's, then
+    (Re Q, Re Q z + Re Q z^2, 0)."""
+    z, tn, r, us = _plan("noreduce", t, c, nfft)
+    p = _project(r * tn * sum(us), z)
+    return np.array([p[0], p[1] + p[2], 0.0])
+
+
+def _lanered_by_plan(t, c, nfft):
+    """lanered as its kernel forms it: T = r times the sum over the plan's
+    passes of the bins' sum of Re(u tz), tz = tn (1 + z + z^2), in every
+    slot."""
+    z, tn, r, us = _plan("lanered", t, c, nfft)
+    tz = tn * (1 + z + z * z)
+    return np.full(3, r * sum(np.sum((u * tz).real) for u in us))
 
 
 def _ps_by_plan(t, c, nfft):
@@ -153,9 +176,9 @@ def _assert_close(got, ref, scale, what):
 def test_pass_plan_covers_every_pass_once_scaled(variant):
     """For every K in 1..64 (1..16 for ps) and N in 1..8 the passes the
     kernel runs, each counted ``scale`` times, are the function's 2 K N
-    passes: full's plan is the L = lcm(K, N) distinct pairs
-    (s % K, s % N), each visited r = 2 gcd(K, N) times, ps's one pass
-    over k scaled by 2, noreduce's and lanered's every pass once."""
+    passes: the plan of full, noreduce and lanered is the L = lcm(K, N)
+    distinct pairs (s % K, s % N), each visited r = 2 gcd(K, N) times,
+    ps's one pass over k scaled by 2."""
     for K in range(1, (pm.MAX_K_PS if variant == "ps" else pm.MAX_K) + 1):
         for N in range(1, 9):
             passes, scale = pm.pass_plan(variant, K, N)
@@ -165,21 +188,23 @@ def test_pass_plan_covers_every_pass_once_scaled(variant):
             visits = Counter((s % K, s % N) for s in range(2 * K * N))
             plan = Counter((s % K, s % N) for s in range(passes))
             assert visits == {pair: scale * n for pair, n in plan.items()}
-            if variant == "full":
-                assert set(plan.values()) == {1}, (K, N)
-                assert (passes, scale) == (math.lcm(K, N),
-                                           2 * math.gcd(K, N))
-            else:
-                assert (passes, scale) == (2 * K * N, 1)
+            assert set(plan.values()) == {1}, (K, N)
+            assert (passes, scale) == (math.lcm(K, N), 2 * math.gcd(K, N))
+
+
+BY_PLAN = {"full": _full_by_plan, "noreduce": _noreduce_by_plan,
+           "lanered": _lanered_by_plan, "ps": _ps_by_plan}
 
 
 @pytest.mark.parametrize("variant,K,N", [
-    ("full", 4, 2), ("full", 4, 6), ("full", 5, 3), ("ps", 4, 2)])
+    ("full", 4, 2), ("full", 4, 6), ("full", 5, 3), ("ps", 4, 2),
+    ("noreduce", 4, 6), ("noreduce", 5, 3), ("lanered", 4, 6),
+    ("lanered", 5, 3)])
 def test_plan_sums_match_jax_kernel_and_plain(jax_script, monkeypatch,
                                               variant, K, N):
     t, c = _operands(K * 10 + N, NFFT, K, N)
     ref = _jax_k10(jax_script, monkeypatch, variant, t, c, NFFT)
-    got = (_full_by_plan if variant == "full" else _ps_by_plan)(t, c, NFFT)
+    got = BY_PLAN[variant](t, c, NFFT)
     scale = _plain(variant, t, c, NFFT, True)
     _assert_close(got, ref, scale, f"{variant} K={K} N={N} vs JAX")
     _assert_close(got, _plain(variant, t, c, NFFT), scale,
@@ -259,39 +284,6 @@ def test_control_and_package_entry_points_are_the_bound_ones(smoke,
     assert set(sigs) == set(package)
     for name, (_, argtypes) in sigs.items():
         assert len(argtypes) == package[name], name
-
-
-def _text(source: str, start: str) -> str:
-    """The definition that begins with ``start``, to its closing brace
-    (a one-line definition: its line)."""
-    i = source.index(start)
-    line = source[i:source.index("\n", i)]
-    return line if line.endswith("}") else source[i:source.index("\n}\n", i)]
-
-
-def test_noreduce_and_lanered_kernels_are_the_controls():
-    """The package's noreduce and lanered kernels, and the device
-    functions they call, are the control's text for text, so they keep
-    their bits (the card checks the bits too)."""
-    prev = REPO / "controls" / "phase2_micro_prev"
-    for name, starts in (
-            ("phase2_micro.cu", ("    phase2_noreduce_kernel(",
-                                 "    phase2_lanered_kernel(",
-                                 "__device__ __forceinline__ float2 quotient(",
-                                 "__device__ __forceinline__ void zero_row(",
-                                 "__device__ __forceinline__ float2 bin_tn(",
-                                 "__device__ __forceinline__ void next_pair(")),
-            ("sos_common.cuh", ("__device__ __forceinline__ float2 bin_phasor(",
-                                "__device__ __forceinline__ float2 horner(",
-                                "__device__ __forceinline__ void put(",
-                                "__device__ __forceinline__ void store_row(")),
-            ("fdn_ge.cuh", ("__device__ __forceinline__ float2 cmul(",
-                            "__device__ __forceinline__ float cabs2(",
-                            "__device__ __forceinline__ float warp_sum("))):
-        package = (cuda_build.CSRC / name).read_text()
-        control = (prev / name).read_text()
-        for start in starts:
-            assert _text(package, start) == _text(control, start), start
 
 
 def test_k10_bounds(smoke):
