@@ -211,8 +211,15 @@ from flamo_tpu_torch.ops import eig_kernels as ek
 from flamo_tpu_torch.ops import fdn_kernels as fk
 from flamo_tpu_torch.ops import phase2_micro as pm
 from flamo_tpu_torch.ops import sos_kernels as sk
-from flamo_tpu_torch.optimize import masked_mse_loss, mse_evs, sparsity_loss
-from flamo_tpu_torch.processor import dsp
+# the colorless objective's (1, M, 1) impulse and flat target on the
+# model's device
+from flamo_tpu_torch.models.colorless_fdn import (
+    extract_siso_tf_operands, impulse_pair as colorless_pair)
+from flamo_tpu_torch.optimize import (DatasetColorless, Trainer,
+                                      load_dataset, load_model_state,
+                                      masked_mse_loss, mse_evs, mse_loss,
+                                      save_model_state, sparsity_loss)
+from flamo_tpu_torch.processor import dsp, system
 from flamo_tpu_torch.scripts import bench_phase2_micro as p2bench
 
 M_MAIN, N_MAIN, NFFT = 48001, 6, 96000
@@ -248,6 +255,12 @@ K2_RAGGED = (33, 4097, M_MAIN)  # phase 2's bin counts for K2's and K3's
 K3_NS = (3, 5, N_MAIN)  # K3's channel counts in phase 2: odd N moves float2s
 # phase 3's timed fused-tf steps and fused responses
 FUSED_TF_STEPS, FUSED_EVALS = 100, 200
+# phase 4f, the paved road: the e8 dataset's size, fit_scan's steps and
+# chunk, the attenuated Trainer's steps, the scattering lockstep's steps,
+# the graph route's steps, and the timed Trainer.train_step calls
+PAVED_EXPAND, PAVED_SCAN_STEPS, PAVED_SCAN_CALL = 64, 100, 50
+PAVED_ATT_STEPS, PAVED_SFDN_STEPS, PAVED_GRAPH_STEPS = 50, 5, 20
+PAVED_TRAIN_STEPS = 100
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
@@ -1718,15 +1731,6 @@ def loss_and_grads(model, loss_fn, x, t):
     return float(loss.detach()), grads_of(model)
 
 
-def colorless_pair(model):
-    """The colorless objective's impulse input and flat target, both
-    (1, M, 1) on the model's device."""
-    M = model.nfft // 2 + 1
-    x = torch.zeros((1, M, 1), device=model.device)
-    x[:, 0, :] = 1.0
-    return x, torch.ones((1, M, 1), device=model.device)
-
-
 def fused_tf_steps(model):
     """``run(n)``: n Adam steps of colorless_train_step(model,
     fused_tf=True) (K3f forward, K3b backward) on the impulse -> flat pair;
@@ -1857,8 +1861,9 @@ def phase_slice(card: str) -> tuple:
     return launches, seconds * 1e3 / FIT_STEPS, tf_ms, eval_ms
 
 
-def impulse_pair(nfft: int):
-    """The impulse input (1, nfft, 1) and the flat target (1, M, 1)."""
+def time_impulse_pair(nfft: int):
+    """The time-domain impulse input (1, nfft, 1) and the flat target
+    (1, M, 1); ``colorless_pair`` gives the (1, M, 1) spectral pair."""
     x = torch.zeros((1, nfft, 1), device="cuda")
     x[:, 0, :] = 1.0
     return x, torch.ones((1, nfft // 2 + 1, 1), device="cuda")
@@ -1883,7 +1888,7 @@ def phase_attenuated(card: str):
     model_k = att_model(seed=1, solve_method="pallas",
                         cascade_backend="pallas")
     model_k.load_state_dict(model.state_dict())
-    x, t = impulse_pair(NFFT)
+    x, t = time_impulse_pair(NFFT)
 
     fk.reset_launch_counts()
     sk.reset_launch_counts()
@@ -2112,7 +2117,8 @@ def phase_scattering(card: str):
     fk.reset_launch_counts()
     (_, hist), seconds = timed(lambda: sfdn_fit(
         model, n_steps=SFDN_FIT_STEPS, n_samples=SFDN_SAMPLES, masked=True,
-        solve_method="pallas", generator=torch.Generator().manual_seed(SEED)))
+        solve_method="pallas", generator=torch.Generator().manual_seed(SEED),
+        steps_per_call=SFDN_FIT_STEPS))
     launches.update({dense_row(k, "P"): n for k, n in _k6_counts().items()})
     masked_ms = seconds * 1e3 / SFDN_FIT_STEPS
     first, last = quarter_means(hist)
@@ -2267,6 +2273,203 @@ def phase_aa_evs(card: str):
           f"bit-identical {torch.equal(zr, pr) and torch.equal(zi, pi)}")
     check(err < DK_TOL, f"K7 on the rig's char-polys: {err:.3e}")
     return aa, launches, step_ms, (cr, ci), err
+
+
+def paved_trainer(model, fused: str = "auto", mse=None, sparsity=True,
+                  lr: float = 1e-3) -> Trainer:
+    """The e8 colorless example's Trainer: ``mse`` (default mse_loss) and,
+    with ``sparsity``, 0.2 x sparsity_loss; one epoch, no checkpoints."""
+    tr = Trainer(model, max_epochs=1, lr=lr, log=False, fused=fused)
+    tr.register_criterion(mse_loss(nfft=NFFT) if mse is None else mse, 1)
+    if sparsity:
+        tr.register_criterion(sparsity_loss(), 0.2, requires_model=True)
+    return tr
+
+
+def gated_trainer(model, x, t, name: str, **kw) -> Trainer:
+    """``paved_trainer(model, **kw)`` with its dispatch gate run on (x, t);
+    checks that it took the fused path ``name``."""
+    tr = paved_trainer(model, **kw)
+    tr._maybe_gate_fused(x, t)
+    check(tr.fused_path == name,
+          f"Trainer's fused_path is {tr.fused_path!r}, not {name!r}")
+    return tr
+
+
+def colorless_plain_total(model, x, t) -> float:
+    """The colorless Trainer's fused objective through K1's plain version
+    (no pivot) on the model's current weights: mse + 0.2 sparsity."""
+    with torch.no_grad():
+        D, U, b, c = extract_siso_tf_operands(model)
+        X = torch.fft.rfft(x[0, :, 0], n=model.nfft)
+        mse = fk.fdn_tf_mse_plain(D.contiguous(), U, b, c, X, t[0, :, 0],
+                                  False, False)[0]
+        return float(mse + 0.2 * sparsity_loss()(None, None, model))
+
+
+def att_abs_model(seed: int = SEED):
+    """The attenuated FDN with an |.| output layer, so that mse_loss is its
+    magnitude objective (the fused step's)."""
+    m = att_model(seed=seed)
+    return system.Shell(core=m.core, input_layer=m.input_layer,
+                        output_layer=dsp.Transform(torch.abs))
+
+
+def counted(mod, run):
+    """(run(), the launches of ``mod``'s kernels in it, nonzero ones)."""
+    mod.reset_launch_counts()
+    out = run()
+    return out, {k: v for k, v in mod.LAUNCHES.items() if v}
+
+
+def trainer_steps():
+    """``run(n)``: n Trainer.train_step calls of a gated colorless Trainer
+    (colorless_fused_step: K1) on the impulse -> flat pair."""
+    model = colorless_model(3)
+    x, t = colorless_pair(model)
+    tr = gated_trainer(model, x, t, "colorless_fused_step")
+    return lambda n: [tr.train_step((x, t)) for _ in range(n)]
+
+
+def phase_paved_road(card: str):
+    """The Trainer path at full width, the e8 flow: the fused dispatch on
+    the colorless, attenuated and scattering FDNs, fit_scan, the graph
+    route through K2 and a checkpoint round trip.  Returns the launch
+    counts of its runs and the untraced ms per Trainer.train_step."""
+    M = NFFT // 2 + 1
+    print(f"phase 4f the paved road: DatasetColorless(expand={PAVED_EXPAND})"
+          f" -> load_dataset(batch_size=1, split=0.8, seed=0) -> Trainer("
+          f"fused='auto') with mse + 0.2 sparsity, nfft={NFFT}, on cuda")
+    launches = {}
+
+    # 1. colorless, the e8 flow: one epoch, then fit_scan
+    model = colorless_model(SEED)
+    tl, vl = load_dataset(DatasetColorless((1, M, 1), (1, M, 1),
+                                           expand=PAVED_EXPAND,
+                                           device="cuda"),
+                          batch_size=1, split=0.8, seed=0)
+    x, t = next(iter(tl))
+    (tr, gate) = counted(fk, lambda: gated_trainer(
+        model, x, t, "colorless_fused_step"))
+    print(f"  gate: fused_path {tr.fused_path!r} (its parity test launched "
+          f"{gate})")
+    n_train, n_valid = len(tl), len(vl)
+    _, counts = counted(fk, lambda: tr.train(tl, vl))
+    k1 = gate.get("fdn_tf_mse", 0) + counts.get("fdn_tf_mse", 0)
+    print(f"  Trainer.train, one epoch of {n_train} train and {n_valid} "
+          f"valid steps: loss {tr.train_loss[-1]:.7f} (train), "
+          f"{tr.valid_loss[-1]:.7f} (valid); launches {counts}")
+    check(counts == {"fdn_tf_mse": n_train + n_valid},
+          "Trainer.train should launch K1 once per train and valid step")
+    check(bool(np.isfinite(tr.train_loss + tr.valid_loss).all()),
+          "Trainer.train's losses are not finite")
+    x, t = colorless_pair(model)
+    plain = colorless_plain_total(model, x, t)
+    (hist, seconds), counts = counted(fk, lambda: timed(lambda: tr.fit_scan(
+        x, t, n_steps=PAVED_SCAN_STEPS, steps_per_call=PAVED_SCAN_CALL)))
+    scan_ms = seconds * 1e3 / PAVED_SCAN_STEPS
+    rel = abs(float(hist[0]) - plain) / plain
+    print(f"  Trainer.fit_scan({PAVED_SCAN_STEPS}, steps_per_call="
+          f"{PAVED_SCAN_CALL}): loss {hist[0]:.7f} -> {hist[-1]:.7f}, first "
+          f"loss vs K1's plain version rel {rel:.3e} (tol 1e-05); "
+          f"{scan_ms:.4f} ms/step (CUDA events) on {card}; launches {counts}")
+    check(hist.shape == (PAVED_SCAN_STEPS,) and bool(np.isfinite(hist).all()),
+          "fit_scan should return one finite loss per step")
+    check(counts == {"fdn_tf_mse": PAVED_SCAN_STEPS},
+          "fit_scan should launch K1 once per step")
+    check(rel < 1e-5, "fit_scan's first loss differs from K1's plain version")
+    check(hist[-1] < hist[0], "fit_scan's loss did not fall")
+    launches["fdn_tf_mse"] = k1 + counts["fdn_tf_mse"]
+
+    # the ms a step of Trainer.train_step, fit_scan and colorless_fit in
+    # turns, each after a warm-up
+    run = trainer_steps()
+    run(10)
+    _, seconds = timed(lambda: run(PAVED_TRAIN_STEPS))
+    train_step_ms = seconds * 1e3 / PAVED_TRAIN_STEPS
+    colorless_fit(colorless_model(2), n_steps=10)
+    fit_model = colorless_model(3)
+    _, seconds = timed(lambda: colorless_fit(fit_model, n_steps=FIT_STEPS))
+    fit_ms = seconds * 1e3 / FIT_STEPS
+    print(f"  ms a step on {card} (CUDA events, after warm-ups): "
+          f"Trainer.train_step (colorless_fused_step, K1; a host copy of the "
+          f"loss and of each criterion a step) {train_step_ms:.4f}, "
+          f"Trainer.fit_scan {scan_ms:.4f}, colorless_fit {fit_ms:.4f}; "
+          f"train_step / colorless_fit {train_step_ms / fit_ms:.3f}, "
+          f"fit_scan / colorless_fit {scan_ms / fit_ms:.3f}")
+
+    # 2. the attenuated FDN: mse through K5
+    model = att_abs_model()
+    x, t = time_impulse_pair(NFFT)
+    tr = gated_trainer(model, x, t, "attenuated_fused_step", sparsity=False,
+                       lr=ATT_LR)
+    hist, counts = counted(sk, lambda: tr.fit_scan(
+        x, t, n_steps=PAVED_ATT_STEPS, steps_per_call=PAVED_SCAN_CALL))
+    print(f"  attenuated Trainer.fit_scan({PAVED_ATT_STEPS}) "
+          f"({tr.fused_path}, K5): loss {hist[0]:.7f} -> {hist[-1]:.7f}; "
+          f"launches {counts}")
+    check(counts == {"fdn_sos_tf_mse": PAVED_ATT_STEPS},
+          "the attenuated Trainer should launch K5 once per step")
+    check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+          "the attenuated Trainer's loss is not finite or did not fall")
+    launches["fdn_sos_tf_mse"] = PAVED_ATT_STEPS
+
+    # 3. the scattering FDN: the masked step against the graph route
+    x, t = sfdn_pair()
+    hists = {}
+    for fused in ("auto", "off"):
+        model = sfdn_model(seed=3)
+        tr = paved_trainer(model, fused=fused, mse=masked_mse_loss(
+            nfft=NFFT, n_samples=SFDN_SAMPLES, device="cuda",
+            generator=torch.Generator().manual_seed(SEED)))
+        hists[fused] = tr.fit_scan(x, t, n_steps=PAVED_SFDN_STEPS,
+                                   steps_per_call=PAVED_SFDN_STEPS)
+        check(tr.fused_path == ("sfdn_masked_step" if fused == "auto"
+                                else None),
+              f"the scattering Trainer (fused={fused!r}) took "
+              f"{tr.fused_path!r}")
+    gap = float(np.max(np.abs(hists["auto"] - hists["off"])
+                       / np.abs(hists["off"])))
+    print(f"  scattering Trainer: sfdn_masked_step {hists['auto'].tolist()}"
+          f", fused='off' (K6) {hists['off'].tolist()}, max rel gap "
+          f"{gap:.3e} (tol 2e-03)")
+    check(gap < 2e-3, "the masked step's losses differ from the graph's")
+
+    # 4. the graph route: fused='off' on the colorless model through K2
+    def graph_model(seed: int):
+        return build_colorless_fdn(
+            nfft=NFFT, solve_method="pallas", device="cuda",
+            generator=torch.Generator().manual_seed(seed))
+
+    model = graph_model(3)
+    x, t = colorless_pair(model)
+    tr = paved_trainer(model, fused="off")
+    tr.fit_scan(x, t, n_steps=3)
+    (hist, seconds), counts = counted(fk, lambda: timed(lambda: tr.fit_scan(
+        x, t, n_steps=PAVED_GRAPH_STEPS, steps_per_call=PAVED_GRAPH_STEPS)))
+    graph_ms = seconds * 1e3 / PAVED_GRAPH_STEPS
+    print(f"  graph route Trainer.fit_scan({PAVED_GRAPH_STEPS}) (fused='off',"
+          f" solve_method='pallas'): loss {hist[0]:.7f} -> {hist[-1]:.7f}, "
+          f"{graph_ms:.4f} ms/step (CUDA events) on {card}; launches {counts}")
+    check(counts == {"fdn_solve": 2 * PAVED_GRAPH_STEPS},
+          "the graph route should launch K2 twice a step (forward and "
+          "transposed)")
+    check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+          "the graph route's loss is not finite or did not fall")
+    launches["fdn_solve"] = 2 * PAVED_GRAPH_STEPS
+
+    # 5. a checkpoint round trip: bit for bit
+    path = Path("build/paved_road/ckpt.pkl")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_model_state(model, str(path))
+    restored = load_model_state(graph_model(4), str(path))
+    with torch.no_grad():
+        same = torch.equal(restored.get_freq_response(),
+                           model.get_freq_response())
+    print(f"  checkpoint round trip ({path}): response equal bit for bit: "
+          f"{same}")
+    check(same, "the restored model's response differs from the saved one")
+    return launches, train_step_ms
 
 
 def phase_timing(o, launches, errs, card, previous) -> list:
@@ -2767,7 +2970,7 @@ def colorless_steps():
 def attenuated_steps():
     step, _ = attenuated_train_step(att_model(seed=3), lr=ATT_LR,
                                     fused_step=True)
-    x, t = impulse_pair(NFFT)
+    x, t = time_impulse_pair(NFFT)
     return lambda n: [step(x, t) for _ in range(n)]
 
 
@@ -2775,7 +2978,7 @@ def attenuated_graph_steps():
     step, _ = attenuated_train_step(
         att_model(seed=3, solve_method="pallas", cascade_backend="pallas"),
         lr=ATT_LR)
-    x, t = impulse_pair(NFFT)
+    x, t = time_impulse_pair(NFFT)
     return lambda n: [step(x, t) for _ in range(n)]
 
 
@@ -2827,9 +3030,15 @@ def main() -> int:
     took["4d aa eigenvalues"] = seconds_since_last()
     launches.update(phase_micro(card, p2_values))
     took["4e micro-benchmark"] = seconds_since_last()
+    paved_launches, train_step_ms = phase_paved_road(card)
+    took["4f paved road"] = seconds_since_last()
+    for name, n in paved_launches.items():
+        launches[name] += n
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
+    phase_trace(card, "Trainer.train_step (colorless_fused_step: K1)",
+                trainer_steps(), train_step_ms, share=("fdn_tf_mse",))
     phase_trace(card, "colorless_train_step (fused_tf: K3f, K3b)",
                 fused_tf_steps(colorless_model(3)), fused_tf_ms,
                 share=("fdn_tf_fwd", "fdn_tf_bwd"))

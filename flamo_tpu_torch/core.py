@@ -39,3 +39,9 @@ def masked_optimizer(model: nn.Module, lr: float = 1e-3,
     the JAX package."""
     params = [p for p in model.parameters() if p.requires_grad]
     return optimizer(params, lr=lr, **kwargs)
+
+
+class TopologyMismatch(ValueError):
+    """A model is not of the topology that a fused objective needs.  The
+    ``extract_*`` operand functions raise it, and the Trainer's dispatch
+    refuses a candidate on it and on nothing else."""

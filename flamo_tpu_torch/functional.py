@@ -17,6 +17,11 @@ from flamo_tpu_torch.utils import complex_dtype_for, next_key, resolve_device
 EIG_DK_MAX_N = 8
 
 
+def get_magnitude(x: torch.Tensor) -> torch.Tensor:
+    """|x| (counterpart of ``flamo_tpu.functional.get_magnitude``)."""
+    return torch.abs(x)
+
+
 def skew_matrix(X: torch.Tensor) -> torch.Tensor:
     """Upper-triangular antisymmetrization."""
     A = torch.triu(X, 1)

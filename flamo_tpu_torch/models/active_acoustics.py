@@ -39,7 +39,7 @@ from flamo_tpu_torch.functional import (WGN_reverb, get_eigenvalues,
                                         poly_roots_rows, spectral_radius)
 from flamo_tpu_torch.ops import linop
 from flamo_tpu_torch.ops.aa_kernels import aa_taps_tf_mse, aa_tf_mse
-from flamo_tpu_torch.optimize.utils import generate_partitions
+from flamo_tpu_torch.optimize.utils import generate_partitions, run_in_chunks
 from flamo_tpu_torch.processor import dsp, system
 from flamo_tpu_torch.utils import next_key, resolve_device
 
@@ -547,14 +547,14 @@ def aa_evs_train_step(aa: ActiveAcoustics, target_evs, lr: float = 1e-3,
 
 def aa_evs_fit(aa: ActiveAcoustics, target_evs, n_steps: int,
                lr: float = 1e-3, iter_num: int = 30, masks=None,
-               generator=None):
+               steps_per_call: int = 400, generator=None):
     """Run :func:`aa_evs_train_step` for ``n_steps`` steps from global
     step 0 and return ``(aa.F_MM, per-step loss history as numpy)``; U is
-    trained in place, so ``aa`` holds the result.  The JAX package's
-    ``steps_per_call`` chunks of a jitted scan have no counterpart: this
-    is a plain loop, the losses kept on the device until the end."""
+    trained in place, so ``aa`` holds the result.  The steps run in chunks
+    of ``steps_per_call``, the JAX package's ``lax.scan`` length: a
+    chunk's losses reach the host once, at its end, and exactly
+    ``n_steps`` steps run.  ``steps_per_call`` changes only how often the
+    host syncs, not the result."""
     step, _ = aa_evs_train_step(aa, target_evs, lr=lr, iter_num=iter_num,
                                 masks=masks, generator=generator)
-    losses = [step(i) for i in range(n_steps)]
-    history = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
-    return aa.F_MM, history
+    return aa.F_MM, run_in_chunks(step, n_steps, steps_per_call)

@@ -17,7 +17,9 @@ from collections import OrderedDict
 
 import torch
 
-from flamo_tpu_torch.core import masked_optimizer
+from flamo_tpu_torch.core import TopologyMismatch, masked_optimizer
+from flamo_tpu_torch.models.colorless_fdn import siso_fdn_operands
+from flamo_tpu_torch.ops import linop
 from flamo_tpu_torch.ops.sos_kernels import fdn_sos_tf_mse
 from flamo_tpu_torch.processor import dsp, system
 from flamo_tpu_torch.utils import next_key, resolve_device
@@ -81,26 +83,28 @@ def attenuated_loss(model, inputs, targets):
 def extract_attenuated_operands(model):
     """(D (M, N) complex, bt, at (3, K, N), U (N, N), b (N,), c (N,)) of
     a Shell whose core is Series(Gain(N,1), Recursion(diagonal
-    feedforward, Series(Matrix, parallelGEQ)), Gain(1,N)), for
-    :func:`fdn_sos_tf_mse`.  bt/at are the GEQ taps with the alias
-    envelope folded in, so gradients reach the command gains through the
-    band design by ordinary autograd."""
-    core = model.get_core()
-    loop = core.feedback_loop
-    M = model.nfft // 2 + 1
-    kD, D = loop.feedforward.matrix_response()
-    if kD != "diag":
-        raise ValueError(
-            "extract_attenuated_operands needs a diagonal feedforward, "
-            f"got matrix_response kind {kD!r}")
-    D = D.expand(M, D.shape[-1])
+    feedforward, Series(mixing_matrix Matrix, attenuation parallelGEQ)),
+    Gain(1,N)), for :func:`fdn_sos_tf_mse`.  bt/at are the GEQ taps with
+    the alias envelope folded in, so gradients reach the command gains
+    through the band design by ordinary autograd.  Raises
+    :class:`TopologyMismatch` for any other structure."""
+    fn = "extract_attenuated_operands"
+    loop, D, b, c = siso_fdn_operands(model, fn)
+    N = D.shape[-1]
     fb = loop.feedback
+    if not (isinstance(fb, system.Series)
+            and fb.keys == ("mixing_matrix", "attenuation")
+            and isinstance(fb.attenuation, dsp.parallelGEQ)):
+        raise TopologyMismatch(
+            f"{fn} needs a feedback Series(mixing_matrix, attenuation "
+            "(a parallelGEQ))")
+    rU = system._matrix_response_of(fb.mixing_matrix)
+    if rU is None or rU[0] != linop.FLAT or tuple(rU[1].shape) != (N, N):
+        raise TopologyMismatch(f"{fn} needs a frequency-flat ({N}, {N}) "
+                               "mixing matrix")
     att = fb.attenuation
-    U = torch.real(fb.mixing_matrix.matrix_response()[1])
     bt, at = att.sos_taps(att.map(att.param))
-    b = torch.real(core.input_gain.matrix_response()[1])[:, 0]
-    c = torch.real(core.output_gain.matrix_response()[1])[0, :]
-    return D, bt, at, U, b, c
+    return D, bt, at, torch.real(rU[1]), b, c
 
 
 def attenuated_loss_fused_step(model, inputs, targets, pivot: bool = False):

@@ -15,12 +15,13 @@ from __future__ import annotations
 import functools
 from collections import OrderedDict
 
-import numpy as np
 import torch
 
-from flamo_tpu_torch.core import masked_optimizer
+from flamo_tpu_torch.core import TopologyMismatch, masked_optimizer
+from flamo_tpu_torch.ops import linop
 from flamo_tpu_torch.ops.fdn_kernels import fdn_tf, fdn_tf_mse
 from flamo_tpu_torch.optimize.loss import mse_loss, sparsity_loss
+from flamo_tpu_torch.optimize.utils import run_in_chunks
 from flamo_tpu_torch.processor import dsp, system
 from flamo_tpu_torch.utils import next_key, resolve_device
 
@@ -76,23 +77,52 @@ def colorless_loss(model, inputs, targets, sparsity_weight: float = 0.2):
                                                            model)
 
 
+def siso_fdn_operands(model, fn: str):
+    """(loop, D (M, N) complex, b (N,) real, c (N,) real) of a Shell whose
+    core is Series(input_gain Gain(N, 1), feedback_loop Recursion with a
+    diagonal feedforward, output_gain Gain(1, N)), the part that the fused
+    FDN objectives share.  Raises :class:`TopologyMismatch`, naming
+    ``fn``, for any other structure."""
+    core = model.get_core() if isinstance(model, system.Shell) else None
+    if not (isinstance(core, system.Series)
+            and core.keys == ("input_gain", "feedback_loop", "output_gain")
+            and isinstance(core.feedback_loop, system.Recursion)):
+        raise TopologyMismatch(
+            f"{fn} needs a Shell whose core is Series(input_gain, "
+            "feedback_loop (a Recursion), output_gain)")
+    loop = core.feedback_loop
+    rD = system._matrix_response_of(loop.feedforward)
+    if rD is None or rD[0] != linop.DIAG:
+        raise TopologyMismatch(
+            f"{fn} needs a diagonal feedforward, got matrix_response kind "
+            f"{None if rD is None else rD[0]!r}")
+    N = rD[1].shape[-1]
+    rb = system._matrix_response_of(core.input_gain)
+    rc = system._matrix_response_of(core.output_gain)
+    if (rb is None or rc is None or rb[0] != linop.FLAT
+            or rc[0] != linop.FLAT or tuple(rb[1].shape) != (N, 1)
+            or tuple(rc[1].shape) != (1, N)):
+        raise TopologyMismatch(
+            f"{fn} needs frequency-flat gains ({N}, 1) in and (1, {N}) out")
+    D = rD[1].expand(model.nfft // 2 + 1, N)
+    return loop, D, torch.real(rb[1])[:, 0], torch.real(rc[1])[0, :]
+
+
 def extract_siso_tf_operands(model):
     """(D (M, N) complex, U (N, N) real, b (N,), c (N,)) of a Shell whose
-    core is Series(Gain(N,1), Recursion with a diagonal feedforward,
-    Gain(1,N)), such that tf = c^T (I - diag(D) U)^{-1} diag(D) b."""
-    core = model.get_core()
-    loop = core.feedback_loop
-    M = model.nfft // 2 + 1
-    kD, D = loop.feedforward.matrix_response()
-    if kD != "diag":
-        raise ValueError(
-            "extract_siso_tf_operands needs a diagonal feedforward, got "
-            f"matrix_response kind {kD!r}")
-    D = D.expand(M, D.shape[-1])
-    U = torch.real(loop.feedback.matrix_response()[1])
-    b = torch.real(core.input_gain.matrix_response()[1])[:, 0]
-    c = torch.real(core.output_gain.matrix_response()[1])[0, :]
-    return D, U, b, c
+    core is Series(Gain(N,1), Recursion(diagonal feedforward, frequency-
+    flat (N, N) feedback), Gain(1,N)), such that
+    tf = c^T (I - diag(D) U)^{-1} diag(D) b.  Raises
+    :class:`TopologyMismatch` for any other structure."""
+    loop, D, b, c = siso_fdn_operands(model, "extract_siso_tf_operands")
+    N = D.shape[-1]
+    rU = system._matrix_response_of(loop.feedback)
+    if rU is None or rU[0] != linop.FLAT or tuple(rU[1].shape) != (N, N):
+        raise TopologyMismatch(
+            "extract_siso_tf_operands needs a frequency-flat (N, N) "
+            f"feedback, got matrix_response kind "
+            f"{None if rU is None else rU[0]!r}")
+    return D, torch.real(rU[1]), b, c
 
 
 def colorless_freq_response_fused(model):
@@ -172,19 +202,27 @@ def colorless_train_step(model, lr: float = 1e-3, fused_tf: bool = False,
 
 
 def colorless_fit(model, n_steps: int, lr: float = 1e-3,
-                  fused_step: bool = True, step_pivot: bool = False):
+                  fused_step: bool = True, step_pivot: bool = False,
+                  steps_per_call: int = 400):
     """Train ``n_steps`` Adam steps of the colorless objective on the
     canonical impulse -> flat-magnitude pair, through the fused step
-    kernel by default.  The JAX package's ``lax.scan`` of steps is a
-    plain loop here; the losses stay on the device until the end.
-    Returns ``(model, per-step loss history as numpy)``."""
+    kernel by default.  The steps run in chunks of ``steps_per_call``, the
+    JAX package's ``lax.scan`` length: a chunk's losses stay on the device
+    and reach the host once, at its end, and exactly ``n_steps`` steps
+    run.  ``steps_per_call`` changes only how often the host syncs, not
+    the result.  Returns ``(model, per-step loss history as numpy)``."""
     step, _ = colorless_train_step(model, lr=lr, fused_step=fused_step,
                                    step_pivot=step_pivot)
-    M = model.nfft // 2 + 1
-    device = model.device
-    inputs = torch.zeros((1, M, 1), device=device)
-    inputs[:, 0, :] = 1.0
-    targets = torch.ones((1, M, 1), device=device)
-    losses = [step(inputs, targets) for _ in range(n_steps)]
-    history = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
+    inputs, targets = impulse_pair(model)
+    history = run_in_chunks(lambda i: step(inputs, targets), n_steps,
+                            steps_per_call)
     return model, history
+
+
+def impulse_pair(model):
+    """The canonical (1, M, 1) impulse input and flat target on the
+    model's device."""
+    M = model.nfft // 2 + 1
+    inputs = torch.zeros((1, M, 1), device=model.device)
+    inputs[:, 0, :] = 1.0
+    return inputs, torch.ones((1, M, 1), device=model.device)

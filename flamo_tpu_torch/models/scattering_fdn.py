@@ -21,12 +21,13 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
-import numpy as np
 import torch
 
 from flamo_tpu_torch.core import masked_optimizer
+from flamo_tpu_torch.models.colorless_fdn import impulse_pair
 from flamo_tpu_torch.ops.solve import closed_loop_solve
 from flamo_tpu_torch.optimize.loss import masked_mse_loss, sparsity_loss
+from flamo_tpu_torch.optimize.utils import run_in_chunks
 from flamo_tpu_torch.processor import dsp, system
 from flamo_tpu_torch.utils import next_key, resolve_device
 
@@ -164,17 +165,18 @@ def sfdn_masked_train_step(model, lr: float = 1e-3, n_samples: int = 2000,
 
 
 def sfdn_fit(model, n_steps: int, lr: float = 1e-3, n_samples: int = 2000,
-             generator=None, masked: bool = False,
+             steps_per_call: int = 100, generator=None, masked: bool = False,
              solve_method: str = "ge_cached"):
     """Train the scattering FDN on the canonical impulse -> flat pair.
     Returns ``(model, per-step loss history as numpy)``.
 
     ``masked=True`` goes through :func:`sfdn_masked_train_step` (the loop
     solved at each step's masked bins with ``solve_method``), else through
-    :func:`sfdn_train_step` (the model's own solve).  The JAX package's
-    ``lax.scan`` in chunks of ``steps_per_call`` is a plain loop here, so
-    that argument has no counterpart; the losses stay on the device until
-    the end."""
+    :func:`sfdn_train_step` (the model's own solve).  The steps run in
+    chunks of ``steps_per_call``, the JAX package's ``lax.scan`` length: a
+    chunk's losses reach the host once, at its end, and exactly
+    ``n_steps`` steps run.  ``steps_per_call`` changes only how often the
+    host syncs, not the result."""
     if masked:
         step, _ = sfdn_masked_train_step(model, lr=lr, n_samples=n_samples,
                                          generator=generator,
@@ -182,11 +184,7 @@ def sfdn_fit(model, n_steps: int, lr: float = 1e-3, n_samples: int = 2000,
     else:
         step, _ = sfdn_train_step(model, lr=lr, n_samples=n_samples,
                                   generator=generator)
-    M = model.nfft // 2 + 1
-    device = model.device
-    inputs = torch.zeros((1, M, 1), device=device)
-    inputs[:, 0, :] = 1.0
-    targets = torch.ones((1, M, 1), device=device)
-    losses = [step(inputs, targets, i) for i in range(n_steps)]
-    history = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
+    inputs, targets = impulse_pair(model)
+    history = run_in_chunks(lambda i: step(inputs, targets, i), n_steps,
+                            steps_per_call)
     return model, history

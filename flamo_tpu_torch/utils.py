@@ -9,10 +9,16 @@ Randomness is an explicit ``torch.Generator``.  :func:`set_seed` /
 stream: a constructor given no generator draws from the global one.
 Parameters are always drawn on the CPU and then moved, so a seed gives
 the same weights on every device.
+
+WAV files are written and read by :func:`save_audio` / :func:`load_audio`.
 """
 
 from __future__ import annotations
 
+import os
+import wave
+
+import numpy as np
 import torch
 
 _GLOBAL_GENERATOR = [torch.Generator().manual_seed(0)]
@@ -60,3 +66,80 @@ def get_frequency_samples(num: int, rho: float = 1.0,
     angle = torch.linspace(0.0, 1.0, num, dtype=dtype,
                            device=resolve_device(device))
     return rho * torch.exp(1j * angle * torch.pi)
+
+
+# ----------------------------------------------------------------------
+# audio IO: the standard library's ``wave`` for 24-bit PCM, scipy for the
+# rest (no soundfile)
+# ----------------------------------------------------------------------
+def save_audio(filepath: str, x, fs: int = 48000,
+               subtype: str = "PCM_24") -> None:
+    """Write a WAV file.  ``subtype`` 'PCM_16'/'PCM_24'/'PCM_32' write
+    integer samples ('PCM_24' as 3-byte little-endian frames), scaled down
+    to a peak of 1 where it is above; 'FLOAT' writes float32 samples.  A
+    tensor is copied to the host first."""
+    from scipy.io import wavfile
+
+    folder = os.path.dirname(filepath)
+    if folder:
+        os.makedirs(folder, exist_ok=True)
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x)
+    if subtype == "FLOAT":
+        wavfile.write(filepath, int(fs), x.astype(np.float32))
+        return
+    peak = np.max(np.abs(x)) if x.size else 1.0
+    if peak > 1.0:
+        x = x / peak
+    if subtype == "PCM_16":
+        wavfile.write(filepath, int(fs), (x * (2**15 - 1)).astype(np.int16))
+    elif subtype == "PCM_32":
+        wavfile.write(filepath, int(fs), (x * (2**31 - 1)).astype(np.int32))
+    elif subtype == "PCM_24":
+        if x.ndim == 1:
+            x = x[:, None]
+        q = np.clip(np.round(x * (2**23 - 1)), -(2**23), 2**23 - 1)
+        # the 3 low bytes of each little-endian int32 sample, interleaved
+        b = np.frombuffer(q.astype("<i4").tobytes(),
+                          dtype=np.uint8).reshape(-1, 4)[:, :3]
+        with wave.open(filepath, "wb") as w:
+            w.setnchannels(x.shape[1])
+            w.setsampwidth(3)
+            w.setframerate(int(fs))
+            w.writeframes(b.tobytes())
+    else:
+        raise ValueError(f"unknown subtype {subtype!r}")
+
+
+def load_audio(filepath: str):
+    """Read a WAV file -> (float32 array in [-1, 1] of shape (T, C), fs).
+    24-bit PCM is read with ``wave``, every other format with scipy."""
+    try:
+        with wave.open(filepath, "rb") as w:
+            if w.getsampwidth() == 3:
+                C = w.getnchannels()
+                fs = w.getframerate()
+                b = np.frombuffer(w.readframes(w.getnframes()),
+                                  dtype=np.uint8).reshape(-1, 3)
+                val = (b[:, 0].astype(np.int32)
+                       | (b[:, 1].astype(np.int32) << 8)
+                       | (b[:, 2].astype(np.int32) << 16))
+                val = np.where(val >= 2**23, val - 2**24, val)
+                return (val.astype(np.float32) / 2**23).reshape(-1, C), fs
+    except wave.Error:
+        pass  # float or compressed WAVs: scipy below
+    from scipy.io import wavfile
+
+    fs, data = wavfile.read(filepath)
+    if data.dtype == np.int16:
+        data = data.astype(np.float32) / 2**15
+    elif data.dtype == np.int32:
+        data = data.astype(np.float32) / 2**31
+    elif data.dtype == np.uint8:
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        data = data.astype(np.float32)
+    if data.ndim == 1:
+        data = data[:, None]
+    return data, fs

@@ -972,3 +972,34 @@ def test_cuda_fused_tf_step_and_response_launch_counts(cuda):
     fk.reset_launch_counts()
     smoke.fused_evals(model)(1)
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fdn_tf_fwd": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_fused_trainer_launches_k1_once_a_step(cuda):
+    """Trainer(fused='auto') on the card takes colorless_fused_step and
+    then launches K1 once per train step, once per valid step and once per
+    fit_scan step, and no other FDN kernel."""
+    from flamo_tpu_torch.optimize import (DatasetColorless, Trainer,
+                                          load_dataset, mse_loss,
+                                          sparsity_loss)
+
+    nfft = 4096
+    M = nfft // 2 + 1
+    model = build_colorless_fdn(nfft=nfft, device="cuda",
+                                generator=torch.Generator().manual_seed(0))
+    tl, vl = load_dataset(
+        DatasetColorless((1, M, 1), (1, M, 1), expand=5, device="cuda"),
+        batch_size=1, split=0.8, seed=0)
+    tr = Trainer(model, max_epochs=1, log=False)
+    tr.register_criterion(mse_loss(nfft=nfft), 1)
+    tr.register_criterion(sparsity_loss(), 0.2, requires_model=True)
+    x, t = next(iter(tl))
+    tr.train_step((x, t))
+    assert tr.fused_path == "colorless_fused_step"
+    fk.reset_launch_counts()
+    tr.train(tl, vl)
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fdn_tf_mse": 5}
+    fk.reset_launch_counts()
+    hist = tr.fit_scan(x, t, n_steps=7, steps_per_call=3)
+    assert hist.shape == (7,) and np.isfinite(hist).all()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fdn_tf_mse": 7}

@@ -293,7 +293,13 @@ def test_import_loads_no_jax():
             "flamo_tpu_torch.models.active_acoustics, "
             "flamo_tpu_torch.ops.aa_kernels, flamo_tpu_torch.ops.eig_kernels, "
             "flamo_tpu_torch.ops.phase2_micro, "
-            "flamo_tpu_torch.scripts.bench_phase2_micro; "
+            "flamo_tpu_torch.scripts.bench_phase2_micro, "
+            "flamo_tpu_torch.optimize.dataset, "
+            "flamo_tpu_torch.optimize.trainer, "
+            "flamo_tpu_torch.models.dispatch, flamo_tpu_torch.examples, "
+            "flamo_tpu_torch.examples.e8_colorless_fdn, "
+            "flamo_tpu_torch.examples.e8_colorless_sfdn, "
+            "flamo_tpu_torch.examples.e8_active_acoustics; "
             "bad = [m for m in sys.modules if m in ('jax', 'flamo_tpu') or "
             "m.startswith(('jax.', 'flamo_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -312,7 +318,12 @@ def test_sources_import_no_jax():
     for new in ("ops/sos_kernels.py", "auxiliary/eq.py",
                 "models/attenuated_fdn.py", "ops/aa_kernels.py",
                 "ops/eig_kernels.py", "models/active_acoustics.py",
-                "ops/phase2_micro.py", "scripts/bench_phase2_micro.py"):
+                "ops/phase2_micro.py", "scripts/bench_phase2_micro.py",
+                "optimize/dataset.py", "optimize/trainer.py",
+                "models/dispatch.py", "examples/_common.py",
+                "examples/e8_colorless_fdn.py",
+                "examples/e8_colorless_sfdn.py",
+                "examples/e8_active_acoustics.py"):
         assert port / new in files, new
     for f in files:
         assert not pattern.search(f.read_text()), f
