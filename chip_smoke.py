@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive flamo_tpu_torch's colorless-, attenuated- and scattering-FDN
-paths, its active-acoustics path and its phase-2 micro-benchmark on one
-CUDA card.
+paths, its active-acoustics path, its phase-2 micro-benchmark, its
+Trainer path and its e8_fdn example path on one CUDA card.
 
 Run from the root of the repository:
 
@@ -51,7 +51,9 @@ Phases, in order; any failure raises and exits non-zero without a result:
    its tensor-core kernel at precision 'high' and 'default', its FP32
    kernel at 'highest', each against the plain version of its precision,
    'default''s tap cotangent held to 1.5 times the plain version's own
-   spread, 'high' and 'default' equal to the previous library's bit for
+   spread and, elementwise, to twice one TF32 pass's forward-error bound
+   on its operands' magnitudes, 'high' and 'default' equal to the
+   previous library's bit for
    bit, and each TF32 mode's distance from 'highest' printed) at
    M = 48001, N = 4 microphones, L = 13 loudspeakers, 100 taps, on the
    magnitude rig's own rows; K5 in all eight (pivot, with_dbar,
@@ -114,6 +116,23 @@ Phases, in order; any failure raises and exits non-zero without a result:
    events), its lines printed; each variant's value must equal its phase-2
    kernel value on the same operands, and its kernel must have been
    launched in the run;
+4f. the Trainer path (the paved road): the e8 colorless flow through
+   load_dataset and Trainer (fused gate to K1, one epoch, fit_scan), the
+   attenuated Trainer through K5, the scattering Trainer's masked step
+   against its K6 graph route, the graph route through K2 and a
+   checkpoint round trip;
+4g. the e8_fdn path: flamo_tpu_torch/examples/e8_fdn.py's 'fdn' and
+   'direct' models at full width (nfft=96000, delays 593..1699, 30 dB
+   alias decay undone by iFFTAntiAlias, the direct one a Parallel beside
+   a clip-mapped gain), each built on 'xla'/'ge' and on 'pallas'/'pallas'
+   from one seed: the 'pallas' build's first loss (mss_loss + sparsity)
+   equals the 'xla' build's to 1e-5 and its gradients to 1e-3 of the max
+   (K4f, K4b once and K2 twice); one epoch of Trainer.train(scan=True) on
+   the 'pallas' model (16 items, batches of 2, split 0.8: 6 train and 2
+   valid steps), K4f once a step, K4b and K2 transposed once a train
+   step, K2 once a step, exactly, no fused path taken, the loss falling,
+   its IRs finite and written to build/e8_fdn/; then E8_STEPS timed
+   Trainer.fit_scan steps a scenario (CUDA events, after 3);
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
@@ -135,9 +154,10 @@ Phases, in order; any failure raises and exits non-zero without a result:
    local (spill) bytes read from the card;
 6. torch.profiler traces of a few training steps of each path (and of a
    few fused responses): the device's busy and idle share and the
-   kernels that take its time (for the attenuated graph step also K4f's,
-   K4b's and K2's share, for the fused-tf step K3f's and K3b's, for the
-   fused response K3f's, for the K9 steps K9's);
+   kernels that take its time (for the attenuated graph step and the
+   e8_fdn steps also K4f's, K4b's and K2's share and the cuBLAS GEMMs',
+   for the fused-tf step K3f's and K3b's, for the fused response K3f's,
+   for the K9 steps K9's), and the MSS loss alone, its GEMMs named;
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -161,7 +181,9 @@ at each precision in its own run: ``aa_taps_tf_mse`` is the FP32 kernel
 at 'highest', ``aa_taps_tf_mse_tc_high`` and ``aa_taps_tf_mse_tc_default``
 the tensor-core kernel at 3 and 1 TF32 passes); K4f and K4b in the
 timed graph steps of phase 4 (once each per step), K2 there (twice per
-step) and in the graph-route calls of phases 3 and 4, K3f and K3b in
+step) and in the graph-route calls of phases 3 and 4, all three also in
+phase 4g's epochs and timed steps (K4f once a step, K4b once a train
+step, K2 once a step and once more a train step), K3f and K3b in
 phase 3's timed fused-tf steps (once each per step) and K3f also in its
 timed fused responses (once per call); the K10 variants in phase 4e's
 bench_phase2_micro.run (151 calls each).  ``trace_retries``
@@ -184,11 +206,13 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from flamo_tpu_torch.convert import jax_named_tensors, load_jax_scattering
+from flamo_tpu_torch.examples import e8_fdn
 from flamo_tpu_torch.functional import charpoly, expm_skew
 from flamo_tpu_torch.models import (ActiveAcoustics, aa_dft_basis,
                                     aa_evs_fit, aa_evs_train_step,
@@ -215,12 +239,14 @@ from flamo_tpu_torch.ops import sos_kernels as sk
 # model's device
 from flamo_tpu_torch.models.colorless_fdn import (
     extract_siso_tf_operands, impulse_pair as colorless_pair)
-from flamo_tpu_torch.optimize import (DatasetColorless, Trainer,
+from flamo_tpu_torch.optimize import (Dataset, DatasetColorless, Trainer,
                                       load_dataset, load_model_state,
                                       masked_mse_loss, mse_evs, mse_loss,
-                                      save_model_state, sparsity_loss)
+                                      mss_loss, save_model_state,
+                                      sparsity_loss)
 from flamo_tpu_torch.processor import dsp, system
 from flamo_tpu_torch.scripts import bench_phase2_micro as p2bench
+from flamo_tpu_torch.utils import set_seed
 
 M_MAIN, N_MAIN, NFFT = 48001, 6, 96000
 K_MAIN, P_MAIN = 12, 3  # GEQ sections (octave bands + 3) and SOS taps
@@ -261,6 +287,14 @@ FUSED_TF_STEPS, FUSED_EVALS = 100, 200
 PAVED_EXPAND, PAVED_SCAN_STEPS, PAVED_SCAN_CALL = 64, 100, 50
 PAVED_ATT_STEPS, PAVED_SFDN_STEPS, PAVED_GRAPH_STEPS = 50, 5, 20
 PAVED_TRAIN_STEPS = 100
+# phase 4g, the e8_fdn path: the example's dataset (expand, batch, split)
+# and the timed Trainer.fit_scan steps a scenario
+E8_EXPAND, E8_BATCH, E8_SPLIT, E8_STEPS = 16, 2, 0.8, 20
+# the 'pallas' route's first loss against the 'xla' route's, as phase 4's
+# graph routes; its gradients at the JAX package's GEQ gradient bound: the
+# 12-section octave cascade in float32 puts K4 and the plain cascade ~2e-4
+# of the max apart on the GEQ gains (the other leaves ~1e-7)
+E8_LOSS_TOL, E8_GRAD_TOL = 1e-5, 1e-3
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
@@ -1570,14 +1604,44 @@ def random_charpolys(rng, N: int, B: int):
     return torch.real(c).contiguous(), torch.imag(c).contiguous()
 
 
+def tf32_pass_bound(rows9, pivot, off, N=AA_N, L=AA_L, nfft=NFFT):
+    """Elementwise forward-error bound of one TF32 pass of K9 'default''s
+    tap contraction ``tb = P2 S2^T`` (order, L N), over 2M terms of the
+    powers P2 = [Pr, Pi] and the S rows S2 = [Sr, -Si]: each operand
+    rounded to TF32 (relative 2^-11 each, so a product within 2^-10 +
+    2^-22), then accumulated in float32 (gamma_2M, 2M u / (1 - 2M u), u =
+    2^-24), so |fl(tb) - tb| <= (2^-10 + 2^-22 + gamma_2M) (|P2| |S2|^T).
+    The kernel and its plain version each lie within that of the exact
+    product of their own operands; their S differ by float32 rounding
+    (~1e-6 relative), far inside gamma_2M, so the two lie within twice the
+    bound, computed here from the plain version's operands (the powers
+    are the same integer-phase ones; S is the plain version's, with the
+    'default' mixer response)."""
+    hr, hi, tw, rr, ri, t = rows9
+    M = hr.shape[-1]
+    Pr, Pi = ak.dft_powers(tw.shape[0], M, nfft, off, hr.device)
+    P2 = torch.cat([Pr, Pi], dim=1)
+    G2 = ak._tf32_matmul(tw.T, P2, "default")
+    _, Sr, Si = ak.aa_tf_mse_plain(hr, hi, G2[:, :M], G2[:, M:], rr, ri, t,
+                                   N, L, pivot)
+    u, n = 2.0 ** -24, 2 * M
+    factor = 2.0 ** -10 + 2.0 ** -22 + n * u / (1 - n * u)
+    mag = (P2.double().abs()
+           @ torch.cat([Sr, -Si], dim=1).double().abs().T)
+    return 2 * factor * mag
+
+
 def default_cotangent_gap(tag, got, ref, rows9, pivot, off) -> float:
     """K9 'default''s tap cotangent against its plain version, held to
-    DEFAULT_SPREAD_FACTOR times the plain version's own spread: the same
-    function through the other elimination (pivot against no pivot), whose
-    S differs from this one by float32 rounding alone.  One TF32 pass
-    rounds every S value to 11 bits, so a rounding difference of ~1e-6 in
-    S moves a term by 2^-11 where it crosses a rounding boundary; the
-    spread measures that, and it exceeds AA_GRAD_TOL at the rig's size."""
+    two bounds.  (1) DEFAULT_SPREAD_FACTOR times the plain version's own
+    spread: the same function through the other elimination (pivot
+    against no pivot), whose S differs from this one by float32 rounding
+    alone.  One TF32 pass rounds every S value to 11 bits, so a rounding
+    difference of ~1e-6 in S moves a term by 2^-11 where it crosses a
+    rounding boundary; the spread measures that, and it exceeds
+    AA_GRAD_TOL at the rig's size.  (2) Elementwise, twice the forward
+    error of one TF32 pass (``tf32_pass_bound``), which rests on the
+    operands' magnitudes and not on the plain version's noise."""
     other = ak.aa_taps_tf_mse_plain(*rows9, AA_N, AA_L, NFFT, not pivot, off,
                                     "default")
     err, rel = rel_err(got, ref)
@@ -1588,6 +1652,14 @@ def default_cotangent_gap(tag, got, ref, rows9, pivot, off) -> float:
           f"own pivot spread {spread:.3e}; {rel / max(spread, 1e-30):.3f} x)")
     check(rel < tol, f"{tag} tap cotangent: relative error {rel:.3e} >= "
           f"{tol:.3e}")
+    bound = tf32_pass_bound(rows9, pivot, off)
+    ratio = float(((got - ref).double().abs() / bound).max())
+    print(f"  {tag} tap cotangent against twice one TF32 pass's forward "
+          f"error bound, elementwise: max |kernel - plain| / bound "
+          f"{ratio:.3e} (tol 1; the bound's max {float(bound.max()):.3e} "
+          f"against the cotangent's max {float(ref.abs().max()):.3e})")
+    check(ratio <= 1.0, f"{tag} tap cotangent: outside the TF32 forward "
+          f"error bound ({ratio:.3e} of it)")
     return err
 
 
@@ -2472,6 +2544,190 @@ def phase_paved_road(card: str):
     return launches, train_step_ms
 
 
+E8_ARGS = SimpleNamespace(nfft=NFFT, samplerate=48000, rir=None)
+
+
+def e8_target():
+    """The e8_fdn example's target: a WGN reverb (t60 0.25 s) from seed
+    SEED, (1, NFFT, 1) on the card."""
+    set_seed(SEED)
+    return e8_fdn._target_rir(E8_ARGS, NFFT, torch.device("cuda"))
+
+
+def e8_model(scenario: str, backend: str, seed: int = SEED):
+    """The example's model of ``scenario`` on ``backend``, at full width
+    on the card, its weights from ``seed``."""
+    set_seed(seed)
+    return e8_fdn._build_reference_fdn(
+        E8_ARGS, len(e8_fdn.DELAYS), e8_fdn.DELAYS, e8_fdn.ALIAS_DB,
+        direct=scenario == "direct", backend=backend, device="cuda")
+
+
+def e8_trainer(model, lr: float = 1e-3) -> Trainer:
+    """The example's Trainer: mss_loss(256, 512, 1024) + sparsity_loss,
+    one epoch, no checkpoints."""
+    tr = Trainer(model, max_epochs=1, lr=lr, log=False)
+    tr.register_criterion(mss_loss(nfft=e8_fdn.MSS_NFFT), 1)
+    tr.register_criterion(sparsity_loss(), 1, requires_model=True)
+    return tr
+
+
+def e8_loaders(target):
+    x = torch.zeros((1, NFFT, 1), device="cuda")
+    x[:, 0, :] = 1.0
+    ds = Dataset(input=x, target=target, expand=E8_EXPAND, device="cuda")
+    return load_dataset(ds, batch_size=E8_BATCH, split=E8_SPLIT, seed=SEED)
+
+
+def e8_counts() -> dict:
+    return {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items() if v}
+
+
+def phase_e8(card: str):
+    """The e8_fdn path at full width: for the 'fdn' and 'direct'
+    scenarios, the 'pallas' build's first loss and gradients against the
+    'xla' build's from the same seed, one epoch of Trainer.train(scan=True)
+    on the 'pallas' model with exact K4f/K4b/K2 counts, its IRs, and
+    E8_STEPS timed Trainer.fit_scan steps.  Returns the launch counts of
+    the epochs and the timed steps, and the untraced ms a step of each
+    scenario."""
+    print(f"phase 4g the e8_fdn path: examples/e8_fdn.py's fdn and direct "
+          f"models (nfft={NFFT}, delays {e8_fdn.DELAYS}, orthogonal mixing, "
+          f"sigmoid-dB octave parallelGEQ, alias decay {e8_fdn.ALIAS_DB} dB, "
+          f"iFFTAntiAlias) on cuda, mss_loss({e8_fdn.MSS_NFFT}) + "
+          "sparsity_loss against a WGN-reverb target")
+    target = e8_target()
+    launches, step_ms = {}, {}
+    out_dir = Path("build/e8_fdn")
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def first(model):
+        return loss_and_grads(model, lambda m, x, t: e8_fdn.first_loss(m, t),
+                              None, target)
+
+    for scenario in ("fdn", "direct"):
+        mx, mk = e8_model(scenario, "xla"), e8_model(scenario, "pallas")
+        check(all(torch.equal(a, b) for a, b in zip(
+            mx.state_dict().values(), mk.state_dict().values())),
+            "the two builds of one seed hold different weights")
+        l_x, g_x = first(mx)
+        fk.reset_launch_counts()
+        sk.reset_launch_counts()
+        l_k, g_k = first(mk)
+        counts = e8_counts()
+        want = {"fdn_solve": 2, "sos_cascade_fwd": 1, "sos_cascade_bwd": 1}
+        check(counts == want, f"{scenario}: the first loss and its gradients "
+              f"should launch K4f, K4b once and K2 twice: {counts}")
+        rel = abs(l_k - l_x) / l_x
+        print(f"  {scenario}: first loss xla/ge {l_x:.8f}, pallas/pallas "
+              f"(K4f + K2) {l_k:.8f}, rel {rel:.3e} (tol {E8_LOSS_TOL:g})")
+        check(np.isfinite(l_x) and rel < E8_LOSS_TOL,
+              f"{scenario}: the pallas route's first loss differs")
+        for k in g_x:
+            compare(f"{scenario} grad {k}", g_k[k], g_x[k], E8_GRAD_TOL)
+
+        tl, vl = e8_loaders(target)
+        tr = e8_trainer(mk)
+        e8_fdn._save_ir(mk, str(out_dir / f"ir_init_{scenario}.wav"), 48000)
+        fk.reset_launch_counts()
+        sk.reset_launch_counts()
+        _, seconds = timed(lambda: tr.train(tl, vl, scan=True))
+        counts = e8_counts()
+        n_train, n_valid = len(tl), len(vl)
+        want = {"fdn_solve": 2 * n_train + n_valid,
+                "sos_cascade_fwd": n_train + n_valid,
+                "sos_cascade_bwd": n_train}
+        check(tr.fused_path is None, f"{scenario}: the Trainer took the "
+              f"fused path {tr.fused_path!r} for mss_loss")
+        check(counts == want, f"{scenario}: one epoch of {n_train} train and "
+              f"{n_valid} valid steps should launch K4f once a step, K4b "
+              f"and K2 transposed once a train step, K2 once a step: "
+              f"{counts}, not {want}")
+        steps = (np.asarray(tr.train_loss_log["mss_loss"])
+                 + np.asarray(tr.train_loss_log["sparsity_loss"]))
+        print(f"  {scenario}: Trainer.train(scan=True), one epoch of "
+              f"{n_train} train and {n_valid} valid batches of {E8_BATCH} "
+              f"in {seconds:.2f} s: step losses {steps[0]:.7f} -> "
+              f"{steps[-1]:.7f}, valid {tr.valid_loss[-1]:.7f}; launches "
+              f"{counts}")
+        check(bool(np.isfinite(steps).all()) and steps[-1] < steps[0],
+              f"{scenario}: the epoch's loss is not finite or did not fall")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        ir = e8_fdn._save_ir(tr.net, str(out_dir / f"ir_optim_{scenario}.wav"),
+                             48000)
+        print(f"  {scenario}: IRs {ir.shape[0]} samples, finite, written to "
+              f"{out_dir}/ir_init_{scenario}.wav and ir_optim_{scenario}.wav")
+
+        # the ms a step: Trainer.fit_scan on the first train batch
+        bx, bt = next(iter(tl))
+        tr.fit_scan(bx, bt, n_steps=3, steps_per_call=3)
+        fk.reset_launch_counts()
+        sk.reset_launch_counts()
+        hist, seconds = timed(lambda: tr.fit_scan(
+            bx, bt, n_steps=E8_STEPS, steps_per_call=E8_STEPS))
+        counts = e8_counts()
+        check(counts == {"fdn_solve": 2 * E8_STEPS,
+                         "sos_cascade_fwd": E8_STEPS,
+                         "sos_cascade_bwd": E8_STEPS},
+              f"{scenario}: a timed step should launch K4f, K4b once and K2 "
+              f"twice: {counts}")
+        check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+              f"{scenario}: the timed steps' loss is not finite or did not "
+              "fall")
+        for name, n in counts.items():
+            launches[name] += n
+        step_ms[scenario] = seconds * 1e3 / E8_STEPS
+    print(f"  e8_fdn graph step (Trainer.fit_scan, batch {E8_BATCH}, "
+          f"{E8_STEPS} steps after 3, CUDA events) on {card}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in step_ms.items()))
+    print(f"  launches in phase 4g (the epochs and the timed steps): "
+          f"{launches}")
+    return launches, step_ms
+
+
+def e8_steps(scenario: str):
+    """``run(n)``: n Trainer.fit_scan steps of the e8_fdn 'pallas' model on
+    the first batch of its loader."""
+    target = e8_target()
+    tr = e8_trainer(e8_model(scenario, "pallas", seed=3))
+    bx, bt = next(iter(e8_loaders(target)[0]))
+    return lambda n: tr.fit_scan(bx, bt, n_steps=n, steps_per_call=n)
+
+
+def trace_mss(card: str, steps: int = 10) -> None:
+    """The MSS loss alone (forward and backward on a fixed estimate of the
+    e8 'fdn' model): its device time and its cuBLAS GEMMs' a call, to set
+    against the e8 step's busy time."""
+    t = e8_target().expand(E8_BATCH, -1, -1)
+    x = torch.zeros((E8_BATCH, NFFT, 1), device="cuda")
+    x[:, 0, :] = 1.0
+    with torch.no_grad():
+        est = e8_model("fdn", "pallas", seed=3)(x)
+    est.requires_grad_(True)
+    mss = mss_loss(nfft=e8_fdn.MSS_NFFT)
+
+    def run(n):
+        for _ in range(n):
+            mss(est, t).backward()
+
+    run(3)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    gemm = sum(e.self_device_time_total for e in events
+               if "gemm" in e.key) / 1e3 / steps
+    print(f"phase 6 trace of mss_loss({e8_fdn.MSS_NFFT}) alone, forward and "
+          f"backward on a (2, {NFFT}, 1) estimate, on {card}: device busy "
+          f"{busy:.4f} ms a call, of which cuBLAS GEMMs (the DFT products on "
+          f"the respaced grid) {gemm:.4f} ms, "
+          f"{sum(e.count for e in events) / steps:.1f} device ops a call")
+
+
 def phase_timing(o, launches, errs, card, previous) -> list:
     print(f"phase 5 timing at M={M_MAIN}, N={N_MAIN} on {card}")
     D, U, b, c, B, X, t = (o[k] for k in "DUbcBXt")
@@ -2887,7 +3143,8 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
 
 
 def phase_trace(card: str, label: str, run_steps, step_ms: float,
-                steps: int = 10, share: tuple = ()) -> None:
+                steps: int = 10, share: tuple = (),
+                groups: dict | None = None) -> None:
     """Where a training step's time goes: a torch.profiler trace of the
     card's operations in ``run_steps(steps)``, the device's busy time per
     step, its idle share against the traced wall time (the profiler slows
@@ -2896,7 +3153,9 @@ def phase_trace(card: str, label: str, run_steps, step_ms: float,
     not traced: nothing here reads them, and with them the trace's
     post-processing took most of this phase's time.  ``share`` names
     kernels (parts of their names) whose device time is printed with its
-    share of the busy time."""
+    share of the busy time, and which the trace must hold; ``groups``
+    maps a label to parts of names whose kernels' time is printed
+    together, held or not."""
     run_steps(3)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -2934,6 +3193,12 @@ def phase_trace(card: str, label: str, run_steps, step_ms: float,
         ms = sum(e.self_device_time_total for e in events
                  if name in e.key) / 1e3
         ops = sum(e.count for e in events if name in e.key)
+        print(f"  {name}: {ms / steps:.4f} ms/step x{ops / steps:g}, "
+              f"{ms / busy_ms:.4f} of the busy time")
+    for name, parts in (groups or {}).items():
+        hit = [e for e in events if any(p in e.key for p in parts)]
+        ms = sum(e.self_device_time_total for e in hit) / 1e3
+        ops = sum(e.count for e in hit)
         print(f"  {name}: {ms / steps:.4f} ms/step x{ops / steps:g}, "
               f"{ms / busy_ms:.4f} of the busy time")
     events.sort(key=lambda e: -e.self_device_time_total)
@@ -3034,6 +3299,10 @@ def main() -> int:
     took["4f paved road"] = seconds_since_last()
     for name, n in paved_launches.items():
         launches[name] += n
+    e8_launches, e8_ms = phase_e8(card)
+    took["4g e8_fdn"] = seconds_since_last()
+    for name, n in e8_launches.items():
+        launches[name] += n
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
@@ -3049,9 +3318,19 @@ def main() -> int:
                 att_step_ms)
     phase_trace(card, "attenuated_train_step (graph: K4f, K4b, K2)",
                 attenuated_graph_steps(), att_graph_ms,
-                share=("sos_cascade_fwd", "sos_cascade_bwd", "fdn_solve"))
+                share=("sos_cascade_fwd", "sos_cascade_bwd", "fdn_solve"),
+                groups={"cuBLAS GEMMs (expm's)": ("gemm",)})
     phase_trace(card, "sfdn masked (K6)", sfdn_masked_steps(),
                 sfdn_masked_ms)
+    for scenario in ("fdn", "direct"):
+        phase_trace(card, f"e8_fdn {scenario} Trainer.fit_scan (K4f, K4b, "
+                    f"K2; mss_loss + sparsity_loss)", e8_steps(scenario),
+                    e8_ms[scenario],
+                    share=("sos_cascade_fwd", "sos_cascade_bwd",
+                           "fdn_solve"),
+                    groups={"cuBLAS GEMMs (the MSS DFT products, expm's)":
+                            ("gemm",)})
+    trace_mss(card)
     for p in ("high", "highest"):  # the tensor-core K9, then the FP32 one
         phase_trace(card, f"aa_fused_taps_step (K9, {p})",
                     aa_magnitude_steps(rig, k9_build(p)),

@@ -10,6 +10,12 @@ construction (the scattering shifts) is not a pytree leaf and is copied
 by :func:`load_jax_scattering`.  The port itself never imports JAX: the
 caller builds the dict and passes plain integers.
 
+A ``Parallel`` holds its branches as ``.branchA``/``.branchB``, e.g. for
+the e8_fdn FDN with a direct path ``.core.branchA.modules[1].feedback.
+modules[1].param`` (the GEQ, (K, N)) and ``.core.branchB.modules[0].param``
+(the direct gain); a ``HouseholderMatrix`` leaf is its (N, 1) vector and a
+Hadamard or rotation ``Matrix`` leaf its raw (N, N) param.
+
 A ``Series`` built from an ``OrderedDict`` flattens like any other: its
 children are ``.modules[i]`` in key order, e.g. for the active-acoustics
 loop shell ``ActiveAcoustics.F_MM`` ``.core.modules[0].param`` (U),
@@ -49,6 +55,10 @@ def jax_named_tensors(module, prefix: str = "") -> dict[str, torch.Tensor]:
             out.update(jax_named_tensors(sub, f"{prefix}.modules[{i}]"))
     elif isinstance(module, system.Recursion):
         for name in ("feedforward", "feedback"):
+            out.update(jax_named_tensors(getattr(module, name),
+                                         f"{prefix}.{name}"))
+    elif isinstance(module, system.Parallel):
+        for name in ("branchA", "branchB"):
             out.update(jax_named_tensors(getattr(module, name),
                                          f"{prefix}.{name}"))
     elif isinstance(module, dsp.CachedResponse):

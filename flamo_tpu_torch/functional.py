@@ -1,8 +1,9 @@
-"""Functional helpers of the FDN and active-acoustics paths (counterpart
-of the matching subset of ``flamo_tpu/functional.py``): the orthogonal
-maps, the impulse, filter design and evaluation, the WGN reverb, and the
-eigenvalue solvers (char-poly + Durand-Kerner, whose root iteration is
-kernel K7 on the card)."""
+"""Functional helpers of the FDN, active-acoustics and e8_fdn paths
+(counterpart of the matching subset of ``flamo_tpu/functional.py``): the
+orthogonal, Hadamard and rotation maps, the signal gallery, filter design
+and evaluation, the WGN reverb, the RIR onset, and the eigenvalue solvers
+(char-poly + Durand-Kerner, whose root iteration is kernel K7 on the
+card)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import math
 import numpy as np
 import torch
 
+from flamo_tpu_torch import utils
 from flamo_tpu_torch.utils import complex_dtype_for, next_key, resolve_device
 
 # the char-poly + Durand-Kerner solver (and kernel K7) takes N <= 8
@@ -53,26 +55,150 @@ def expm_skew(X: torch.Tensor) -> torch.Tensor:
     return expm(skew_matrix(X))
 
 
+def get_frequency_samples(num: int, dtype: torch.dtype = torch.float32,
+                          device=None) -> torch.Tensor:
+    """Unit-circle samples e^{j pi t}, t in [0, 1] (num points):
+    :func:`flamo_tpu_torch.utils.get_frequency_samples` at radius 1."""
+    return utils.get_frequency_samples(num, 1.0, dtype, device).to(
+        complex_dtype_for(dtype))
+
+
+def hadamard_matrix_jnp(N: int, dtype: torch.dtype = torch.float32,
+                        device=None) -> torch.Tensor:
+    """Normalized Hadamard matrix by Kronecker doubling, formed in float64
+    on the host (the JAX package's name and construction)."""
+    U = np.array([[1.0]])
+    while U.shape[0] < N:
+        U = np.kron(U, np.array([[1.0, 1.0], [1.0, -1.0]])) / np.sqrt(2.0)
+    return torch.tensor(U, dtype=dtype, device=resolve_device(device))
+
+
+class HadamardMatrix:
+    """Matrix map that ignores its input and returns the N x N Hadamard
+    matrix on the input's device."""
+
+    def __init__(self, N: int, dtype: torch.dtype = torch.float32):
+        self.N = N
+        self.dtype = dtype
+
+    def __call__(self, x):
+        return hadamard_matrix_jnp(self.N, self.dtype, device=x.device)
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: min(max(x, lo), hi), whose gradient is 1/2 at either
+    boundary (``torch.clamp``'s is 1)."""
+    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def rotation_matrix(theta, N: int, iters=None, min_angle: float = 0.0,
+                    max_angle: float = math.pi / 4,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Kronecker power of the 2 x 2 rotation by ``theta`` (clipped to
+    [min_angle, max_angle]): ``iters`` squarings, by default
+    ``log2(N) - 1``."""
+    theta = _clip(torch.as_tensor(theta, dtype=dtype), min_angle, max_angle)
+    c, s = torch.cos(theta), torch.sin(theta)
+    X = torch.stack([torch.stack([c, s]), torch.stack([-s, c])])
+    if iters is None:
+        iters = int(math.log2(N)) - 1
+    for _ in range(int(iters)):
+        X = torch.kron(X, X)
+    return X
+
+
+class RotationMatrix:
+    """Matrix map: scalar raw angle -> :func:`rotation_matrix`."""
+
+    def __init__(self, N: int, iters=None, min_angle: float = 0.0,
+                 max_angle: float = math.pi / 4,
+                 dtype: torch.dtype = torch.float32):
+        self.N, self.iters = N, iters
+        self.min_angle, self.max_angle = min_angle, max_angle
+        self.dtype = dtype
+
+    def __call__(self, theta):
+        return rotation_matrix(theta, self.N, self.iters, self.min_angle,
+                               self.max_angle, self.dtype)
+
+
 _SIGNAL_TYPES = {"impulse", "sine", "sweep", "wgn", "exp", "reference",
                  "noise", "velvet"}
 
 
 def signal_gallery(batch_size: int, n_samples: int, n: int,
                    signal_type: str = "impulse", fs: int = 48000,
+                   rate: float = 1.0, reference=None, generator=None,
                    dtype: torch.dtype = torch.float32,
                    device=None) -> torch.Tensor:
-    """Test signal of shape (batch_size, n_samples, n).  Only the impulse
-    is ported so far; the other types of the JAX gallery raise."""
+    """Test signal of shape (batch_size, n_samples, n): 'impulse', 'sine'
+    (``rate`` Hz; None: one period), 'sweep' (linear chirp 20 Hz to 20
+    kHz), 'wgn'/'noise', 'exp' (decay ``rate``), 'velvet' (density
+    ``rate``) or 'reference' (broadcast).  The random types draw on the
+    CPU from ``generator`` (default the global stream; another PRNG than
+    JAX's) and are then moved to ``device``."""
     if signal_type not in _SIGNAL_TYPES:
         raise ValueError(f"Signal type {signal_type} not recognized.")
-    if signal_type != "impulse":
-        raise NotImplementedError(
-            f"signal_gallery({signal_type!r}) is not ported yet; only "
-            "'impulse' is.")
-    x = torch.zeros((batch_size, n_samples, n), dtype=dtype,
-                    device=resolve_device(device))
-    x[:, 0, :] = 1.0
-    return x
+    device = resolve_device(device)
+    shape = (batch_size, n_samples, n)
+    if signal_type == "impulse":
+        x = torch.zeros(shape, dtype=dtype, device=device)
+        x[:, 0, :] = 1.0
+        return x
+    if signal_type == "sine":
+        if rate is not None:
+            t = torch.linspace(0, n_samples / fs, n_samples, dtype=dtype,
+                               device=device)
+            s = torch.sin(2 * torch.pi * rate / fs * t)
+        else:
+            s = torch.sin(torch.linspace(0, 2 * torch.pi, n_samples,
+                                         dtype=dtype, device=device))
+        return s[None, :, None].expand(shape)
+    if signal_type == "sweep":
+        t = torch.linspace(0, n_samples / fs - 1 / fs, n_samples,
+                           dtype=dtype, device=device)
+        t1 = t[-1]
+        f0, f1 = 20.0, 20000.0
+        phase = 2 * torch.pi * (f0 * t + (f1 - f0) / (2 * t1) * t * t)
+        return torch.cos(phase)[None, :, None].expand(shape)
+    if signal_type in ("wgn", "noise"):
+        return torch.randn(shape, generator=next_key(generator),
+                           dtype=dtype).to(device)
+    if signal_type == "exp":
+        x = torch.exp(-rate * torch.arange(n_samples, dtype=dtype,
+                                           device=device) / fs)
+        return x[None, :, None].expand(shape)
+    if signal_type == "velvet":
+        generator = next_key(generator)
+        seqs = [gen_velvet_noise(n_samples, fs, rate, generator=generator,
+                                 dtype=dtype, device=device)
+                for _ in range(batch_size * n)]
+        x = torch.stack(seqs).reshape(batch_size, n, n_samples)
+        return x.transpose(1, 2)
+    ref = torch.as_tensor(reference, dtype=dtype, device=device)
+    return ref.expand(shape)
+
+
+def gen_velvet_noise(n_samples: int, fs: int, density: float,
+                     generator=None, dtype: torch.dtype = torch.float32,
+                     device=None) -> torch.Tensor:
+    """One velvet-noise sequence: a +-1 pulse at a jittered position in
+    each period of fs / density samples, the first at sample 0."""
+    generator = next_key(generator)
+    Td = fs / density
+    n_pulses = math.floor(n_samples / Td)
+    grid = torch.arange(n_pulses, dtype=dtype) * Td
+    jitter = torch.rand((n_pulses,), generator=generator, dtype=dtype)
+    idx = torch.ceil(grid + jitter * (Td - 1)).to(torch.int64)
+    if n_pulses:
+        idx[0] = 0
+    idx = torch.clamp(idx, 0, n_samples - 1)
+    signs = 2 * torch.randint(0, 2, (n_pulses,), generator=generator) - 1
+    seq = torch.zeros(n_samples, dtype=dtype)
+    seq[idx] = signs.to(dtype)
+    return seq.to(resolve_device(device))
 
 
 def hertz2rad(hertz, fs: int):
@@ -227,6 +353,26 @@ def sosfreqz(sos, nfft: int = 512):
     B = poly_response(sos[:, :3].T, nfft)  # (M, n_sections)
     A = poly_response(sos[:, 3:].T, nfft)
     return torch.prod(B, dim=-1) / torch.prod(A, dim=-1)
+
+
+def find_onset(rir) -> int:
+    """Onset sample of a 1-D RIR: the start of the 64-sample periodic-Hann
+    window of largest local energy, hop 16, one sample window back."""
+    rir = torch.as_tensor(rir)
+    win_len = 64
+    overlap = 0.75
+    win = 0.5 * (1 - torch.cos(2 * torch.pi * torch.arange(
+        win_len, dtype=rir.dtype, device=rir.device) / win_len))
+    pad = int(win_len * overlap)
+    x = torch.nn.functional.pad(rir, (pad, pad))
+    hop = 1 - overlap
+    n_wins = int(np.floor(x.shape[0] / (win_len * hop) - 1 / 2 / hop))
+    hop_len = int(win_len * hop)
+    frames = x.unfold(0, win_len, hop_len)[:n_wins - 2]
+    local_energy = torch.sum(frames ** 2 * win[None, :], dim=1)
+    n_win_discard = int((overlap / hop) - (1 / 2 / hop))
+    local_energy = local_energy[n_win_discard:]
+    return int(win_len * hop * (int(torch.argmax(local_energy)) - 1))
 
 
 def WGN_reverb(matrix_size: tuple = (1, 1), t60: float = 1.0,

@@ -177,13 +177,42 @@ def gauss_solve_cached(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return _GaussSolveCached.apply(A, B)
 
 
+def gauss_solve_mat(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """No-pivot elimination in matrix form: one rank-1 update of the whole
+    (..., N, N) panel per column, then back substitution.  Differentiated
+    by autograd through the elimination, as in the JAX package, where it
+    is kept as a correct reference point that loses to the row form on
+    bandwidth; ``closed_loop_solve(method='ge_mat')``."""
+    N = A.shape[-1]
+    vec = B.ndim == A.ndim - 1
+    if vec:
+        B = B[..., None]
+    below = (torch.arange(N, device=A.device)[:, None]
+             > torch.arange(N, device=A.device)[None, :])  # [i, k]: i > k
+    for k in range(N):
+        col = A[..., :, k]
+        factor = torch.where(below[:, k], col / col[..., k:k + 1],
+                             torch.zeros((), dtype=col.dtype,
+                                         device=col.device))[..., None]
+        A = A - factor * A[..., k:k + 1, :]
+        B = B - factor * B[..., k:k + 1, :]
+    xrows = [torch.zeros_like(B[..., 0, :])] * N
+    for i in range(N - 1, -1, -1):
+        dot = torch.einsum("...j,...jk->...k", A[..., i, :],
+                           torch.stack(xrows, dim=-2))
+        xrows[i] = (B[..., i, :] - dot) / A[..., i, i:i + 1]
+    X = torch.stack(xrows, dim=-2)
+    return X[..., 0] if vec else X
+
+
 def closed_loop_solve(A: torch.Tensor, B: torch.Tensor,
                       method: str = "ge") -> torch.Tensor:
     """Dispatch for the Recursion solve.
 
     method: 'ge' (pivoted elimination, any N: the JAX package's rolled
     variant for N > 32 computes the same elimination), 'ge_nopivot',
-    'ge_cached' (no pivot, factor-reusing gradient), 'lu'
+    'ge_cached' (no pivot, factor-reusing gradient), 'ge_mat' (no pivot,
+    rank-1 panel updates: :func:`gauss_solve_mat`), 'lu'
     (``torch.linalg.solve``) or 'pallas'.  A vector-rhs 'pallas' solve is
     the dense per-bin kernel K6 (:func:`~flamo_tpu_torch.ops.fdn_kernels.
     dense_solve`: the CUDA kernel for CUDA tensors, its plain version for
@@ -204,6 +233,8 @@ def closed_loop_solve(A: torch.Tensor, B: torch.Tensor,
         return gauss_solve(A, B, pivot=False)
     if method == "ge_cached":
         return gauss_solve_cached(A, B)
+    if method == "ge_mat":
+        return gauss_solve_mat(A, B)
     if method == "lu":
         if B.ndim == A.ndim - 1:
             return torch.linalg.solve(A, B[..., None])[..., 0]

@@ -1,5 +1,5 @@
 """DSP processor modules of the colorless-, attenuated- and scattering-FDN
-paths (counterpart of the matching subset of
+paths and of the e8_fdn example (counterpart of the matching subset of
 ``flamo_tpu/processor/dsp.py``).
 
 Spectra flow as complex ``(B, M, N, ...)`` with ``M = nfft//2+1`` rfft
@@ -23,7 +23,9 @@ from torch import nn
 from flamo_tpu_torch.auxiliary.eq import eq_freqs, geq
 from flamo_tpu_torch.auxiliary.scattering import ScatteringMapping
 from flamo_tpu_torch.core import Module
-from flamo_tpu_torch.functional import cascade_prods, expm_skew, poly_response
+from flamo_tpu_torch.functional import (HadamardMatrix, RotationMatrix,
+                                        cascade_prods, expm_skew,
+                                        poly_response)
 from flamo_tpu_torch.ops import linop
 from flamo_tpu_torch.ops.sos_kernels import _iir_guard_prods, sos_cascade
 from flamo_tpu_torch.utils import (complex_dtype_for, next_key,
@@ -106,6 +108,39 @@ def _alias_envelope(nfft: int, alias_decay_db: float, dtype: torch.dtype,
     gamma = 10 ** (-abs(alias_decay_db) / nfft / 20)
     n = torch.arange(0, -nfft, -1, dtype=dtype, device=device)
     return torch.tensor(gamma, dtype=dtype, device=device) ** n
+
+
+class _AntiAliasTransform(Transform):
+    """A transform with the alias envelope of :func:`_alias_envelope`,
+    built once, on ``device`` (default: the CUDA card) in ``dtype``."""
+
+    def __init__(self, nfft: int = 2**11, norm: str = "backward",
+                 alias_decay_db: float = 0.0,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(transform=_identity, dtype=dtype)
+        self.nfft = nfft
+        self.norm = norm
+        self.alias_decay_db = float(alias_decay_db)
+        self.register_buffer("env", _alias_envelope(
+            nfft, self.alias_decay_db, dtype, device), persistent=False)
+
+
+class FFTAntiAlias(_AntiAliasTransform):
+    """rfft of the input times the alias envelope (the JAX package's
+    FFTAntiAlias, envelope for envelope)."""
+
+    def forward(self, x):
+        return torch.fft.rfft(x * self.env[None, :, None], n=self.nfft,
+                              dim=1, norm=self.norm)
+
+
+class iFFTAntiAlias(_AntiAliasTransform):
+    """irfft followed by the gamma^{-n} rising envelope, which undoes the
+    alias decay of the modules' responses."""
+
+    def forward(self, x):
+        y = torch.fft.irfft(x, n=self.nfft, dim=1, norm=self.norm)
+        return y * self.env[None, :, None]
 
 
 # ============================= CORE ================================
@@ -257,8 +292,9 @@ class parallelGain(Gain):
 
 class Matrix(Gain):
     """Gain whose map comes from a matrix gallery: ``random``/``identity``
-    (identity map) or ``orthogonal`` (``expm_skew``).  The ``hadamard``
-    and ``rotation`` galleries are not ported yet and raise."""
+    (identity map), ``orthogonal`` (``expm_skew``), ``hadamard`` (the
+    constant Hadamard matrix) or ``rotation`` (a Kronecker power of the
+    2 x 2 rotation by the raw param's [0, 0] angle, ``iter`` squarings)."""
 
     def __init__(self, size=(1, 1), nfft=2**11, map=_identity,
                  matrix_type: str = "random", iter: int = 1,
@@ -284,11 +320,72 @@ class Matrix(Gain):
         elif self.matrix_type == "orthogonal":
             _check(N == self.size[1], "Matrix must be square to be orthogonal")
             self.map = expm_skew
-        elif self.matrix_type in ("hadamard", "rotation"):
-            raise NotImplementedError(
-                f"matrix_type {self.matrix_type!r} is not ported yet")
+        elif self.matrix_type == "hadamard":
+            _check(N == self.size[1], "Matrix must be square to be Hadamard")
+            _check(N % 2 == 0,
+                   "Matrix must have even dimensions to be Hadamard")
+            self.map = HadamardMatrix(N, dtype=self.dtype)
+        elif self.matrix_type == "rotation":
+            _check(N == self.size[1],
+                   "Matrix must be square to be a rotation matrix")
+            _check(N % 2 == 0, "Matrix must have even dimensions to be a "
+                   "rotation matrix")
+            self.map = _RotationMap(
+                RotationMatrix(N, iters=self.iter, dtype=self.dtype))
         else:
             raise ValueError(f"unknown matrix_type {self.matrix_type}")
+
+
+class _RotationMap:
+    """Map adapter: full raw matrix -> rotation built from its [0, 0]
+    angle."""
+
+    def __init__(self, rot: RotationMatrix):
+        self.rot = rot
+
+    def __call__(self, x):
+        return self.rot(x[0][0])
+
+
+def _householder_map(x):
+    return to_complex(x) / torch.linalg.vector_norm(x, dim=0, keepdim=True)
+
+
+class HouseholderMatrix(Gain):
+    """Orthogonal I - 2 u u^T from the unit vector u (N, 1) of its raw
+    (N, 1) param; the forward applies it as two vector contractions and
+    never forms the matrix."""
+
+    def __init__(self, size=(1, 1), nfft=2**11, requires_grad=False,
+                 alias_decay_db=0.0, dtype: torch.dtype = torch.float32,
+                 generator=None, device=None):
+        _check(size[0] == size[1], "Matrix must be square")
+        super().__init__(size=(size[0], 1), nfft=nfft, map=_householder_map,
+                         requires_grad=requires_grad,
+                         alias_decay_db=alias_decay_db, dtype=dtype,
+                         generator=generator, device=device)
+
+    def get_io(self):
+        self.input_channels = self.size[0]
+        self.output_channels = self.size[0]
+
+    def check_input_shape(self, x):
+        if self.size[0] != x.shape[2]:
+            raise ValueError(
+                f"parameter shape = {self.size} not compatible with input "
+                f"signal of shape = ({tuple(x.shape)}).")
+
+    def matrix_response(self):
+        u = self.map(self.param)
+        eye = torch.eye(self.size[0], dtype=u.dtype, device=u.device)
+        return linop.FLAT, eye - 2 * (u @ u.T)
+
+    def forward(self, x):
+        self.check_input_shape(x)
+        u = self.map(self.param)  # (N, 1) complex
+        uTx = torch.einsum("mn,bfn...->bfm...", u.T, x)
+        uuTx = torch.einsum("nm,bfm...->bfn...", u, uTx)
+        return x - 2 * uuTx
 
 
 # ============================= DELAYS ================================

@@ -1,5 +1,5 @@
 """System composition (counterpart of ``flamo_tpu/processor/system.py``):
-``Series``, ``Recursion`` and ``Shell``.
+``Series``, ``Recursion``, ``Parallel`` and ``Shell``.
 
 Shape and attribute checks run eagerly at construction with the JAX
 package's messages.  Children are registered as ``nn.Module`` submodules,
@@ -8,6 +8,7 @@ so a Series child is reachable by its key (``core.feedback_loop``).
 
 from __future__ import annotations
 
+import copy
 import warnings
 from collections import OrderedDict
 
@@ -119,6 +120,27 @@ class Series(Module):
 
     def named_stages(self):
         return list(zip(self.keys, self.stages))
+
+    # -- structure edits: each returns a new Series ---------------------------
+    def prepend(self, new_module) -> "Series":
+        return self.insert(0, new_module)
+
+    def append(self, new_module) -> "Series":
+        return self.insert(len(self), new_module)
+
+    def insert(self, index: int, new_module) -> "Series":
+        """A new Series with ``new_module`` (a module, a Series or a dict)
+        inserted at ``index``; this one is left as it is."""
+        n = len(self)
+        if not (-n <= index <= n):
+            raise IndexError("Index out of range.")
+        if index < 0:
+            index += n
+        items = self.named_stages()
+        for off, kv in enumerate(_unpack_modules((new_module,),
+                                                 list(self.keys))):
+            items.insert(index + off, kv)
+        return Series(OrderedDict(items))
 
     # -- validation ----------------------------------------------------------
     def __check_attribute(self, attr):
@@ -349,6 +371,97 @@ class Recursion(Module):
         return linop.FULL, closed_loop_solve(A, Fm, method=method)
 
 
+# ============================= PARALLEL ================================
+
+
+class Parallel(Module):
+    """Two branches over the same input, summed (``sum_output``) or
+    concatenated along the channel axis."""
+
+    def __init__(self, brA, brB, sum_output: bool = True):
+        super().__init__()
+        if isinstance(brA, (OrderedDict, dict, list, tuple)):
+            brA = Series(brA)
+            warnings.warn(
+                "Branch A has been converted to a Series class instance.")
+        if isinstance(brB, (OrderedDict, dict, list, tuple)):
+            brB = Series(brB)
+            warnings.warn(
+                "Branch B has been converted to a Series class instance.")
+        self.branchA = brA
+        self.branchB = brB
+        self.sum_output = bool(sum_output)
+        self.nfft = self.__check_attribute("nfft")
+        self.alias_decay_db = self.__check_attribute("alias_decay_db")
+        self.dtype = self.__check_attribute("dtype")
+        self.input_channels, self.output_channels = self.__check_io()
+
+    def __check_attribute(self, attr):
+        a = getattr(self.branchA, attr, None)
+        b = getattr(self.branchB, attr, None)
+        # the JAX package's warnings, which name the branches as passes
+        if a is None:
+            warnings.warn(
+                f"The feedforward pass does not possess the attribute {attr}.")
+        if b is None:
+            warnings.warn(
+                f"The feedback pass does not possess the attribute {attr}.")
+        if a is not None and b is not None and a != b:
+            raise AssertionError(
+                f"Branch A has {attr} = {a} and branch B has {attr} = {b}. "
+                f"They must have the same value.")
+        return a if a is not None else b
+
+    def __check_io(self):
+        io = {}
+        for name in ("A", "B"):
+            branch = getattr(self, f"branch{name}")
+            for side in ("input_channels", "output_channels"):
+                v = getattr(branch, side, None)
+                if v is None:
+                    raise ValueError(f"Branch {name} does not possess the "
+                                     f"attribute {side}.")
+                io[name, side] = v
+        a_in, a_out = io["A", "input_channels"], io["A", "output_channels"]
+        b_in, b_out = io["B", "input_channels"], io["B", "output_channels"]
+        if a_in != b_in:
+            raise AssertionError(
+                f"Branch A has {a_in} input channels, but branch B has "
+                f"{b_in} input channels. They must be the same.")
+        if self.sum_output:
+            if a_out != b_out:
+                raise AssertionError(
+                    f"Branch A has {a_out} output channels, but branch B "
+                    f"has {b_out} output channels. They must be the same if "
+                    f"their output is being summed.")
+            return a_in, a_out
+        return a_in, a_out + b_out
+
+    def forward(self, x):
+        YA = self.branchA(x)
+        YB = self.branchB(x)
+        if self.sum_output:
+            return YA + YB
+        return torch.cat((YA, YB), dim=2)
+
+    def matrix_response(self):
+        """The branches' per-bin maps summed (the cheapest kind) or stacked
+        by rows into a dense (M, A_out + B_out, N_in) map."""
+        rA = _matrix_response_of(self.branchA)
+        rB = _matrix_response_of(self.branchB)
+        if rA is None or rB is None:
+            return None
+        M = self.nfft // 2 + 1
+        if self.sum_output:
+            return linop.add(rA[0], rA[1], rB[0], rB[1], M,
+                             self.output_channels, self.input_channels)
+        Ha = linop.materialize(rA[0], rA[1], M, self.branchA.output_channels,
+                               self.input_channels)
+        Hb = linop.materialize(rB[0], rB[1], M, self.branchB.output_channels,
+                               self.input_channels)
+        return linop.FULL, torch.cat([Ha, Hb], dim=1)
+
+
 # ============================= SHELL ================================
 
 
@@ -434,6 +547,25 @@ class Shell(Module):
 
     def get_core(self):
         return self.core
+
+    # -- setters: each returns a new Shell sharing the other layers --------------
+    def _replace(self, **layers) -> "Shell":
+        """A shallow copy with ``layers`` swapped in, unchecked (the JAX
+        package's ``Module.replace``); this Shell keeps its own."""
+        obj = copy.copy(self)
+        obj._modules = OrderedDict(self._modules)
+        for name, layer in layers.items():
+            setattr(obj, name, layer)
+        return obj
+
+    def set_inputLayer(self, input_layer) -> "Shell":
+        return self._replace(input_layer=input_layer)
+
+    def set_outputLayer(self, output_layer) -> "Shell":
+        return self._replace(output_layer=output_layer)
+
+    def set_core(self, core) -> "Shell":
+        return self._replace(core=core)
 
     # -- responses ---------------------------------------------------------------
     def get_time_response(self, fs: int = 48000, identity: bool = False):

@@ -1003,3 +1003,61 @@ def test_cuda_fused_trainer_launches_k1_once_a_step(cuda):
     hist = tr.fit_scan(x, t, n_steps=7, steps_per_call=3)
     assert hist.shape == (7,) and np.isfinite(hist).all()
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fdn_tf_mse": 7}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scenario", ["fdn", "direct"])
+def test_cuda_e8_fdn_step_pallas_matches_xla(cuda, scenario):
+    """The e8_fdn example's model at nfft = 8192 on the card: the
+    'pallas'/'pallas' build (K4f + K2, backward K4b + K2 transposed)
+    against the 'xla'/'ge' build of the same seed, the first loss (mss +
+    sparsity) at 1e-5 and its gradients at the GEQ gradient bound 1e-3 of
+    the max, then one Trainer step, launches counted exactly."""
+    import types
+
+    from flamo_tpu_torch.convert import jax_named_tensors
+    from flamo_tpu_torch.examples import e8_fdn
+    from flamo_tpu_torch.optimize import Trainer, mss_loss, sparsity_loss
+    from flamo_tpu_torch.utils import set_seed
+
+    nfft = 8192
+    args = types.SimpleNamespace(nfft=nfft, samplerate=48000, rir=None)
+    set_seed(0)
+    target = e8_fdn._target_rir(args, nfft, cuda)
+
+    def build(backend):
+        set_seed(1)
+        return e8_fdn._build_reference_fdn(
+            args, 6, e8_fdn.DELAYS, 30, direct=scenario == "direct",
+            backend=backend, device=cuda)
+
+    def first(model):
+        model.zero_grad(set_to_none=True)
+        loss = e8_fdn.first_loss(model, target)
+        loss.backward()
+        return float(loss.detach()), {
+            k: v.grad for k, v in jax_named_tensors(model).items()
+            if v.requires_grad}
+
+    lx, gx = first(build("xla"))
+    mk = build("pallas")
+    fk.reset_launch_counts()
+    sk.reset_launch_counts()
+    lk, gk = first(mk)
+    assert (fk.LAUNCHES["fdn_solve"], sk.LAUNCHES["sos_cascade_fwd"],
+            sk.LAUNCHES["sos_cascade_bwd"]) == (2, 1, 1)
+    assert abs(lk - lx) / lx < 1e-5
+    for k in gx:
+        assert _rel(gk[k], gx[k]) < 1e-3, k
+    tr = Trainer(mk, log=False)
+    tr.register_criterion(mss_loss(nfft=e8_fdn.MSS_NFFT), 1)
+    tr.register_criterion(sparsity_loss(), 1, requires_model=True)
+    x = torch.zeros((1, nfft, 1), device=cuda)
+    x[:, 0, :] = 1.0
+    fk.reset_launch_counts()
+    sk.reset_launch_counts()
+    hist = tr.fit_scan(x, target, n_steps=2, steps_per_call=2)
+    assert tr.fused_path is None and np.isfinite(hist).all()
+    assert abs(hist[0] - lk) / lk < 1e-5
+    assert (fk.LAUNCHES["fdn_solve"], sk.LAUNCHES["sos_cascade_fwd"],
+            sk.LAUNCHES["sos_cascade_bwd"]) == (4, 2, 2)

@@ -209,3 +209,38 @@ def test_k2_k9_bounds_unchanged(smoke):
     assert (round(ms, 6), by) == (0.032188, "operations")
     ms, by = smoke.bound("aa_taps_tf_mse_tc", 48001, 4, passes=3)
     assert (round(ms, 6), by) == (0.012102, "operations")
+
+
+@pytest.mark.parametrize("pivot", [False, True])
+def test_k9_default_tf32_pass_bound_holds_on_the_cpu(smoke, pivot):
+    """``chip_smoke.tf32_pass_bound``, phase 2's bound on K9 'default''s
+    tap cotangent (fault F4): the plain 'default' cotangent lies within
+    half of it (one TF32 pass) of the float64 product of its own rounded
+    operands' exact values, and the two eliminations' 'default'
+    cotangents within all of it of each other."""
+    N, L, order, nfft = 2, 3, 8, 512
+    M = nfft // 2 + 1
+    rng = np.random.default_rng(0)
+
+    def rows(*shape, scale=1.0):
+        return torch.tensor(scale * rng.normal(size=shape),
+                            dtype=torch.float32)
+
+    rows9 = [rows(N * L, M), rows(N * L, M), rows(order, L * N, scale=0.05),
+             rows(N, M), rows(N, M), rows(N, M).abs()]
+    bound = smoke.tf32_pass_bound(rows9, pivot, 0, N=N, L=L, nfft=nfft)
+    assert bound.shape == (order, L * N) and bool((bound > 0).all())
+    _, tb = ak.aa_taps_tf_mse_plain(*rows9, N, L, nfft, pivot, 0, "default")
+    # the exact product of the same S rows: 'highest''s contraction in
+    # float64 over the 'default' mixer response
+    Pr, Pi = ak.dft_powers(order, M, nfft)
+    P2 = torch.cat([Pr, Pi], dim=1)
+    G2 = ak._tf32_matmul(rows9[2].T, P2, "default")
+    _, Sr, Si = ak.aa_tf_mse_plain(rows9[0], rows9[1], G2[:, :M], G2[:, M:],
+                                   *rows9[3:], N, L, pivot)
+    exact = P2.double() @ torch.cat([Sr, -Si], dim=1).double().T
+    assert float(((tb.double() - exact).abs() / bound).max()) <= 0.5
+    _, other = ak.aa_taps_tf_mse_plain(*rows9, N, L, nfft, not pivot, 0,
+                                       "default")
+    assert float(((tb - other).double().abs() / bound).max()) <= 1.0
+
