@@ -126,7 +126,7 @@ Phases, in order; any failure raises and exits non-zero without a result:
    alias decay undone by iFFTAntiAlias, the direct one a Parallel beside
    a clip-mapped gain), each built on 'xla'/'ge' and on 'pallas'/'pallas'
    from one seed: the 'pallas' build's first loss (mss_loss + sparsity)
-   equals the 'xla' build's to 1e-5 and its gradients to 1e-3 of the max
+   equals the 'xla' build's to 1e-5 and its gradients to 3e-4 of the max
    (K4f, K4b once and K2 twice); one epoch of Trainer.train(scan=True) on
    the 'pallas' model (16 items, batches of 2, split 0.8: 6 train and 2
    valid steps), K4f once a step, K4b and K2 transposed once a train
@@ -291,10 +291,10 @@ PAVED_TRAIN_STEPS = 100
 # and the timed Trainer.fit_scan steps a scenario
 E8_EXPAND, E8_BATCH, E8_SPLIT, E8_STEPS = 16, 2, 0.8, 20
 # the 'pallas' route's first loss against the 'xla' route's, as phase 4's
-# graph routes; its gradients at the JAX package's GEQ gradient bound: the
-# 12-section octave cascade in float32 puts K4 and the plain cascade ~2e-4
-# of the max apart on the GEQ gains (the other leaves ~1e-7)
-E8_LOSS_TOL, E8_GRAD_TOL = 1e-5, 1e-3
+# graph routes; its gradients relative to the max: the 12-section octave
+# cascade in float32 puts K4 and the plain cascade 5e-5-6e-5 of the max
+# apart on the GEQ gains on the H100 (the other leaves ~1e-7)
+E8_LOSS_TOL, E8_GRAD_TOL = 1e-5, 3e-4
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
@@ -1606,17 +1606,19 @@ def random_charpolys(rng, N: int, B: int):
 
 def tf32_pass_bound(rows9, pivot, off, N=AA_N, L=AA_L, nfft=NFFT):
     """Elementwise forward-error bound of one TF32 pass of K9 'default''s
-    tap contraction ``tb = P2 S2^T`` (order, L N), over 2M terms of the
-    powers P2 = [Pr, Pi] and the S rows S2 = [Sr, -Si]: each operand
+    tap contraction ``tb = P2 S2^T`` (order, L N), over n = 2M terms of
+    the powers P2 = [Pr, Pi] and the S rows S2 = [Sr, -Si]: each operand
     rounded to TF32 (relative 2^-11 each, so a product within 2^-10 +
-    2^-22), then accumulated in float32 (gamma_2M, 2M u / (1 - 2M u), u =
-    2^-24), so |fl(tb) - tb| <= (2^-10 + 2^-22 + gamma_2M) (|P2| |S2|^T).
-    The kernel and its plain version each lie within that of the exact
-    product of their own operands; their S differ by float32 rounding
-    (~1e-6 relative), far inside gamma_2M, so the two lie within twice the
-    bound, computed here from the plain version's operands (the powers
-    are the same integer-phase ones; S is the plain version's, with the
-    'default' mixer response)."""
+    2^-22, a worst case), then accumulated in float32 with the
+    probabilistic term sqrt(n) u, u = 2^-24 (Higham and Mary, 2019, at
+    lambda = 1; the worst case n u would let operands rounded 8x more
+    coarsely, to bfloat16, pass at M = 48001), so |fl(tb) - tb| <=
+    (2^-10 + 2^-22 + sqrt(n) u) (|P2| |S2|^T).  The kernel and its plain
+    version each lie within that of the exact product of their own
+    operands; their S differ by float32 rounding (~1e-6 relative), so the
+    two lie within twice the bound, computed here from the plain
+    version's operands (the powers are the same integer-phase ones; S is
+    the plain version's, with the 'default' mixer response)."""
     hr, hi, tw, rr, ri, t = rows9
     M = hr.shape[-1]
     Pr, Pi = ak.dft_powers(tw.shape[0], M, nfft, off, hr.device)
@@ -1624,8 +1626,7 @@ def tf32_pass_bound(rows9, pivot, off, N=AA_N, L=AA_L, nfft=NFFT):
     G2 = ak._tf32_matmul(tw.T, P2, "default")
     _, Sr, Si = ak.aa_tf_mse_plain(hr, hi, G2[:, :M], G2[:, M:], rr, ri, t,
                                    N, L, pivot)
-    u, n = 2.0 ** -24, 2 * M
-    factor = 2.0 ** -10 + 2.0 ** -22 + n * u / (1 - n * u)
+    factor = 2.0 ** -10 + 2.0 ** -22 + math.sqrt(2 * M) * 2.0 ** -24
     mag = (P2.double().abs()
            @ torch.cat([Sr, -Si], dim=1).double().abs().T)
     return 2 * factor * mag
@@ -2695,10 +2696,10 @@ def e8_steps(scenario: str):
     return lambda n: tr.fit_scan(bx, bt, n_steps=n, steps_per_call=n)
 
 
-def trace_mss(card: str, steps: int = 10) -> None:
-    """The MSS loss alone (forward and backward on a fixed estimate of the
-    e8 'fdn' model): its device time and its cuBLAS GEMMs' a call, to set
-    against the e8 step's busy time."""
+def mss_steps():
+    """``run(n)``: n forward and backward passes of the MSS loss alone on
+    a fixed estimate of the e8 'fdn' model, to set against the e8 step's
+    busy time."""
     t = e8_target().expand(E8_BATCH, -1, -1)
     x = torch.zeros((E8_BATCH, NFFT, 1), device="cuda")
     x[:, 0, :] = 1.0
@@ -2711,21 +2712,7 @@ def trace_mss(card: str, steps: int = 10) -> None:
         for _ in range(n):
             mss(est, t).backward()
 
-    run(3)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run(steps)
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    gemm = sum(e.self_device_time_total for e in events
-               if "gemm" in e.key) / 1e3 / steps
-    print(f"phase 6 trace of mss_loss({e8_fdn.MSS_NFFT}) alone, forward and "
-          f"backward on a (2, {NFFT}, 1) estimate, on {card}: device busy "
-          f"{busy:.4f} ms a call, of which cuBLAS GEMMs (the DFT products on "
-          f"the respaced grid) {gemm:.4f} ms, "
-          f"{sum(e.count for e in events) / steps:.1f} device ops a call")
+    return run
 
 
 def phase_timing(o, launches, errs, card, previous) -> list:
@@ -3143,8 +3130,7 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
 
 
 def phase_trace(card: str, label: str, run_steps, step_ms: float,
-                steps: int = 10, share: tuple = (),
-                groups: dict | None = None) -> None:
+                steps: int = 10, share: tuple = ()) -> None:
     """Where a training step's time goes: a torch.profiler trace of the
     card's operations in ``run_steps(steps)``, the device's busy time per
     step, its idle share against the traced wall time (the profiler slows
@@ -3153,9 +3139,9 @@ def phase_trace(card: str, label: str, run_steps, step_ms: float,
     not traced: nothing here reads them, and with them the trace's
     post-processing took most of this phase's time.  ``share`` names
     kernels (parts of their names) whose device time is printed with its
-    share of the busy time, and which the trace must hold; ``groups``
-    maps a label to parts of names whose kernels' time is printed
-    together, held or not."""
+    share of the busy time, and which the trace must hold.  The cuBLAS
+    GEMMs' time (the MSS loss's DFT products, expm's) is printed
+    together."""
     run_steps(3)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -3195,12 +3181,11 @@ def phase_trace(card: str, label: str, run_steps, step_ms: float,
         ops = sum(e.count for e in events if name in e.key)
         print(f"  {name}: {ms / steps:.4f} ms/step x{ops / steps:g}, "
               f"{ms / busy_ms:.4f} of the busy time")
-    for name, parts in (groups or {}).items():
-        hit = [e for e in events if any(p in e.key for p in parts)]
-        ms = sum(e.self_device_time_total for e in hit) / 1e3
-        ops = sum(e.count for e in hit)
-        print(f"  {name}: {ms / steps:.4f} ms/step x{ops / steps:g}, "
-              f"{ms / busy_ms:.4f} of the busy time")
+    gemm = [e for e in events if "gemm" in e.key]
+    ms = sum(e.self_device_time_total for e in gemm) / 1e3
+    print(f"  cuBLAS GEMMs: {ms / steps:.4f} ms/step "
+          f"x{sum(e.count for e in gemm) / steps:g}, "
+          f"{ms / busy_ms:.4f} of the busy time")
     events.sort(key=lambda e: -e.self_device_time_total)
     for e in events[:8]:
         print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
@@ -3318,8 +3303,7 @@ def main() -> int:
                 att_step_ms)
     phase_trace(card, "attenuated_train_step (graph: K4f, K4b, K2)",
                 attenuated_graph_steps(), att_graph_ms,
-                share=("sos_cascade_fwd", "sos_cascade_bwd", "fdn_solve"),
-                groups={"cuBLAS GEMMs (expm's)": ("gemm",)})
+                share=("sos_cascade_fwd", "sos_cascade_bwd", "fdn_solve"))
     phase_trace(card, "sfdn masked (K6)", sfdn_masked_steps(),
                 sfdn_masked_ms)
     for scenario in ("fdn", "direct"):
@@ -3327,10 +3311,11 @@ def main() -> int:
                     f"K2; mss_loss + sparsity_loss)", e8_steps(scenario),
                     e8_ms[scenario],
                     share=("sos_cascade_fwd", "sos_cascade_bwd",
-                           "fdn_solve"),
-                    groups={"cuBLAS GEMMs (the MSS DFT products, expm's)":
-                            ("gemm",)})
-    trace_mss(card)
+                           "fdn_solve"))
+    mss = mss_steps()
+    phase_trace(card, f"mss_loss({e8_fdn.MSS_NFFT}) alone, forward and "
+                f"backward on a ({E8_BATCH}, {NFFT}, 1) estimate", mss,
+                time_ms(lambda: mss(1), reps=10))
     for p in ("high", "highest"):  # the tensor-core K9, then the FP32 one
         phase_trace(card, f"aa_fused_taps_step (K9, {p})",
                     aa_magnitude_steps(rig, k9_build(p)),

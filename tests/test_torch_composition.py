@@ -134,15 +134,15 @@ def test_parallel_in_a_recursion_loop_matches_jax():
     tloop = system.Recursion(td, system.Parallel(tg, tpg))
     x = _spectrum(rng, 1, M, N)
     y = tloop(torch.tensor(x))
-    assert _rel(y.detach().numpy(), jloop(jnp.asarray(x))) < 1e-5
+    assert _rel(y.detach().numpy(), jax.jit(jloop)(jnp.asarray(x))) < 1e-5
     torch.sum(torch.abs(y) ** 2).backward()
-    jgrad = jax.grad(lambda p: jnp.sum(jnp.abs(jsystem.Recursion(
+    jgrad = jax.jit(jax.grad(lambda p: jnp.sum(jnp.abs(jsystem.Recursion(
         jd, jsystem.Parallel(jg.assign_value(p), jpg))(jnp.asarray(x)))
-        ** 2))(jg.param)
+        ** 2)))(jg.param)
     assert _rel(tg.param.grad.numpy(), jgrad) < 1e-4
     kind, H = tloop.matrix_response()
-    assert kind == "full" and _rel(H.detach().numpy(),
-                                   jloop.matrix_response()[1]) < 1e-5
+    jH = jax.jit(lambda: jloop.matrix_response()[1])()
+    assert kind == "full" and _rel(H.detach().numpy(), jH) < 1e-5
 
 
 def test_series_edits_and_shell_setters_return_new_objects():
@@ -205,8 +205,8 @@ def test_householder_matches_jax():
     Hr = torch.real(H).detach()
     assert torch.allclose(Hr @ Hr.T, torch.eye(4), atol=1e-6)
     torch.sum(torch.abs(y) ** 2 * torch.arange(4)).backward()
-    jg = jax.grad(lambda p: jnp.sum(jnp.abs(jh.assign_value(p)(
-        jnp.asarray(x))) ** 2 * jnp.arange(4)))(jh.param)
+    jg = jax.jit(jax.grad(lambda p: jnp.sum(jnp.abs(jh.assign_value(p)(
+        jnp.asarray(x))) ** 2 * jnp.arange(4))))(jh.param)
     assert _rel(th.param.grad.numpy(), jg) < 1e-5
     with pytest.raises(ValueError, match="not compatible"):
         th(torch.zeros((1, M, 3), dtype=torch.complex64))
@@ -257,11 +257,12 @@ def test_ge_mat_matches_ge_and_jax(rhs):
     ref = tsolve.closed_loop_solve(torch.tensor(A), torch.tensor(B),
                                    method="ge")
     assert _rel(Y.detach().numpy(), ref.numpy()) < 1e-5
-    assert _rel(Y.detach().numpy(), jsolve.gauss_solve_mat(A, B)) < 1e-6
+    assert _rel(Y.detach().numpy(),
+                jax.jit(jsolve.gauss_solve_mat)(A, B)) < 1e-6
     w = np.arange(Y.numel()).reshape(Y.shape)
     torch.sum(torch.abs(Y) ** 2 * torch.tensor(w)).backward()
-    gA, gB = jax.grad(lambda a, b: jnp.sum(jnp.abs(
-        jsolve.gauss_solve_mat(a, b)) ** 2 * w), argnums=(0, 1))(
+    gA, gB = jax.jit(jax.grad(lambda a, b: jnp.sum(jnp.abs(
+        jsolve.gauss_solve_mat(a, b)) ** 2 * w), argnums=(0, 1)))(
         jnp.asarray(A), jnp.asarray(B))
     assert _rel(At.grad.numpy(), np.conj(gA)) < 1e-5
     assert _rel(Bt.grad.numpy(), np.conj(gB)) < 1e-5

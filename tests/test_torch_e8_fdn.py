@@ -54,12 +54,6 @@ def _rel(got, ref) -> float:
     return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
 
 
-def _jax_total(model, x, t):
-    mss = jloss.mss_loss(nfft=e8_fdn.MSS_NFFT)
-    est = model(x)
-    return mss(est, t) + jloss.sparsity_loss()(est, t, model)
-
-
 @pytest.fixture(scope="module")
 def jex():
     return _jax_example()
@@ -95,32 +89,48 @@ def _port_grads(model, target):
                          jax_named_tensors(model).items() if v.requires_grad}
 
 
-def test_first_loss_and_gradients_match_jax(pair):
+@pytest.fixture(scope="module")
+def jax_first(pair):
+    """JAX's first loss, its gradients, and the model's output on the
+    impulse and its rendered IR, from one jit a scenario."""
+    _, mj, _, tj, _ = pair
+    xj, _ = _impulses()
+
+    def total(m):
+        est = m(xj)
+        loss = (jloss.mss_loss(nfft=e8_fdn.MSS_NFFT)(est, tj)
+                + jloss.sparsity_loss()(est, tj, m))
+        return loss, (est, m.get_time_response())
+
+    (lj, (yj, irj)), gj = jax.jit(jax.value_and_grad(total, has_aux=True))(
+        mj)
+    return float(lj), _jax_params(gj), np.asarray(yj), np.asarray(irj)
+
+
+def test_first_loss_and_gradients_match_jax(pair, jax_first):
     """The e8 objective at JAX's initial weights: loss 1e-5, gradients of
     every trainable leaf 1e-4 of its max."""
-    name, mj, mt, tj, tt = pair
-    xj, _ = _impulses()
-    lj, gj = jax.jit(jax.value_and_grad(_jax_total))(mj, xj, tj)
-    gj = _jax_params(gj)
+    name, _, mt, _, tt = pair
+    lj, gj, _, _ = jax_first
     lt, gt = _port_grads(mt, tt)
-    assert abs(lt - float(lj)) / abs(float(lj)) < 1e-5
+    assert abs(lt - lj) / abs(lj) < 1e-5
     assert len(gt) == (5 if name == "direct" else 4)
     for k, g in gt.items():
         assert _rel(g.numpy(), gj[k]) < 1e-4, k
 
 
-def test_impulse_response_matches_jax_at_30db(pair):
+def test_impulse_response_matches_jax_at_30db(pair, jax_first):
     """The model's output on the impulse (through iFFTAntiAlias, whose
     envelope scales the tail by up to 10^(30/20)) and its rendered IR
     (get_time_response) against JAX's, 1e-5 of the max."""
-    _, mj, mt, _, _ = pair
-    xj, x = _impulses()
+    _, _, mt, _, _ = pair
+    _, _, yj, irj = jax_first
+    _, x = _impulses()
     with torch.no_grad():
         y = mt(x).numpy()
         ir = mt.get_time_response().numpy()
     assert y.shape == ir.shape == (1, NFFT, 1)
-    assert _rel(y, jax.jit(lambda m, v: m(v))(mj, xj)) < 1e-5
-    assert _rel(ir, jax.jit(lambda m: m.get_time_response())(mj)) < 1e-5
+    assert _rel(y, yj) < 1e-5 and _rel(ir, irj) < 1e-5
 
 
 def test_three_adam_steps_in_lockstep_with_jax(pair):
@@ -206,10 +216,11 @@ def test_example_main_on_cpu(tmp_path, capsys):
                                          ("pallas", 1.0)])
 def test_pick_backend_falls_back_only_on_parity(monkeypatch, capsys,
                                                 backend, gap):
-    """'auto' keeps 'pallas' when the first losses agree and falls back to
-    'xla', printed, when they do not; 'pallas' raises instead.  (On the
-    CPU 'auto' would build 'xla' alone, so the CPU stands in for the card
-    here through a device of type 'cuda'.)"""
+    """On the card 'auto' is 'pallas': it keeps the 'pallas' model when
+    the first losses agree and raises, as 'pallas' does, when they do
+    not; nothing falls back to 'xla'.  (On the CPU 'auto' builds 'xla'
+    alone, so the CPU stands in for the card here through a device of
+    type 'cuda'.)"""
     built = []
 
     def build(be):
@@ -220,14 +231,15 @@ def test_pick_backend_falls_back_only_on_parity(monkeypatch, capsys,
         1.0 + (gap if m.backend == "pallas" else 0.0)))
     args = types.SimpleNamespace(backend=backend, seed=0, samplerate=48000)
     card = types.SimpleNamespace(type="cuda")
-    if backend == "pallas" and gap:
+    if gap:
         with pytest.raises(RuntimeError, match="parity gate failed"):
             e8_fdn._pick_backend(args, build, None, card)
+        assert built == ["xla", "pallas"]
         return
     model, be = e8_fdn._pick_backend(args, build, None, card)
     assert built == ["xla", "pallas"]
-    assert be == model.backend == ("xla" if gap else "pallas")
-    assert ("using xla" in capsys.readouterr().out) == bool(gap)
+    assert be == model.backend == "pallas"
+    assert "backend=pallas" in capsys.readouterr().out
 
 
 def test_target_rir_from_a_wav_matches_jax(tmp_path, jex):

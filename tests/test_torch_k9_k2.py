@@ -244,3 +244,37 @@ def test_k9_default_tf32_pass_bound_holds_on_the_cpu(smoke, pivot):
                                        "default")
     assert float(((tb - other).double().abs() / bound).max()) <= 1.0
 
+
+
+def test_k9_default_tf32_pass_bound_refuses_a_bf16_contraction(smoke):
+    """At the card's size (M = 48001, N = 4, L = 13, 100 taps) the bound
+    of ``tf32_pass_bound`` discriminates: the TF32 contraction of the
+    plain 'default' cotangent lies within it of the other elimination's,
+    and a contraction whose operands are rounded to bfloat16 (8x more
+    coarsely) against the TF32 one lies outside it."""
+    N, L, order, nfft, pivot = smoke.AA_N, smoke.AA_L, 100, smoke.NFFT, False
+    M = nfft // 2 + 1
+    rng = np.random.default_rng(0)
+
+    def rows(*shape, scale=1.0):
+        return torch.tensor(scale * rng.normal(size=shape),
+                            dtype=torch.float32)
+
+    rows9 = [rows(N * L, M), rows(N * L, M), rows(order, L * N, scale=0.05),
+             rows(N, M), rows(N, M), rows(N, M).abs()]
+    bound = smoke.tf32_pass_bound(rows9, pivot, 0, N=N, L=L, nfft=nfft)
+    _, tb = ak.aa_taps_tf_mse_plain(*rows9, N, L, nfft, pivot, 0, "default")
+    _, other = ak.aa_taps_tf_mse_plain(*rows9, N, L, nfft, not pivot, 0,
+                                       "default")
+    assert float(((tb - other).double().abs() / bound).max()) <= 1.0
+    Pr, Pi = ak.dft_powers(order, M, nfft)
+    P2 = torch.cat([Pr, Pi], dim=1)
+    G2 = ak._tf32_matmul(rows9[2].T, P2, "default")
+    _, Sr, Si = ak.aa_tf_mse_plain(rows9[0], rows9[1], G2[:, :M], G2[:, M:],
+                                   *rows9[3:], N, L, pivot)
+
+    def bf16(x):
+        return x.to(torch.bfloat16).to(torch.float32)
+
+    coarse = bf16(P2) @ bf16(torch.cat([Sr, -Si], dim=1)).T
+    assert float(((coarse - tb).double().abs() / bound).max()) > 1.0

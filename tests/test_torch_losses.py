@@ -3,7 +3,8 @@
 mask and log term (value and input gradient), ``mel_mss_loss``,
 ``edr_loss``, ``edc_loss``, ``AveragePower``, ``sparsity_loss`` on four
 feedback topologies (fault F2), ``signal_gallery`` and ``find_onset``.
-Inputs are seeded numpy arrays fed to both packages; JAX runs eagerly."""
+Inputs are seeded numpy arrays fed to both packages.  JAX's losses run
+jitted, a family of configurations in one jit; the rest runs eagerly."""
 
 from __future__ import annotations
 
@@ -45,17 +46,44 @@ def _rirs(seed: int, batch: int = 2, channels: int = 1, length: int = T):
     return pred.astype(np.float32), true.astype(np.float32)
 
 
-def _value_and_grad(ours, theirs, pred, true):
-    """(port value, port grad of pred, JAX value, JAX grad of pred)."""
+def _value_and_grad(ours, pred, true):
+    """The port's value and gradient of pred."""
     p = torch.tensor(pred, requires_grad=True)
     v = ours(p, torch.tensor(true))
     v.backward()
-    jv, jg = jax.value_and_grad(lambda q: theirs(q, jnp.asarray(true)))(
-        jnp.asarray(pred))
-    return float(v), p.grad.numpy(), float(jv), np.asarray(jg)
+    return float(v), p.grad.numpy()
 
 
-def _check_loss(ours, theirs, pred, true, tol: float = 1e-5):
+class JaxRefs:
+    """JAX's value and gradient of pred for each loss of ``fns`` (a dict)
+    on one input pair, in float32 and in float64 (under a scoped x64),
+    each precision through one jit of the whole family on its first use.
+    Eager JAX compiles each of its operations at each new shape, dtype
+    and configuration, which took most of this file's time."""
+
+    def __init__(self, fns: dict, pred, true):
+        self.fns, self.pred, self.true = fns, pred, true
+        self._cache = {}
+
+    def _run(self, dtype):
+        run = jax.jit(lambda q, t: [jax.value_and_grad(fn)(q, t)
+                                    for fn in self.fns.values()])
+        out = run(jnp.asarray(self.pred.astype(dtype)),
+                  jnp.asarray(self.true.astype(dtype)))
+        return {k: (float(v), np.asarray(g))
+                for k, (v, g) in zip(self.fns, out)}
+
+    def get(self, key, dtype=np.float32):
+        if dtype not in self._cache:
+            if dtype == np.float64:
+                with jax.enable_x64(True):
+                    self._cache[dtype] = self._run(dtype)
+            else:
+                self._cache[dtype] = self._run(dtype)
+        return self._cache[dtype][key]
+
+
+def _check_loss(ours, refs: JaxRefs, key, tol: float = 1e-5):
     """Value and input gradient of a loss against JAX's, relative ``tol``.
 
     Both are held in float32 where they agree to ``tol``.  Else they are
@@ -67,13 +95,15 @@ def _check_loss(ours, theirs, pred, true, tol: float = 1e-5):
     rounding of near-zero STFT bins (the respaced grid's matmul and the
     rfft round differently in the two packages), and a norm ratio the
     rounding of its sums."""
-    v, g, jv, jg = _value_and_grad(ours, theirs, pred, true)
+    v, g = _value_and_grad(ours, refs.pred, refs.true)
+    jv, jg = refs.get(key)
     assert np.isfinite(v)
     if abs(v - jv) / abs(jv) < tol and _rel(g, jg) < tol:
         return
     with jax.enable_x64(True):
-        v64, g64, jv64, jg64 = _value_and_grad(
-            ours, theirs, pred.astype(np.float64), true.astype(np.float64))
+        v64, g64 = _value_and_grad(ours, refs.pred.astype(np.float64),
+                                   refs.true.astype(np.float64))
+    jv64, jg64 = refs.get(key, np.float64)
     assert abs(v64 - jv64) / abs(jv64) < tol and _rel(g64, jg64) < tol
     assert abs(v - v64) / abs(v64) < max(tol,
                                          1.5 * abs(jv - jv64) / abs(jv64))
@@ -103,14 +133,23 @@ MSS_CASES = list(itertools.product([None, "yamamoto", "magenta"],
                                    [False, True]))
 
 
+def _mss_kw(form, grid, apply_mask, log_term):
+    return dict(nfft=SCALES, form=form, freq_grid=grid,
+                apply_mask=apply_mask, log_term=log_term, threshold=5)
+
+
+@pytest.fixture(scope="module")
+def mss_refs():
+    return JaxRefs({case: jloss.mss_loss(**_mss_kw(*case))
+                    for case in MSS_CASES}, *_rirs(1))
+
+
 @pytest.mark.parametrize("form,grid,apply_mask,log_term", MSS_CASES)
-def test_mss_loss_matches_jax(form, grid, apply_mask, log_term):
+def test_mss_loss_matches_jax(mss_refs, form, grid, apply_mask, log_term):
     """mss_loss's value and input gradient at every form x grid x SNR mask
     x log term (:func:`_check_loss`)."""
-    pred, true = _rirs(1)
-    kw = dict(nfft=SCALES, form=form, freq_grid=grid, apply_mask=apply_mask,
-              log_term=log_term, threshold=5)
-    _check_loss(tloss.mss_loss(**kw), jloss.mss_loss(**kw), pred, true)
+    case = (form, grid, apply_mask, log_term)
+    _check_loss(tloss.mss_loss(**_mss_kw(*case)), mss_refs, case)
 
 
 def test_mss_loss_channels_and_energy_norm_match_jax():
@@ -119,7 +158,8 @@ def test_mss_loss_channels_and_energy_norm_match_jax():
     pred, true = _rirs(2, batch=1, channels=2)
     kw = dict(nfft=SCALES, energy_norm=True, apply_mask=True,
               noise_energy=1e-6)
-    _check_loss(tloss.mss_loss(**kw), jloss.mss_loss(**kw), pred, true)
+    _check_loss(tloss.mss_loss(**kw),
+                JaxRefs({0: jloss.mss_loss(**kw)}, pred, true), 0)
     one = tloss.mss_loss(nfft=SCALES)(torch.tensor(pred[0, :, 0]),
                                       torch.tensor(true[0, :, 0]))
     ref = jloss.mss_loss(nfft=SCALES)(pred[0, :, 0], true[0, :, 0])
@@ -139,14 +179,24 @@ LOSS_CASES = {
 }
 
 
+@pytest.fixture(scope="module")
+def other_refs():
+    """Two families: AveragePower's 64 x 64 window needs 64 frames of hop
+    256, the others run at T."""
+    def family(names, length):
+        return JaxRefs({n: LOSS_CASES[n](jloss) for n in names},
+                       *_rirs(3, batch=1, length=length))
+
+    short = family([n for n in LOSS_CASES if n != "average_power"], T)
+    return {**dict.fromkeys(LOSS_CASES, short),
+            "average_power": family(["average_power"], 16384)}
+
+
 @pytest.mark.parametrize("name", list(LOSS_CASES))
-def test_other_losses_match_jax(name):
+def test_other_losses_match_jax(other_refs, name):
     """mel_mss_loss, edr_loss, edc_loss and AveragePower: value and input
     gradient against JAX's (:func:`_check_loss`)."""
-    # AveragePower's 64 x 64 window needs 64 frames of hop 256
-    length = 16384 if name == "average_power" else T
-    pred, true = _rirs(3, batch=1, length=length)
-    _check_loss(LOSS_CASES[name](tloss), LOSS_CASES[name](jloss), pred, true)
+    _check_loss(LOSS_CASES[name](tloss), other_refs[name], name)
 
 
 def test_filterbanks_and_schroeder_match_jax():
