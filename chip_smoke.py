@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive flamo_tpu_torch's colorless-, attenuated- and scattering-FDN
 paths, its active-acoustics path, its phase-2 micro-benchmark, its
-Trainer path and its e8_fdn example path on one CUDA card.
+Trainer path, its e8_fdn example path and its filter zoo on one CUDA
+card.
 
 Run from the root of the repository:
 
@@ -133,6 +134,21 @@ Phases, in order; any failure raises and exits non-zero without a result:
    step, K2 once a step, exactly, no fused path taken, the loss falling,
    its IRs finite and written to build/e8_fdn/; then E8_STEPS timed
    Trainer.fit_scan steps a scenario (CUDA events, after 3);
+4h. the filter zoo: the e7 examples' scenarios (ZOO: e7_biquad's 2 x 1
+   two-section highpass Biquad and its 2-channel parallelBiquad, e7_peq's
+   2 x 1 six-band PEQ and parallelPEQ in both designs, e7_svf's 2 x 1
+   four-section SVF and parallelSVF) at nfft=96000, each built on 'xla'
+   and 'pallas' from one seed: the 'pallas' build's first loss (PlainMSE
+   on the |.| Shell against the example's target) equals the 'xla'
+   build's to 1e-5 and its gradient to 1e-4 of the max (K4f and K4b
+   once); one epoch of the e7 Trainer (16 items, batches of 2, split
+   0.8: 6 train and 2 valid steps), K4f once a step and K4b once a train
+   step, exactly, no fused path, the loss falling; ZOO_STEPS
+   Trainer.fit_scan steps, then ZOO_STEPS timed (CUDA events), K4f and
+   K4b once each a step; e10's three response paths at nfft=96000 within
+   5e-3 of each other (the probe batched by torch.func.vmap); and
+   ZOO_NN_STEPS Adam steps of e7_biquad_nn's MLP on a 'pallas' Biquad
+   through ext_param, K4f and K4b once each a step, the loss falling;
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
@@ -156,6 +172,7 @@ Phases, in order; any failure raises and exits non-zero without a result:
    few fused responses): the device's busy and idle share and the
    kernels that take its time (for the attenuated graph step and the
    e8_fdn steps also K4f's, K4b's and K2's share and the cuBLAS GEMMs',
+   for an e7 step K4f's and K4b's,
    for the fused-tf step K3f's and K3b's, for the fused response K3f's,
    for the K9 steps K9's), and the MSS loss alone, its GEMMs named;
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
@@ -183,7 +200,9 @@ the tensor-core kernel at 3 and 1 TF32 passes); K4f and K4b in the
 timed graph steps of phase 4 (once each per step), K2 there (twice per
 step) and in the graph-route calls of phases 3 and 4, all three also in
 phase 4g's epochs and timed steps (K4f once a step, K4b once a train
-step, K2 once a step and once more a train step), K3f and K3b in
+step, K2 once a step and once more a train step), K4f and K4b also in
+phase 4h's epochs, fit_scan steps, timed steps and ext_param steps (K4f
+once a step, K4b once a train step), K3f and K3b in
 phase 3's timed fused-tf steps (once each per step) and K3f also in its
 timed fused responses (once per call); the K10 variants in phase 4e's
 bench_phase2_micro.run (151 calls each).  ``trace_retries``
@@ -212,7 +231,10 @@ import numpy as np
 import torch
 
 from flamo_tpu_torch.convert import jax_named_tensors, load_jax_scattering
-from flamo_tpu_torch.examples import e8_fdn
+from flamo_tpu_torch.examples import (e7_biquad, e7_biquad_nn, e7_peq,
+                                      e7_svf, e8_fdn, e10_probe)
+from flamo_tpu_torch.examples._common import (PlainMSE, filter_shell,
+                                              filter_trainer)
 from flamo_tpu_torch.functional import charpoly, expm_skew
 from flamo_tpu_torch.models import (ActiveAcoustics, aa_dft_basis,
                                     aa_evs_fit, aa_evs_train_step,
@@ -295,6 +317,35 @@ E8_EXPAND, E8_BATCH, E8_SPLIT, E8_STEPS = 16, 2, 0.8, 20
 # cascade in float32 puts K4 and the plain cascade 5e-5-6e-5 of the max
 # apart on the GEQ gains on the H100 (the other leaves ~1e-7)
 E8_LOSS_TOL, E8_GRAD_TOL = 1e-5, 3e-4
+# phase 4h, the filter zoo: the e7 examples' dataset (expand, batch,
+# split), the timed Trainer.fit_scan steps a scenario and e7_biquad_nn's
+# ext_param steps; the 'pallas' route against 'xla' from one seed as
+# tests/test_ops.py holds the JAX package's two routes: first loss 1e-5
+# relative, gradients 1e-4 of the max
+ZOO_EXPAND, ZOO_BATCH, ZOO_SPLIT, ZOO_STEPS, ZOO_NN_STEPS = 16, 2, 0.8, 20, 20
+ZOO_LOSS_TOL, ZOO_GRAD_TOL = 1e-5, 1e-4
+# The PEQ's 'svf' design is ill-conditioned in float32: its 20 Hz shelf
+# puts a double pole within tan(pi 20 / 48000) = 1.3e-3 of z = 1, where
+# A(z) cancels to ~1e-5 of its taps, so float32's rounding near DC moves
+# the loss by ~5e-4 and the gradient by ~1.2e-3 of its max from a float64
+# twin (the plain cascade at nfft = 96000, on the CPU), and K4 and the
+# plain cascade round there differently (the first loss 4.2e-5 apart on
+# the H100).  Those scenarios are held to the float64 twin instead: the
+# 'pallas' build's distance from it (loss and gradient) at most
+# ZOO_ILL_FACTOR times the 'xla' build's own.
+ZOO_ILL = ("peq_svf", "parallel_peq_svf")
+ZOO_ILL_FACTOR = 2.0
+# scenario: (example, its scenario function, that function's arguments,
+# the example's learning rate); e7_biquad's and e7_svf's two scenarios,
+# e7_peq's two in both designs
+ZOO = {
+    "biquad": (e7_biquad, "scenario_biquad", {}, 1e-2),
+    "parallel_biquad": (e7_biquad, "scenario_parallel_biquad", {}, 1e-2),
+    **{f"{s}_{d}": (e7_peq, f"scenario_{s}", {"design": d}, 1e-2)
+       for s in ("peq", "parallel_peq") for d in ("biquad", "svf")},
+    "svf": (e7_svf, "scenario_svf", {}, 5e-2),
+    "parallel_svf": (e7_svf, "scenario_parallel_svf", {}, 5e-2),
+}
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
@@ -2715,6 +2766,233 @@ def mss_steps():
     return run
 
 
+# ---------------------------------------------------------------------------
+# phase 4h, the filter zoo
+# ---------------------------------------------------------------------------
+def zoo_args(nfft: int = NFFT, lr: float = 1e-2) -> SimpleNamespace:
+    """The e7 examples' arguments at ``nfft``: their dataset (expand 16,
+    batches of 2, split 0.8), one epoch, no train_dir."""
+    return SimpleNamespace(nfft=nfft, samplerate=48000, seed=SEED,
+                           num=ZOO_EXPAND, batch_size=ZOO_BATCH,
+                           split=ZOO_SPLIT, max_epochs=1, lr=lr,
+                           train_dir=None)
+
+
+def zoo_filter(name: str, backend: str, nfft: int = NFFT, device="cuda"):
+    """(args, filter, target magnitude, input channels) of the e7
+    scenario ``name`` on ``backend``, its weights and target from SEED:
+    the 'xla' and 'pallas' builds of one name hold the same weights.  The
+    SVF families take the route as their attribute."""
+    example, make, kw, lr = ZOO[name]
+    args = zoo_args(nfft, lr)
+    set_seed(SEED)
+    if example is e7_svf:
+        filt, target, in_ch, _ = getattr(example, make)(args, device)
+        filt.cascade_backend = backend
+    else:
+        filt, target, in_ch, _ = getattr(example, make)(
+            args, device, cascade_backend=backend, **kw)
+    return args, filt, target, in_ch
+
+
+def zoo_first(filt, target, in_ch: int):
+    """(the Trainer's first loss, the gradient of the filter's param): the
+    e7 Shell on an impulse in each input channel, PlainMSE."""
+    model = filter_shell(filt, filt.nfft)
+    x = torch.zeros((1, filt.nfft, in_ch), device=filt.param.device)
+    x[:, 0, :] = 1.0
+    loss = PlainMSE()(model(x), target)
+    (g,) = torch.autograd.grad(loss, filt.param)
+    return float(loss.detach()), g
+
+
+def zoo_f64_first(name: str, filt, target, in_ch: int):
+    """The first loss and gradient of a float64 twin of the PEQ ``filt``
+    (the same raw params, the plain cascade)."""
+    twin = type(filt)(size=filt.size[2:], n_bands=filt.n_bands,
+                      design=filt.design, nfft=filt.nfft, fs=filt.fs,
+                      requires_grad=True, dtype=torch.float64,
+                      device=filt.param.device)
+    twin.assign_value(filt.param.detach().double())
+    return zoo_first(twin, target.double(), in_ch)
+
+
+def zoo_counts() -> dict:
+    return {k: v for k, v in sk.LAUNCHES.items() if v}
+
+
+def zoo_check_counts(name: str, got: dict, fwd: int, bwd: int,
+                     what: str) -> None:
+    want = {"sos_cascade_fwd": fwd, "sos_cascade_bwd": bwd}
+    check(got == want, f"{name}: {what} should launch {want}, not {got}")
+
+
+def zoo_scenario(name: str, nfft: int = NFFT, device="cuda") -> dict:
+    """One e7 scenario: the 'pallas' build's first loss and gradient
+    against the 'xla' build's (K4f and K4b once), one epoch of the e7
+    Trainer (filter_trainer: PlainMSE, so the fused gate finds no
+    candidate) on the 'pallas' filter with K4f once a step and K4b once a
+    train step, exactly, and a falling loss, and ZOO_STEPS
+    Trainer.fit_scan steps on its first batch (K4f and K4b once each a
+    step).  Returns what it measured; nothing is timed here."""
+    _, fx, tx, in_ch = zoo_filter(name, "xla", nfft, device)
+    args, fk_, tk_, _ = zoo_filter(name, "pallas", nfft, device)
+    check(torch.equal(fx.param, fk_.param) and torch.equal(tx, tk_),
+          f"{name}: the two builds of one seed differ")
+    l_x, g_x = zoo_first(fx, tx, in_ch)
+    sk.reset_launch_counts()
+    l_k, g_k = zoo_first(fk_, tk_, in_ch)
+    zoo_check_counts(name, zoo_counts(), 1, 1,
+                     "the first loss and its gradient")
+    rel = abs(l_k - l_x) / abs(l_x)
+    grad_err = float(torch.max(torch.abs(g_k - g_x))
+                     / torch.max(torch.abs(g_x)))
+    check(np.isfinite(l_x) and np.isfinite(l_k), f"{name}: a first loss "
+          "is not finite")
+    f64 = None
+    if name in ZOO_ILL:
+        l_64, g_64 = zoo_f64_first(name, fx, tx, in_ch)
+        scale = torch.max(torch.abs(g_64))
+        f64 = {f"{r} {q}": v for r, (loss, g) in
+               (("xla", (l_x, g_x)), ("pallas", (l_k, g_k)))
+               for q, v in (("loss", abs(loss - l_64) / l_64),
+                            ("grad", float(torch.max(torch.abs(
+                                g.double() - g_64)) / scale)))}
+        for q in ("loss", "grad"):
+            check(f64[f"pallas {q}"] <= ZOO_ILL_FACTOR * f64[f"xla {q}"],
+                  f"{name}: the pallas {q} is {f64[f'pallas {q}']:.3e} "
+                  f"from the float64 twin, more than {ZOO_ILL_FACTOR:g}x "
+                  f"the xla route's {f64[f'xla {q}']:.3e}")
+    else:
+        check(rel < ZOO_LOSS_TOL, f"{name}: first loss xla {l_x:.8g}, "
+              f"pallas {l_k:.8g}, rel {rel:.3e} (tol {ZOO_LOSS_TOL:g})")
+        check(grad_err < ZOO_GRAD_TOL, f"{name}: the pallas gradient is "
+              f"{grad_err:.3e} of the max from xla's (tol "
+              f"{ZOO_GRAD_TOL:g})")
+    tr, tl, vl = filter_trainer(args, fk_, tk_, in_ch, log=False)
+    sk.reset_launch_counts()
+    tr.train(tl, vl)
+    epoch_counts = zoo_counts()
+    n_train, n_valid = len(tl), len(vl)
+    zoo_check_counts(name, epoch_counts, n_train + n_valid, n_train,
+                     f"one epoch of {n_train} train and {n_valid} valid "
+                     "steps")
+    check(tr.fused_path is None, f"{name}: the Trainer took the fused path "
+          f"{tr.fused_path!r} for PlainMSE")
+    steps = np.asarray(tr.train_loss_log["PlainMSE"])
+    check(bool(np.isfinite(steps).all()) and steps[-1] < steps[0],
+          f"{name}: the epoch's loss is not finite or did not fall: "
+          f"{steps}")
+    bx, bt = next(iter(tl))
+    sk.reset_launch_counts()
+    hist = tr.fit_scan(bx, bt, n_steps=ZOO_STEPS, steps_per_call=ZOO_STEPS)
+    step_counts = zoo_counts()
+    zoo_check_counts(name, step_counts, ZOO_STEPS, ZOO_STEPS,
+                     f"{ZOO_STEPS} fit_scan steps")
+    check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+          f"{name}: the fit_scan steps' loss is not finite or did not fall")
+    return dict(loss_xla=l_x, loss_pallas=l_k, rel=rel, grad_err=grad_err,
+                f64=f64, epoch_counts=epoch_counts, n_train=n_train,
+                n_valid=n_valid, steps=steps, step_counts=step_counts,
+                trainer=tr, batch=(bx, bt))
+
+
+def zoo_nn(nfft: int = NFFT, device="cuda", steps: int = ZOO_NN_STEPS):
+    """e7_biquad_nn on a 'pallas' Biquad: ``steps`` Adam steps of the MLP
+    whose output reaches the Biquad through ext_param, K4f and K4b once
+    each a step, and a falling loss.  Returns the step losses and the K4
+    launches."""
+    set_seed(SEED)
+    shell, x, target = e7_biquad_nn.build(
+        SimpleNamespace(nfft=nfft, samplerate=48000), device,
+        cascade_backend="pallas")
+    params = e7_biquad_nn.init_mlp(torch.Generator().manual_seed(SEED),
+                                   device=device)
+    cond = torch.tensor([[0.5]], device=device)
+    sk.reset_launch_counts()
+    losses = e7_biquad_nn.fit(shell, x, target, params, cond, steps=steps)
+    counts = zoo_counts()
+    zoo_check_counts("e7_biquad_nn", counts, steps, steps,
+                     f"{steps} ext_param steps")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          "e7_biquad_nn: the loss is not finite or did not fall")
+    return losses, counts
+
+
+def phase_zoo(card: str):
+    """The filter zoo at full width: each e7 scenario of ZOO on 'xla' and
+    'pallas' (K4f/K4b, :func:`zoo_scenario`) with its step timed by CUDA
+    events, e10's three response paths, and e7_biquad_nn's ext_param
+    steps through K4.  Returns the launch counts of the epochs, the timed
+    steps and the ext_param steps, and the ms a step of each scenario."""
+    print(f"phase 4h the filter zoo: the e7 scenarios (nfft={NFFT}, each "
+          f"example's widths and learning rate, {ZOO_EXPAND} items in "
+          f"batches of {ZOO_BATCH}, split {ZOO_SPLIT}), PlainMSE against "
+          "their targets, 'xla' against 'pallas' (K4f, K4b)")
+    launches = {"sos_cascade_fwd": 0, "sos_cascade_bwd": 0}
+    step_ms = {}
+    for name in ZOO:
+        r = zoo_scenario(name)
+        n_train, n_valid = r["n_train"], r["n_valid"]
+        for counts in (r["epoch_counts"], r["step_counts"]):
+            for k, n in counts.items():
+                launches[k] += n
+        tr, (bx, bt) = r["trainer"], r["batch"]
+        sk.reset_launch_counts()
+        _, seconds = timed(lambda: tr.fit_scan(
+            bx, bt, n_steps=ZOO_STEPS, steps_per_call=ZOO_STEPS))
+        counts = zoo_counts()
+        zoo_check_counts(name, counts, ZOO_STEPS, ZOO_STEPS,
+                         f"{ZOO_STEPS} timed fit_scan steps")
+        for k, n in counts.items():
+            launches[k] += n
+        step_ms[name] = seconds * 1e3 / ZOO_STEPS
+        gate = (f"tols {ZOO_LOSS_TOL:g} and {ZOO_GRAD_TOL:g}"
+                if r["f64"] is None else
+                "from the float64 twin: " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in r["f64"].items())
+                + f", pallas within {ZOO_ILL_FACTOR:g}x xla")
+        print(f"  {name}: first loss xla {r['loss_xla']:.8f}, pallas "
+              f"{r['loss_pallas']:.8f}, rel {r['rel']:.3e}; gradient "
+              f"{r['grad_err']:.3e} of the max ({gate}); one epoch "
+              f"({n_train} train, {n_valid} valid steps) launches "
+              f"{r['epoch_counts']}, step losses {r['steps'][0]:.7g} -> "
+              f"{r['steps'][-1]:.7g}; "
+              f"{step_ms[name]:.4f} ms a fit_scan step (CUDA events, "
+              f"{ZOO_STEPS} steps after {ZOO_STEPS})")
+    errors = e10_probe.path_errors(*e10_probe.response_paths(
+        *e10_paths_model(), 48000))
+    print(f"  e10 at nfft={NFFT}: " + ", ".join(
+        f"|{k}| {v:.3e}" for k, v in errors.items())
+        + f" (tol {e10_probe.TOL:g})")
+    check(all(v < e10_probe.TOL for v in errors.values()),
+          f"e10's three response paths differ: {errors}")
+    losses, counts = zoo_nn()
+    print(f"  e7_biquad_nn on a 'pallas' Biquad (ext_param, nfft={NFFT}): "
+          f"{ZOO_NN_STEPS} Adam steps, loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g}, launches {counts}")
+    for k, n in counts.items():
+        launches[k] += n
+    print(f"  e7 fit_scan step on {card}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in step_ms.items()))
+    print(f"  launches in phase 4h: {launches}")
+    return launches, step_ms
+
+
+def e10_paths_model(nfft: int = NFFT, device="cuda"):
+    set_seed(SEED)
+    return e10_probe.build(nfft, device)
+
+
+def zoo_steps(name: str):
+    """``run(n)``: n Trainer.fit_scan steps of the e7 scenario ``name`` on
+    'pallas', on the first batch of its loader."""
+    args, filt, target, in_ch = zoo_filter(name, "pallas")
+    tr, tl, _ = filter_trainer(args, filt, target, in_ch, log=False)
+    bx, bt = next(iter(tl))
+    return lambda n: tr.fit_scan(bx, bt, n_steps=n, steps_per_call=n)
+
+
 def phase_timing(o, launches, errs, card, previous) -> list:
     print(f"phase 5 timing at M={M_MAIN}, N={N_MAIN} on {card}")
     D, U, b, c, B, X, t = (o[k] for k in "DUbcBXt")
@@ -3288,6 +3566,10 @@ def main() -> int:
     took["4g e8_fdn"] = seconds_since_last()
     for name, n in e8_launches.items():
         launches[name] += n
+    zoo_launches, zoo_ms = phase_zoo(card)
+    took["4h filter zoo"] = seconds_since_last()
+    for name, n in zoo_launches.items():
+        launches[name] += n
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
@@ -3312,6 +3594,9 @@ def main() -> int:
                     e8_ms[scenario],
                     share=("sos_cascade_fwd", "sos_cascade_bwd",
                            "fdn_solve"))
+    phase_trace(card, "e7 peq_biquad Trainer.fit_scan (K4f, K4b; PlainMSE)",
+                zoo_steps("peq_biquad"), zoo_ms["peq_biquad"],
+                share=("sos_cascade_fwd", "sos_cascade_bwd"))
     mss = mss_steps()
     phase_trace(card, f"mss_loss({e8_fdn.MSS_NFFT}) alone, forward and "
                 f"backward on a ({E8_BATCH}, {NFFT}, 1) estimate", mss,

@@ -16,6 +16,12 @@ modules[1].param`` (the GEQ, (K, N)) and ``.core.branchB.modules[0].param``
 (the direct gain); a ``HouseholderMatrix`` leaf is its (N, 1) vector and a
 Hadamard or rotation ``Matrix`` leaf its raw (N, N) param.
 
+The filter zoo's leaves are each module's raw ``param``, in the JAX
+layouts: a ``Biquad`` (K, P, N_out, N_in), an ``SOSFilter`` (K, 6, N_out,
+N_in), an ``SVF`` (5, K, N_out, N_in), a ``PEQ`` (n_bands, 3, N_out,
+N_in), a ``GainDelay`` (2, N_out, N_in), their parallel forms without
+N_in; the transforms of a Shell (``FFT``, ``Transform``) hold none.
+
 A ``Series`` built from an ``OrderedDict`` flattens like any other: its
 children are ``.modules[i]`` in key order, e.g. for the active-acoustics
 loop shell ``ActiveAcoustics.F_MM`` ``.core.modules[0].param`` (U),

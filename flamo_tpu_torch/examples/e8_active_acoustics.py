@@ -14,11 +14,10 @@ over 20 Hz - 20 kHz is printed (the JAX example plots their distribution
 and the IRs' spectrograms).
 ``--fast auto`` (the default) and ``fused`` train through ``aa_evs_fit``
 (the Durand-Kerner roots are kernel K7 on the card) and keep its result
-when its first loss agrees with mse_evs on the F_MM graph, else (under
-``auto``) restore U and train through the Trainer; a non-finite loss
-raises (``_common.fast_path``).  ``graph`` takes the Trainer.  Measured
-RIR matrices are read from ``--rir_dir`` (mic{i}_speaker{j}.wav), else
-synthetic rooms stand in.
+when its first loss agrees with mse_evs on the F_MM graph; a failed
+check or a non-finite loss raises (``_common.fast_path``).  ``graph``
+takes the Trainer.  Measured RIR matrices are read from ``--rir_dir``
+(mic{i}_speaker{j}.wav), else synthetic rooms stand in.
 """
 
 from __future__ import annotations
@@ -130,13 +129,12 @@ def main(args):
     if args.fast != "graph":
         x0, t0 = next(iter(train_loader))
         graph_loss = float(mse_evs_ref(criterion, aa.F_MM, x0, t0))
-        u0 = aa.U.param.detach().clone()
         # consecutive steps read different bin partitions, so the last
         # loss is held to the example's own 5 % margin over the first
         fast = fast_path(args.fast, graph_loss, lambda: aa_evs_fit(
             aa, t0[0], n_steps=n_steps, lr=args.lr,
             iter_num=len(train_loader), masks=criterion.mask_indices),
-            undo=lambda: aa.U.assign_value(u0), rise=1.05)
+            rise=1.05)
     if fast is not None:
         trained, losses = fast
         train_loss = [float(losses[0]), float(losses[-1])]
@@ -192,11 +190,10 @@ def parser():
                     help="dB offset from the GBI at training start")
     ap.add_argument("--fast", type=str, default="auto",
                     choices=["auto", "fused", "graph"],
-                    help="eigenvalue-training path: 'auto' trains through "
-                         "aa_evs_fit (K7 on the card) behind a first-loss "
-                         "parity check with the graph Trainer as the "
-                         "fallback; 'fused' requires it; 'graph' takes "
-                         "the Trainer")
+                    help="eigenvalue-training path: 'auto' and 'fused' "
+                         "train through aa_evs_fit (K7 on the card) behind "
+                         "a first-loss parity check that raises when it "
+                         "fails; 'graph' takes the Trainer")
     ap.add_argument("--rir_dir", type=str, default=None,
                     help="directory of measured mic{i}_speaker{j}.wav RIRs")
     ap.add_argument("--rir_length", type=int, default=None,

@@ -6,10 +6,9 @@ for a flat magnitude with mse + 0.2 sparsity.
 
 ``--fast auto`` (the default) trains on the card through
 ``colorless_fit`` (the fused step kernel K1) and keeps its result when
-its first loss agrees with the graph loss, else trains through the
-Trainer; ``fused`` requires that
-path, ``graph`` takes the Trainer.  Writes ir_init.wav, ir_optim.wav and
-parameters_optim.mat into ``--train_dir``.
+its first loss agrees with the graph loss, else raises; ``fused`` takes
+that path on the CPU too, ``graph`` takes the Trainer.  Writes
+ir_init.wav, ir_optim.wav and parameters_optim.mat into ``--train_dir``.
 """
 
 from __future__ import annotations
@@ -112,8 +111,9 @@ def parser():
                     choices=["auto", "fused", "graph"],
                     help="'auto' trains through the fused step kernel K1 "
                          "(colorless_fit) on the card, behind a first-loss "
-                         "parity check with the Trainer as the fallback; "
-                         "'fused' requires it; 'graph' takes the Trainer")
+                         "parity check that raises when it fails; 'fused' "
+                         "takes it on the CPU too; 'graph' takes the "
+                         "Trainer")
     ap.add_argument("--solve", type=str, default="ge_cached",
                     choices=["ge", "ge_nopivot", "ge_cached", "lu",
                              "pallas"],

@@ -8,8 +8,8 @@ masked_mse (2000-bin random partitions, regenerated) + 0.2 sparsity.
 ``--fast auto`` (the default) trains on the card through
 ``sfdn_fit(masked=True)`` (the loop solved at each step's masked bins)
 and keeps its result when its first loss agrees with the graph loss, else
-trains through the Trainer;
-``fused`` requires that path, ``graph`` takes the Trainer.  Writes
+raises; ``fused`` takes that path on the CPU too, ``graph`` takes the
+Trainer.  Writes
 ir_init.wav, ir_optim.wav and parameters_optim.mat into ``--train_dir``.
 """
 
@@ -114,9 +114,9 @@ def parser():
                     choices=["auto", "fused", "graph"],
                     help="'auto' trains through the masked-bin step "
                          "(sfdn_fit(masked=True)) on the card, behind a "
-                         "first-loss parity check with the Trainer as the "
-                         "fallback; 'fused' requires it; 'graph' takes the "
-                         "Trainer")
+                         "first-loss parity check that raises when it "
+                         "fails; 'fused' takes it on the CPU too; 'graph' "
+                         "takes the Trainer")
     ap.add_argument("--solve", type=str, default="ge_cached",
                     choices=["ge", "ge_nopivot", "ge_cached", "lu",
                              "pallas"],

@@ -278,9 +278,49 @@ def cascade_prods(b, a, nfft: int, zinv=None):
     return prodB, prodA
 
 
+def biquad2tf(b, a, nfft: int):
+    """Cascade of biquads -> transfer function on the rfft grid.  b, a:
+    (3,) or (3, n_sections); returns (nfft//2+1,)."""
+    b = torch.as_tensor(b)
+    a = torch.as_tensor(a)
+    if b.ndim < 2:
+        b = b[:, None]
+    if a.ndim < 2:
+        a = a[:, None]
+    B = poly_response(b, nfft)
+    A = poly_response(a, nfft)
+    return torch.prod(B, dim=1) / torch.prod(A, dim=1)
+
+
 # ----------------------------------------------------------------------
-# filter design
+# filter design: every design is vectorized over the shape of its
+# frequency argument and returns (b, a), each (3, *shape) (2 taps for the
+# first-order proportional shelf)
 # ----------------------------------------------------------------------
+def _rbj_pass(fc, gain, fs: int, dtype: torch.dtype, high: bool):
+    omegaC = hertz2rad(torch.as_tensor(fc, dtype=dtype), fs)
+    alpha = torch.sin(omegaC) / 2 * torch.sqrt(torch.tensor(2.0, dtype=dtype))
+    cosOC = torch.cos(omegaC)
+    if high:
+        b = torch.stack([(1 + cosOC) / 2, -(1 + cosOC), (1 + cosOC) / 2])
+    else:
+        b = torch.stack([(1 - cosOC) / 2, 1 - cosOC, (1 - cosOC) / 2])
+    a = torch.stack([1 + alpha, -2 * cosOC, 1 - alpha])
+    return 10 ** (torch.as_tensor(gain, dtype=dtype) / 20) * b, a
+
+
+def lowpass_filter(fc=500.0, gain=0.0, fs: int = 48000,
+                   dtype: torch.dtype = torch.float32):
+    """RBJ lowpass at ``fc`` Hz, gain in dB."""
+    return _rbj_pass(fc, gain, fs, dtype, high=False)
+
+
+def highpass_filter(fc=10000.0, gain=0.0, fs: int = 48000,
+                    dtype: torch.dtype = torch.float32):
+    """RBJ highpass at ``fc`` Hz, gain in dB."""
+    return _rbj_pass(fc, gain, fs, dtype, high=True)
+
+
 def shelving_filter(fc, gain, type: str = "low", fs: int = 48000,
                     dtype: torch.dtype = torch.float32):
     """Second-order shelving filter, linear gain.  Returns (b, a), each
@@ -341,6 +381,111 @@ def bandpass_filter(fc1, fc2, gain=0.0, fs: int = 48000,
     b = torch.stack([alpha, torch.zeros_like(alpha), -alpha])
     a = torch.stack([1 + alpha, -2 * cosOC, 1 - alpha])
     return 10 ** (torch.as_tensor(gain, dtype=dtype) / 20) * b, a
+
+
+def prop_shelving_filter(fc, gain, type: str = "low", fs: int = 48000,
+                         dtype: torch.dtype = torch.float32):
+    """Jot's proportional first-order shelving filter, gain in dB."""
+    fc = torch.as_tensor(fc, dtype=dtype)
+    gain = torch.as_tensor(gain, dtype=dtype)
+    t = torch.tan(torch.pi * fc / fs)
+    k = 10 ** (gain / 20)
+    if type == "low":
+        b = torch.stack([t * torch.sqrt(k) + 1, t * torch.sqrt(k) - 1])
+        a = torch.stack([t / torch.sqrt(k) + 1, t / torch.sqrt(k) - 1])
+    elif type == "high":
+        k = 1 / k
+        b = torch.stack([(t * torch.sqrt(k) + 1) / k,
+                         (t * torch.sqrt(k) - 1) / k])
+        a = torch.stack([t / torch.sqrt(k) + 1, t / torch.sqrt(k) - 1])
+    else:
+        raise ValueError("type must be 'low' or 'high'")
+    return b, a
+
+
+def prop_peak_filter(fc, bw, gain, fs: int = 48000,
+                     dtype: torch.dtype = torch.float32):
+    """Jot's proportional presence (peak) filter, gain in dB."""
+    fc = torch.as_tensor(fc, dtype=dtype)
+    bw = torch.as_tensor(bw, dtype=dtype)
+    gain = torch.as_tensor(gain, dtype=dtype)
+    t = torch.tan(torch.pi * bw / fs)
+    c = torch.cos(2 * torch.pi * fc / fs)
+    sk = torch.sqrt(10 ** (gain / 20))
+    b = torch.stack(torch.broadcast_tensors(1 + sk * t, -2 * c, 1 - sk * t))
+    a = torch.stack(torch.broadcast_tensors(1 + t / sk, -2 * c, 1 - t / sk))
+    return b, a
+
+
+def svf_taps(f, R, mLP, mBP, mHP):
+    """The biquad taps (b, a), each (3, *shape), of a state-variable
+    filter of warped frequency f = tan(pi fc / fs), resonance R and
+    mixing coefficients mLP, mBP, mHP."""
+    b = torch.stack([f**2 * mLP + f * mBP + mHP,
+                     2 * f**2 * mLP - 2 * mHP,
+                     f**2 * mLP - f * mBP + mHP])
+    a = torch.stack(torch.broadcast_tensors(
+        f**2 + 2 * R * f + 1, 2 * f**2 - 2, f**2 - 2 * R * f + 1))
+    return b, a
+
+
+def svf_mix(filter_type, R, G):
+    """(mLP, mBP, mHP) of a typed state-variable filter of resonance R
+    and linear gain G."""
+    ones, zeros = torch.ones_like(G), torch.zeros_like(G)
+    if filter_type == "lowpass":
+        return ones, zeros, zeros
+    if filter_type == "highpass":
+        return zeros, zeros, ones
+    if filter_type == "bandpass":
+        return zeros, ones, zeros
+    if filter_type == "lowshelf":
+        return ones, 2 * R * torch.sqrt(G), G
+    if filter_type == "highshelf":
+        return G, 2 * R * torch.sqrt(G), ones
+    if filter_type in ("peaking", "notch"):
+        return ones, 2 * R * torch.sqrt(G), ones
+    raise ValueError(f"unknown filter_type {filter_type}")
+
+
+def svf(fc, R, m=None, G=None, filter_type: str = None, fs: int = 48000,
+        dtype: torch.dtype = torch.float32):
+    """State-variable-filter coefficients at ``fc`` Hz: a typed filter
+    (``filter_type``, linear gain ``G``) or, with ``filter_type=None``,
+    the free mixing coefficients ``m`` (..., 3).  Returns (b, a), each
+    (3, *fc.shape)."""
+    fc = torch.as_tensor(fc, dtype=dtype)
+    R = torch.as_tensor(R, dtype=dtype)
+    f = torch.tan(torch.pi * fc / fs)
+    G = torch.ones_like(f) if G is None else torch.as_tensor(G, dtype=dtype)
+    if filter_type is None:
+        m = torch.as_tensor(m, dtype=dtype)
+        mix = (m[..., 0], m[..., 1], m[..., 2])
+    else:
+        mix = svf_mix(filter_type, R, G)
+    return svf_taps(f, R, *mix)
+
+
+def probe_sos(sos, control_freqs, nfft: int, fs: int,
+              dtype: torch.dtype = torch.float32):
+    """The magnitude of each of a bank of second-order sections at control
+    frequencies.  sos: (6, n_bands) columns [b0 b1 b2 a0 a1 a2].  Returns
+    (G, H, W): the gains in dB at the control frequencies (n_ctrl,
+    n_bands), linearly interpolated on the rfft grid, the responses
+    (M, n_bands) and their angular frequencies (M, n_bands).  The bands
+    are interpolated together, one gather for all of them."""
+    sos = torch.as_tensor(sos, dtype=dtype)
+    control_freqs = torch.as_tensor(control_freqs, dtype=dtype,
+                                    device=sos.device)
+    sos = sos / sos[3:4, :]
+    B = poly_response(sos[:3], nfft)  # (M, n_bands)
+    A = poly_response(sos[3:], nfft)
+    H = B / (A + 1e-10)
+    f = torch.fft.rfftfreq(nfft, 1.0 / fs, dtype=dtype, device=sos.device)
+    mag_db = 20 * torch.log10(torch.abs(H))
+    G = utils.RegularGridInterpolator([f], mag_db)([control_freqs])
+    W = (2 * torch.pi * f / fs)[:, None].expand(H.shape)
+    return G, H, W
 
 
 def sosfreqz(sos, nfft: int = 512):

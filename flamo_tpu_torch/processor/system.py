@@ -4,6 +4,12 @@
 Shape and attribute checks run eagerly at construction with the JAX
 package's messages.  Children are registered as ``nn.Module`` submodules,
 so a Series child is reachable by its key (``core.feedback_loop``).
+
+``ext_param`` is a dict of raw parameters that replace the children's
+own: a Series gives each child the entry of its key, or the entries
+``'key.sub'`` as a dict ``{'sub': ...}`` (:func:`_ext_for`); a Recursion
+and a Parallel do the same with their branches' names ('feedforward',
+'feedback', 'branchA', 'branchB'), and a Shell hands it to its core.
 """
 
 from __future__ import annotations
@@ -23,15 +29,40 @@ from flamo_tpu_torch.processor.dsp import _alias_envelope
 from flamo_tpu_torch.utils import complex_dtype_for
 
 
-def _matrix_response_of(module):
+def _matrix_response_of(module, ext_param=None):
     """(kind, H) per-bin linear map of a module, or None if unknown."""
     fn = getattr(module, "matrix_response", None)
     if fn is None:
         return None
     try:
-        return fn()
+        return fn(ext_param) if ext_param is not None else fn()
     except NotImplementedError:
         return None
+
+
+def _ext_for(ext_param, key: str):
+    """A child's part of ``ext_param``: the entry of its exact key, else
+    the entries ``'key.sub'`` as ``{'sub': value}``, else None."""
+    if ext_param is None or not isinstance(ext_param, dict):
+        return None
+    if key in ext_param:
+        return ext_param[key]
+    sub = {k[len(key) + 1:]: v for k, v in ext_param.items()
+           if k.startswith(key + ".")}
+    return sub or None
+
+
+# a branch of a Recursion or a Parallel picks its part as a Series child
+_branch_ext = _ext_for
+
+
+def _call(module, x, ext_param):
+    """``module(x, ext_param)``, or ``module(x)`` without one."""
+    return module(x) if ext_param is None else module(x, ext_param)
+
+
+def _attr_of(module, attr):
+    return getattr(module, attr, None)
 
 
 def _compose_all(responses):
@@ -46,7 +77,7 @@ def _ones_for(U):
     return torch.ones((1, U.shape[0]), dtype=U.dtype, device=U.device)
 
 
-def _diag_flat_split(module):
+def _diag_flat_split(module, ext_param=None):
     """Factor a module's per-bin map as ``diag(d(f)) @ U`` (rows-scaled
     frequency-flat matrix).  Returns ``(split, response)``: split is
     ``(d, U)`` with d (M, N) or (1, N), or None; when it is None, response
@@ -59,11 +90,12 @@ def _diag_flat_split(module):
     Each stage's response is evaluated once: PyTorch runs eagerly, so a
     response computed and not used is paid for."""
     if not isinstance(module, Series):
-        r = _matrix_response_of(module)
+        r = _matrix_response_of(module, ext_param)
         if r is not None and r[0] == linop.FLAT:
             return (_ones_for(r[1]), r[1]), None
         return None, r
-    responses = [_matrix_response_of(sub) for sub in module]
+    responses = [_matrix_response_of(sub, _ext_for(ext_param, key))
+                 for key, sub in module.named_stages()]
     if any(r is None for r in responses):
         return None, None
     U = d = None
@@ -146,7 +178,7 @@ class Series(Module):
     def __check_attribute(self, attr):
         value = None
         for module in self:
-            v = getattr(module, attr, None)
+            v = _attr_of(module, attr)
             if v is not None:
                 value = v
                 break
@@ -154,7 +186,7 @@ class Series(Module):
             warnings.warn(f"Attribute {attr} not found in any of the modules.")
         else:
             for i, module in enumerate(self):
-                v = getattr(module, attr, None)
+                v = _attr_of(module, attr)
                 if v is not None and v != value:
                     raise ValueError(
                         f"All modules must have the same {attr} value. Module "
@@ -187,21 +219,37 @@ class Series(Module):
                 prev_out = getattr(module, "output_channels", None)
         return input_channels, prev_out
 
-    # -- forward ---------------------------------------------------------------
-    def forward(self, x):
-        for module in self:
-            x = module(x)
+    # -- forward / probe -----------------------------------------------------
+    def forward(self, x, ext_param=None):
+        for key, module in self.named_stages():
+            x = _call(module, x, _ext_for(ext_param, key))
         return x
 
-    def matrix_response(self):
+    def matrix_response(self, ext_param=None):
         """Composed per-bin linear map of the cascade (cheapest kind)."""
         responses = []
-        for module in self:
-            r = _matrix_response_of(module)
+        for key, module in self.named_stages():
+            r = _matrix_response_of(module, _ext_for(ext_param, key))
             if r is None:
                 return None
             responses.append(r)
         return _compose_all(responses)
+
+    def _probe_with(self, probe_of):
+        H = None
+        for module in self:
+            Hi = probe_of(module)
+            if Hi is not None:
+                H = Hi if H is None else Hi @ H
+        return H
+
+    def probe(self, z):
+        """H(z) = H_n(z) ... H_1(z); a stage that probes to None (a
+        transform) is skipped."""
+        return self._probe_with(lambda m: m.probe(z))
+
+    def probe_w(self, w):
+        return self._probe_with(lambda m: m.probe_w(w))
 
 
 def _unpack_modules(modules, current_keys: list):
@@ -278,8 +326,8 @@ class Recursion(Module):
         self.input_channels, self.output_channels = self.__check_io()
 
     def __check_attribute(self, attr):
-        ff = getattr(self.feedforward, attr, None)
-        fb = getattr(self.feedback, attr, None)
+        ff = _attr_of(self.feedforward, attr)
+        fb = _attr_of(self.feedback, attr)
         if ff is None:
             warnings.warn(
                 f"The feedforward pass does not possess the attribute {attr}.")
@@ -316,21 +364,23 @@ class Recursion(Module):
                 f"pass has {fb_out} output channels. They must be the same.")
         return ff_in, ff_out
 
-    def forward(self, x):
-        B = self.feedforward(x)
+    def forward(self, x, ext_param=None):
+        ext_ff = _branch_ext(ext_param, "feedforward")
+        ext_fb = _branch_ext(ext_param, "feedback")
+        B = _call(self.feedforward, x, ext_ff)
         N = self.output_channels
         M = self.nfft // 2 + 1
         cdtype = B.dtype if B.is_complex() else complex_dtype_for(B.dtype)
 
-        rF = _matrix_response_of(self.feedforward)
+        rF = _matrix_response_of(self.feedforward, ext_ff)
         if (self.solve_method == "pallas" and rF is not None
                 and rF[0] == linop.DIAG and B.ndim == 3):
             # the split evaluates the feedback once, and hands back its
             # response when it declines: PyTorch runs eagerly, so a second
             # evaluation would be paid for
-            split, rB = _diag_flat_split(self.feedback)
+            split, rB = _diag_flat_split(self.feedback, ext_fb)
         else:
-            split, rB = None, _matrix_response_of(self.feedback)
+            split, rB = None, _matrix_response_of(self.feedback, ext_fb)
         if split is not None:
             # FDN structure: per-bin diagonal stages after the mixing
             # matrix fold into D, I - diag(D_F) diag(g) U = I - diag(D_F g) U
@@ -350,15 +400,18 @@ class Recursion(Module):
             # identity feed through the branches (custom user modules)
             eye = torch.eye(N, dtype=cdtype, device=B.device)
             I = eye.expand(x.shape[0], M, N, N)
-            A = I - self.feedforward(self.feedback(I))
+            A = I - _call(self.feedforward, _call(self.feedback, I, ext_fb),
+                          ext_ff)
         return closed_loop_solve(A, B, method=self.solve_method)
 
-    def matrix_response(self):
+    def matrix_response(self, ext_param=None):
         """Closed-loop per-bin map (I - F B)^{-1} F as a dense operator
         (pivoted 'ge' stands in for 'pallas', whose kernel takes a vector
         rhs only)."""
-        rF = _matrix_response_of(self.feedforward)
-        rB = _matrix_response_of(self.feedback)
+        rF = _matrix_response_of(self.feedforward,
+                                 _branch_ext(ext_param, "feedforward"))
+        rB = _matrix_response_of(self.feedback,
+                                 _branch_ext(ext_param, "feedback"))
         if rF is None or rB is None:
             return None
         N_out, N_in = self.output_channels, self.input_channels
@@ -369,6 +422,26 @@ class Recursion(Module):
              - linop.materialize(kL, L.to(Fm.dtype), M, N_out, N_out))
         method = "ge" if self.solve_method == "pallas" else self.solve_method
         return linop.FULL, closed_loop_solve(A, Fm, method=method)
+
+    def _loop(self, F, Bz):
+        return torch.eye(F.shape[0], dtype=F.dtype, device=F.device) - F @ Bz
+
+    def probe(self, z):
+        """H(z) = (I - F(z) B(z))^-1 F(z), one ``torch.linalg.solve``."""
+        F = self.feedforward.probe(z)
+        return torch.linalg.solve(self._loop(F, self.feedback.probe(z)), F)
+
+    def probe_w(self, w):
+        F = self.feedforward.probe_w(w)
+        return torch.linalg.solve(self._loop(F, self.feedback.probe_w(w)), F)
+
+    def probe_recursion(self, z, include_shell_io: bool = False, **kwargs):
+        """The characteristic matrix P(z) = I - F(z) B(z)."""
+        return self._loop(self.feedforward.probe(z), self.feedback.probe(z))
+
+    def probe_recursion_w(self, w):
+        return self._loop(self.feedforward.probe_w(w),
+                          self.feedback.probe_w(w))
 
 
 # ============================= PARALLEL ================================
@@ -397,8 +470,8 @@ class Parallel(Module):
         self.input_channels, self.output_channels = self.__check_io()
 
     def __check_attribute(self, attr):
-        a = getattr(self.branchA, attr, None)
-        b = getattr(self.branchB, attr, None)
+        a = _attr_of(self.branchA, attr)
+        b = _attr_of(self.branchB, attr)
         # the JAX package's warnings, which name the branches as passes
         if a is None:
             warnings.warn(
@@ -437,18 +510,20 @@ class Parallel(Module):
             return a_in, a_out
         return a_in, a_out + b_out
 
-    def forward(self, x):
-        YA = self.branchA(x)
-        YB = self.branchB(x)
+    def forward(self, x, ext_param=None):
+        YA = _call(self.branchA, x, _branch_ext(ext_param, "branchA"))
+        YB = _call(self.branchB, x, _branch_ext(ext_param, "branchB"))
         if self.sum_output:
             return YA + YB
         return torch.cat((YA, YB), dim=2)
 
-    def matrix_response(self):
+    def matrix_response(self, ext_param=None):
         """The branches' per-bin maps summed (the cheapest kind) or stacked
         by rows into a dense (M, A_out + B_out, N_in) map."""
-        rA = _matrix_response_of(self.branchA)
-        rB = _matrix_response_of(self.branchB)
+        rA = _matrix_response_of(self.branchA,
+                                 _branch_ext(ext_param, "branchA"))
+        rB = _matrix_response_of(self.branchB,
+                                 _branch_ext(ext_param, "branchB"))
         if rA is None or rB is None:
             return None
         M = self.nfft // 2 + 1
@@ -461,13 +536,28 @@ class Parallel(Module):
                                self.input_channels)
         return linop.FULL, torch.cat([Ha, Hb], dim=1)
 
+    def _join(self, HA, HB):
+        return HA + HB if self.sum_output else torch.cat([HA, HB], dim=0)
+
+    def probe(self, z):
+        return self._join(self.branchA.probe(z), self.branchB.probe(z))
+
+    def probe_w(self, w):
+        return self._join(self.branchA.probe_w(w), self.branchB.probe_w(w))
+
 
 # ============================= SHELL ================================
 
 
 class _Identity(Module):
-    def forward(self, x):
+    def forward(self, x, ext_param=None):
         return x
+
+    def probe(self, z):
+        return None
+
+    def probe_w(self, w):
+        return None
 
 
 class Shell(Module):
@@ -499,15 +589,15 @@ class Shell(Module):
         self.input_channels, self.output_channels = self.__check_io()
 
     def __check_attribute(self, attr):
-        core_v = getattr(self.core, attr, None)
+        core_v = _attr_of(self.core, attr)
         if core_v is None:
             raise ValueError(f"The core does not possess the attribute {attr}.")
-        in_v = getattr(self.input_layer, attr, None)
+        in_v = _attr_of(self.input_layer, attr)
         if in_v is not None and core_v != in_v:
             raise AssertionError(
                 f"The input layer has {attr} = {in_v} and the core has "
                 f"{attr} = {core_v}. They must have the same value.")
-        out_v = getattr(self.output_layer, attr, None)
+        out_v = _attr_of(self.output_layer, attr)
         if out_v is not None and core_v != out_v:
             raise AssertionError(
                 f"The core has {attr} = {core_v} and the output layer has "
@@ -536,8 +626,9 @@ class Shell(Module):
         return (self.core.input_channels if in_ch is None else in_ch,
                 self.core.output_channels if out_ch is None else out_ch)
 
-    def forward(self, x):
-        return self.output_layer(self.core(self.input_layer(x)))
+    def forward(self, x, ext_param=None):
+        return self.output_layer(_call(self.core, self.input_layer(x),
+                                       ext_param))
 
     def get_inputLayer(self):
         return self.input_layer
@@ -566,6 +657,19 @@ class Shell(Module):
 
     def set_core(self, core) -> "Shell":
         return self._replace(core=core)
+
+    # -- probing -------------------------------------------------------------
+    def probe(self, z, include_shell_io: bool = False):
+        """The core's H(z); with ``include_shell_io`` the layers' probes
+        (None for a transform) compose around it."""
+        H = self.core.probe(z)
+        if include_shell_io:
+            for layer, before in ((self.input_layer, True),
+                                  (self.output_layer, False)):
+                Hl = layer.probe(z) if hasattr(layer, "probe") else None
+                if Hl is not None:
+                    H = Hl if H is None else (H @ Hl if before else Hl @ H)
+        return H
 
     # -- responses ---------------------------------------------------------------
     def get_time_response(self, fs: int = 48000, identity: bool = False):

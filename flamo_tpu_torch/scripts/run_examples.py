@@ -1,0 +1,58 @@
+"""Run the port's examples at their defaults, one process each, and print
+each one's exit code, seconds (wall clock, start-up included) and last
+output line; exits non-zero when any example fails.
+
+    python -m flamo_tpu_torch.scripts.run_examples [name ...] [--out DIR]
+
+``name`` defaults to the filter-zoo examples (e4_recursion, e7_biquad,
+e7_biquad_nn, e7_peq, e7_svf, e10_probe); each writes into
+``DIR/<name>`` (default ``build/examples``), its output in
+``DIR/<name>.log``.  Without ``--device`` the examples run on the CUDA
+card and stop without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ZOO = ("e4_recursion", "e7_biquad", "e7_biquad_nn", "e7_peq", "e7_svf",
+       "e10_probe")
+
+
+def run(name: str, out: Path) -> tuple[int, float, str]:
+    """(exit code, seconds, last line) of one example's main."""
+    log = out / f"{name}.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.call([sys.executable, "-m",
+                              f"flamo_tpu_torch.examples.{name}",
+                              "--train_dir", str(out / name)],
+                             stdout=f, stderr=subprocess.STDOUT)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in log.read_text().splitlines() if ln.strip()]
+    return rc, seconds, lines[-1] if lines else ""
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("names", nargs="*", default=list(ZOO))
+    ap.add_argument("--out", type=Path, default=Path("build/examples"))
+    args = ap.parse_args(argv)
+    args.out.mkdir(parents=True, exist_ok=True)
+    failed = []
+    for name in args.names:
+        rc, seconds, last = run(name, args.out)
+        print(f"{name}: rc {rc}, {seconds:.1f} s; {last}", flush=True)
+        if rc:
+            failed.append(name)
+    if failed:
+        print(f"failed: {failed}")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

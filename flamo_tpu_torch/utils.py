@@ -15,6 +15,7 @@ WAV files are written and read by :func:`save_audio` / :func:`load_audio`.
 
 from __future__ import annotations
 
+import itertools
 import os
 import wave
 
@@ -66,6 +67,67 @@ def get_frequency_samples(num: int, rho: float = 1.0,
     angle = torch.linspace(0.0, 1.0, num, dtype=dtype,
                            device=resolve_device(device))
     return rho * torch.exp(1j * angle * torch.pi)
+
+
+# ----------------------------------------------------------------------
+# differentiable regular-grid interpolation
+# ----------------------------------------------------------------------
+class RegularGridInterpolator:
+    """Multilinear interpolation on a regular grid, differentiable in the
+    values: ``points`` is one increasing 1-D grid per dimension and
+    ``values`` (*grid, *batch) their samples, any trailing dimensions
+    interpolated together.  A query point is bracketed by
+    ``searchsorted(side="right")`` and blended from its corners; a point
+    on a grid node takes that node's value."""
+
+    def __init__(self, points, values):
+        if not isinstance(points, (tuple, list)):
+            raise AssertionError("points must be a tuple or a list")
+        self.values = torch.as_tensor(values)
+        self.points = [torch.as_tensor(p, device=self.values.device)
+                       for p in points]
+        self.n = len(self.points)
+        if self.values.ndim < self.n:
+            raise AssertionError("values have fewer dimensions than points")
+        for i, p in enumerate(self.points):
+            if p.shape[0] != self.values.shape[i]:
+                raise AssertionError(f"grid {i} has {p.shape[0]} points, "
+                                     f"values {self.values.shape[i]}")
+
+    def __call__(self, points_to_interp):
+        if len(points_to_interp) != self.n:
+            raise AssertionError(f"{self.n} coordinates needed, got "
+                                 f"{len(points_to_interp)}")
+        idxs, dists, overalls = [], [], []
+        for p, x in zip(self.points, points_to_interp):
+            x = torch.as_tensor(x, device=p.device)
+            last = p.shape[0] - 1
+            idx_right = torch.clamp(
+                torch.searchsorted(p, x.contiguous(), right=True), 0, last)
+            idx_left = torch.clamp(idx_right - 1, 0, last)
+            zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            dist_left = torch.maximum(x - p[idx_left], zero)
+            dist_right = torch.maximum(p[idx_right] - x, zero)
+            # a node that brackets itself: both distances 1, so that the
+            # blend takes its value and the division has a gradient
+            both_zero = (dist_left == 0) & (dist_right == 0)
+            dist_left = torch.where(both_zero, 1.0, dist_left)
+            dist_right = torch.where(both_zero, 1.0, dist_right)
+            idxs.append((idx_left, idx_right))
+            dists.append((dist_left, dist_right))
+            overalls.append(dist_left + dist_right)
+        batch = (1,) * (self.values.ndim - self.n)
+
+        def col(w):  # a weight against the trailing batch dimensions
+            return w.reshape(w.shape + batch)
+
+        numerator = 0.0
+        for corner in itertools.product([0, 1], repeat=self.n):
+            at = tuple(idx[c] for c, idx in zip(corner, idxs))
+            weight = torch.prod(torch.stack(
+                [dist[1 - c] for c, dist in zip(corner, dists)]), dim=0)
+            numerator = numerator + self.values[at] * col(weight)
+        return numerator / col(torch.prod(torch.stack(overalls), dim=0))
 
 
 # ----------------------------------------------------------------------

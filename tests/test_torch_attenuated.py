@@ -344,17 +344,17 @@ def test_recursion_evaluates_the_feedback_once(monkeypatch, solve_method):
     matrix_response = dsp.Matrix.matrix_response
     scattering_response = dsp.ScatteringMatrix.response
 
-    def count_geq(self):
+    def count_geq(self, *ext_param):
         calls["geq"] += 1
-        return geq_response(self)
+        return geq_response(self, *ext_param)
 
     def count_matrix(self):
         calls["matrix"] += 1
         return matrix_response(self)
 
-    def count_scattering(self):
+    def count_scattering(self, *ext_param):
         calls["scattering"] += 1
-        return scattering_response(self)
+        return scattering_response(self, *ext_param)
 
     monkeypatch.setattr(dsp.parallelGEQ, "response", count_geq)
     monkeypatch.setattr(dsp.Matrix, "matrix_response", count_matrix)

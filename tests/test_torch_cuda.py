@@ -251,6 +251,48 @@ def test_cuda_sos_cascade_matches_plain(cuda, nfft):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("family", ["Biquad", "parallelBiquad", "PEQ",
+                                    "parallelPEQ", "SVF"])
+def test_cuda_filter_family_pallas_route_matches_plain(cuda, family):
+    """A filter family on the 'pallas' route on the card (K4f, its gradient
+    K4b, launched once each) against the same filter on 'xla' (the plain
+    cascade), from one seed at nfft = 96000: response 1e-5 and gradient
+    1e-4 of the max, the channel dims folded into K4's channel axis."""
+    kw = {"Biquad": dict(size=(2, 1), n_sections=2, filter_type="highpass",
+                         alias_decay_db=30),
+          "parallelBiquad": dict(size=(2,), n_sections=2,
+                                 filter_type="highpass"),
+          "PEQ": dict(size=(2, 1), n_bands=6),
+          "parallelPEQ": dict(size=(2,), n_bands=6),
+          "SVF": dict(size=(2, 1), n_sections=4)}[family]
+
+    def build(backend):
+        gen = torch.Generator().manual_seed(5)
+        cls = getattr(dsp, family)
+        if family == "SVF":
+            m = cls(nfft=96000, requires_grad=True, generator=gen,
+                    device="cuda", **kw)
+            m.cascade_backend = backend
+            return m
+        return cls(nfft=96000, requires_grad=True, generator=gen,
+                   device="cuda", cascade_backend=backend, **kw)
+
+    out = {}
+    for backend in ("xla", "pallas"):
+        m = build(backend)
+        sk.reset_launch_counts()
+        H = m.response()
+        torch.sum(torch.abs(H)).backward()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in sk.LAUNCHES.items() if v}
+        assert launched == ({} if backend == "xla" else
+                            {"sos_cascade_fwd": 1, "sos_cascade_bwd": 1})
+        out[backend] = (H.detach(), m.param.grad)
+    assert _rel(out["pallas"][0], out["xla"][0]) < 1e-5
+    assert _rel(out["pallas"][1], out["xla"][1]) < 1e-4
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("P", range(1, 9))
 def test_cuda_sos_cascade_every_channel_block(cuda, P):
     """K4f and K4b at every P and every channel block (one compiled copy of

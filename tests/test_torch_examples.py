@@ -71,10 +71,11 @@ def test_audio_io_matches_jax(tmp_path, subtype):
 
 
 FAST_CASES = [
-    # (fast, history, graph0, outcome): the fast path falls back only on
-    # a first loss outside the parity; a non-finite or rising loss raises
+    # (fast, history, graph0, outcome): the fast path keeps a first loss
+    # within the parity; outside it, or with a non-finite or rising loss,
+    # it raises under every mode, 'auto' too
     ("auto", [1.0, 0.5], 1.0, "kept"),
-    ("auto", [1.0, 0.5], 1.1, "fallback"),
+    ("auto", [1.0, 0.5], 1.1, "raises"),
     ("fused", [1.0, 0.5], 1.1, "raises"),
     ("auto", [1.0, np.nan], 1.0, "raises"),
     ("auto", [np.nan, 0.5], 1.0, "raises"),
@@ -85,21 +86,20 @@ FAST_CASES = [
 @pytest.mark.parametrize("fast,history,graph0,outcome", FAST_CASES)
 def test_fast_path_falls_back_only_on_parity(fast, history, graph0,
                                              outcome):
+    """No fallback is left: a failed parity check raises under 'auto' as
+    under 'fused', naming the gate, and a kept result comes back whole."""
     from flamo_tpu_torch.examples._common import fast_path
 
-    undone = []
     run = lambda: fast_path(  # noqa: E731
-        fast, graph0, lambda: ("net", np.asarray(history, np.float32)),
-        undo=lambda: undone.append(True))
+        fast, graph0, lambda: ("net", np.asarray(history, np.float32)))
     if outcome == "raises":
-        with pytest.raises(RuntimeError):
+        match = "parity gate" if np.isfinite(history).all() and \
+            history[-1] <= history[0] else None
+        with pytest.raises(RuntimeError, match=match):
             run()
-        assert not undone
-    elif outcome == "fallback":
-        assert run() is None and undone == [True]
     else:
         trained, hist = run()
-        assert trained == "net" and list(hist) == history and not undone
+        assert trained == "net" and list(hist) == history
 
 
 def test_active_acoustics_fast_path_raises_on_nan(tmp_path, monkeypatch):
