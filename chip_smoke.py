@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive flamo_tpu_torch's colorless-, attenuated- and scattering-FDN
 paths, its active-acoustics path, its phase-2 micro-benchmark, its
-Trainer path, its e8_fdn example path and its filter zoo on one CUDA
-card.
+Trainer path, its e8_fdn example path, its filter zoo and its accurate
+GEQ, velvet-noise and tutorial paths on one CUDA card.
 
 Run from the root of the repository:
 
@@ -149,6 +149,31 @@ Phases, in order; any failure raises and exits non-zero without a result:
    5e-3 of each other (the probe batched by torch.func.vmap); and
    ZOO_NN_STEPS Adam steps of e7_biquad_nn's MLP on a 'pallas' Biquad
    through ext_param, K4f and K4b once each a step, the loss falling;
+4i. the accurate GEQ, velvet noise and the tutorial examples at nfft=96000:
+   e7_geq's 'geq' (a 2 x 1 GEQ) and 'parallel_geq' (2 channels), octave
+   bands, 30 dB alias decay, trained toward the example's accurate-GEQ
+   target, as phase 4h's scenarios (GEQ_ZOO: first loss 1e-5, gradient
+   1e-4 of the max; one epoch with K4f once a step
+   and K4b once a train step; ZOO_STEPS fit_scan steps); e7_geq's
+   'accurate_geq' and 'accurate_parallel_geq' (the non-trainable
+   AccurateGEQ assigned the target gains) on 'xla' and 'pallas' from one
+   seed: |response()| of the routes within 1e-4 of the max (else each
+   held to a float64 evaluation of the same taps, 'pallas' within 2x
+   'xla''s distance), each route within the example's own 1e-2 gate of
+   its float64 numpy design, K4f twice (the response and the check) and
+   K4b never; e4_recursion_nn's comb_nn (delays 151, 211, 239, 317, a
+   4 x 4 one-section LossyBiquad in the feedback, MLP hidden (128, 64),
+   16 items in batches of 4, each item through the comb in turn) on
+   'xla'/'ge' and 'pallas' (K4, K6) from one seed: first loss 1e-5, MLP
+   gradients 3e-4 of the max, one epoch with K4f, K4b, K6 and K6
+   transposed once each an item, the loss over the targets falling, then
+   COMB_STEPS timed steps (CUDA events, after 3); gains_nn's GAINS_STEPS
+   Adam steps (its loop, delays against a parallelGain, declines the
+   FDN split: K6 once each way a step, never K2); e6's two IRs (alias
+   decay 0 and 30 dB) on 'pallas' (K2 once each) against 'ge' within
+   1e-5 of the max, and the example's pre-onset energy check; a velvet
+   scattering loop (parallelDelay(8) against VelvetNoiseMatrix((4, 8,
+   8))) on 'pallas' (K6 once) against 'ge' within 1e-5 of the max;
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
@@ -174,6 +199,7 @@ Phases, in order; any failure raises and exits non-zero without a result:
    e8_fdn steps also K4f's, K4b's and K2's share and the cuBLAS GEMMs',
    for an e7 step K4f's and K4b's,
    for the fused-tf step K3f's and K3b's, for the fused response K3f's,
+   for the comb_nn step K4f's, K4b's and K6's,
    for the K9 steps K9's), and the MSS loss alone, its GEMMs named;
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
@@ -202,7 +228,12 @@ step) and in the graph-route calls of phases 3 and 4, all three also in
 phase 4g's epochs and timed steps (K4f once a step, K4b once a train
 step, K2 once a step and once more a train step), K4f and K4b also in
 phase 4h's epochs, fit_scan steps, timed steps and ext_param steps (K4f
-once a step, K4b once a train step), K3f and K3b in
+once a step, K4b once a train step), and all of them in phase 4i: K4f
+and K4b in e7_geq's epochs and fit_scan steps as in phase 4h, K4f twice
+an accurate scenario on 'pallas' and K4b never there, K4f, K4b, K6 and
+K6 transposed once each an item of comb_nn's epoch and timed steps, K6
+once each way a gains_nn step, K2 once an e6 IR and K6 once for the
+velvet loop; K3f and K3b in
 phase 3's timed fused-tf steps (once each per step) and K3f also in its
 timed fused responses (once per call); the K10 variants in phase 4e's
 bench_phase2_micro.run (151 calls each).  ``trace_retries``
@@ -231,8 +262,9 @@ import numpy as np
 import torch
 
 from flamo_tpu_torch.convert import jax_named_tensors, load_jax_scattering
-from flamo_tpu_torch.examples import (e7_biquad, e7_biquad_nn, e7_peq,
-                                      e7_svf, e8_fdn, e10_probe)
+from flamo_tpu_torch.examples import (e4_recursion_nn, e6_anti_aliasing,
+                                      e7_biquad, e7_biquad_nn, e7_geq,
+                                      e7_peq, e7_svf, e8_fdn, e10_probe)
 from flamo_tpu_torch.examples._common import (PlainMSE, filter_shell,
                                               filter_trainer)
 from flamo_tpu_torch.functional import charpoly, expm_skew
@@ -346,6 +378,27 @@ ZOO = {
     "svf": (e7_svf, "scenario_svf", {}, 5e-2),
     "parallel_svf": (e7_svf, "scenario_parallel_svf", {}, 5e-2),
 }
+# phase 4i, the accurate GEQ, velvet noise and the tutorial examples:
+# e7_geq's two trained scenarios run as phase 4h's (zoo_scenario) and
+# with its gates; the accurate designs' |H| on 'pallas'
+# against 'xla' at 1e-4 of the max (else both held to a float64
+# evaluation of the same taps, 'pallas' within ACC_F64_FACTOR times the
+# 'xla' distance, as ZOO_ILL) and each route within the example's own
+# ACCURATE_TOL of its target; e4_recursion_nn's comb_nn (COMB_ITEMS items
+# in batches of COMB_BATCH, each item through K4f and K6 in turn) first
+# loss 1e-5 and MLP gradients 3e-4 of the max, one epoch, COMB_STEPS
+# timed steps; gains_nn's GAINS_STEPS Adam steps; e6's two IRs and a
+# velvet scattering loop on 'pallas' against 'ge' at 1e-5 of the max
+GEQ_ZOO = {
+    "geq": (e7_geq, "scenario_geq", {}, 5e-2),
+    "parallel_geq": (e7_geq, "scenario_parallel_geq", {}, 5e-2),
+}
+ACC_ROUTE_TOL, ACC_F64_FACTOR = 1e-4, 2.0
+COMB_ITEMS, COMB_BATCH, COMB_STEPS = 16, 4, 20
+COMB_LOSS_TOL, COMB_GRAD_TOL = 1e-5, 3e-4
+GAINS_STEPS = 10
+E6_TOL, VELVET_TOL = 1e-5, 1e-5
+VELVET_N, VELVET_STAGES, VELVET_MAX_DELAY = 8, 4, 2000
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
@@ -475,6 +528,28 @@ def rel_err(got, ref) -> tuple[float, float]:
     """(max |got - ref|, that over max |ref|)."""
     err = float((got - ref).abs().max())
     return err, err / max(float(ref.abs().max()), 1e-30)
+
+
+def reset_counts() -> None:
+    """Set the launch counts of K1-K3, K6 (fk) and K4, K5 (sk) to 0."""
+    fk.reset_launch_counts()
+    sk.reset_launch_counts()
+
+
+def nonzero_counts() -> dict:
+    """The nonzero launch counts of K1-K3, K6 (fk) and K4, K5 (sk)."""
+    return {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items() if v}
+
+
+def check_counts(what: str, got: dict, want: dict) -> None:
+    """Fail unless ``got`` is ``want``'s nonzero counts, exactly."""
+    want = {k: v for k, v in want.items() if v}
+    check(got == want, f"{what} should launch {want}, not {got}")
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
 
 
 def gpu_line() -> str:
@@ -1891,7 +1966,7 @@ def phase_slice(card: str) -> tuple:
     model_k2.load_state_dict(model.state_dict())
     x, t = colorless_pair(model)
 
-    fk.reset_launch_counts()
+    reset_counts()
     l_ge, g_ge = loss_and_grads(model, colorless_loss, x, t)
     l_k2, g_k2 = loss_and_grads(model_k2, colorless_loss, x, t)
     print(f"  graph loss: ge {l_ge:.7f}, pallas (K2) {l_k2:.7f}")
@@ -1921,7 +1996,7 @@ def phase_slice(card: str) -> tuple:
     model_tf = colorless_model(1)
     model_tf.load_state_dict(model.state_dict())
     run = fused_tf_steps(model_tf)
-    fk.reset_launch_counts()
+    reset_counts()
     losses, seconds = timed(lambda: run(FUSED_TF_STEPS))
     counts = {k: v for k, v in fk.LAUNCHES.items() if v}
     print(f"  launches in the timed fused-tf steps: {counts}")
@@ -1946,7 +2021,7 @@ def phase_slice(card: str) -> tuple:
     # then FUSED_EVALS timed calls on the graph model
     run = fused_evals(model)
     run(10)
-    fk.reset_launch_counts()
+    reset_counts()
     H_fused, seconds = timed(lambda: run(FUSED_EVALS))
     counts = {k: v for k, v in fk.LAUNCHES.items() if v}
     check(counts == {"fdn_tf_fwd": FUSED_EVALS},
@@ -1961,7 +2036,7 @@ def phase_slice(card: str) -> tuple:
 
     # colorless_fit: a short warm-up on a copy, then the timed run
     colorless_fit(colorless_model(2), n_steps=10)
-    fk.reset_launch_counts()
+    reset_counts()
     (model, hist), seconds = timed(lambda: colorless_fit(model,
                                                          n_steps=FIT_STEPS))
     launches["fdn_tf_mse"] = fk.LAUNCHES["fdn_tf_mse"]
@@ -2014,8 +2089,7 @@ def phase_attenuated(card: str):
     model_k.load_state_dict(model.state_dict())
     x, t = time_impulse_pair(NFFT)
 
-    fk.reset_launch_counts()
-    sk.reset_launch_counts()
+    reset_counts()
     l_ge, g_ge = loss_and_grads(model, attenuated_loss, x, t)
     # K2's operands in the graph loss, as the first timed graph step sees
     # them: its pivot-vote share, forward and transposed
@@ -2062,8 +2136,7 @@ def phase_attenuated(card: str):
         step(x, t)
     step, _ = attenuated_train_step(model, lr=ATT_LR, fused_step=True,
                                     step_pivot=False)
-    fk.reset_launch_counts()
-    sk.reset_launch_counts()
+    reset_counts()
     losses, seconds = timed(lambda: [step(x, t) for _ in range(ATT_STEPS)])
     per_step = {k: v / ATT_STEPS
                 for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items()}
@@ -2091,11 +2164,10 @@ def phase_attenuated(card: str):
     for _ in range(10):
         step(x, t)
     step, _ = attenuated_train_step(model_k, lr=ATT_LR)
-    fk.reset_launch_counts()
-    sk.reset_launch_counts()
+    reset_counts()
     losses, seconds = timed(lambda: [step(x, t)
                                       for _ in range(ATT_GRAPH_STEPS)])
-    counts = {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items() if v}
+    counts = nonzero_counts()
     want = {"fdn_solve": 2 * ATT_GRAPH_STEPS,
             "sos_cascade_fwd": ATT_GRAPH_STEPS,
             "sos_cascade_bwd": ATT_GRAPH_STEPS}
@@ -2163,7 +2235,7 @@ def phase_scattering(card: str):
                                                 solve_method=method)
 
     # the graph route: K6 on the (1, M, N, N) loop and its transpose
-    fk.reset_launch_counts()
+    reset_counts()
     l_k6, g_k6 = loss_and_grads(model, graph_loss, x, t)
     check(_k6_counts() == {"dense_solve": 1, "dense_solve_transposed": 1},
           f"the graph step should launch K6 once each way: {fk.LAUNCHES}")
@@ -2184,7 +2256,7 @@ def phase_scattering(card: str):
         step(x, t, i)
     step, _ = sfdn_train_step(sfdn_model(), n_samples=SFDN_SAMPLES,
                               generator=torch.Generator().manual_seed(SEED))
-    fk.reset_launch_counts()
+    reset_counts()
     losses, seconds = timed(lambda: [step(x, t, i)
                                       for i in range(SFDN_GRAPH_STEPS)])
     launches = {dense_row(k, "M"): n for k, n in _k6_counts().items()}
@@ -2238,7 +2310,7 @@ def phase_scattering(card: str):
     sfdn_fit(sfdn_model(seed=2), n_steps=10, n_samples=SFDN_SAMPLES,
              masked=True, solve_method="pallas",
              generator=torch.Generator().manual_seed(2))
-    fk.reset_launch_counts()
+    reset_counts()
     (_, hist), seconds = timed(lambda: sfdn_fit(
         model, n_steps=SFDN_FIT_STEPS, n_samples=SFDN_SAMPLES, masked=True,
         solve_method="pallas", generator=torch.Generator().manual_seed(SEED),
@@ -2631,10 +2703,6 @@ def e8_loaders(target):
     return load_dataset(ds, batch_size=E8_BATCH, split=E8_SPLIT, seed=SEED)
 
 
-def e8_counts() -> dict:
-    return {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items() if v}
-
-
 def phase_e8(card: str):
     """The e8_fdn path at full width: for the 'fdn' and 'direct'
     scenarios, the 'pallas' build's first loss and gradients against the
@@ -2663,10 +2731,9 @@ def phase_e8(card: str):
             mx.state_dict().values(), mk.state_dict().values())),
             "the two builds of one seed hold different weights")
         l_x, g_x = first(mx)
-        fk.reset_launch_counts()
-        sk.reset_launch_counts()
+        reset_counts()
         l_k, g_k = first(mk)
-        counts = e8_counts()
+        counts = nonzero_counts()
         want = {"fdn_solve": 2, "sos_cascade_fwd": 1, "sos_cascade_bwd": 1}
         check(counts == want, f"{scenario}: the first loss and its gradients "
               f"should launch K4f, K4b once and K2 twice: {counts}")
@@ -2681,10 +2748,9 @@ def phase_e8(card: str):
         tl, vl = e8_loaders(target)
         tr = e8_trainer(mk)
         e8_fdn._save_ir(mk, str(out_dir / f"ir_init_{scenario}.wav"), 48000)
-        fk.reset_launch_counts()
-        sk.reset_launch_counts()
+        reset_counts()
         _, seconds = timed(lambda: tr.train(tl, vl, scan=True))
-        counts = e8_counts()
+        counts = nonzero_counts()
         n_train, n_valid = len(tl), len(vl)
         want = {"fdn_solve": 2 * n_train + n_valid,
                 "sos_cascade_fwd": n_train + n_valid,
@@ -2704,8 +2770,7 @@ def phase_e8(card: str):
               f"{counts}")
         check(bool(np.isfinite(steps).all()) and steps[-1] < steps[0],
               f"{scenario}: the epoch's loss is not finite or did not fall")
-        for name, n in counts.items():
-            launches[name] = launches.get(name, 0) + n
+        add_counts(launches, counts)
         ir = e8_fdn._save_ir(tr.net, str(out_dir / f"ir_optim_{scenario}.wav"),
                              48000)
         print(f"  {scenario}: IRs {ir.shape[0]} samples, finite, written to "
@@ -2714,11 +2779,10 @@ def phase_e8(card: str):
         # the ms a step: Trainer.fit_scan on the first train batch
         bx, bt = next(iter(tl))
         tr.fit_scan(bx, bt, n_steps=3, steps_per_call=3)
-        fk.reset_launch_counts()
-        sk.reset_launch_counts()
+        reset_counts()
         hist, seconds = timed(lambda: tr.fit_scan(
             bx, bt, n_steps=E8_STEPS, steps_per_call=E8_STEPS))
-        counts = e8_counts()
+        counts = nonzero_counts()
         check(counts == {"fdn_solve": 2 * E8_STEPS,
                          "sos_cascade_fwd": E8_STEPS,
                          "sos_cascade_bwd": E8_STEPS},
@@ -2727,8 +2791,7 @@ def phase_e8(card: str):
         check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
               f"{scenario}: the timed steps' loss is not finite or did not "
               "fall")
-        for name, n in counts.items():
-            launches[name] += n
+        add_counts(launches, counts)
         step_ms[scenario] = seconds * 1e3 / E8_STEPS
     print(f"  e8_fdn graph step (Trainer.fit_scan, batch {E8_BATCH}, "
           f"{E8_STEPS} steps after 3, CUDA events) on {card}: "
@@ -2783,7 +2846,7 @@ def zoo_filter(name: str, backend: str, nfft: int = NFFT, device="cuda"):
     scenario ``name`` on ``backend``, its weights and target from SEED:
     the 'xla' and 'pallas' builds of one name hold the same weights.  The
     SVF families take the route as their attribute."""
-    example, make, kw, lr = ZOO[name]
+    example, make, kw, lr = {**ZOO, **GEQ_ZOO}[name]
     args = zoo_args(nfft, lr)
     set_seed(SEED)
     if example is e7_svf:
@@ -2817,16 +2880,6 @@ def zoo_f64_first(name: str, filt, target, in_ch: int):
     return zoo_first(twin, target.double(), in_ch)
 
 
-def zoo_counts() -> dict:
-    return {k: v for k, v in sk.LAUNCHES.items() if v}
-
-
-def zoo_check_counts(name: str, got: dict, fwd: int, bwd: int,
-                     what: str) -> None:
-    want = {"sos_cascade_fwd": fwd, "sos_cascade_bwd": bwd}
-    check(got == want, f"{name}: {what} should launch {want}, not {got}")
-
-
 def zoo_scenario(name: str, nfft: int = NFFT, device="cuda") -> dict:
     """One e7 scenario: the 'pallas' build's first loss and gradient
     against the 'xla' build's (K4f and K4b once), one epoch of the e7
@@ -2840,10 +2893,11 @@ def zoo_scenario(name: str, nfft: int = NFFT, device="cuda") -> dict:
     check(torch.equal(fx.param, fk_.param) and torch.equal(tx, tk_),
           f"{name}: the two builds of one seed differ")
     l_x, g_x = zoo_first(fx, tx, in_ch)
-    sk.reset_launch_counts()
+    reset_counts()
     l_k, g_k = zoo_first(fk_, tk_, in_ch)
-    zoo_check_counts(name, zoo_counts(), 1, 1,
-                     "the first loss and its gradient")
+    check_counts(f"{name}: the first loss and its gradient",
+                 nonzero_counts(), {"sos_cascade_fwd": 1,
+                                    "sos_cascade_bwd": 1})
     rel = abs(l_k - l_x) / abs(l_x)
     grad_err = float(torch.max(torch.abs(g_k - g_x))
                      / torch.max(torch.abs(g_x)))
@@ -2867,16 +2921,16 @@ def zoo_scenario(name: str, nfft: int = NFFT, device="cuda") -> dict:
         check(rel < ZOO_LOSS_TOL, f"{name}: first loss xla {l_x:.8g}, "
               f"pallas {l_k:.8g}, rel {rel:.3e} (tol {ZOO_LOSS_TOL:g})")
         check(grad_err < ZOO_GRAD_TOL, f"{name}: the pallas gradient is "
-              f"{grad_err:.3e} of the max from xla's (tol "
-              f"{ZOO_GRAD_TOL:g})")
+              f"{grad_err:.3e} of the max from xla's (tol {ZOO_GRAD_TOL:g})")
     tr, tl, vl = filter_trainer(args, fk_, tk_, in_ch, log=False)
-    sk.reset_launch_counts()
+    reset_counts()
     tr.train(tl, vl)
-    epoch_counts = zoo_counts()
+    epoch_counts = nonzero_counts()
     n_train, n_valid = len(tl), len(vl)
-    zoo_check_counts(name, epoch_counts, n_train + n_valid, n_train,
-                     f"one epoch of {n_train} train and {n_valid} valid "
-                     "steps")
+    check_counts(f"{name}: one epoch of {n_train} train and {n_valid} "
+                 "valid steps", epoch_counts,
+                 {"sos_cascade_fwd": n_train + n_valid,
+                  "sos_cascade_bwd": n_train})
     check(tr.fused_path is None, f"{name}: the Trainer took the fused path "
           f"{tr.fused_path!r} for PlainMSE")
     steps = np.asarray(tr.train_loss_log["PlainMSE"])
@@ -2884,11 +2938,11 @@ def zoo_scenario(name: str, nfft: int = NFFT, device="cuda") -> dict:
           f"{name}: the epoch's loss is not finite or did not fall: "
           f"{steps}")
     bx, bt = next(iter(tl))
-    sk.reset_launch_counts()
+    reset_counts()
     hist = tr.fit_scan(bx, bt, n_steps=ZOO_STEPS, steps_per_call=ZOO_STEPS)
-    step_counts = zoo_counts()
-    zoo_check_counts(name, step_counts, ZOO_STEPS, ZOO_STEPS,
-                     f"{ZOO_STEPS} fit_scan steps")
+    step_counts = nonzero_counts()
+    check_counts(f"{name}: {ZOO_STEPS} fit_scan steps", step_counts,
+                 {"sos_cascade_fwd": ZOO_STEPS, "sos_cascade_bwd": ZOO_STEPS})
     check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
           f"{name}: the fit_scan steps' loss is not finite or did not fall")
     return dict(loss_xla=l_x, loss_pallas=l_k, rel=rel, grad_err=grad_err,
@@ -2909,11 +2963,11 @@ def zoo_nn(nfft: int = NFFT, device="cuda", steps: int = ZOO_NN_STEPS):
     params = e7_biquad_nn.init_mlp(torch.Generator().manual_seed(SEED),
                                    device=device)
     cond = torch.tensor([[0.5]], device=device)
-    sk.reset_launch_counts()
+    reset_counts()
     losses = e7_biquad_nn.fit(shell, x, target, params, cond, steps=steps)
-    counts = zoo_counts()
-    zoo_check_counts("e7_biquad_nn", counts, steps, steps,
-                     f"{steps} ext_param steps")
+    counts = nonzero_counts()
+    check_counts(f"e7_biquad_nn: {steps} ext_param steps", counts,
+                 {"sos_cascade_fwd": steps, "sos_cascade_bwd": steps})
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
           "e7_biquad_nn: the loss is not finite or did not fall")
     return losses, counts
@@ -2935,17 +2989,16 @@ def phase_zoo(card: str):
         r = zoo_scenario(name)
         n_train, n_valid = r["n_train"], r["n_valid"]
         for counts in (r["epoch_counts"], r["step_counts"]):
-            for k, n in counts.items():
-                launches[k] += n
+            add_counts(launches, counts)
         tr, (bx, bt) = r["trainer"], r["batch"]
-        sk.reset_launch_counts()
+        reset_counts()
         _, seconds = timed(lambda: tr.fit_scan(
             bx, bt, n_steps=ZOO_STEPS, steps_per_call=ZOO_STEPS))
-        counts = zoo_counts()
-        zoo_check_counts(name, counts, ZOO_STEPS, ZOO_STEPS,
-                         f"{ZOO_STEPS} timed fit_scan steps")
-        for k, n in counts.items():
-            launches[k] += n
+        counts = nonzero_counts()
+        check_counts(f"{name}: {ZOO_STEPS} timed fit_scan steps", counts,
+                     {"sos_cascade_fwd": ZOO_STEPS,
+                      "sos_cascade_bwd": ZOO_STEPS})
+        add_counts(launches, counts)
         step_ms[name] = seconds * 1e3 / ZOO_STEPS
         gate = (f"tols {ZOO_LOSS_TOL:g} and {ZOO_GRAD_TOL:g}"
                 if r["f64"] is None else
@@ -2971,8 +3024,7 @@ def phase_zoo(card: str):
     print(f"  e7_biquad_nn on a 'pallas' Biquad (ext_param, nfft={NFFT}): "
           f"{ZOO_NN_STEPS} Adam steps, loss {losses[0]:.6g} -> "
           f"{losses[-1]:.6g}, launches {counts}")
-    for k, n in counts.items():
-        launches[k] += n
+    add_counts(launches, counts)
     print(f"  e7 fit_scan step on {card}: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in step_ms.items()))
     print(f"  launches in phase 4h: {launches}")
@@ -2991,6 +3043,295 @@ def zoo_steps(name: str):
     tr, tl, _ = filter_trainer(args, filt, target, in_ch, log=False)
     bx, bt = next(iter(tl))
     return lambda n: tr.fit_scan(bx, bt, n_steps=n, steps_per_call=n)
+
+
+# ---------------------------------------------------------------------------
+# phase 4i, the accurate GEQ, velvet noise and the tutorial examples
+# ---------------------------------------------------------------------------
+def accurate_f64(filt) -> torch.Tensor:
+    """|H| of a float64 evaluation of ``filt``'s own taps (the alias
+    envelope folded in, the plain guarded cascade), (M, ...)."""
+    be, ae = filt.sos_taps(None)
+    H = dsp._guarded_cascade(be.double(), ae.double(), filt.nfft, "xla")
+    return H.abs()
+
+
+def accurate_scenario(parallel: bool, nfft: int = NFFT,
+                      device="cuda") -> dict:
+    """e7_geq's accurate scenario (the MIMO 2 x 1 AccurateGEQ or the
+    2-channel parallelAccurateGEQ) built on 'xla' and 'pallas' from SEED:
+    |response()| of the two routes, K4f once and K4b never for the
+    'pallas' one, the routes 1e-4 of the max apart (else each held to a
+    float64 evaluation of the same taps, 'pallas' within ACC_F64_FACTOR
+    times 'xla''s distance), and each within the example's ACCURATE_TOL
+    of its designed target through ``accurate_error`` (K4f once more)."""
+    args = zoo_args(nfft)
+    out = {}
+    for be in ("xla", "pallas"):
+        set_seed(SEED)
+        filt, target, _, tag = e7_geq.scenario_accurate(
+            args, device, parallel, cascade_backend=be)
+        check(not filt.trainable and not filt.sos_b.requires_grad,
+              f"{tag}: the accurate GEQ holds a trainable tensor")
+        reset_counts()
+        with torch.no_grad():
+            H = filt.response().abs()
+        err, rng, _ = e7_geq.accurate_error(filt, target)
+        counts = nonzero_counts()
+        check_counts(f"{tag} ({be}): a response and the example's check",
+                     counts, {"sos_cascade_fwd": 2 * (be == "pallas")})
+        check(err < e7_geq.ACCURATE_TOL * max(rng, 1.0),
+              f"{tag} ({be}): the design is {err:.3e} from its target "
+              f"(range {rng:.3f})")
+        out[be] = dict(filt=filt, H=H, err=err, rng=rng, counts=counts)
+    _, gap = rel_err(out["pallas"]["H"], out["xla"]["H"])
+    f64 = None
+    if not gap < ACC_ROUTE_TOL:
+        ref = accurate_f64(out["xla"]["filt"])
+        f64 = {be: rel_err(out[be]["H"].double(), ref)[1]
+               for be in ("xla", "pallas")}
+        check(f64["pallas"] <= ACC_F64_FACTOR * f64["xla"],
+              f"{tag}: routes {gap:.3e} apart and pallas {f64['pallas']:.3e} "
+              f"from the float64 taps, more than {ACC_F64_FACTOR:g}x xla's "
+              f"{f64['xla']:.3e}")
+    return dict(tag=tag, gap=gap, f64=f64, out=out)
+
+
+def comb_args(nfft: int = NFFT) -> SimpleNamespace:
+    return SimpleNamespace(nfft=nfft, samplerate=48000, seed=SEED,
+                           num=COMB_ITEMS, batch_size=COMB_BATCH, lr=1e-3)
+
+
+def comb_loss_grads(shell, imp, params, targets):
+    """(loss, {leaf index: grad}) of e4_recursion_nn's comb loss on one
+    batch; the last layer's unused LayerNorm leaves get none."""
+    leaves = e4_recursion_nn.mlp_leaves(params)
+    loss = e4_recursion_nn.comb_loss(shell, imp, params, targets)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), {i: g for i, g in enumerate(grads)
+                                  if g is not None}
+
+
+def comb_scenario(nfft: int = NFFT, device="cuda") -> dict:
+    """comb_nn on 'xla' (plain cascade, 'ge') and 'pallas' (K4, K6) from
+    SEED: the same MLP weights; the first loss and MLP gradients on the
+    first batch of the 'xla' targets (each item once through K4f, K4b, K6
+    and K6 transposed), one epoch of Adam over the 'xla' targets on
+    'pallas' (the same per item), the loss over all targets falling.
+    Returns what it measured and the 'pallas' state for timing."""
+    args = comb_args(nfft)
+    sx, ix, tx, px = e4_recursion_nn.comb_setup(args, device, "xla")
+    sp, ip, _, pp = e4_recursion_nn.comb_setup(args, device, "pallas")
+    check(all(torch.equal(a, b) for a, b in zip(
+        e4_recursion_nn.mlp_leaves(px), e4_recursion_nn.mlp_leaves(pp))),
+        "comb_nn: the two builds of one seed hold different MLP weights")
+    batch = tx[:COMB_BATCH]
+    l_x, g_x = comb_loss_grads(sx, ix, px, batch)
+    reset_counts()
+    l_k, g_k = comb_loss_grads(sp, ip, pp, batch)
+    n = COMB_BATCH
+    per_item = {"sos_cascade_fwd": 1, "sos_cascade_bwd": 1,
+                "dense_solve": 1, "dense_solve_transposed": 1}
+    check_counts("comb_nn's first loss and gradients", nonzero_counts(),
+                 {k: n * v for k, v in per_item.items()})
+    rel = abs(l_k - l_x) / abs(l_x)
+    check(np.isfinite(l_x) and rel < COMB_LOSS_TOL,
+          f"comb_nn: first loss xla {l_x:.8g}, pallas {l_k:.8g}, rel "
+          f"{rel:.3e} (tol {COMB_LOSS_TOL:g})")
+    grad_err = max(rel_err(g_k[i], g_x[i])[1] for i in g_x)
+    check(grad_err < COMB_GRAD_TOL, f"comb_nn: the MLP gradients are "
+          f"{grad_err:.3e} of the max apart (tol {COMB_GRAD_TOL:g})")
+    before = e4_recursion_nn.dataset_loss(sp, ip, pp, tx)
+    reset_counts()
+    steps = e4_recursion_nn.comb_fit(sp, ip, pp, tx, args.lr, 1, n)
+    epoch_counts = nonzero_counts()
+    n_steps = COMB_ITEMS // n
+    check_counts(f"comb_nn's epoch of {n_steps} steps of {n} items",
+                 epoch_counts, {k: COMB_ITEMS * v for k, v in
+                                per_item.items()})
+    after = e4_recursion_nn.dataset_loss(sp, ip, pp, tx)
+    check(bool(np.isfinite(steps).all()) and after < before,
+          f"comb_nn: the loss over the targets did not fall: {before:.7g} "
+          f"-> {after:.7g}")
+    return dict(loss_xla=l_x, loss_pallas=l_k, rel=rel, grad_err=grad_err,
+                before=before, after=after, steps=steps,
+                epoch_counts=epoch_counts, state=(sp, ip, pp, tx))
+
+
+def comb_step_runner(state, lr: float = 1e-3):
+    """``run(k)``: k Adam steps of comb_nn on the first batch."""
+    shell, imp, params, targets = state
+    batch = targets[:COMB_BATCH]
+    opt = torch.optim.Adam(e4_recursion_nn.mlp_leaves(params), lr=lr)
+
+    def run(k):
+        for _ in range(k):
+            opt.zero_grad(set_to_none=True)
+            e4_recursion_nn.comb_loss(shell, imp, params, batch).backward()
+            opt.step()
+
+    return run
+
+
+def gains_scenario(nfft: int = NFFT, device="cuda",
+                   steps: int = GAINS_STEPS) -> dict:
+    """gains_nn on 'pallas': its loop, delays against a parallelGain, is
+    not an FDN loop with a flat feedback (the split declines), so it goes
+    to K6, once each way a step, and never to K2; the loss falls."""
+    args = comb_args(nfft)
+    shell, x, params, cond = e4_recursion_nn.gains_setup(args, device,
+                                                         "pallas")
+    reset_counts()
+    losses = e4_recursion_nn.gains_fit(shell, x, params, cond, steps)
+    counts = nonzero_counts()
+    check_counts(f"gains_nn's {steps} steps", counts,
+                 {"dense_solve": steps, "dense_solve_transposed": steps})
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"gains_nn: the loss did not fall: {losses}")
+    return dict(losses=losses, counts=counts)
+
+
+def e6_scenario(nfft: int = NFFT, device="cuda") -> dict:
+    """e6's two IRs (alias decay 0 and 30 dB) on 'pallas' (K2 once each,
+    through the diagonal / flat split) against 'ge', and the example's
+    pre-onset energy check on the 'pallas' IRs."""
+    reset_counts()
+    irs = e6_anti_aliasing.impulse_responses(nfft, SEED, device, "pallas")
+    counts = nonzero_counts()
+    check_counts("e6's two IRs", counts, {"fdn_solve": 2})
+    ref = e6_anti_aliasing.impulse_responses(nfft, SEED, device, "ge")
+    errs = {db: rel_err(irs[db], ref[db])[1] for db in irs}
+    check(all(v < E6_TOL for v in errs.values()),
+          f"e6: the 'pallas' IRs differ from 'ge': {errs}")
+    energy = {db: e6_anti_aliasing.pre_onset_energy(irs[db]) for db in irs}
+    check(energy[30.0] < energy[0.0], f"e6: the 30 dB envelope did not "
+          f"lower the pre-onset energy: {energy}")
+    for db, ir in irs.items():
+        check(bool(torch.isfinite(ir).all()), f"e6: the {db} dB IR is not "
+              "finite")
+    return dict(errs=errs, energy=energy, counts=counts)
+
+
+def velvet_loop(solve_method: str, nfft: int = NFFT, device="cuda"):
+    """Recursion(parallelDelay(VELVET_N), VelvetNoiseMatrix((VELVET_STAGES,
+    VELVET_N, VELVET_N))), both drawn from SEED."""
+    delays = dsp.parallelDelay(size=(VELVET_N,), max_len=VELVET_MAX_DELAY,
+                               isint=True, nfft=nfft, device=device,
+                               generator=torch.Generator().manual_seed(SEED))
+    vm = dsp.VelvetNoiseMatrix(size=(VELVET_STAGES, VELVET_N, VELVET_N),
+                               nfft=nfft, device=device,
+                               generator=torch.Generator().manual_seed(SEED))
+    return system.Recursion(fF=delays, fB=vm, solve_method=solve_method)
+
+
+def velvet_scenario(nfft: int = NFFT, device="cuda") -> dict:
+    """The velvet scattering loop's output for a seeded white input on
+    'pallas' (K6 once, forward) against 'ge'."""
+    x = torch.randn((1, nfft, VELVET_N),
+                    generator=torch.Generator().manual_seed(SEED))
+    X = torch.fft.rfft(x.to(device), dim=1)
+    loop = velvet_loop("pallas", nfft, device)
+    reset_counts()
+    with torch.no_grad():
+        y = loop(X)
+    counts = nonzero_counts()
+    check_counts("the velvet loop", counts, {"dense_solve": 1})
+    with torch.no_grad():
+        ref = velvet_loop("ge", nfft, device)(X)
+    _, err = rel_err(y, ref)
+    check(bool(torch.isfinite(y).all()) and err < VELVET_TOL,
+          f"the velvet loop's 'pallas' output is {err:.3e} of the max from "
+          f"'ge' (tol {VELVET_TOL:g})")
+    return dict(err=err, counts=counts,
+                taps=loop.feedback.map_filter.output_length)
+
+
+def phase_accurate_velvet(card: str):
+    """The accurate GEQ, velvet noise and the tutorial examples at full
+    width: e7_geq's four scenarios, e4_recursion_nn's comb_nn (timed) and
+    gains_nn, e6's IRs and a velvet scattering loop, each on 'pallas'
+    against 'xla'/'ge' with exact launch counts.  Returns the launch
+    counts and the ms a comb_nn step."""
+    print(f"phase 4i the accurate GEQ, velvet noise and the tutorial "
+          f"examples (nfft={NFFT}, each example's widths), 'pallas' (K4f, "
+          "K4b, K6, K2) against 'xla'/'ge'")
+    launches = {}
+    for name in GEQ_ZOO:
+        r = zoo_scenario(name)
+        for counts in (r["epoch_counts"], r["step_counts"]):
+            add_counts(launches, counts)
+        print(f"  e7_geq {name}: first loss xla {r['loss_xla']:.8f}, pallas "
+              f"{r['loss_pallas']:.8f}, rel {r['rel']:.3e} (tol "
+              f"{ZOO_LOSS_TOL:g}); gradient {r['grad_err']:.3e} of the max "
+              f"(tol {ZOO_GRAD_TOL:g}); one epoch ({r['n_train']} train, "
+              f"{r['n_valid']} valid steps) launches {r['epoch_counts']}, "
+              f"step losses {r['steps'][0]:.7g} -> {r['steps'][-1]:.7g}; "
+              f"{ZOO_STEPS} fit_scan steps launch {r['step_counts']}")
+    for parallel in (False, True):
+        a = accurate_scenario(parallel)
+        for be in ("xla", "pallas"):
+            add_counts(launches, a["out"][be]["counts"])
+        f64 = ("" if a["f64"] is None else
+               "; from the float64 taps " + ", ".join(
+                   f"{k} {v:.3e}" for k, v in a["f64"].items()))
+        print(f"  e7_geq {a['tag']}: |H| pallas against xla {a['gap']:.3e} "
+              f"of the max (tol {ACC_ROUTE_TOL:g}){f64}; the example's "
+              "check " + ", ".join(
+                  f"{be} {a['out'][be]['err']:.3e}" for be in a["out"])
+              + f" (tol {e7_geq.ACCURATE_TOL:g} x "
+              f"{max(a['out']['xla']['rng'], 1.0):.3f}); launches "
+              f"{a['out']['pallas']['counts']} (K4b none: not trainable)")
+    c = comb_scenario()
+    add_counts(launches, c["epoch_counts"])
+    print(f"  e4_recursion_nn comb_nn (delays {e4_recursion_nn.DELAYS}, 4 x 4 "
+          f"LossyBiquad, MLP {e4_recursion_nn.HIDDEN}, {COMB_ITEMS} items in "
+          f"batches of {COMB_BATCH}, an item at a time): first loss xla "
+          f"{c['loss_xla']:.8f}, pallas {c['loss_pallas']:.8f}, rel "
+          f"{c['rel']:.3e} (tol {COMB_LOSS_TOL:g}); MLP gradients "
+          f"{c['grad_err']:.3e} of the max (tol {COMB_GRAD_TOL:g}); one "
+          f"epoch launches {c['epoch_counts']}, loss over the targets "
+          f"{c['before']:.7g} -> {c['after']:.7g}")
+    run = comb_step_runner(c["state"])
+    run(3)
+    reset_counts()
+    _, seconds = timed(lambda: run(COMB_STEPS))
+    counts = nonzero_counts()
+    check_counts(f"{COMB_STEPS} timed comb_nn steps", counts,
+                 {k: COMB_STEPS * COMB_BATCH for k in
+                  ("sos_cascade_fwd", "sos_cascade_bwd", "dense_solve",
+                   "dense_solve_transposed")})
+    add_counts(launches, counts)
+    comb_ms = seconds * 1e3 / COMB_STEPS
+    print(f"  comb_nn step (batch {COMB_BATCH}, {COMB_STEPS} steps after 3, "
+          f"CUDA events) on {card}: {comb_ms:.4f} ms")
+    g = gains_scenario()
+    add_counts(launches, g["counts"])
+    print(f"  e4_recursion_nn gains_nn: {GAINS_STEPS} Adam steps, loss "
+          f"{g['losses'][0]:.6g} -> {g['losses'][-1]:.6g}; its loop (delays "
+          f"against a parallelGain) takes K6, not K2: launches "
+          f"{g['counts']}")
+    e = e6_scenario()
+    add_counts(launches, e["counts"])
+    print(f"  e6 at nfft={NFFT}: 'pallas' (K2) IRs against 'ge' " + ", ".join(
+        f"{db:g} dB {v:.3e}" for db, v in e["errs"].items())
+        + f" of the max (tol {E6_TOL:g}); pre-onset energy "
+        + ", ".join(f"{db:g} dB {v:.6g}" for db, v in e["energy"].items())
+        + f"; launches {e['counts']}")
+    v = velvet_scenario()
+    add_counts(launches, v["counts"])
+    print(f"  velvet loop (parallelDelay({VELVET_N}), VelvetNoiseMatrix("
+          f"{VELVET_STAGES}, {VELVET_N}, {VELVET_N}), {v['taps']} taps): "
+          f"'pallas' (K6) against 'ge' {v['err']:.3e} of the max (tol "
+          f"{VELVET_TOL:g}); launches {v['counts']}")
+    print(f"  launches in phase 4i: {launches}")
+    return launches, comb_ms
+
+
+def comb_steps():
+    """``run(n)``: n comb_nn steps on 'pallas' (for the trace)."""
+    shell, imp, targets, params = e4_recursion_nn.comb_setup(
+        comb_args(), "cuda", "pallas")
+    return comb_step_runner((shell, imp, params, targets))
 
 
 def phase_timing(o, launches, errs, card, previous) -> list:
@@ -3544,8 +3885,7 @@ def main() -> int:
     att_launches, att_step_ms, att_graph_ms, o["k2_graph"] = (
         phase_attenuated(card))
     took["4 attenuated"] = seconds_since_last()
-    for name, n in att_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    add_counts(launches, att_launches)
     sfdn_launches, sfdn_masked_ms = phase_scattering(card)
     took["4b scattering"] = seconds_since_last()
     launches.update(sfdn_launches)
@@ -3560,16 +3900,16 @@ def main() -> int:
     took["4e micro-benchmark"] = seconds_since_last()
     paved_launches, train_step_ms = phase_paved_road(card)
     took["4f paved road"] = seconds_since_last()
-    for name, n in paved_launches.items():
-        launches[name] += n
+    add_counts(launches, paved_launches)
     e8_launches, e8_ms = phase_e8(card)
     took["4g e8_fdn"] = seconds_since_last()
-    for name, n in e8_launches.items():
-        launches[name] += n
+    add_counts(launches, e8_launches)
     zoo_launches, zoo_ms = phase_zoo(card)
     took["4h filter zoo"] = seconds_since_last()
-    for name, n in zoo_launches.items():
-        launches[name] += n
+    add_counts(launches, zoo_launches)
+    slice_launches, comb_ms = phase_accurate_velvet(card)
+    took["4i accurate GEQ, velvet, tutorials"] = seconds_since_last()
+    add_counts(launches, slice_launches)
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
@@ -3597,6 +3937,10 @@ def main() -> int:
     phase_trace(card, "e7 peq_biquad Trainer.fit_scan (K4f, K4b; PlainMSE)",
                 zoo_steps("peq_biquad"), zoo_ms["peq_biquad"],
                 share=("sos_cascade_fwd", "sos_cascade_bwd"))
+    phase_trace(card, "e4_recursion_nn comb_nn step (a batch of "
+                f"{COMB_BATCH}: K4f, K4b, K6 and K6 transposed once each an "
+                "item)", comb_steps(), comb_ms,
+                share=("sos_cascade_fwd", "sos_cascade_bwd", "dense_solve"))
     mss = mss_steps()
     phase_trace(card, f"mss_loss({e8_fdn.MSS_NFFT}) alone, forward and "
                 f"backward on a ({E8_BATCH}, {NFFT}, 1) estimate", mss,

@@ -8,6 +8,12 @@ order-L polynomial product, i.e. a matmul over the channel axis per tap.
 ``torch.Generator``s draw other numbers than JAX's PRNG from the same
 seed, so a model carried over from JAX copies the shifts and the m_L/m_R
 offsets (:func:`flamo_tpu_torch.convert.load_jax_scattering`).
+
+The helpers :func:`hadamard_matrix`, :func:`shift_mat_distribute`,
+:func:`poly_matrix_conv` (FFT-domain, as in the JAX package) and
+:func:`cascaded_paraunit_matrix` (the functional twin of
+:class:`ScatteringMapping`) are the JAX package's, with draws from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -15,7 +21,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flamo_tpu_torch.utils import next_key
+from flamo_tpu_torch.utils import next_key, to_complex
+
+
+def hadamard_matrix(N: int) -> np.ndarray:
+    """Normalized Hadamard matrix (numpy, float64) by Kronecker doubling
+    up to the first power of two >= N."""
+    X = np.array([[1.0]])
+    while X.shape[0] < N:
+        X = np.kron(X, np.array([[1.0, 1.0], [1.0, -1.0]])) / np.sqrt(2)
+    return X
+
+
+def shift_mat_distribute(X, sparsity: int, pulse_size: int,
+                         generator=None) -> np.ndarray:
+    """Non-overlapping random shifts for one stage of the (N, ...) matrix
+    X: ``floor(sparsity (n + 0.99 u_n)) pulse_size`` with u drawn from
+    ``generator``, an int numpy array (N,)."""
+    N = np.asarray(X).shape[0]
+    rand = torch.rand((N,), generator=next_key(generator)).numpy()
+    rand_shift = np.floor(sparsity * (np.arange(N) + rand * 0.99))
+    return (rand_shift * pulse_size).astype(np.int64)
 
 
 def get_random_shifts(N: int, sparsity_vect, pulse_size: int = 1,
@@ -49,6 +75,27 @@ def shift_matrix_static(X: torch.Tensor, shift,
                             for i, s in enumerate(shift)], dim=0)
     return torch.stack([torch.nn.functional.pad(X[:, j], (s, extra - s))
                         for j, s in enumerate(shift)], dim=1)
+
+
+def poly_matrix_conv(A, B) -> torch.Tensor:
+    """Polynomial matrix product C(z) = A(z) B(z) by FFT-domain matmuls.
+
+    A: (Na, K, Ta) or (Na, K); B: (K, Nb, Tb) or (K, Nb).  Returns
+    (Na, Nb, Ta + Tb - 1) real, on A's device."""
+    A = torch.as_tensor(A)
+    B = torch.as_tensor(B, device=A.device)
+    if A.ndim == 2:
+        A = A[:, :, None]
+    if B.ndim == 2:
+        B = B[:, :, None]
+    if A.shape[1] != B.shape[0]:
+        raise ValueError("Invalid matrix dimension.")
+    Tc = A.shape[2] + B.shape[2] - 1
+    nfft = 1 << max(1, (Tc - 1).bit_length())
+    Af = torch.fft.rfft(A, n=nfft, dim=2)  # (Na, K, F)
+    Bf = torch.fft.rfft(B, n=nfft, dim=2)  # (K, Nb, F)
+    Cf = torch.einsum("ikf,kjf->ijf", Af, Bf)
+    return torch.fft.irfft(Cf, n=nfft, dim=2)[..., :Tc]
 
 
 class ScatteringMapping:
@@ -105,3 +152,20 @@ class ScatteringMapping:
         V = shift_matrix_static(V, self.m_L, direction="left")
         V = shift_matrix_static(V, self.m_R, direction="right")
         return V.permute(2, 0, 1)  # (T, N, N)
+
+
+def cascaded_paraunit_matrix(U: torch.Tensor, n_stages: int = 3,
+                             gain_per_sample: float = 0.9999,
+                             sparsity: int = 3, pulse_size: int = 1,
+                             m_L=None, m_R=None,
+                             dtype: torch.dtype = torch.float32,
+                             generator=None) -> torch.Tensor:
+    """Functional twin of :class:`ScatteringMapping`: the paraunitary
+    (T, N, N) FIR matrix of the (n_stages + 1, N, N) orthogonal stages U,
+    complex, its shifts drawn from ``generator``."""
+    mapping = ScatteringMapping(U.shape[-1], n_stages=n_stages,
+                                sparsity=sparsity,
+                                gain_per_sample=gain_per_sample,
+                                pulse_size=pulse_size, m_L=m_L, m_R=m_R,
+                                dtype=dtype, generator=generator)
+    return to_complex(mapping(U))

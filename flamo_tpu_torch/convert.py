@@ -22,6 +22,14 @@ N_in), an ``SVF`` (5, K, N_out, N_in), a ``PEQ`` (n_bands, 3, N_out,
 N_in), a ``GainDelay`` (2, N_out, N_in), their parallel forms without
 N_in; the transforms of a Shell (``FFT``, ``Transform``) hold none.
 
+An ``AccurateGEQ`` carries its designed taps beside its target gains,
+``.sos_b`` and ``.sos_a`` (3, K + 1, ...), as the JAX package's leaves.
+A ``VelvetNoiseFilter``'s leaf is its drawn (T, N_out, N_in) ``param``;
+its JAX PRNG ``.key`` leaf has no counterpart (the port draws from a
+``torch.Generator``) and is skipped.  A ``VelvetNoiseMatrix``'s leaf is
+its broadcast Hadamard ``param``, and its shifts and m_L/m_R come through
+:func:`load_jax_scattering`.
+
 A ``Series`` built from an ``OrderedDict`` flattens like any other: its
 children are ``.modules[i]`` in key order, e.g. for the active-acoustics
 loop shell ``ActiveAcoustics.F_MM`` ``.core.modules[0].param`` (U),
@@ -38,50 +46,61 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flamo_tpu_torch.auxiliary.velvet import VelvetNoiseFilter
 from flamo_tpu_torch.models.active_acoustics import ActiveAcoustics
 from flamo_tpu_torch.processor import dsp, system
 
 AA_MODULES = ("H_SM", "H_SA", "H_LM", "H_LA", "U", "R", "G")
 
 
-def jax_named_tensors(module, prefix: str = "") -> dict[str, torch.Tensor]:
+def jax_named_tensors(module, prefix: str = "",
+                      jax_only: set | None = None) -> dict[str, torch.Tensor]:
     """The port's parameters and buffers under the key paths that the JAX
-    package's pytree gives the matching leaves."""
+    package's pytree gives the matching leaves.  The paths of JAX leaves
+    without a counterpart (a velvet filter's PRNG key) are added to
+    ``jax_only`` when it is given."""
     out = {}
+
+    def under(sub, path):
+        out.update(jax_named_tensors(sub, path, jax_only))
+
     if isinstance(module, ActiveAcoustics):
         for name in AA_MODULES:
-            out.update(jax_named_tensors(getattr(module, name),
-                                         f"{prefix}{name}"))
+            under(getattr(module, name), f"{prefix}{name}")
     elif isinstance(module, system.Shell):
         for name in ("core", "input_layer", "output_layer"):
-            out.update(jax_named_tensors(getattr(module, name),
-                                         f"{prefix}.{name}"))
+            under(getattr(module, name), f"{prefix}.{name}")
     elif isinstance(module, system.Series):
         for i, sub in enumerate(module):
-            out.update(jax_named_tensors(sub, f"{prefix}.modules[{i}]"))
+            under(sub, f"{prefix}.modules[{i}]")
     elif isinstance(module, system.Recursion):
         for name in ("feedforward", "feedback"):
-            out.update(jax_named_tensors(getattr(module, name),
-                                         f"{prefix}.{name}"))
+            under(getattr(module, name), f"{prefix}.{name}")
     elif isinstance(module, system.Parallel):
         for name in ("branchA", "branchB"):
-            out.update(jax_named_tensors(getattr(module, name),
-                                         f"{prefix}.{name}"))
+            under(getattr(module, name), f"{prefix}.{name}")
     elif isinstance(module, dsp.CachedResponse):
         out[f"{prefix}.H_re"] = module.H_re
         out[f"{prefix}.H_im"] = module.H_im
     elif isinstance(module, dsp.DSP):
         out[f"{prefix}.param"] = module.param
+        if isinstance(module, dsp.AccurateGEQ):
+            out[f"{prefix}.sos_b"] = module.sos_b
+            out[f"{prefix}.sos_a"] = module.sos_a
+        if isinstance(module, VelvetNoiseFilter) and jax_only is not None:
+            jax_only.add(f"{prefix}.key")
     return out
 
 
 def load_jax_params(model, params: dict[str, np.ndarray]):
     """Copy ``params`` into ``model`` in place and return it.  Raises on a
     missing or extra key and on a shape mismatch.  An ``ActiveAcoustics``
-    then recomputes its cached room responses."""
-    targets = jax_named_tensors(model)
+    then recomputes its cached room responses; an ``AccurateGEQ`` keeps
+    the carried taps (its design is not run again)."""
+    jax_only = set()
+    targets = jax_named_tensors(model, jax_only=jax_only)
     missing = sorted(set(targets) - set(params))
-    extra = sorted(set(params) - set(targets))
+    extra = sorted(set(params) - set(targets) - jax_only)
     if missing or extra:
         raise KeyError(f"JAX parameters do not match the model: missing "
                        f"{missing}, extra {extra}")
@@ -101,8 +120,9 @@ def load_jax_scattering(model, shifts, m_L, m_R):
     """Copy the static state of a JAX ``ScatteringMapping`` (its
     ``map_filter``: the per-stage ``shifts`` (n_stages, N) and the
     ``m_L``/``m_R`` offsets (N,), plain integers drawn from JAX's PRNG at
-    construction) into the one :class:`dsp.ScatteringMatrix` of ``model``,
-    in place, and return the model.  Raises on a shape mismatch."""
+    construction) into the one :class:`dsp.ScatteringMatrix` of ``model``
+    (a ``VelvetNoiseMatrix`` too), in place, and return the model.  Raises
+    on a shape mismatch."""
     found = [m for m in model.modules() if isinstance(m, dsp.ScatteringMatrix)]
     if len(found) != 1:
         raise ValueError(f"expected one ScatteringMatrix in the model, "

@@ -54,6 +54,18 @@ def setup(args):
     return args
 
 
+def pick_backend(backend: str, device) -> str:
+    """An example's kernel route: 'auto' is 'pallas' (the hand-written
+    kernels) on the card and 'xla' (plain PyTorch) on the CPU; 'pallas'
+    and 'xla' are taken as given, and a kernel that fails raises."""
+    if backend not in ("auto", "pallas", "xla"):
+        raise ValueError(f"backend must be 'auto', 'pallas' or 'xla', got "
+                         f"{backend!r}")
+    if backend == "auto":
+        return "xla" if torch.device(device).type == "cpu" else "pallas"
+    return backend
+
+
 def fast_path(fast: str, graph0: float, fit, rise: float = 1.0):
     """An example's fast path behind the first-loss parity check, as the
     Trainer's gate: ``fit()`` -> ``(trained, history)`` trains, and its

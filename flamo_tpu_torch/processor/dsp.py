@@ -1,5 +1,4 @@
-"""DSP processor modules (counterpart of ``flamo_tpu/processor/dsp.py``
-but for the accurate GEQ and the velvet-noise matrix).
+"""DSP processor modules (counterpart of ``flamo_tpu/processor/dsp.py``).
 
 Spectra flow as complex ``(B, M, N, ...)`` with ``M = nfft//2+1`` rfft
 bins; each module maps its raw ``param`` to a per-bin response and
@@ -30,13 +29,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from flamo_tpu_torch.auxiliary.eq import eq_freqs, geq
+from flamo_tpu_torch.auxiliary.eq import accurate_geq, eq_freqs, geq
 from flamo_tpu_torch.auxiliary.scattering import ScatteringMapping
 from flamo_tpu_torch.core import Module
 from flamo_tpu_torch.functional import (HadamardMatrix, RotationMatrix,
                                         _clip, bandpass_filter,
                                         cascade_prods, expm_skew,
-                                        highpass_filter, lowpass_filter,
+                                        hadamard_matrix_jnp, highpass_filter,
+                                        lowpass_filter,
                                         poly_response, rad2hertz, svf_mix,
                                         svf_taps)
 from flamo_tpu_torch.ops import linop
@@ -755,6 +755,32 @@ class ScatteringMatrix(Filter):
         return self.map_filter(self.map(param))
 
 
+class VelvetNoiseMatrix(ScatteringMatrix):
+    """Non-learnable velvet-noise feedback matrix: Hadamard stages (the
+    param, broadcast over the K+1 stages, identity map) interleaved with
+    sparse scattering shifts of sparsity floor(1 / density)."""
+
+    def __init__(self, size=(1, 1, 1), nfft=2**11, density=0.03,
+                 gain_per_sample=0.9999, m_L=None, m_R=None,
+                 alias_decay_db=0.0, dtype: torch.dtype = torch.float32,
+                 generator=None, device=None):
+        _check(size[1] == size[2], "Matrix must be square")
+        _check((size[1] & (size[1] - 1)) == 0,
+               "At the moment the Matrix must have dimensions which are "
+               "powers of 2")
+        super().__init__(size=size, nfft=nfft,
+                         sparsity=math.floor(1 / density),
+                         gain_per_sample=gain_per_sample, pulse_size=1,
+                         m_L=m_L, m_R=m_R, requires_grad=False,
+                         alias_decay_db=alias_decay_db, dtype=dtype,
+                         generator=generator, device=device)
+        self.map = _identity
+        H = hadamard_matrix_jnp(size[-1], dtype=dtype,
+                                device=self.param.device)
+        with torch.no_grad():
+            self.param.copy_(H[None].expand(size))
+
+
 # -------------------- parametric IIR families ------------------------------
 
 
@@ -810,10 +836,13 @@ class _CascadeFilter(Filter):
         env = env.reshape((3,) + (1,) * (b.ndim - 1))
         return b * env, a * env
 
-    def get_poly_coeff(self, mapped):
+    def get_poly_coeff(self, mapped=None):
         """(H, B, A): the guarded response and the (M, K, ...) per-section
-        numerator and denominator responses.  :meth:`response` needs H
-        alone and does not compute B and A."""
+        numerator and denominator responses, of ``mapped`` or else of the
+        module's own mapped parameters.  :meth:`response` needs H alone and
+        does not compute B and A."""
+        if mapped is None:
+            mapped = self.map(self.param)
         be, ae = self.sos_taps(mapped)
         return (_guarded_cascade(be, ae, self.nfft, self.cascade_backend),
                 poly_response(be, self.nfft), poly_response(ae, self.nfft))
@@ -1199,6 +1228,86 @@ class parallelPEQ(_Diagonal, PEQ):
         _check(len(self.size) == 3,
                "Filter must be 2D in the parallel configuration, for 3D "
                "filters use PEQ module.")
+
+
+class AccurateGEQ(_CascadeFilter):
+    """Non-learnable GEQ whose command gains come from the accurate design
+    (:func:`~flamo_tpu_torch.auxiliary.eq.accurate_geq`, Schlecht & Habets
+    DAFx-17) of its target gains ``map(param)`` in dB, param (K, N_out,
+    N_in), K = n_bands + 2.
+
+    The design runs on the host at construction and in
+    :meth:`assign_value`, never in ``forward``: its (3, K + 1, ...) taps
+    are the buffers ``sos_b``/``sos_a`` on the module's device (the JAX
+    package's leaves), and a response is one cascade of them (K4 with
+    ``cascade_backend='pallas'``)."""
+
+    def __init__(self, size=(1, 1), octave_interval=1, nfft=2**11, fs=48000,
+                 map=_abs_db_map, alias_decay_db=0.0, start_freq=31.25,
+                 end_freq=16000.0, dtype: torch.dtype = torch.float32,
+                 generator=None, device=None, cascade_backend: str = "xla"):
+        _check_cascade_backend(cascade_backend)
+        self.cascade_backend = cascade_backend
+        self.octave_interval = octave_interval
+        self.fs = fs
+        self.start_freq = float(start_freq)
+        self.end_freq = float(end_freq)
+        center, shelving = eq_freqs(interval=octave_interval,
+                                    start_freq=start_freq, end_freq=end_freq)
+        self.center_freq = tuple(float(f) for f in center)
+        self.shelving_crossover = tuple(float(f) for f in shelving)
+        self.n_gains = len(self.center_freq) + 2
+        super().__init__(size=(self.n_gains, *size), nfft=nfft, map=map,
+                         requires_grad=False, alias_decay_db=alias_decay_db,
+                         dtype=dtype, generator=generator, device=device)
+        shape = (3, self.n_gains + 1) + tuple(size)
+        for name in ("sos_b", "sos_a"):
+            self.register_buffer(name, torch.zeros(
+                shape, dtype=dtype, device=self.param.device))
+        self._design_cache()
+
+    def init_param(self, generator):
+        lo, hi = 10 ** (-6 / 20), 10 ** (6 / 20)
+        return (torch.rand(self.size, generator=generator, dtype=self.dtype)
+                * (hi - lo) + lo)
+
+    def check_param_shape(self):
+        _check(len(self.size) == 3,
+               "Filter must be 3D, for 2D (parallel) filters use ParallelGEQ "
+               "module.")
+
+    def _design_cache(self):
+        """The accurate design of every channel's dB targets, on the host,
+        written into ``sos_b``/``sos_a`` in place."""
+        with torch.no_grad():
+            target = self.map(self.param).cpu().numpy()  # (K, ...)
+        flat = target.reshape(target.shape[0], -1)
+        bs, as_ = zip(*(accurate_geq(
+            target_gain=flat[:, i], center_freq=self.center_freq,
+            shelving_crossover=self.shelving_crossover, fs=self.fs,
+            dtype=self.dtype) for i in range(flat.shape[1])))
+        with torch.no_grad():
+            for buf, taps in ((self.sos_b, bs), (self.sos_a, as_)):
+                buf.copy_(torch.stack(taps, dim=-1).reshape(buf.shape))
+
+    def assign_value(self, new_value, indx=None) -> "AccurateGEQ":
+        """Write new target gains in place, design them, and return the
+        module."""
+        super().assign_value(new_value, indx)
+        self._design_cache()
+        return self
+
+    def _design(self, mapped):
+        """The cached design; the mapped parameters are not read."""
+        return self.sos_b, self.sos_a
+
+
+class parallelAccurateGEQ(_Diagonal, AccurateGEQ):
+    """Diagonal accurate GEQ, param (K, N)."""
+
+    def check_param_shape(self):
+        _check(len(self.size) == 2,
+               "Filter must be 2D, for 3D filters use GEQ module.")
 
 
 class CachedResponse(Module):

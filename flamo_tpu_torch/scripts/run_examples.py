@@ -5,7 +5,9 @@ output line; exits non-zero when any example fails.
     python -m flamo_tpu_torch.scripts.run_examples [name ...] [--out DIR]
 
 ``name`` defaults to the filter-zoo examples (e4_recursion, e7_biquad,
-e7_biquad_nn, e7_peq, e7_svf, e10_probe); each writes into
+e7_biquad_nn, e7_peq, e7_svf, e10_probe) and the tutorial examples
+(e0_siso, e1_mimo, e1_vn, e2_chaining_filters, e3_series_class,
+e4_recursion_nn, e5_shell, e6_anti_aliasing, e7_geq); each writes into
 ``DIR/<name>`` (default ``build/examples``), its output in
 ``DIR/<name>.log``.  Without ``--device`` the examples run on the CUDA
 card and stop without one.
@@ -21,6 +23,9 @@ from pathlib import Path
 
 ZOO = ("e4_recursion", "e7_biquad", "e7_biquad_nn", "e7_peq", "e7_svf",
        "e10_probe")
+TUTORIAL = ("e0_siso", "e1_mimo", "e1_vn", "e2_chaining_filters",
+            "e3_series_class", "e4_recursion_nn", "e5_shell",
+            "e6_anti_aliasing", "e7_geq")
 
 
 def run(name: str, out: Path) -> tuple[int, float, str]:
@@ -39,7 +44,7 @@ def run(name: str, out: Path) -> tuple[int, float, str]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("names", nargs="*", default=list(ZOO))
+    ap.add_argument("names", nargs="*", default=list(ZOO + TUTORIAL))
     ap.add_argument("--out", type=Path, default=Path("build/examples"))
     args = ap.parse_args(argv)
     args.out.mkdir(parents=True, exist_ok=True)
