@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive flamo_tpu_torch's colorless-, attenuated- and scattering-FDN
 paths, its active-acoustics path, its phase-2 micro-benchmark, its
-Trainer path, its e8_fdn example path, its filter zoo and its accurate
-GEQ, velvet-noise and tutorial paths on one CUDA card.
+Trainer path, its e8_fdn example path, its filter zoo, its accurate
+GEQ, velvet-noise and tutorial paths and its reverb domain on one CUDA
+card.
 
 Run from the root of the repository:
 
@@ -174,6 +175,22 @@ Phases, in order; any failure raises and exits non-zero without a result:
    1e-5 of the max, and the example's pre-onset energy check; a velvet
    scattering loop (parallelDelay(8) against VelvetNoiseMatrix((4, 8,
    8))) on 'pallas' (K6 once) against 'ge' within 1e-5 of the max;
+4j. the reverb domain at nfft=96000: HomogeneousFDN at its config's
+   defaults (N = 6, delays drawn from SEED in 20-50 ms) on 'pallas' (K2)
+   against 'ge', |H| within 1e-5 of the max, normalize_energy's own check
+   passing on both; e8_fdn's accurate_geq scenario on 'pallas' through
+   the example (its attenuation's |H| within 1e-4 of the max of an 'xla'
+   build's, else the float64 rule; RT MSE below 0.01); e8_fdn's
+   delay_scaled FDN (N = 4, 30 dB) with each of the four attenuations
+   built on 'xla' and 'pallas' from one seed: first loss within 1e-5, one
+   epoch of Trainer.fit_scan_epochs on 'pallas' (K2 once and once
+   transposed a step, the accurate GEQ K4f twice a step), the loss
+   falling, then DS_STEPS timed fit_scan steps of the 'geq' model; e9's
+   profile and surface on 'pallas' against 'ge' within 1e-5 of the max
+   (K2 once a scanned point); the delay-scaled accurate GEQ at 1/3 and 1
+   octave on HomogeneousFDN's delays through K4f (once), finite at every
+   bin and within 5e-3 of the max of a float64 evaluation of its taps,
+   against its plain version at the GEQ bound;
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
@@ -199,8 +216,8 @@ Phases, in order; any failure raises and exits non-zero without a result:
    e8_fdn steps also K4f's, K4b's and K2's share and the cuBLAS GEMMs',
    for an e7 step K4f's and K4b's,
    for the fused-tf step K3f's and K3b's, for the fused response K3f's,
-   for the comb_nn step K4f's, K4b's and K6's,
-   for the K9 steps K9's), and the MSS loss alone, its GEMMs named;
+   for the comb_nn step K4f's, K4b's and K6's, for the delay_scaled step
+   K2's, for the K9 steps K9's), and the MSS loss alone, its GEMMs named;
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -233,7 +250,11 @@ and K4b in e7_geq's epochs and fit_scan steps as in phase 4h, K4f twice
 an accurate scenario on 'pallas' and K4b never there, K4f, K4b, K6 and
 K6 transposed once each an item of comb_nn's epoch and timed steps, K6
 once each way a gains_nn step, K2 once an e6 IR and K6 once for the
-velvet loop; K3f and K3b in
+velvet loop; K2 and K4f in phase 4j: K2 three times for HomogeneousFDN,
+once a first loss and twice a train step of delay_scaled, once a
+scanned point of e9 and once for the accurate scenario's IR, K4f twice
+for the accurate scenario, twice a step of the delay_scaled accurate
+GEQ and once a 1/3- or 1-octave response; K3f and K3b in
 phase 3's timed fused-tf steps (once each per step) and K3f also in its
 timed fused responses (once per call); the K10 variants in phase 4e's
 bench_phase2_micro.run (151 calls each).  ``trace_retries``
@@ -261,10 +282,15 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from flamo_tpu_torch.auxiliary.config import HomogeneousFDNConfig
+from flamo_tpu_torch.auxiliary.reverb import (HomogeneousFDN,
+                                              coprime_delay_lengths,
+                                              parallelFDNAccurateGEQ)
 from flamo_tpu_torch.convert import jax_named_tensors, load_jax_scattering
 from flamo_tpu_torch.examples import (e4_recursion_nn, e6_anti_aliasing,
                                       e7_biquad, e7_biquad_nn, e7_geq,
-                                      e7_peq, e7_svf, e8_fdn, e10_probe)
+                                      e7_peq, e7_svf, e8_fdn, e9_loss_profile,
+                                      e10_probe)
 from flamo_tpu_torch.examples._common import (PlainMSE, filter_shell,
                                               filter_trainer)
 from flamo_tpu_torch.functional import charpoly, expm_skew
@@ -297,7 +323,7 @@ from flamo_tpu_torch.optimize import (Dataset, DatasetColorless, Trainer,
                                       load_dataset, load_model_state,
                                       masked_mse_loss, mse_evs, mse_loss,
                                       mss_loss, save_model_state,
-                                      sparsity_loss)
+                                      sparsity_loss, stack_loader)
 from flamo_tpu_torch.processor import dsp, system
 from flamo_tpu_torch.scripts import bench_phase2_micro as p2bench
 from flamo_tpu_torch.utils import set_seed
@@ -380,10 +406,10 @@ ZOO = {
 }
 # phase 4i, the accurate GEQ, velvet noise and the tutorial examples:
 # e7_geq's two trained scenarios run as phase 4h's (zoo_scenario) and
-# with its gates; the accurate designs' |H| on 'pallas'
-# against 'xla' at 1e-4 of the max (else both held to a float64
-# evaluation of the same taps, 'pallas' within ACC_F64_FACTOR times the
-# 'xla' distance, as ZOO_ILL) and each route within the example's own
+# with its gates; the accurate designs' |H| on 'pallas' against 'xla' by
+# e8_fdn's rule, check_accurate_routes (1e-4 of the max, else both held
+# to a float64 evaluation of the same taps, 'pallas' within 2x the 'xla'
+# distance, as ZOO_ILL) and each route within the example's own
 # ACCURATE_TOL of its target; e4_recursion_nn's comb_nn (COMB_ITEMS items
 # in batches of COMB_BATCH, each item through K4f and K6 in turn) first
 # loss 1e-5 and MLP gradients 3e-4 of the max, one epoch, COMB_STEPS
@@ -393,12 +419,22 @@ GEQ_ZOO = {
     "geq": (e7_geq, "scenario_geq", {}, 5e-2),
     "parallel_geq": (e7_geq, "scenario_parallel_geq", {}, 5e-2),
 }
-ACC_ROUTE_TOL, ACC_F64_FACTOR = 1e-4, 2.0
+ACC_ROUTE_TOL = e8_fdn.ACC_ROUTE_TOL
 COMB_ITEMS, COMB_BATCH, COMB_STEPS = 16, 4, 20
 COMB_LOSS_TOL, COMB_GRAD_TOL = 1e-5, 3e-4
 GAINS_STEPS = 10
 E6_TOL, VELVET_TOL = 1e-5, 1e-5
 VELVET_N, VELVET_STAGES, VELVET_MAX_DELAY = 8, 4, 2000
+# phase 4j, the reverb domain: HomogeneousFDNConfig's defaults (N = 6,
+# nfft = 96000) with delays drawn from SEED in 20-50 ms; its 'pallas'
+# response (K2) against 'ge', e9's scans likewise, the e8_fdn
+# delay_scaled models' first losses on 'pallas' against 'xla', each at
+# 1e-5 of the max; DS_EPOCH_EXPAND items in batches of E8_BATCH for one
+# fit_scan_epochs epoch, DS_STEPS timed steps; the delay-scaled accurate
+# GEQ at 1/3 octave (30 sections) on those delays through K4f against its
+# plain version at the GEQ bound, finite at every bin
+HFDN_TOL, E9_TOL, DS_LOSS_TOL = 1e-5, 1e-5, 1e-5
+DS_EPOCH_EXPAND, DS_STEPS = 16, 20
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
@@ -1181,6 +1217,18 @@ def main_path_operands(M: int, N: int, seed: int = SEED):
     )
 
 
+def third_octave_taps(seed: int = SEED, device="cuda"):
+    """The (3, 30, 6) taps of a 1/3-octave delay-scaled accurate GEQ on
+    HomogeneousFDN's delays (phase 4j's), its RT60s drawn from ``seed``,
+    as its response hands them to K4."""
+    m = parallelFDNAccurateGEQ(
+        octave_interval=3, nfft=NFFT, fs=48000, delays=hfdn_delays(),
+        device=device, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        b, a = m.sos_taps(None)
+    return b.contiguous(), a.contiguous()
+
+
 def geq25(seed: int = SEED):
     """A full GEQ of GEQ25 = (5, 5) channels on the 'pallas' backend: its
     25 channels fold into K4's channel axis (dsp._guarded_cascade)."""
@@ -1545,6 +1593,31 @@ def phase_kernels(o, previous) -> dict:
     compare("K5 (GEQ taps) loss", got[0], ref[0], FUSED_LOSS_TOL)
     for n, g_, r_ in zip(names[1:], got[2:], ref[2:]):
         compare(f"K5 (GEQ taps) {n}", g_, r_, FUSED_GRAD_TOL)
+    # the 1/3-octave accurate GEQ's 30 sections, whose unscaled running
+    # products underflow float32 near DC: K4f, K4b and K5 rescale them
+    # after each section, as their plain versions do; every result finite
+    bt3, at3 = third_octave_taps()
+    label = f"1/3-octave accurate GEQ's taps, K={bt3.shape[1]}"
+    H3 = sk.sos_cascade_fwd_kernel(bt3, at3, NFFT)
+    check(bool(torch.isfinite(H3).all()), f"K4f ({label}): not finite")
+    compare(f"K4f sos_cascade_fwd ({label})", H3,
+            sk.sos_cascade_fwd_plain(bt3, at3, NFFT), GEQ_VAL_TOL)
+    got = sk.sos_cascade_bwd_kernel(bt3, at3, o["g"], NFFT)
+    ref = sk.sos_cascade_bwd_plain(bt3, at3, o["g"], NFFT)
+    for n, g_, r_ in zip(("b_bar", "a_bar"), got, ref):
+        check(bool(torch.isfinite(g_).all()), f"K4b {n} ({label}): not "
+              "finite")
+        compare(f"K4b sos_cascade_bwd {n} ({label})", g_, r_, GEQ_GRAD_TOL)
+    for fuse_taps in (True, False):
+        args = (D, bt3, at3, U6, b, c, X, t, NFFT, False, False, fuse_taps)
+        got = sk.fdn_sos_tf_mse_kernel(*args)
+        ref = sk.fdn_sos_tf_mse_plain(*args)
+        tag = f"K5 fuse_taps={fuse_taps} ({label})"
+        check(all(bool(torch.isfinite(g_).all()) for g_ in got
+                  if g_ is not None), f"{tag}: not finite")
+        compare(f"{tag} loss", got[0], ref[0], FUSED_LOSS_TOL)
+        for n, g_, r_ in zip(names[1:], got[2:], ref[2:]):
+            compare(f"{tag} {n}", g_, r_, FUSED_GRAD_TOL)
 
     print(f"  K6 dense_solve at M={M_MAIN} and P={SFDN_SAMPLES}, N={N_MAIN}")
     for shape, systems in o["dense"].items():
@@ -3048,22 +3121,15 @@ def zoo_steps(name: str):
 # ---------------------------------------------------------------------------
 # phase 4i, the accurate GEQ, velvet noise and the tutorial examples
 # ---------------------------------------------------------------------------
-def accurate_f64(filt) -> torch.Tensor:
-    """|H| of a float64 evaluation of ``filt``'s own taps (the alias
-    envelope folded in, the plain guarded cascade), (M, ...)."""
-    be, ae = filt.sos_taps(None)
-    H = dsp._guarded_cascade(be.double(), ae.double(), filt.nfft, "xla")
-    return H.abs()
-
-
 def accurate_scenario(parallel: bool, nfft: int = NFFT,
                       device="cuda") -> dict:
     """e7_geq's accurate scenario (the MIMO 2 x 1 AccurateGEQ or the
     2-channel parallelAccurateGEQ) built on 'xla' and 'pallas' from SEED:
     |response()| of the two routes, K4f once and K4b never for the
     'pallas' one, the routes 1e-4 of the max apart (else each held to a
-    float64 evaluation of the same taps, 'pallas' within ACC_F64_FACTOR
-    times 'xla''s distance), and each within the example's ACCURATE_TOL
+    float64 evaluation of the same taps, 'pallas' within twice 'xla''s
+    distance: e8_fdn.check_accurate_routes), and each within the
+    example's ACCURATE_TOL
     of its designed target through ``accurate_error`` (K4f once more)."""
     args = zoo_args(nfft)
     out = {}
@@ -3084,17 +3150,9 @@ def accurate_scenario(parallel: bool, nfft: int = NFFT,
               f"{tag} ({be}): the design is {err:.3e} from its target "
               f"(range {rng:.3f})")
         out[be] = dict(filt=filt, H=H, err=err, rng=rng, counts=counts)
-    _, gap = rel_err(out["pallas"]["H"], out["xla"]["H"])
-    f64 = None
-    if not gap < ACC_ROUTE_TOL:
-        ref = accurate_f64(out["xla"]["filt"])
-        f64 = {be: rel_err(out[be]["H"].double(), ref)[1]
-               for be in ("xla", "pallas")}
-        check(f64["pallas"] <= ACC_F64_FACTOR * f64["xla"],
-              f"{tag}: routes {gap:.3e} apart and pallas {f64['pallas']:.3e} "
-              f"from the float64 taps, more than {ACC_F64_FACTOR:g}x xla's "
-              f"{f64['xla']:.3e}")
-    return dict(tag=tag, gap=gap, f64=f64, out=out)
+    routes = e8_fdn.check_accurate_routes(
+        out["pallas"]["H"], out["xla"]["H"], out["xla"]["filt"])
+    return dict(tag=tag, out=out, **routes)
 
 
 def comb_args(nfft: int = NFFT) -> SimpleNamespace:
@@ -3332,6 +3390,285 @@ def comb_steps():
     shell, imp, targets, params = e4_recursion_nn.comb_setup(
         comb_args(), "cuda", "pallas")
     return comb_step_runner((shell, imp, params, targets))
+
+
+# ---------------------------------------------------------------------------
+# phase 4j, the reverb domain
+# ---------------------------------------------------------------------------
+def reverb_counts() -> dict:
+    """The nonzero launch counts, K2's transposed launches (a part of
+    fdn_solve's) also apart."""
+    counts = nonzero_counts()
+    if fk.K2_TRANSPOSED[0]:
+        counts["fdn_solve transposed"] = fk.K2_TRANSPOSED[0]
+    return counts
+
+
+def hfdn_delays(N: int = 6) -> list:
+    """HomogeneousFDNConfig's delay range (20-50 ms at 48 kHz), drawn from
+    SEED."""
+    return coprime_delay_lengths(N, [20.0, 50.0], 48000,
+                                 rng=np.random.default_rng(SEED))
+
+
+def homogeneous_scenario(nfft: int = NFFT, device="cuda") -> dict:
+    """HomogeneousFDN at its defaults (N = 6, 20-50 ms delays, 0 dB alias
+    decay) on 'ge' and 'pallas' from SEED: |H| (K2 once) within HFDN_TOL
+    of the max, normalize_energy on both (its own 1e-4 check; K2 twice
+    more) and the normalized gains within HFDN_TOL."""
+    delays = hfdn_delays()
+    fdns = {}
+    for method in ("ge", "pallas"):
+        cfg = HomogeneousFDNConfig(nfft=nfft, delays=delays, device=device,
+                                   solve_method=method)
+        fdns[method] = HomogeneousFDN(
+            cfg, generator=torch.Generator().manual_seed(SEED))
+    H = {m: f.model.get_freq_response().abs() for m, f in fdns.items()
+         if m == "ge"}
+    reset_counts()
+    H["pallas"] = fdns["pallas"].model.get_freq_response().abs()
+    fdns["pallas"].normalize_energy()
+    counts = reverb_counts()
+    check_counts("HomogeneousFDN's response and normalize_energy", counts,
+                 {"fdn_solve": 3})
+    fdns["ge"].normalize_energy()
+    _, err = rel_err(H["pallas"], H["ge"])
+    check(err < HFDN_TOL, f"HomogeneousFDN: |H| on 'pallas' is {err:.3e} of "
+          f"the max from 'ge' (tol {HFDN_TOL:g})")
+    raw = {m: f.get_raw_parameters() for m, f in fdns.items()}
+    gain_err = max(float(np.max(np.abs(raw["pallas"][k] - raw["ge"][k]))
+                         / np.max(np.abs(raw["ge"][k]))) for k in ("B", "C"))
+    check(gain_err < HFDN_TOL, f"HomogeneousFDN: the normalized gains are "
+          f"{gain_err:.3e} of the max apart (tol {HFDN_TOL:g})")
+    return dict(delays=delays, err=err, gain_err=gain_err, counts=counts)
+
+
+def accurate_fdn_scenario(nfft: int = NFFT, device="cuda") -> dict:
+    """e8_fdn's accurate_geq scenario on 'pallas' through the example's own
+    function (the attenuation's |H| against an 'xla' build, the RT gate),
+    with its launches: K4f for the attenuation's response and the IR's
+    loop, K2 once for the IR."""
+    out_dir = Path("build/e8_fdn_reverb")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    args = SimpleNamespace(nfft=nfft, samplerate=48000, device=device,
+                           backend="pallas", seed=SEED,
+                           train_dir=str(out_dir))
+    reset_counts()
+    r = e8_fdn.example_fdn_accurate_geq(args)
+    counts = reverb_counts()
+    check_counts("e8_fdn's accurate_geq scenario", counts,
+                 {"sos_cascade_fwd": 2, "fdn_solve": 1})
+    return dict(r, counts=counts)
+
+
+def ds_args(nfft: int = NFFT, attenuation: str = "geq") -> SimpleNamespace:
+    return SimpleNamespace(nfft=nfft, samplerate=48000, rir=None,
+                           attenuation=attenuation, num=DS_EPOCH_EXPAND,
+                           batch_size=E8_BATCH, split=E8_SPLIT, lr=1e-3,
+                           max_epochs=1, train_dir=None, seed=SEED)
+
+
+def ds_model(attenuation: str, backend: str, seed: int = SEED,
+             nfft: int = NFFT, device="cuda"):
+    set_seed(seed)
+    return e8_fdn.build_delay_scaled(ds_args(nfft, attenuation), attenuation,
+                                     backend, device)
+
+
+def ds_per_step(attenuation: str, train: bool = True) -> dict:
+    """A delay_scaled step's launches: K2 once (and once transposed in a
+    train step); K4f twice for the accurate GEQ, which sits in the loop's
+    feedforward Series, whose response the Recursion takes once for its
+    input and once for the loop matrix; no K4b (the accurate GEQ does not
+    train, and the trainable families have no kernel route)."""
+    want = {"fdn_solve": 1 + train, "fdn_solve transposed": int(train)}
+    if attenuation == "accurate_geq":
+        want["sos_cascade_fwd"] = 2
+    return want
+
+
+def delay_scaled_scenario(attenuation: str, nfft: int = NFFT,
+                          device="cuda") -> dict:
+    """e8_fdn's delay_scaled FDN with ``attenuation`` built on 'xla' and
+    'pallas' from SEED: the first loss (mss_loss + 0.2 sparsity_loss)
+    within DS_LOSS_TOL; one epoch of Trainer.fit_scan_epochs on 'pallas',
+    exact launches, the loss falling.  Returns what it measured and the
+    Trainer and first batch for timing."""
+    set_seed(SEED)
+    target = e8_fdn._target_rir(ds_args(nfft), nfft, torch.device(device))
+    mx, mk = (ds_model(attenuation, be, nfft=nfft, device=device)
+              for be in ("xla", "pallas"))
+    check(all(torch.equal(a, b) for a, b in zip(
+        mx.state_dict().values(), mk.state_dict().values())),
+        f"delay_scaled {attenuation}: the two builds of one seed differ")
+    with torch.no_grad():
+        l_x = float(e8_fdn.first_loss(mx, target, 48000, e8_fdn.DS_SPARSITY))
+        reset_counts()
+        l_k = float(e8_fdn.first_loss(mk, target, 48000, e8_fdn.DS_SPARSITY))
+    first_counts = reverb_counts()
+    check_counts(f"delay_scaled {attenuation}'s first loss", first_counts,
+                 ds_per_step(attenuation, train=False))
+    rel = abs(l_k - l_x) / abs(l_x)
+    check(np.isfinite(l_x) and rel < DS_LOSS_TOL,
+          f"delay_scaled {attenuation}: first loss xla {l_x:.8g}, pallas "
+          f"{l_k:.8g}, rel {rel:.3e} (tol {DS_LOSS_TOL:g})")
+    args = ds_args(nfft, attenuation)
+    tr, tl, _ = e8_fdn.delay_scaled_trainer(args, mk, target, log=False)
+    bx, bt = stack_loader(tl)
+    reset_counts()
+    hist = tr.fit_scan_epochs(bx, bt, n_epochs=1)
+    counts = reverb_counts()
+    S = bx.shape[0]
+    check_counts(f"delay_scaled {attenuation}: an epoch of {S} steps", counts,
+                 {k: S * v for k, v in ds_per_step(attenuation).items()})
+    check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+          f"delay_scaled {attenuation}: the epoch's loss is not finite or "
+          f"did not fall: {hist}")
+    return dict(loss_xla=l_x, loss_pallas=l_k, rel=rel, hist=hist,
+                first_counts=first_counts, counts=counts, trainer=tr,
+                batch=(bx[0], bt[0]))
+
+
+def e9_scenario(nfft: int = NFFT, device="cuda") -> dict:
+    """e9's profile (2 runs x 9 steps) and surface (4 x 4) on 'pallas' (K2
+    once a scanned point) against 'ge' within E9_TOL of the max."""
+    losses = {}
+    for be in ("xla", "pallas"):
+        model = e9_loss_profile.build_model(nfft, be, device, SEED)
+        reset_counts()
+        losses[be] = e9_loss_profile.scans(model, nfft, SEED)[:2]
+        counts = reverb_counts()
+    check_counts("e9's scans", counts, {"fdn_solve": 2 * 9 + 4 * 4})
+    gaps = [e9_loss_profile.route_gap(k, x)
+            for k, x in zip(losses["pallas"], losses["xla"])]
+    check(max(gaps) < E9_TOL and all(np.isfinite(v).all() for v in
+                                     losses["pallas"]),
+          f"e9: the 'pallas' scans are {gaps} of the max from 'ge' (tol "
+          f"{E9_TOL:g})")
+    return dict(gaps=gaps, counts=counts, loss=losses["pallas"])
+
+
+def third_octave_scenario(nfft: int = NFFT, device="cuda") -> dict:
+    """The delay-scaled accurate GEQ at 1/3 octave (30 sections) on
+    HomogeneousFDN's delays, its RT60s drawn from SEED, on 'pallas': its
+    response (K4f once) finite at every bin and within the GEQ bound of a
+    float64 evaluation of its taps; then, apart from the counted run, K4f
+    against its plain version on its taps at the GEQ bound, both finite,
+    the plain version's distance from float64 printed; the same for the
+    octave design on those delays."""
+    out = {}
+    for interval in (3, 1):
+        m = parallelFDNAccurateGEQ(
+            octave_interval=interval, nfft=nfft, fs=48000,
+            delays=hfdn_delays(), cascade_backend="pallas", device=device,
+            generator=torch.Generator().manual_seed(SEED))
+        reset_counts()
+        with torch.no_grad():
+            H = m.response()
+        counts = reverb_counts()
+        check_counts(f"the 1/{interval}-octave accurate GEQ's response",
+                     counts, {"sos_cascade_fwd": 1})
+        check(bool(torch.isfinite(H).all()), f"1/{interval} octave: K4f's "
+              "response is not finite at every bin")
+        with torch.no_grad():
+            b, a = m.sos_taps(None)
+            plain = sk.sos_cascade_fwd_plain(b, a, nfft)
+            ref = e8_fdn.accurate_f64(m)
+        check(bool(torch.isfinite(plain).all()), f"1/{interval} octave: the "
+              "plain version is not finite at every bin")
+        err = compare(f"K4f sos_cascade_fwd (1/{interval}-octave accurate "
+                      f"GEQ, {b.shape[1]} sections, delays "
+                      f"{min(m.delays)}-{max(m.delays)})", H, plain,
+                      GEQ_VAL_TOL)
+        f64 = {k: rel_err(v.abs().double(), ref)[1]
+               for k, v in (("kernel", H), ("plain", plain))}
+        check(f64["kernel"] < GEQ_VAL_TOL, f"1/{interval} octave: K4f is "
+              f"{f64['kernel']:.3e} of the max from a float64 evaluation of "
+              f"its taps (tol {GEQ_VAL_TOL:g})")
+        out[interval] = dict(err=err, f64=f64, counts=counts,
+                             sections=b.shape[1])
+    return out
+
+
+def phase_reverb(card: str):
+    """The reverb domain at full width: HomogeneousFDN, e8_fdn's
+    accurate_geq and delay_scaled (the four attenuations) scenarios, e9's
+    scans and the 1/3-octave accurate GEQ, each on 'pallas' against
+    'xla'/'ge' with exact launch counts; DS_STEPS timed delay_scaled
+    steps.  Returns the launch counts (K2's transposed ones inside
+    fdn_solve's) and the ms a delay_scaled step."""
+    print(f"phase 4j the reverb domain (nfft={NFFT}): HomogeneousFDN, "
+          "e8_fdn's accurate_geq and delay_scaled, e9, the 1/3-octave "
+          "accurate GEQ, 'pallas' (K2, K4f) against 'xla'/'ge'")
+    launches, k2t = {}, 0
+
+    def add(counts):
+        nonlocal k2t
+        counts = dict(counts)
+        k2t += counts.pop("fdn_solve transposed", 0)
+        add_counts(launches, counts)
+
+    h = homogeneous_scenario()
+    add(h["counts"])
+    print(f"  HomogeneousFDN (N=6, delays {h['delays']}): |H| pallas against "
+          f"ge {h['err']:.3e} of the max (tol {HFDN_TOL:g}); normalize_energy "
+          f"passed on both, gains {h['gain_err']:.3e} apart; launches "
+          f"{h['counts']}")
+    a = accurate_fdn_scenario()
+    add(a["counts"])
+    routes = a["routes"]
+    f64 = ("" if routes["f64"] is None else "; from the float64 taps "
+           + ", ".join(f"{k} {v:.3e}" for k, v in routes["f64"].items()))
+    print(f"  e8_fdn accurate_geq: |H| pallas against xla {routes['gap']:.3e} "
+          f"of the max (tol {e8_fdn.ACC_ROUTE_TOL:g}){f64}; RT MSE "
+          f"{a['rt_mse']:.6g} (tol {e8_fdn.RT_MSE_TOL:g}); launches "
+          f"{a['counts']}")
+    ds = {}
+    for att in e8_fdn.ATTENUATIONS:
+        ds[att] = r = delay_scaled_scenario(att)
+        add(r["first_counts"])
+        add(r["counts"])
+        print(f"  delay_scaled {att}: first loss xla {r['loss_xla']:.8f}, "
+              f"pallas {r['loss_pallas']:.8f}, rel {r['rel']:.3e} (tol "
+              f"{DS_LOSS_TOL:g}); fit_scan_epochs, {len(r['hist'])} steps: "
+              f"{r['hist'][0]:.7g} -> {r['hist'][-1]:.7g}; launches "
+              f"{r['counts']}")
+    tr, (bx, bt) = ds["geq"]["trainer"], ds["geq"]["batch"]
+    tr.fit_scan(bx, bt, n_steps=3, steps_per_call=3)
+    reset_counts()
+    hist, seconds = timed(lambda: tr.fit_scan(bx, bt, n_steps=DS_STEPS,
+                                              steps_per_call=DS_STEPS))
+    counts = reverb_counts()
+    check_counts(f"{DS_STEPS} timed delay_scaled steps", counts,
+                 {k: DS_STEPS * v for k, v in ds_per_step("geq").items()})
+    check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+          "delay_scaled: the timed steps' loss is not finite or did not fall")
+    add(counts)
+    ds_ms = seconds * 1e3 / DS_STEPS
+    print(f"  delay_scaled geq step (Trainer.fit_scan, batch {E8_BATCH}, "
+          f"{DS_STEPS} steps after 3, CUDA events) on {card}: {ds_ms:.4f} ms")
+    e = e9_scenario()
+    add(e["counts"])
+    print(f"  e9 (N=4, delays {e9_loss_profile.DELAYS}): profile and surface "
+          f"pallas against ge {e['gaps'][0]:.3e}, {e['gaps'][1]:.3e} of the "
+          f"max (tol {E9_TOL:g}); launches {e['counts']}")
+    t = third_octave_scenario()
+    for interval, r in t.items():
+        add(r["counts"])
+        print(f"  1/{interval}-octave accurate GEQ ({r['sections']} sections):"
+              f" finite at every bin; K4f {r['f64']['kernel']:.3e} and plain "
+              f"{r['f64']['plain']:.3e} of the max from a float64 "
+              f"evaluation of the taps; launches {r['counts']}")
+    print(f"  launches in phase 4j: {launches}, of them K2 transposed {k2t}")
+    return launches, k2t, ds_ms
+
+
+def ds_steps():
+    """``run(n)``: n Trainer.fit_scan steps of the delay_scaled 'geq'
+    model on 'pallas' (for the trace)."""
+    r = delay_scaled_scenario("geq")
+    tr, (bx, bt) = r["trainer"], r["batch"]
+    return lambda n: tr.fit_scan(bx, bt, n_steps=n, steps_per_call=n)
 
 
 def phase_timing(o, launches, errs, card, previous) -> list:
@@ -3910,6 +4247,9 @@ def main() -> int:
     slice_launches, comb_ms = phase_accurate_velvet(card)
     took["4i accurate GEQ, velvet, tutorials"] = seconds_since_last()
     add_counts(launches, slice_launches)
+    reverb_launches, _, ds_ms = phase_reverb(card)
+    took["4j reverb"] = seconds_since_last()
+    add_counts(launches, reverb_launches)
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
@@ -3941,6 +4281,9 @@ def main() -> int:
                 f"{COMB_BATCH}: K4f, K4b, K6 and K6 transposed once each an "
                 "item)", comb_steps(), comb_ms,
                 share=("sos_cascade_fwd", "sos_cascade_bwd", "dense_solve"))
+    phase_trace(card, "e8_fdn delay_scaled geq Trainer.fit_scan (K2; "
+                "parallelFDNGEQ on the plain cascade)", ds_steps(), ds_ms,
+                share=("fdn_solve",))
     mss = mss_steps()
     phase_trace(card, f"mss_loss({e8_fdn.MSS_NFFT}) alone, forward and "
                 f"backward on a ({E8_BATCH}, {NFFT}, 1) estimate", mss,

@@ -30,6 +30,15 @@ its JAX PRNG ``.key`` leaf has no counterpart (the port draws from a
 its broadcast Hadamard ``param``, and its shifts and m_L/m_R come through
 :func:`load_jax_scattering`.
 
+A ``HomogeneousFDN`` (no module itself) carries the leaves of its
+``model``, e.g. ``.core.modules[1].feedforward.modules[1].param`` (the
+attenuation's raw gain).  The delay-scaled accurate GEQs
+(``parallelFDNAccurateGEQ``, ``parallelGFDNAccurateGEQ``) carry their RT60
+``param`` alone: the JAX package designs their ``.sos_b``/``.sos_a`` in
+float32 mode, ~3e-3 of the max from its float64 design, so those leaves
+are skipped and the port designs its taps from the carried RT60s
+(``assign_value``, float64 on the host).
+
 A ``Series`` built from an ``OrderedDict`` flattens like any other: its
 children are ``.modules[i]`` in key order, e.g. for the active-acoustics
 loop shell ``ActiveAcoustics.F_MM`` ``.core.modules[0].param`` (U),
@@ -46,6 +55,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flamo_tpu_torch.auxiliary.reverb import (HomogeneousFDN,
+                                              parallelFDNAccurateGEQ)
 from flamo_tpu_torch.auxiliary.velvet import VelvetNoiseFilter
 from flamo_tpu_torch.models.active_acoustics import ActiveAcoustics
 from flamo_tpu_torch.processor import dsp, system
@@ -64,7 +75,9 @@ def jax_named_tensors(module, prefix: str = "",
     def under(sub, path):
         out.update(jax_named_tensors(sub, path, jax_only))
 
-    if isinstance(module, ActiveAcoustics):
+    if isinstance(module, HomogeneousFDN):
+        under(module.model, prefix)
+    elif isinstance(module, ActiveAcoustics):
         for name in AA_MODULES:
             under(getattr(module, name), f"{prefix}{name}")
     elif isinstance(module, system.Shell):
@@ -84,7 +97,10 @@ def jax_named_tensors(module, prefix: str = "",
         out[f"{prefix}.H_im"] = module.H_im
     elif isinstance(module, dsp.DSP):
         out[f"{prefix}.param"] = module.param
-        if isinstance(module, dsp.AccurateGEQ):
+        if isinstance(module, parallelFDNAccurateGEQ):
+            if jax_only is not None:
+                jax_only.update({f"{prefix}.sos_b", f"{prefix}.sos_a"})
+        elif isinstance(module, dsp.AccurateGEQ):
             out[f"{prefix}.sos_b"] = module.sos_b
             out[f"{prefix}.sos_a"] = module.sos_a
         if isinstance(module, VelvetNoiseFilter) and jax_only is not None:
@@ -96,7 +112,8 @@ def load_jax_params(model, params: dict[str, np.ndarray]):
     """Copy ``params`` into ``model`` in place and return it.  Raises on a
     missing or extra key and on a shape mismatch.  An ``ActiveAcoustics``
     then recomputes its cached room responses; an ``AccurateGEQ`` keeps
-    the carried taps (its design is not run again)."""
+    the carried taps (its design is not run again), and a delay-scaled
+    accurate GEQ designs its own from the carried RT60s."""
     jax_only = set()
     targets = jax_named_tensors(model, jax_only=jax_only)
     missing = sorted(set(targets) - set(params))
@@ -113,6 +130,11 @@ def load_jax_params(model, params: dict[str, np.ndarray]):
             dst.copy_(torch.tensor(src, dtype=dst.dtype))
     if isinstance(model, ActiveAcoustics):
         model.refresh_rooms()
+    root = model.model if isinstance(model, HomogeneousFDN) else model
+    if isinstance(root, torch.nn.Module):
+        for sub in root.modules():
+            if isinstance(sub, parallelFDNAccurateGEQ):
+                sub.assign_value(sub.param.detach())
     return model
 
 

@@ -15,9 +15,11 @@
 //
 // The guarded SOS cascade of a channel n at the phasor z = e^{-j w},
 //   H_n = prod_k B_kn(z) / prod_k A_kn(z),  B_kn(z) = sum_p b[p,k,n] z^p,
-// is FLT_EPSILON (real) with zero gradient where |prod_k A_kn|^2 = 0, as
-// _iir_guard_prods; a single section whose |B_k|^2 or |A_k|^2 is 0 adds
-// nothing to the tap cotangents.  Taps are (P, K, N) float32, row-major,
+// is FLT_EPSILON (real) with zero gradient where prod_k A_kn = 0, as
+// _iir_guard_prods (the running products are kept near 1 by powers of two,
+// sos_common.cuh's pow2_scale, so a long cascade does not underflow); a
+// single section whose |B_k|^2 or |A_k|^2 is 0 adds nothing to the tap
+// cotangents.  Taps are (P, K, N) float32, row-major,
 // P <= kMaxP, K <= kMaxK.
 //
 // What bounds them on an H100: issue slots and one block's dependent
@@ -69,6 +71,9 @@ using sos::cabs2;
 using sos::cmul;
 using sos::kMaxK;
 using sos::kMaxP;
+using sos::pow2_scale;
+using sos::rescale_pair;
+using sos::scaled;
 
 constexpr int kThreads = 128;  // bins a block
 constexpr int kMaxCB = 8;      // channels a block
@@ -146,8 +151,9 @@ __device__ __forceinline__ float2 guarded_ratio(float2 pb, float2 pa, bool& ok) 
             : make_float2(FLT_EPSILON, 0.0f);
 }
 
-// The guarded cascades of the block's nc <= NC channels at z, k outer;
-// channels i >= nc repeat channel nc - 1.
+// The guarded cascades of the block's nc <= NC channels at z, k outer,
+// the running products rescaled by a power of two at each section
+// (sos_common.cuh's pow2_scale); channels i >= nc repeat channel nc - 1.
 template <int NC, int PT>
 __device__ __forceinline__ void cascade(const float* taps_s, int K, int nc, float2 z,
                                         float2 (&h)[NC], bool (&ok)[NC]) {
@@ -160,12 +166,16 @@ __device__ __forceinline__ void cascade(const float* taps_s, int K, int nc, floa
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const float* c = tk + min(i, nc - 1) * 2 * PT;
-      pb[i] = cmul(pb[i], section<PT>(c, z));
-      pa[i] = cmul(pa[i], section<PT>(c + PT, z));
+      const float s = pow2_scale(pa[i]);
+      pb[i] = scaled(cmul(pb[i], section<PT>(c, z)), s);
+      pa[i] = scaled(cmul(pa[i], section<PT>(c + PT, z)), s);
     }
   }
 #pragma unroll
-  for (int i = 0; i < NC; ++i) h[i] = guarded_ratio(pb[i], pa[i], ok[i]);
+  for (int i = 0; i < NC; ++i) {
+    rescale_pair(pb[i], pa[i]);
+    h[i] = guarded_ratio(pb[i], pa[i], ok[i]);
+  }
 }
 
 // K4f: block x = channel block (x / bin_blocks) of NC channels over the

@@ -12,9 +12,10 @@
 //
 // The guarded SOS cascade of a channel n at the phasor z = e^{-j w},
 //   H_n = prod_k B_kn(z) / prod_k A_kn(z),  B_kn(z) = sum_p b[p,k,n] z^p,
-// is FLT_EPSILON (real) with zero gradient where |prod_k A_kn|^2 = 0, as
-// _iir_guard_prods; a single section whose |B_k|^2 or |A_k|^2 is 0 adds
-// nothing to the tap cotangents.  Taps are (P, K, N) float32, row-major,
+// is FLT_EPSILON (real) with zero gradient where prod_k A_kn = 0, as
+// _iir_guard_prods (the running products kept near 1 by powers of two,
+// sos_common.cuh's pow2_scale); a single section whose |B_k|^2 or |A_k|^2
+// is 0 adds nothing to the tap cotangents.  Taps are (P, K, N) float32, row-major,
 // P <= kMaxP, K <= kMaxK.  The phasor, the Horner sums and the warp
 // reductions are sos_common.cuh's, which phase2_micro.cu and
 // sos_cascade.cu share.
@@ -118,7 +119,8 @@ __device__ __forceinline__ float2 horner_s(const float* c, int P, float2 z) {
 }
 
 // The guarded cascades of all N channels (cascade()'s arithmetic), k outer
-// so that the 2 N section products of a k are independent.
+// so that the 2 N section products of a k are independent, the running
+// products rescaled by a power of two at each section (pow2_scale).
 template <int N, int PT>
 __device__ __forceinline__ void cascade_all(const float* taps_s, int K, int P, float2 z,
                                             float2 (&gam)[N], bool (&gok)[N]) {
@@ -130,12 +132,14 @@ __device__ __forceinline__ void cascade_all(const float* taps_s, int K, int P, f
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const float* c = taps_s + (k * N + i) * 2 * np;
-      pb[i] = cmul(pb[i], horner_s<PT>(c, np, z));
-      pa[i] = cmul(pa[i], horner_s<PT>(c + np, np, z));
+      const float s = sos::pow2_scale(pa[i]);
+      pb[i] = sos::scaled(cmul(pb[i], horner_s<PT>(c, np, z)), s);
+      pa[i] = sos::scaled(cmul(pa[i], horner_s<PT>(c + np, np, z)), s);
     }
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
+    sos::rescale_pair(pb[i], pa[i]);
     const float den = cabs2(pa[i]);
     gok[i] = den != 0.0f;
     const float inv = 1.0f / (gok[i] ? den : 1.0f);

@@ -251,12 +251,10 @@ def poly_response(coeffs, nfft: int):
     return out
 
 
-def cascade_prods(b, a, nfft: int, zinv=None):
-    """``(prod_k polyval(b[:, k]), prod_k polyval(a[:, k]))`` on the rfft
-    grid, one Horner-and-multiply chain per section, without the
-    (M, K, ...) per-section responses.  b, a: (P, K, ...) tap-major SOS
-    cascades.  ``zinv`` (M,) replaces the rfft phasor (a shifted bin
-    grid)."""
+def _cascade_chain(b, a, nfft: int, zinv, after_section):
+    """The Horner-and-multiply chains of the (P, K, ...) tap-major
+    cascades b and a, ``after_section(prodB, prodA)`` applied to the pair
+    after each section."""
     b = torch.as_tensor(b)
     a = torch.as_tensor(a)
     P, K = b.shape[0], b.shape[1]
@@ -270,12 +268,53 @@ def cascade_prods(b, a, nfft: int, zinv=None):
             out = out * zinv + c[j]
         return out
 
-    prodB = polyval(b[:, 0])
-    prodA = polyval(a[:, 0])
+    prodB, prodA = after_section(polyval(b[:, 0]), polyval(a[:, 0]))
     for k in range(1, K):
-        prodB = prodB * polyval(b[:, k])
-        prodA = prodA * polyval(a[:, k])
+        prodB, prodA = after_section(prodB * polyval(b[:, k]),
+                                     prodA * polyval(a[:, k]))
     return prodB, prodA
+
+
+def cascade_prods(b, a, nfft: int, zinv=None):
+    """``(prod_k polyval(b[:, k]), prod_k polyval(a[:, k]))`` on the rfft
+    grid, one Horner-and-multiply chain per section, without the
+    (M, K, ...) per-section responses.  b, a: (P, K, ...) tap-major SOS
+    cascades.  ``zinv`` (M,) replaces the rfft phasor (a shifted bin
+    grid)."""
+    return _cascade_chain(b, a, nfft, zinv, lambda pb, pa: (pb, pa))
+
+
+# |e| bound of _rescale_pair's exponent: 2^-e stays a normal number
+_EXP_LIMIT = {torch.float32: 126, torch.float64: 1022}
+
+
+def _rescale_pair(prodB, prodA):
+    """Both products times one power of two, 2^-e with e the exponent
+    (``torch.frexp``) of prodA's larger part, so that |prodA| lands in
+    [0.5, 1.5); e is clamped so that 2^-e is a normal number.  In
+    float32's normal range the scaling is exact, and so is every product
+    and sum after it: the ratio keeps its bits.  An exactly zero prodA has
+    e = 0 and stays zero.  The scale is a constant to autograd."""
+    dtype = _real_dtype(prodA)
+    lim = _EXP_LIMIT[dtype]
+    with torch.no_grad():
+        e = torch.frexp(torch.maximum(prodA.real.abs(),
+                                      prodA.imag.abs())).exponent
+        s = torch.ldexp(torch.ones_like(e, dtype=dtype),
+                        -e.clamp(-lim, lim))
+    return prodB * s, prodA * s
+
+
+def cascade_prods_scaled(b, a, nfft: int, zinv=None):
+    """:func:`cascade_prods`'s pair scaled after every section by one
+    power of two chosen from prodA's exponent (:func:`_rescale_pair`):
+    ``prodB / prodA`` is the same ratio, bit for bit wherever the
+    unscaled products stay normal, and it stays finite where a long
+    cascade's unscaled products underflow float32 (a 30-section
+    1/3-octave GEQ near DC).  The plain versions of the cascade kernels
+    and the 'xla' cascade route use it; they read only the ratio and
+    whether prodA is 0."""
+    return _cascade_chain(b, a, nfft, zinv, _rescale_pair)
 
 
 def biquad2tf(b, a, nfft: int):

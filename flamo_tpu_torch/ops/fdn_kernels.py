@@ -43,14 +43,17 @@ MAX_N = cuda_build.MAX_N
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
 # count); K6 counts its forward and its transposed (gradient) launches
-# apart
+# apart; K2 counts both under "fdn_solve", and its transposed ones also in
+# K2_TRANSPOSED
 LAUNCHES = {"fdn_tf_mse": 0, "fdn_solve": 0, "fdn_tf_fwd": 0,
             "fdn_tf_bwd": 0, "dense_solve": 0, "dense_solve_transposed": 0}
+K2_TRANSPOSED = [0]
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    K2_TRANSPOSED[0] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +215,7 @@ def fdn_solve_kernel(D, U, B, transpose: bool = False):
                                   M, _stream(D))
     cuda_build.check(rc, "fdn_solve_kernel", N)
     LAUNCHES["fdn_solve"] += 1
+    K2_TRANSPOSED[0] += bool(transpose)
     return Y
 
 

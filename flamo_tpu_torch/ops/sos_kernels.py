@@ -16,6 +16,12 @@ X (M,) complex64, t (M,) float32):
   ``tf_m = c^T (I - diag(D_m Gam_m) U)^{-1} diag(D_m) b`` with
   ``Gam = sos_cascade(bt, at)``, and its cotangents in the same pass.
 
+The cascades keep their running products near 1 by a power of two at
+each section, the kernels (``sos_common.cuh`` ``pow2_scale``) and the
+plain versions (``functional.cascade_prods_scaled``) alike, so a long
+cascade does not underflow float32; the ratio is the unscaled one, bit
+for bit wherever the unscaled products stay normal.
+
 ``bin_offset`` (a number, default 0) evaluates row j at bin
 ``j + bin_offset``.  Each ``*_kernel`` wrapper launches its CUDA kernel
 for CUDA tensors (and counts the launch in :data:`LAUNCHES`) and runs the
@@ -34,7 +40,7 @@ import math
 
 import torch
 
-from flamo_tpu_torch.functional import cascade_prods
+from flamo_tpu_torch.functional import cascade_prods_scaled
 from flamo_tpu_torch.ops import cuda_build
 from flamo_tpu_torch.ops.fdn_kernels import (_check, _cotangents, _on_cuda,
                                              _stream, _tf_mse_solves)
@@ -110,13 +116,13 @@ def sos_cascade_fwd_plain(b, a, nfft: int, bin_offset=None):
     """K4f's function: the code that ``cascade_backend='xla'`` runs."""
     zinv = (None if bin_offset is None
             else _phasor(nfft, nfft // 2 + 1, bin_offset, b.device))
-    return _iir_guard_prods(*cascade_prods(b, a, nfft, zinv))
+    return _iir_guard_prods(*cascade_prods_scaled(b, a, nfft, zinv))
 
 
 def sos_cascade_bwd_plain(b, a, g, nfft: int, bin_offset=None):
     """K4b's function: (b_bar, a_bar) for JAX's cotangent g (M, N) of H."""
     zinv = _phasor(nfft, g.shape[0], bin_offset, g.device)
-    prodB, prodA = cascade_prods(b, a, nfft, zinv)
+    prodB, prodA = cascade_prods_scaled(b, a, nfft, zinv)
     ok = torch.abs(prodA) != 0
     H = prodB / torch.where(ok, prodA, torch.ones_like(prodA))
     return _tap_sums(b, a, zinv, torch.where(ok, g * H, 0.0))
@@ -129,7 +135,7 @@ def fdn_sos_tf_mse_plain(D, bt, at, U, b, c, X, t, nfft: int,
     c_bar).  ``fuse_taps=False`` takes the tap sums from K4b's plain
     version, as the kernel's wrapper takes them from K4b."""
     zinv = _phasor(nfft, D.shape[0], bin_offset, D.device)
-    prodB, prodA = cascade_prods(bt, at, nfft, zinv)
+    prodB, prodA = cascade_prods_scaled(bt, at, nfft, zinv)
     gam = _iir_guard_prods(prodB, prodA)
     gok = torch.abs(prodA) != 0
     loss, y, w, tb = _tf_mse_solves(D, U, b, c, X, t, pivot, D_loop=D * gam)

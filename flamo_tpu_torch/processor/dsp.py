@@ -34,7 +34,7 @@ from flamo_tpu_torch.auxiliary.scattering import ScatteringMapping
 from flamo_tpu_torch.core import Module
 from flamo_tpu_torch.functional import (HadamardMatrix, RotationMatrix,
                                         _clip, bandpass_filter,
-                                        cascade_prods, expm_skew,
+                                        cascade_prods_scaled, expm_skew,
                                         hadamard_matrix_jnp, highpass_filter,
                                         lowpass_filter,
                                         poly_response, rad2hertz, svf_mix,
@@ -793,8 +793,9 @@ def _iir_eps_guard(B, A):
 def _guarded_cascade(be, ae, nfft: int, backend: str = "xla"):
     """Guarded cascade response from envelope-applied (P, K, ...) taps.
 
-    backend='xla': the Horner-product chain of ``cascade_prods`` in
-    PyTorch; backend='pallas': the hand-written cascade kernel K4
+    backend='xla': the Horner-product chain of ``cascade_prods_scaled``
+    (the products kept in range by powers of two) in PyTorch;
+    backend='pallas': the hand-written cascade kernel K4
     (:func:`flamo_tpu_torch.ops.sos_kernels.sos_cascade`; the names are
     the JAX package's).  Trailing channel dims fold into the kernel's
     channel axis."""
@@ -803,7 +804,7 @@ def _guarded_cascade(be, ae, nfft: int, backend: str = "xla"):
         chans = be.shape[2:]
         H = sos_cascade(be.reshape(P, K, -1), ae.reshape(P, K, -1), nfft)
         return H.reshape((H.shape[0],) + tuple(chans))
-    return _iir_guard_prods(*cascade_prods(be, ae, nfft))
+    return _iir_guard_prods(*cascade_prods_scaled(be, ae, nfft))
 
 
 def _check_cascade_backend(backend: str):
@@ -1260,11 +1261,15 @@ class AccurateGEQ(_CascadeFilter):
         super().__init__(size=(self.n_gains, *size), nfft=nfft, map=map,
                          requires_grad=False, alias_decay_db=alias_decay_db,
                          dtype=dtype, generator=generator, device=device)
-        shape = (3, self.n_gains + 1) + tuple(size)
         for name in ("sos_b", "sos_a"):
             self.register_buffer(name, torch.zeros(
-                shape, dtype=dtype, device=self.param.device))
+                self._sos_shape(), dtype=dtype, device=self.param.device))
         self._design_cache()
+
+    def _sos_shape(self) -> tuple:
+        """The designed taps' shape: (3, K + 1, ...), a cascade of K + 1
+        sections for each channel of the target gains."""
+        return (3, self.n_gains + 1) + tuple(self.size[1:])
 
     def init_param(self, generator):
         lo, hi = 10 ** (-6 / 20), 10 ** (6 / 20)

@@ -5,12 +5,14 @@ output line; exits non-zero when any example fails.
     python -m flamo_tpu_torch.scripts.run_examples [name ...] [--out DIR]
 
 ``name`` defaults to the filter-zoo examples (e4_recursion, e7_biquad,
-e7_biquad_nn, e7_peq, e7_svf, e10_probe) and the tutorial examples
+e7_biquad_nn, e7_peq, e7_svf, e10_probe), the tutorial examples
 (e0_siso, e1_mimo, e1_vn, e2_chaining_filters, e3_series_class,
-e4_recursion_nn, e5_shell, e6_anti_aliasing, e7_geq); each writes into
-``DIR/<name>`` (default ``build/examples``), its output in
-``DIR/<name>.log``.  Without ``--device`` the examples run on the CUDA
-card and stop without one.
+e4_recursion_nn, e5_shell, e6_anti_aliasing, e7_geq) and the reverb
+examples (e8_fdn, its four scenarios, and e9_loss_profile); each writes
+into ``DIR/<name>`` (default ``build/examples``), its output in
+``DIR/<name>.log``.  ``--nfft N`` passes N to every example (the
+default: each example's own).  Without ``--device`` the examples run on
+the CUDA card and stop without one.
 """
 
 from __future__ import annotations
@@ -26,16 +28,18 @@ ZOO = ("e4_recursion", "e7_biquad", "e7_biquad_nn", "e7_peq", "e7_svf",
 TUTORIAL = ("e0_siso", "e1_mimo", "e1_vn", "e2_chaining_filters",
             "e3_series_class", "e4_recursion_nn", "e5_shell",
             "e6_anti_aliasing", "e7_geq")
+REVERB = ("e8_fdn", "e9_loss_profile")
 
 
-def run(name: str, out: Path) -> tuple[int, float, str]:
-    """(exit code, seconds, last line) of one example's main."""
+def run(name: str, out: Path, extra=()) -> tuple[int, float, str]:
+    """(exit code, seconds, last line) of one example's main, given the
+    arguments ``extra`` besides its ``--train_dir``."""
     log = out / f"{name}.log"
     t0 = time.perf_counter()
     with open(log, "w") as f:
         rc = subprocess.call([sys.executable, "-m",
                               f"flamo_tpu_torch.examples.{name}",
-                              "--train_dir", str(out / name)],
+                              "--train_dir", str(out / name), *extra],
                              stdout=f, stderr=subprocess.STDOUT)
     seconds = time.perf_counter() - t0
     lines = [ln for ln in log.read_text().splitlines() if ln.strip()]
@@ -44,13 +48,16 @@ def run(name: str, out: Path) -> tuple[int, float, str]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("names", nargs="*", default=list(ZOO + TUTORIAL))
+    ap.add_argument("names", nargs="*",
+                    default=list(ZOO + TUTORIAL + REVERB))
     ap.add_argument("--out", type=Path, default=Path("build/examples"))
+    ap.add_argument("--nfft", type=int, default=None)
     args = ap.parse_args(argv)
     args.out.mkdir(parents=True, exist_ok=True)
+    extra = () if args.nfft is None else ("--nfft", str(args.nfft))
     failed = []
     for name in args.names:
-        rc, seconds, last = run(name, args.out)
+        rc, seconds, last = run(name, args.out, extra)
         print(f"{name}: rc {rc}, {seconds:.1f} s; {last}", flush=True)
         if rc:
             failed.append(name)

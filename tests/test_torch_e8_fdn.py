@@ -189,27 +189,28 @@ def test_direct_gain_clip_map_gradient_matches_jnp_clip(value):
 
 
 def test_example_main_on_cpu(tmp_path, capsys):
-    """The port's example, both scenarios on the CPU at nfft=2048 through
-    the 'pallas' route (both builds and the first-loss parity check, then
-    Trainer.train): WAVs written and finite; the unported scenarios raise
-    naming the queue item."""
+    """The port's example, all four scenarios on the CPU at nfft=2048
+    through the 'pallas' route (both builds and the routes' check, then
+    Trainer.train for the trained ones): WAVs written and finite, the
+    accurate GEQ's RT within its gate; no scenario is left unported."""
     args = setup(e8_fdn.parser().parse_args([
         "--device", "cpu", "--nfft", "2048", "--num", "4",
         "--max_epochs", "1", "--backend", "pallas",
         "--train_dir", str(tmp_path)]))
-    trainers = e8_fdn.main(args)
+    results = e8_fdn.main(args)
     out = capsys.readouterr().out
-    assert out.count("backend=pallas") == 2 and "final loss" in out
-    assert len(trainers) == 2
+    assert out.count("backend=pallas") == 4 and "final loss" in out
+    assert len(results) == 4 and list(e8_fdn.SCENARIOS) == [
+        "fdn", "accurate_geq", "direct", "delay_scaled"]
+    assert results[1]["rt_mse"] < e8_fdn.RT_MSE_TOL
     for tag in ("fdn", "direct"):
         for kind in ("init", "optim"):
             ir, fs = load_audio(str(tmp_path / f"ir_{kind}_{tag}.wav"))
             assert fs == 48000 and np.isfinite(ir).all()
             assert 0 < np.abs(ir).max() <= 1
-    for scenario in ("accurate_geq", "delay_scaled"):
-        args.scenario = scenario
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-            e8_fdn.main(args)
+    ir, _ = load_audio(str(tmp_path / "ir_accurate_geq.wav"))
+    assert np.isfinite(ir).all()
+    assert np.isfinite(results[3].train_loss).all()
 
 
 @pytest.mark.parametrize("backend,gap", [("auto", 0.0), ("auto", 1.0),
