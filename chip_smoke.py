@@ -2,8 +2,8 @@
 """Drive flamo_tpu_torch's colorless-, attenuated- and scattering-FDN
 paths, its active-acoustics path, its phase-2 micro-benchmark, its
 Trainer path, its e8_fdn example path, its filter zoo, its accurate
-GEQ, velvet-noise and tutorial paths and its reverb domain on one CUDA
-card.
+GEQ, velvet-noise and tutorial paths, its reverb domain, its
+multi-device layer and its QR eigensolver on one CUDA card.
 
 Run from the root of the repository:
 
@@ -191,6 +191,32 @@ Phases, in order; any failure raises and exits non-zero without a result:
    octave on HomogeneousFDN's delays through K4f (once), finite at every
    bin and within 5e-3 of the max of a float64 evaluation of its taps,
    against its plain version at the GEQ bound;
+4k. the multi-device layer at nfft=96000 (flamo_tpu_torch/parallel,
+   flamo_tpu_torch/scripts/shard_smoke.py, started in a child process):
+   the card's compute mode printed (Exclusive_Process cannot hold two
+   ranks: the phase fails), then two gloo ranks on cuda:0 run each
+   sharded step for 3 steps in lockstep with the unsharded step of the
+   same model from one seed: the colorless FDN on K1, the attenuated FDN
+   on K5 and the 4 x 13 active-acoustics rig on K9 'high' (both with the
+   block's first bin as bin_offset, nonzero on rank 1), its eigenvalue
+   step on K7 over 1601-bin partitions (phase 4d's rig, its gain before
+   instability handed over) and .multi, the scattering FDN's masked step
+   on 2000 bins through K6 both ways, make_dp_train_step on the colorless
+   model with a batch of 4, bin_sharded_forward on 'pallas' (K2) with
+   shard_spectrum, and a 4-seed MultiSeedEnsemble on a 2-rank 'seed'
+   mesh (10 steps, vmap); four ranks run make_seed_bins_sharded_fused_step
+   on a 2 x 2 mesh.  Gates (the JAX package's tests/test_parallel.py):
+   loss 1e-5 relative (evs 1e-4), parameters after the steps and the
+   first step's gradients 1e-5 of the max on K1, 1e-4 on K5, K9 and K7,
+   allclose(1e-4, 1e-6) for dp and the masked step, the forward 1e-5,
+   parameters identical across ranks, each rank's kernel launched once a
+   step (K6 once each way), the ensemble's losses falling and each member
+   within 1e-5 of its run alone; the ms a step of each sharded and
+   unsharded step (CUDA events, ranks sharing the card: not scaling
+   figures) printed.  Then eigvals_qr and eigvals_qr_grad at 1600 x 16 x
+   16 and 16 x 64 x 64 complex64 against torch.linalg.eigvals (sets 1e-4;
+   a sorted-magnitude MSE's loss 1e-4 and gradient 5e-3 of the max), each
+   call's ms printed beside the library's;
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
@@ -254,7 +280,10 @@ velvet loop; K2 and K4f in phase 4j: K2 three times for HomogeneousFDN,
 once a first loss and twice a train step of delay_scaled, once a
 scanned point of e9 and once for the accurate scenario's IR, K4f twice
 for the accurate scenario, twice a step of the delay_scaled accurate
-GEQ and once a 1/3- or 1-octave response; K3f and K3b in
+GEQ and once a 1/3- or 1-octave response; K1, K2, K5, K6 (at the masked
+step's rows), K7 and K9 'high' in phase 4k, summed over the ranks: once a
+rank and a lockstep step (K6 once each way), K2 once a rank for the
+sharded forward and K7 twice a rank for .multi; K3f and K3b in
 phase 3's timed fused-tf steps (once each per step) and K3f also in its
 timed fused responses (once per call); the K10 variants in phase 4e's
 bench_phase2_micro.run (151 calls each).  ``trace_retries``
@@ -293,7 +322,8 @@ from flamo_tpu_torch.examples import (e4_recursion_nn, e6_anti_aliasing,
                                       e10_probe)
 from flamo_tpu_torch.examples._common import (PlainMSE, filter_shell,
                                               filter_trainer)
-from flamo_tpu_torch.functional import charpoly, expm_skew
+from flamo_tpu_torch.functional import (charpoly, eigvals_qr,
+                                        eigvals_qr_grad, expm_skew)
 from flamo_tpu_torch.models import (ActiveAcoustics, aa_dft_basis,
                                     aa_evs_fit, aa_evs_train_step,
                                     aa_fused_operands,
@@ -326,6 +356,7 @@ from flamo_tpu_torch.optimize import (Dataset, DatasetColorless, Trainer,
                                       sparsity_loss, stack_loader)
 from flamo_tpu_torch.processor import dsp, system
 from flamo_tpu_torch.scripts import bench_phase2_micro as p2bench
+from flamo_tpu_torch.scripts import shard_smoke
 from flamo_tpu_torch.utils import set_seed
 
 M_MAIN, N_MAIN, NFFT = 48001, 6, 96000
@@ -436,6 +467,17 @@ VELVET_N, VELVET_STAGES, VELVET_MAX_DELAY = 8, 4, 2000
 HFDN_TOL, E9_TOL, DS_LOSS_TOL = 1e-5, 1e-5, 1e-5
 DS_EPOCH_EXPAND, DS_STEPS = 16, 20
 K6 = ("dense_solve", "dense_solve_transposed")  # launches counted apart
+# phase 4k, the multi-device layer: flamo_tpu_torch.scripts.shard_smoke's
+# families, two gloo ranks on cuda:0 (four for seeds x bins), started by a
+# child process, so that the ranks re-import that module and not this
+# script; SHARD_TIMEOUT seconds a group, SHARD_COLLECTIVE a collective.
+# Then the QR eigensolver at bench.py's evs_grad_n16 shape (1600 x 16 x 16)
+# and at N = 64 on a batch of 16, against torch.linalg.eigvals as sets and
+# through a sorted-magnitude MSE (tests/test_functional.py:622-645)
+SHARD_TIMEOUT, SHARD_COLLECTIVE = 300.0, 60.0
+SHARD_OUT = Path("build/shard_smoke.json")
+QR_SHAPES = ((1600, 16), (16, 64))
+QR_SET_TOL, QR_LOSS_TOL, QR_GRAD_TOL = 1e-4, 1e-4, 5e-3
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
@@ -3671,6 +3713,204 @@ def ds_steps():
     return lambda n: tr.fit_scan(bx, bt, n_steps=n, steps_per_call=n)
 
 
+# ---------------------------------------------------------------------------
+# phase 4k, the multi-device layer and the QR eigensolver
+# ---------------------------------------------------------------------------
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def shard_cfg(gain=None, nfft: int = NFFT, device="cuda") -> dict:
+    """shard_smoke's full-width configuration, the eigenvalue rig's gain
+    before instability given (phase 4d's, the same rig from SEED)."""
+    return {**shard_smoke.FULL, "nfft": nfft, "device": device,
+            "evs": {**shard_smoke.FULL["evs"], "gain": gain}}
+
+
+def report_families(out: dict, cfg: dict, card: str) -> dict:
+    """Hold the ranks' results to shard_smoke's gates (the launches too,
+    on the card), print each family's numbers, and return the launches
+    over the ranks by kernels-line row (K6's at the masked step's rows)."""
+    on_card = torch.device(cfg["device"]).type == "cuda"
+    ranks = out["two"] + out["four"]
+    totals = shard_smoke.check_families(ranks, cfg, on_card=on_card)
+    label = (f"{len(out['two'])} ranks sharing one card ({card})" if on_card
+             else f"{len(out['two'])} ranks on the CPU")
+
+    def line(name, rs, extra="", allclose=False):
+        ms = ", ".join(f"{r['ms']:.4f}" for r in rs if r.get("ms"))
+        ref = ", ".join(f"{r['ref_ms']:.4f}" for r in rs if r.get("ref_ms"))
+        gaps = (f"parameters {max(r['allclose_ratio'] for r in rs):.3g} "
+                f"x allclose({shard_smoke.RTOL:g}, {shard_smoke.ATOL:g})"
+                if allclose else
+                f"parameters {max(r['param_gap'] for r in rs):.3e} and "
+                f"first gradients {max(r['grad_gap'] for r in rs):.3e} of "
+                "the max")
+        print(f"  {name}: {len(rs[0]['losses'])} steps, losses "
+              f"{rs[0]['losses'][0]:.7g} -> {rs[0]['losses'][-1]:.7g}, "
+              f"loss {max(r['loss_rel'] for r in rs):.3e} from the "
+              f"unsharded step, {gaps}, across ranks "
+              f"{max(r['spread'] for r in rs):g}; blocks "
+              f"{[tuple(r['block']) for r in rs]}; a rank's launches a "
+              f"step {rs[0]['counts'][0]}{extra}"
+              + (f"; ms a step (CUDA events, {cfg['time_steps']} after "
+                 f"{cfg['warm']}, {label}): sharded {ms}, unsharded {ref}"
+                 if ms else ""))
+
+    two = out["two"]
+    line("make_bins_sharded_fused_step (K1)",
+         [r["colorless"]["fused"] for r in two])
+    fwd = [r["colorless"]["forward"] for r in two]
+    print(f"  bin_sharded_forward ('pallas', K2 {fwd[0]['counts']} a rank): "
+          f"{max(f['rel'] for f in fwd):.3e} of the max from the unsharded "
+          f"forward; shard_spectrum's blocks equal: "
+          f"{all(f['spectrum_equal'] for f in fwd)}"
+          + (f"; ms a call: sharded {fwd[0]['ms']:.4f}, unsharded "
+             f"{fwd[0]['ref_ms']:.4f}" if fwd[0].get("ms") else ""))
+    line(f"make_dp_train_step (batch {cfg['dp_batch']}, 'ge')",
+         [r["colorless"]["dp"] for r in two],
+         f"; a ragged batch: {two[0]['colorless']['dp']['ragged']!r}",
+         allclose=True)
+    line("make_bins_sharded_attenuated_step (K5)",
+         [r["attenuated"] for r in two])
+    line(f"make_bins_sharded_aa_taps_step (K9 'high', lr "
+         f"{cfg['aa_lr']:g})", [r["aa_taps"] for r in two])
+    evs = [r["evs"] for r in two]
+    line(f"make_bins_sharded_evs_step (K7, partitions "
+         f"{evs[0]['partitions']})", evs,
+         f"; .multi(3, 2): loss {max(e['multi']['loss_rel'] for e in evs):.3e}"
+         f" from the unsharded, launches {evs[0]['multi']['counts']}")
+    line(f"make_masked_sharded_sfdn_step ({cfg['sfdn']['n_samples']} bins, "
+         f"'{cfg['sfdn']['solve_method']}')", [r["masked"] for r in two],
+         allclose=True)
+    ens = [r["ensemble"] for r in two]
+    e0 = np.asarray(ens[0]["losses"])
+    print(f"  MultiSeedEnsemble ({cfg['ens']['n_seeds']} seeds on a "
+          f"{len(two)}-rank 'seed' mesh, vmap over 'ge', "
+          f"{cfg['ens']['steps']} steps, lr {cfg['ens']['lr']:g}): mean loss "
+          f"{e0[0].mean():.6g} -> {e0[-1].mean():.6g}, members "
+          f"{max(max(e['member_rel']) for e in ens):.3e} (losses) and "
+          f"{max(max(e['member_gap']) for e in ens):.3e} (parameters) from "
+          f"their single runs, best seed {ens[0]['best_index']}; fit "
+          f"{max(e['fit_seconds'] for e in ens):.2f} s")
+    line(f"make_seed_bins_sharded_fused_step (K1, 2 x "
+         f"{len(out['four']) // 2} seed x bins mesh)",
+         [r["seed_bins"] for r in out["four"]])
+    print(f"  groups: {out['two_seconds']:.1f} s ({len(two)} ranks) and "
+          f"{out['four_seconds']:.1f} s ({len(out['four'])} ranks), start-up "
+          "included; launches over the ranks: " + str(totals))
+    rows = {name: dense_row(name, "P") for name in K6}
+    return {rows.get(k, k): v for k, v in totals.items()}
+
+
+def match_sets(a, b) -> float:
+    """Greedy max abs distance between the eigenvalue sets of each row,
+    over the row's largest |b| (tests/test_functional.py's _match_sets)."""
+    a = np.asarray(a).reshape(-1, np.shape(a)[-1])
+    b = np.asarray(b).reshape(-1, np.shape(b)[-1])
+    worst = 0.0
+    for ra, rb in zip(a, b):
+        pool = list(rb)
+        row = 0.0
+        for z in ra:
+            j = int(np.argmin(np.abs(np.array(pool) - z)))
+            row = max(row, abs(pool.pop(j) - z))
+        worst = max(worst, row / max(1e-30, np.abs(rb).max()))
+    return worst
+
+
+def call_ms(fn):
+    """``(fn(), ms)``: one call, by CUDA events on the card (the host
+    clock on the CPU)."""
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def qr_scenario(B: int, N: int, device="cuda", seed: int = SEED) -> dict:
+    """eigvals_qr and eigvals_qr_grad on B seeded N x N complex64
+    matrices against torch.linalg.eigvals (values as sets, and a
+    sorted-magnitude MSE's loss and gradient), each call timed once."""
+    rng = np.random.default_rng(seed)
+    A = torch.tensor((rng.normal(size=(B, N, N)) + 1j * rng.normal(
+        size=(B, N, N))).astype(np.complex64), device=device)
+    t = torch.tensor(rng.uniform(size=(B, N)).astype(np.float32),
+                     device=device)
+
+    def value_and_grad(eig):
+        X = A.clone().requires_grad_()
+        m = torch.sort(torch.abs(eig(X)), dim=-1).values
+        loss = torch.mean((m - t) ** 2)
+        loss.backward()
+        return loss.detach(), X.grad
+
+    z, qr_ms = call_ms(lambda: eigvals_qr(A))
+    zl, lib_ms = call_ms(lambda: torch.linalg.eigvals(A))
+    (lq, gq), qr_grad_ms = call_ms(lambda: value_and_grad(eigvals_qr_grad))
+    (ll, gl), lib_grad_ms = call_ms(
+        lambda: value_and_grad(torch.linalg.eigvals))
+    return dict(set_err=match_sets(z.cpu().numpy(), zl.cpu().numpy()),
+                loss_rel=float((lq - ll).abs() / ll.abs()),
+                grad_rel=float((gq - gl).abs().max() / gl.abs().max()),
+                qr_ms=qr_ms, lib_ms=lib_ms, qr_grad_ms=qr_grad_ms,
+                lib_grad_ms=lib_grad_ms)
+
+
+def phase_multi_device(card: str, aa) -> dict:
+    """The multi-device layer at full width (shard_smoke's families on two
+    and four gloo ranks sharing the card) and the QR eigensolver.  Returns
+    the ranks' launches by kernels-line row."""
+    print(f"phase 4k the multi-device layer (nfft={NFFT}): each sharded "
+          "step in lockstep with its unsharded step, gloo ranks on cuda:0; "
+          "the QR eigensolver against torch.linalg.eigvals")
+    mode = compute_mode()
+    print(f"  compute mode: {mode}")
+    check(not mode.startswith("Exclusive"), f"the card's compute mode is "
+          f"{mode}: it cannot hold two ranks, and phase 4k needs them")
+    gain = float(aa.G.param[0])
+    SHARD_OUT.parent.mkdir(parents=True, exist_ok=True)
+    SHARD_OUT.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "flamo_tpu_torch.scripts.shard_smoke",
+           "--gain", repr(gain), "--timeout", str(SHARD_TIMEOUT),
+           "--collective-timeout", str(SHARD_COLLECTIVE), "--out",
+           str(SHARD_OUT)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True,
+                       timeout=2 * SHARD_TIMEOUT + 120)
+    check(r.returncode == 0, f"the ranks failed (exit {r.returncode}):\n"
+          f"{r.stdout[-4000:]}\n{r.stderr[-12000:]}")
+    print(f"  the families' child process: {time.perf_counter() - t0:.1f} s")
+    launches = report_families(json.loads(SHARD_OUT.read_text()),
+                               shard_cfg(gain), card)
+    for B, N in QR_SHAPES:
+        q = qr_scenario(B, N)
+        print(f"  eigvals_qr ({B} x {N} x {N} complex64): {q['set_err']:.3e} "
+              f"of the max from torch.linalg.eigvals as sets (tol "
+              f"{QR_SET_TOL:g}); sorted-magnitude MSE through "
+              f"eigvals_qr_grad: loss {q['loss_rel']:.3e} (tol "
+              f"{QR_LOSS_TOL:g}), gradient {q['grad_rel']:.3e} of the max "
+              f"(tol {QR_GRAD_TOL:g}); ms a call (CUDA events, one call) on "
+              f"{card}: eigvals_qr {q['qr_ms']:.1f}, torch.linalg.eigvals "
+              f"{q['lib_ms']:.1f}; loss and gradient through "
+              f"eigvals_qr_grad {q['qr_grad_ms']:.1f}, through "
+              f"torch.linalg.eigvals {q['lib_grad_ms']:.1f}")
+        check(q["set_err"] < QR_SET_TOL and q["loss_rel"] < QR_LOSS_TOL
+              and q["grad_rel"] < QR_GRAD_TOL,
+              f"the QR eigensolver at {B} x {N} x {N}: {q}")
+    return launches
+
+
 def phase_timing(o, launches, errs, card, previous) -> list:
     print(f"phase 5 timing at M={M_MAIN}, N={N_MAIN} on {card}")
     D, U, b, c, B, X, t = (o[k] for k in "DUbcBXt")
@@ -4250,6 +4490,8 @@ def main() -> int:
     reverb_launches, _, ds_ms = phase_reverb(card)
     took["4j reverb"] = seconds_since_last()
     add_counts(launches, reverb_launches)
+    add_counts(launches, phase_multi_device(card, aa))
+    took["4k multi-device, QR eigensolver"] = seconds_since_last()
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)

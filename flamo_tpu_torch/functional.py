@@ -3,7 +3,7 @@
 orthogonal, Hadamard and rotation maps, the signal gallery, filter design
 and evaluation, the WGN reverb, the RIR onset, and the eigenvalue solvers
 (char-poly + Durand-Kerner, whose root iteration is kernel K7 on the
-card)."""
+card, and the Hessenberg + shifted-QR solver of ``ops.qr_eig``)."""
 
 from __future__ import annotations
 
@@ -591,10 +591,17 @@ def WGN_reverb(matrix_size: tuple = (1, 1), t60: float = 1.0,
 # ----------------------------------------------------------------------
 # eigenvalues
 # ----------------------------------------------------------------------
+# the Hessenberg + shifted-QR solver of the JAX package's callback-less
+# backends, beside torch.linalg.eigvals (which CUDA has for any N)
+from flamo_tpu_torch.ops.qr_eig import (  # noqa: E402
+    EIG_QR_MAX_N, eigvals_qr, eigvals_qr_grad)
+
+
 def get_eigenvalues(x):
     """Eigenvalues of (..., N, N) matrices for analysis, without a
     gradient: ``torch.linalg.eigvals`` (the JAX package's host-callback
-    LAPACK route)."""
+    LAPACK route).  The JAX package takes :func:`eigvals_qr` only on
+    backends without host callbacks; CUDA has a general eig."""
     with torch.no_grad():
         return torch.linalg.eigvals(x)
 

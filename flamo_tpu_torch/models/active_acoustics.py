@@ -123,6 +123,11 @@ class ActiveAcoustics:
     ``F_MM`` whose forward on diag-embedded unit impulses gives the loop
     matrix per bin.
 
+    The general gain G starts at the gain before instability, as in the
+    reference; ``gain`` (linear) sets it instead and skips that
+    analysis (an eigenvalue solve at every bin, ~17 s at nfft = 96000 on
+    the H100), for a rig whose GBI is already known.
+
     ``F_MM`` shares ``U``, ``R`` and ``G`` with this object, so a setter
     or a training step that changes them in place changes the loop; the
     frozen rooms enter as their cached responses (``cache_room=True``),
@@ -136,7 +141,7 @@ class ActiveAcoustics:
                  room_irs: dict | None = None, rir_length: int | None = None,
                  room_t60: float = 0.5, cache_room: bool = True,
                  solve_method: str = "ge", dtype: torch.dtype = torch.float32,
-                 generator=None, device=None):
+                 generator=None, device=None, gain=None):
         self.fs, self.nfft = fs, nfft
         self.n_S, self.n_M, self.n_L, self.n_A = n_S, n_M, n_L, n_A
         self.alias_decay_db = alias_decay_db
@@ -173,7 +178,10 @@ class ActiveAcoustics:
                                     **common).assign_value(wgn)
         self._cached = {}
         self._rebuild_F_MM()
-        self.set_G_to_GBI()
+        if gain is None:
+            self.set_G_to_GBI()
+        else:
+            self.set_G(gain)
 
     # ------------------------------------------------------------------
     def _room(self, name: str):

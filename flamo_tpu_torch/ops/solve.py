@@ -75,27 +75,52 @@ def _outer_cotangent(B_bar, Y, vector_rhs: bool):
     return -torch.einsum("...ik,...jk->...ij", B_bar, Y)
 
 
+def _conj(x: torch.Tensor) -> torch.Tensor:
+    """``conj_physical``, in the calls that ``torch.func.vmap`` batches
+    (it has no batching rule for ``conj_physical``)."""
+    return torch.conj(x).resolve_conj()
+
+
 class _GaussSolve(torch.autograd.Function):
+    # batched by torch.func.vmap (the multi-seed ensemble) through the
+    # generated rule: the forward and backward are plain tensor code
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, A, B, pivot):
-        Y = _gauss_solve_raw(A, B, pivot)
-        ctx.save_for_backward(A, Y)
+    def forward(A, B, pivot):
+        return _gauss_solve_raw(A, B, pivot)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A, _, pivot = inputs
+        ctx.save_for_backward(A, output)
         ctx.pivot = pivot
-        return Y
 
     @staticmethod
     def backward(ctx, Y_bar):
         A, Y = ctx.saved_tensors
-        B_bar = _gauss_solve_raw(A.transpose(-1, -2), torch.conj_physical(Y_bar),
+        B_bar = _gauss_solve_raw(A.transpose(-1, -2), _conj(Y_bar),
                                  ctx.pivot)
         A_bar = _outer_cotangent(B_bar, Y, Y.ndim == A.ndim - 1)
-        return torch.conj_physical(A_bar), torch.conj_physical(B_bar), None
+        return _conj(A_bar), _conj(B_bar), None
 
 
 def gauss_solve(A: torch.Tensor, B: torch.Tensor,
                 pivot: bool = True) -> torch.Tensor:
     """:func:`_gauss_solve_raw` with the closed-form solve gradient."""
     return _GaussSolve.apply(A, B, pivot)
+
+
+def gauss_solve_loop(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Pivoted solve for any N with the closed-form gradient: the
+    counterpart of the JAX package's ``gauss_solve_loop``, its rolled
+    variant for N > 32.  That variant exists because XLA compiles the
+    unrolled elimination in O(N^2) statements; PyTorch runs eagerly, so
+    the port keeps one elimination (:func:`_gauss_solve_raw`, the same
+    pivot choice, first maximum on ties) and this is
+    :func:`gauss_solve` with ``pivot=True``.  Its backward solves with
+    A^T (:class:`_GaussSolve`), never through the elimination."""
+    return _GaussSolve.apply(A, B, True)
 
 
 def _ge_nopivot_factor(A, B):

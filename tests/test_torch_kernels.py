@@ -299,7 +299,10 @@ def test_import_loads_no_jax():
             "flamo_tpu_torch.models.dispatch, flamo_tpu_torch.examples, "
             "flamo_tpu_torch.examples.e8_colorless_fdn, "
             "flamo_tpu_torch.examples.e8_colorless_sfdn, "
-            "flamo_tpu_torch.examples.e8_active_acoustics; "
+            "flamo_tpu_torch.examples.e8_active_acoustics, "
+            "flamo_tpu_torch.ops.qr_eig, flamo_tpu_torch.parallel, "
+            "flamo_tpu_torch.parallel.launch, "
+            "flamo_tpu_torch.scripts.shard_smoke; "
             "bad = [m for m in sys.modules if m in ('jax', 'flamo_tpu') or "
             "m.startswith(('jax.', 'flamo_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -323,7 +326,11 @@ def test_sources_import_no_jax():
                 "models/dispatch.py", "examples/_common.py",
                 "examples/e8_colorless_fdn.py",
                 "examples/e8_colorless_sfdn.py",
-                "examples/e8_active_acoustics.py"):
+                "examples/e8_active_acoustics.py", "ops/qr_eig.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/dp.py", "parallel/ensemble.py",
+                "parallel/fused.py", "parallel/launch.py",
+                "scripts/shard_smoke.py"):
         assert port / new in files, new
     for f in files:
         assert not pattern.search(f.read_text()), f
