@@ -3,7 +3,8 @@
 paths, its active-acoustics path, its phase-2 micro-benchmark, its
 Trainer path, its e8_fdn example path, its filter zoo, its accurate
 GEQ, velvet-noise and tutorial paths, its reverb domain, its
-multi-device layer and its QR eigensolver on one CUDA card.
+multi-device layer, its QR eigensolver and its solves past 16 channels
+on one CUDA card.
 
 Run from the root of the repository:
 
@@ -217,6 +218,22 @@ Phases, in order; any failure raises and exits non-zero without a result:
    16 and 16 x 64 x 64 complex64 against torch.linalg.eigvals (sets 1e-4;
    a sorted-magnitude MSE's loss 1e-4 and gradient 5e-3 of the max), each
    call's ms printed beside the library's;
+4l. K1, K2 and K6 past 16 channels (flamo_tpu_torch/csrc/fdn_loop.cu, one
+   warp a bin, N at run time): each looped kernel against its plain
+   version at M = 48001 for N = 17, 32 and 64 (K2 and K6 both ways, K1's
+   four variants; K2 also on k2_systems, pivoting at every step, tied and
+   cyclic, the tied systems whose elimination leaves a diagonal equal bit
+   for bit), and against the unrolled kernels at N = 16 on the same
+   operands (that library built on a thread beside phases 1-4k), the gaps
+   printed; HomogeneousFDN at 32 and 64 channels (nfft=96000, delays
+   drawn from SEED in 20-50 ms) on 'pallas' (K2 looped) against 'ge': |H|
+   1e-5 of the max, then LOOP_STEPS Adam steps of mse(model(impulse), a
+   decaying noise IR) in lockstep (losses 1e-5, first gradients 1e-4);
+   a 32-channel colorless FDN: colorless_fit (K1 looped) against its
+   graph loss on 'ge' (1e-4), and the Trainer's gate taking
+   colorless_fused_step; a 32-channel loop whose feedforward is
+   Series(parallelDelay, Matrix) on 'pallas' (K6 looped both ways)
+   against 'ge' in lockstep; every launch counted exactly;
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
@@ -236,6 +253,11 @@ Phases, in order; any failure raises and exits non-zero without a result:
    previous kernel; K10's four variants likewise, beside the previous
    library's kernels and on one bin, with each K10 kernel's registers and
    local (spill) bytes read from the card;
+5l. each looped kernel's device and call ms at M = 48001, its plain
+   version's (CUDA events), torch.linalg.solve's on the same systems (K2,
+   K6) and its bound, at 32 and 64 channels (K1's four variants too);
+   after phase 5, whose traces came back one launch short once 10-30 ms
+   kernels had been traced;
 6. torch.profiler traces of a few training steps of each path (and of a
    few fused responses): the device's busy and idle share and the
    kernels that take its time (for the attenuated graph step and the
@@ -286,7 +308,13 @@ rank and a lockstep step (K6 once each way), K2 once a rank for the
 sharded forward and K7 twice a rank for .multi; K3f and K3b in
 phase 3's timed fused-tf steps (once each per step) and K3f also in its
 timed fused responses (once per call); the K10 variants in phase 4e's
-bench_phase2_micro.run (151 calls each).  ``trace_retries``
+bench_phase2_micro.run (151 calls each); the looped kernels in phase 4l's
+paths, a row for each channel count (``<kernel>@N32``, ``@N64``): K2
+looped once for each HomogeneousFDN's response and once each way an Adam
+step, K1 looped once a colorless_fit step, once in the Trainer's gate and
+once a fit_scan step, K6 looped once each way a step of the dense loop
+(K6's and K1's times at 64 channels, where no path runs them, under
+``at_n64``).  ``trace_retries``
 counts a row's profiler traces that were taken again because they held
 none of its kernel.
 
@@ -304,6 +332,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -316,6 +345,7 @@ from flamo_tpu_torch.auxiliary.reverb import (HomogeneousFDN,
                                               coprime_delay_lengths,
                                               parallelFDNAccurateGEQ)
 from flamo_tpu_torch.convert import jax_named_tensors, load_jax_scattering
+from flamo_tpu_torch.core import masked_optimizer
 from flamo_tpu_torch.examples import (e4_recursion_nn, e6_anti_aliasing,
                                       e7_biquad, e7_biquad_nn, e7_geq,
                                       e7_peq, e7_svf, e8_fdn, e9_loss_profile,
@@ -478,6 +508,21 @@ SHARD_TIMEOUT, SHARD_COLLECTIVE = 300.0, 60.0
 SHARD_OUT = Path("build/shard_smoke.json")
 QR_SHAPES = ((1600, 16), (16, 64))
 QR_SET_TOL, QR_LOSS_TOL, QR_GRAD_TOL = 1e-4, 1e-4, 5e-3
+# phase 4l, K1, K2 and K6 past 16 channels (fdn_loop.cu): the looped
+# kernels against their plain versions at M_MAIN bins for each of LOOP_NS
+# channels (VAL_TOL, GRAD_TOL) and against the unrolled kernels at 16;
+# HomogeneousFDN at LOOP_HFDN_NS channels, a colorless FDN and a loop with
+# a non-diagonal feedforward (K6) at LOOP_N, each LOOP_STEPS Adam steps at
+# LOOP_LR in lockstep with the same model on 'ge' (the plain elimination
+# on the card): losses LOOP_LOSS_TOL relative (float32 rounding of two
+# pivoted eliminations), colorless_fit's against its graph loss
+# FUSED_LOSS_TOL (as phase 3), first gradients GRAD_TOL of the max, |H|
+# HFDN_TOL of the max
+LOOP_NS = (17, 32, 64)
+LOOP_HFDN_NS = (32, 64)
+LOOP_N = 32
+LOOP_STEPS, LOOP_LR = 3, 1e-3
+LOOP_LOSS_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
@@ -503,6 +548,9 @@ SOURCES = {
     "aa_taps_tf_mse_tc": "flamo_tpu_torch/csrc/aa_kernels.cu",
     **{f"phase2_{v}": "flamo_tpu_torch/csrc/phase2_micro.cu"
        for v in pm.VARIANTS},
+    **{name: "flamo_tpu_torch/csrc/fdn_loop.cu" for name in (
+        "fdn_solve_loop", "fdn_solve_loop_transposed", "dense_solve_loop",
+        "dense_solve_loop_transposed", "fdn_tf_mse_loop")},
 }
 REPLACES = {
     "fdn_tf_mse": "flamo_tpu/ops/pallas_solve.py:719",
@@ -523,6 +571,12 @@ REPLACES = {
     # the micro-benchmark's one pallas_call, one variant of _kernel each
     **{f"phase2_{v}": "scripts/bench_phase2_micro.py:149"
        for v in pm.VARIANTS},
+    # the looped kernels replace the same pallas_calls past 16 channels
+    "fdn_solve_loop": "flamo_tpu/ops/pallas_solve.py:277",
+    "fdn_solve_loop_transposed": "flamo_tpu/ops/pallas_solve.py:277",
+    "dense_solve_loop": "flamo_tpu/ops/pallas_solve.py:161",
+    "dense_solve_loop_transposed": "flamo_tpu/ops/pallas_solve.py:161",
+    "fdn_tf_mse_loop": "flamo_tpu/ops/pallas_solve.py:719",
 }
 # kernel vs plain version on the same inputs.  Per-bin values (tf, y, the
 # loss, H) differ only by rounding (FMA contraction, division order, the
@@ -1134,14 +1188,23 @@ def phase_build(ptxas: bool = False) -> str:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    targets = (*(("fdn_kernels", n) for n in K3_NS), ("sos_kernels", N_MAIN),
+    targets = (*(("fdn_kernels", n) for n in K3_NS),
+               ("fdn_loop", 1), ("sos_kernels", N_MAIN),
                ("sos_cascade", 1), ("aa_kernels", AA_N), ("eig_kernels", AA_N),
                ("eig_kernels", 8), ("phase2_micro", 1))
     log = PTXAS_LOG if ptxas else None
     t0 = time.perf_counter()
-    previous_build = Previous.start(ptxas)
-    seconds = cuda_build.build(targets, ptxas_log=log)
-    previous = Previous(previous_build, log)
+    # the unrolled kernels at 16 channels, which phase 4l holds the looped
+    # ones to, compile for minutes: beside phases 1-4k, on one core
+    unrolled16 = BackgroundBuild([("fdn_kernels", fk.MAX_N)])
+    unrolled16.start()
+    try:
+        previous_build = Previous.start(ptxas)
+        seconds = cuda_build.build(targets, ptxas_log=log)
+        previous = Previous(previous_build, log)
+    except BaseException:
+        unrolled16.join()
+        raise
     seconds[("previous controls", N_MAIN)] = time.perf_counter() - t0
     names = [cuda_build.library_path(n, lib).name for lib, n in targets]
     for lib, n in targets:
@@ -1159,7 +1222,28 @@ def phase_build(ptxas: bool = False) -> str:
                       for (lib, n), s in seconds.items()))
     if ptxas:
         print_ptxas(log.read_text())
-    return card, previous
+    return card, previous, unrolled16
+
+
+class BackgroundBuild(threading.Thread):
+    """cuda_build.build of ``targets`` on a thread; ``wait()`` joins it and
+    raises its failure or returns its seconds."""
+
+    def __init__(self, targets):
+        super().__init__(daemon=True)
+        self.targets, self.seconds, self.error = targets, None, None
+
+    def run(self):
+        try:
+            self.seconds = cuda_build.build(self.targets)
+        except BaseException as e:  # raised again by wait()
+            self.error = e
+
+    def wait(self) -> dict:
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.seconds
 
 
 def print_ptxas(report: str) -> None:
@@ -1180,7 +1264,8 @@ def print_ptxas(report: str) -> None:
         which = name and re.search(
             r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_fwd|fdn_tf_bwd|"
             r"dense_solve|"
-            r"fdn_solve|aa_taps_tf_mse_tc|aa_taps_tf_mse|sos_cascade_fwd|"
+            r"fdn_solve|ge_loop_solve|ge_loop_dense|ge_loop_tf_mse|"
+            r"aa_taps_tf_mse_tc|aa_taps_tf_mse|sos_cascade_fwd|"
             r"sos_cascade_bwd|phase2_full|phase2_ps|phase2_noreduce|"
             r"phase2_lanered)_kernel", name)
         if not (used and which):
@@ -1197,8 +1282,10 @@ def print_ptxas(report: str) -> None:
             if targs != [str(N_MAIN), str(P_MAIN)]:
                 continue
         # a block's warps; K6's blocks are one warp, the previous ones
-        # four; K9's eight, the previous FP32 one's two
-        warps = {"dk_roots_kernel": 2,
+        # four; K9's eight, the previous FP32 one's two; the looped
+        # kernels' up to eight (fewer at large N: their shared memory)
+        warps = {"dk_roots_kernel": 2, "ge_loop_solve_kernel": 8,
+                 "ge_loop_dense_kernel": 8, "ge_loop_tf_mse_kernel": 8,
                  "dense_solve_kernel": 4 if tag else 1,
                  "aa_taps_tf_mse_kernel": 2 if tag else 8,
                  "aa_taps_tf_mse_tc_kernel": 8}.get(kernel, 4)
@@ -3911,6 +3998,451 @@ def phase_multi_device(card: str, aa) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4l, K1, K2 and K6 past 16 channels (fdn_loop.cu)
+# ---------------------------------------------------------------------------
+def loop_operands(M: int, N: int, seed: int = SEED, device="cuda") -> dict:
+    """Operands of the looped kernels at N channels: D of modulus 0.85 with
+    random phases, an orthogonal U, gains b and c, a rhs B, K1's X and t,
+    and well-conditioned dense systems A (I plus a normal matrix of norm
+    ~0.5) for K6."""
+    rng = np.random.default_rng(seed + N)
+
+    def cplx(shape):
+        return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+    host = dict(
+        D=0.85 * np.exp(1j * rng.uniform(0, 2 * np.pi, (M, N))),
+        U=np.linalg.qr(rng.normal(size=(N, N)))[0],
+        b=rng.normal(size=N), c=rng.normal(size=N), B=cplx((M, N)),
+        X=cplx(M), t=rng.uniform(size=M))
+    o = {k: torch.tensor(v.astype(np.complex64 if np.iscomplexobj(v)
+                                  else np.float32), device=device)
+         for k, v in host.items()}
+    o["A"] = (torch.eye(N, dtype=torch.complex64, device=device)
+              + torch.tensor(cplx((M, N, N)).astype(np.complex64),
+                             device=device) / (4 * np.sqrt(N)))
+    return o
+
+
+def loop_kernel_checks(N: int, M: int = M_MAIN, device="cuda") -> dict:
+    """K2 looped (both ways), K6 looped (both ways) and K1 looped (its four
+    variants) against their plain versions on loop_operands (values
+    VAL_TOL, cotangents GRAD_TOL of the max), and K2 looped on k2_systems:
+    pivoting at every step, tied pivots and the cycle at VAL_TOL; where the
+    eliminated system is diagonal (the tied lower forward and tied upper
+    transposed systems, exact), bit for bit, which only the first-maximal-
+    row pivot rule gives.  Returns the max abs error of each kernels-line
+    row's kernel and the tied systems' count."""
+    o = loop_operands(M, N, device=device)
+    D, U, b, c, B, X, t, A = (o[k] for k in "DUbcBXtA")
+    errs = {}
+    for tr in (False, True):
+        sfx = "_transposed" if tr else ""
+        errs[f"fdn_solve_loop{sfx}"] = compare(
+            f"K2 looped{sfx.replace('_', ' ')} N={N}",
+            fk.fdn_solve_loop_kernel(D, U, B, tr),
+            fk.fdn_solve_plain(D, U, B, tr), VAL_TOL)
+        errs[f"dense_solve_loop{sfx}"] = compare(
+            f"K6 looped{sfx.replace('_', ' ')} N={N}",
+            fk.dense_solve_loop_kernel(A, B, tr),
+            fk.dense_solve_plain(A, B, tr), VAL_TOL)
+    errs["fdn_tf_mse_loop"] = 0.0
+    for pivot, with_dbar in itertools.product((True, False), repeat=2):
+        got = fk.fdn_tf_mse_loop_kernel(D, U, b, c, X, t, with_dbar, pivot)
+        ref = fk.fdn_tf_mse_plain(D, U, b, c, X, t, with_dbar, pivot)
+        tag = f"K1 looped N={N} pivot={pivot} with_dbar={with_dbar}"
+        errs["fdn_tf_mse_loop"] = max(
+            errs["fdn_tf_mse_loop"],
+            compare(f"{tag} loss", got[0], ref[0], VAL_TOL),
+            *(compare(f"{tag} {name}", g, r, GRAD_TOL)
+              for name, g, r in zip(("D_bar", "U_bar", "b_bar", "c_bar"),
+                                    got[1:], ref[1:]) if r is not None))
+        check((got[1] is None) == (not with_dbar), f"{tag}: D_bar")
+    tied = 0
+    for tr in (False, True):
+        systems = k2_systems(np.random.default_rng(SEED + N + tr), M, N, tr)
+        for label, system in systems.items():
+            Ds, Us, Bs = k2_tensors(system, device)
+            y = fk.fdn_solve_loop_kernel(Ds, Us, Bs, tr)
+            ref = fk.fdn_solve_plain(Ds, Us, Bs, tr)
+            compare(f"K2 looped N={N} {label}{' transposed' if tr else ''}",
+                    y, ref, VAL_TOL)
+            if label == ("tied upper" if tr else "tied lower"):
+                check(torch.equal(y, ref), f"K2 looped N={N} {label}: the "
+                      "exact diagonal systems differ from the plain version "
+                      "in their bits (another pivot rule)")
+                tied += len(y)
+    return errs, tied
+
+
+def loop_versus_unrolled(M: int = M_MAIN, device="cuda") -> dict:
+    """At N = 16 both kernels run: the looped K2, K6 (both ways) and K1
+    (four variants) against the unrolled ones on the same operands, their
+    gaps by kernel (values VAL_TOL, cotangents GRAD_TOL of the max)."""
+    N = fk.MAX_N
+    o = loop_operands(M, N, device=device)
+    D, U, b, c, B, X, t, A = (o[k] for k in "DUbcBXtA")
+    gaps = {}
+    for tr in (False, True):
+        tag = " transposed" if tr else ""
+        gaps[f"K2{tag}"] = compare(
+            f"K2 looped against unrolled N={N}{tag}",
+            fk.fdn_solve_loop_kernel(D, U, B, tr),
+            fk.fdn_solve_kernel(D, U, B, tr), VAL_TOL)
+        gaps[f"K6{tag}"] = compare(
+            f"K6 looped against unrolled N={N}{tag}",
+            fk.dense_solve_loop_kernel(A, B, tr),
+            fk.dense_solve_kernel(A, B, tr), VAL_TOL)
+    for pivot, with_dbar in itertools.product((True, False), repeat=2):
+        got = fk.fdn_tf_mse_loop_kernel(D, U, b, c, X, t, with_dbar, pivot)
+        ref = fk.fdn_tf_mse_kernel(D, U, b, c, X, t, with_dbar, pivot)
+        tag = f"K1 pivot={pivot} with_dbar={with_dbar}"
+        gaps[tag] = max(
+            compare(f"{tag} looped against unrolled N={N} loss", got[0],
+                    ref[0], VAL_TOL),
+            *(compare(f"{tag} looped against unrolled N={N} {name}", g, r,
+                      GRAD_TOL)
+              for name, g, r in zip(("D_bar", "U_bar", "b_bar", "c_bar"),
+                                    got[1:], ref[1:]) if r is not None))
+    return gaps
+
+
+def adam_lockstep(models: dict, loss_fn, steps: int, lr: float = LOOP_LR):
+    """``steps`` Adam steps of each model on ``loss_fn(model)`` (the 'pallas'
+    model's launches counted apart): the loss histories, the first
+    gradients and the 'pallas' model's launches."""
+    hist, grads, counts = {}, {}, {}
+    for method, model in models.items():
+        opt = masked_optimizer(model, lr=lr)
+        losses = []
+        reset_counts()
+        for i in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(model)
+            loss.backward()
+            if i == 0:
+                grads[method] = {n: p.grad.detach().clone()
+                                 for n, p in model.named_parameters()
+                                 if p.requires_grad}
+            opt.step()
+            losses.append(loss.detach())
+        counts[method] = nonzero_counts()
+        hist[method] = torch.stack(losses).cpu().numpy()
+    return hist, grads, counts["pallas"]
+
+
+def check_lockstep(what: str, hist: dict, grads: dict, loss_tol: float):
+    """The 'pallas' losses within ``loss_tol`` (relative) of 'ge''s at
+    every step, each first gradient GRAD_TOL of its max, the losses
+    finite and falling.  Returns (loss gap, gradient gap)."""
+    rel = float(np.max(np.abs(hist["pallas"] - hist["ge"])
+                       / np.abs(hist["ge"])))
+    check(bool(np.isfinite(hist["pallas"]).all()) and rel < loss_tol,
+          f"{what}: losses {hist['pallas']} on 'pallas' against "
+          f"{hist['ge']} on 'ge', rel {rel:.3e} (tol {loss_tol:g})")
+    check(hist["pallas"][-1] < hist["pallas"][0],
+          f"{what}: the loss did not fall: {hist['pallas']}")
+    gerr = max(rel_err(grads["pallas"][k], g)[1]
+               for k, g in grads["ge"].items())
+    check(gerr < GRAD_TOL, f"{what}: first gradients {gerr:.3e} of the max "
+          f"apart (tol {GRAD_TOL:g})")
+    return rel, gerr
+
+
+def decaying_target(nfft: int, device) -> torch.Tensor:
+    """A seeded noise IR decaying over ~0.1 s: (1, nfft, 1)."""
+    rng = np.random.default_rng(SEED)
+    return torch.tensor((rng.normal(size=(1, nfft, 1))
+                         * np.exp(-np.arange(nfft) / 4800.0)[None, :, None])
+                        .astype(np.float32), device=device)
+
+
+def hfdn_loop_scenario(N: int, nfft: int = NFFT, device="cuda",
+                       steps: int = LOOP_STEPS) -> dict:
+    """HomogeneousFDNConfig(N) at nfft (its delays hfdn_delays(N)) on
+    'pallas' (K2 looped above 16 channels) and 'ge' from one seed: |H|
+    within HFDN_TOL of the max (K2 once), then ``steps`` Adam steps of
+    mse(model(impulse), a decaying noise IR) in lockstep (K2 and K2
+    transposed once each a step)."""
+    delays = hfdn_delays(N)
+    fdns = {m: HomogeneousFDN(HomogeneousFDNConfig(
+        N=N, nfft=nfft, delays=delays, device=device, solve_method=m),
+        generator=torch.Generator().manual_seed(SEED))
+        for m in ("ge", "pallas")}
+    check(all(torch.equal(a, b) for a, b in zip(
+        fdns["ge"].model.state_dict().values(),
+        fdns["pallas"].model.state_dict().values())),
+        f"HomogeneousFDN N={N}: the two builds of one seed differ")
+    with torch.no_grad():
+        H_ge = fdns["ge"].model.get_freq_response(identity=False).abs()
+        reset_counts()
+        H = fdns["pallas"].model.get_freq_response(identity=False).abs()
+    resp_counts = nonzero_counts()
+    check_counts(f"HomogeneousFDN N={N}'s response", resp_counts,
+                 {"fdn_solve_loop": 1})
+    _, err = rel_err(H, H_ge)
+    check(bool(torch.isfinite(H).all()) and err < HFDN_TOL,
+          f"HomogeneousFDN N={N}: |H| on 'pallas' {err:.3e} of the max from "
+          f"'ge' (tol {HFDN_TOL:g})")
+    x = torch.zeros((1, nfft, 1), device=device)
+    x[:, 0, :] = 1.0
+    target = decaying_target(nfft, device)
+    hist, grads, counts = adam_lockstep(
+        {m: f.model for m, f in fdns.items()},
+        lambda m: mse_loss()(m(x), target), steps)
+    check_counts(f"HomogeneousFDN N={N}: {steps} Adam steps", counts,
+                 {"fdn_solve_loop": steps,
+                  "fdn_solve_loop_transposed": steps})
+    rel, gerr = check_lockstep(f"HomogeneousFDN N={N}", hist, grads,
+                               LOOP_LOSS_TOL)
+    return dict(N=N, delays=delays, err=err, hist=hist, rel=rel,
+                grad_err=gerr, counts={"fdn_solve_loop": 1 + steps,
+                        "fdn_solve_loop_transposed": steps})
+
+
+def colorless_loop_scenario(N: int = LOOP_N, nfft: int = NFFT, device="cuda",
+                            steps: int = LOOP_STEPS) -> dict:
+    """A colorless FDN of N channels (build_colorless_fdn, delays
+    hfdn_delays(N)): ``steps`` colorless_fit steps (K1 looped, no pivot,
+    once a step) in lockstep with its graph loss on 'ge' (FUSED_LOSS_TOL,
+    as phase 3's first loss), then a Trainer whose fused gate takes
+    colorless_fused_step and fit_scan's 2 steps (K1 looped once in the
+    gate, once a step)."""
+    delays = hfdn_delays(N)
+
+    def build():
+        return build_colorless_fdn(nfft=nfft, delays=delays, device=device,
+                                   generator=torch.Generator().manual_seed(
+                                       SEED))
+
+    mk, mg = build(), build()
+    x, t = colorless_pair(mk)
+    reset_counts()
+    _, hist_k = colorless_fit(mk, n_steps=steps)
+    counts = nonzero_counts()
+    check_counts(f"colorless_fit N={N}", counts, {"fdn_tf_mse_loop": steps})
+    step, _ = colorless_train_step(mg)
+    hist_g = np.array([float(step(x, t)) for _ in range(steps)])
+    rel = float(np.max(np.abs(hist_k - hist_g) / hist_g))
+    check(bool(np.isfinite(hist_k).all()) and rel < FUSED_LOSS_TOL
+          and hist_k[-1] < hist_k[0],
+          f"colorless N={N}: colorless_fit {hist_k} against the graph "
+          f"{hist_g}, rel {rel:.3e} (tol {FUSED_LOSS_TOL:g})")
+    mt = build()
+    reset_counts()
+    tr = gated_trainer(mt, x, t, "colorless_fused_step",
+                       mse=mse_loss(nfft=nfft),
+                       fused="auto" if device == "cuda" else "force")
+    hist_tr = tr.fit_scan(x, t, n_steps=2, steps_per_call=2)
+    tr_counts = nonzero_counts()
+    check_counts(f"the Trainer's fused path N={N}", tr_counts,
+                 {"fdn_tf_mse_loop": 3})
+    check(bool(np.isfinite(hist_tr).all()) and abs(hist_tr[0] - hist_g[0])
+          / hist_g[0] < FUSED_LOSS_TOL, f"the Trainer N={N}: {hist_tr}")
+    return dict(N=N, delays=delays, hist=hist_k, hist_graph=hist_g, rel=rel,
+                trainer=hist_tr,
+                counts={"fdn_tf_mse_loop": steps + 3})
+
+
+def dense_loop_model(N: int, method: str, nfft: int = NFFT, device="cuda"):
+    """Shell(FFT -> [Gain(N,1), Recursion(Series(parallelDelay, orthogonal
+    Matrix), orthogonal Matrix), Gain(1,N)] -> abs): a loop whose
+    feedforward is not diagonal, so 'pallas' solves the materialized
+    I - F B on K6 (looped above 16 channels).  Weights from SEED."""
+    g = torch.Generator().manual_seed(SEED)
+    common = dict(nfft=nfft, alias_decay_db=30.0, generator=g,
+                  device=device)
+    delays = hfdn_delays(N)
+    dl = dsp.parallelDelay(size=(N,), max_len=int(max(delays)), isint=True,
+                           requires_grad=False, **common)
+    dl.assign_value(dl.sample2s(torch.tensor(delays, dtype=torch.float32)))
+    ff = system.Series({"delays": dl, "mixing": dsp.Matrix(
+        size=(N, N), matrix_type="orthogonal", requires_grad=True,
+        **common)})
+    loop = system.Recursion(fF=ff, fB=dsp.Matrix(
+        size=(N, N), matrix_type="orthogonal", requires_grad=True, **common),
+        solve_method=method)
+    core = system.Series({
+        "input_gain": dsp.Gain(size=(N, 1), requires_grad=True, **common),
+        "feedback_loop": loop,
+        "output_gain": dsp.Gain(size=(1, N), requires_grad=True, **common)})
+    return system.Shell(core=core, input_layer=dsp.FFT(nfft),
+                        output_layer=dsp.Transform(torch.abs))
+
+
+def dense_loop_scenario(N: int = LOOP_N, nfft: int = NFFT, device="cuda",
+                        steps: int = LOOP_STEPS) -> dict:
+    """dense_loop_model on 'pallas' and 'ge': ``steps`` Adam steps of
+    mse(|H|, 1) in lockstep (K6 and K6 transposed once each a step)."""
+    models = {m: dense_loop_model(N, m, nfft, device)
+              for m in ("ge", "pallas")}
+    x, t = colorless_pair(models["ge"])
+    hist, grads, counts = adam_lockstep(
+        models, lambda m: mse_loss()(m(x), t), steps)
+    check_counts(f"the dense loop N={N}: {steps} Adam steps", counts,
+                 {"dense_solve_loop": steps,
+                  "dense_solve_loop_transposed": steps})
+    rel, gerr = check_lockstep(f"the dense loop N={N}", hist, grads,
+                               LOOP_LOSS_TOL)
+    return dict(N=N, hist=hist, rel=rel, grad_err=gerr, counts=counts)
+
+
+def loop_row(name: str, N: int) -> str:
+    return f"{name}@N{N}"
+
+
+def loop_timing(card: str, launches: dict, errs: dict) -> list:
+    """The looped kernels' kernels-line rows at M_MAIN bins: K2 both ways
+    at each of LOOP_HFDN_NS, K6 both ways and K1 (the no-pivot variant
+    colorless_fit runs) at LOOP_N, each with its device and call ms, its
+    plain version's, torch.linalg.solve's on the same systems (K2, K6)
+    and its bound; K6's and K1's times at 64 channels (K1's four
+    variants at both) in ``at_n64``."""
+    rows = []
+    for N in (*LOOP_HFDN_NS, *((64,) if 64 not in LOOP_HFDN_NS else ())):
+        o = loop_operands(M_MAIN, N)
+        D, U, b, c, B, X, t, A = (o[k] for k in "DUbcBXtA")
+        A_loop = fk._loop_matrix(D, U)
+        At_loop = A_loop.transpose(1, 2)
+        for tr in (False, True):
+            name = "fdn_solve_loop" + ("_transposed" if tr else "")
+            rows.append(timing_row(
+                name, loop_row(name, N), M_MAIN,
+                lambda tr=tr: fk.fdn_solve_loop_kernel(D, U, B, tr),
+                lambda tr=tr: fk.fdn_solve_plain(D, U, B, tr),
+                lambda Al=(At_loop if tr else A_loop): torch.linalg.solve(
+                    Al, B[..., None]),
+                {}, launches, errs, N=N, plain_reps=1, lib_reps=5,
+                kernel="ge_loop_solve_kernel", work="fdn_solve",
+                plain_events=True))
+        dense, k1 = [], []
+        for name in ("dense_solve_loop", "dense_solve_loop_transposed",
+                     "fdn_tf_mse_loop"):  # not on the path at 64 channels
+            launches.setdefault(loop_row(name, N), 0)
+        for tr in (False, True):
+            name = "dense_solve_loop" + ("_transposed" if tr else "")
+            dense.append(timing_row(
+                name, loop_row(name, N), M_MAIN,
+                lambda tr=tr: fk.dense_solve_loop_kernel(A, B, tr),
+                lambda tr=tr: fk.dense_solve_plain(A, B, tr),
+                lambda At=(A.transpose(1, 2) if tr else A):
+                torch.linalg.solve(At, B[..., None]),
+                {}, launches, errs, N=N, plain_reps=1, lib_reps=5,
+                kernel="ge_loop_dense_kernel", work="dense_solve",
+                plain_events=True))
+        k1.append(timing_row(
+            "fdn_tf_mse_loop", loop_row("fdn_tf_mse_loop", N), M_MAIN,
+            lambda: fk.fdn_tf_mse_loop_kernel(D, U, b, c, X, t, False, False),
+            lambda: fk.fdn_tf_mse_plain(D, U, b, c, X, t, False, False),
+            None, dict(pivot=False, with_dbar=False), launches, errs, N=N,
+            plain_reps=1, kernel="ge_loop_tf_mse_kernel", work="fdn_tf_mse",
+            plain_events=True))
+        for pivot, with_dbar in itertools.product((True, False), repeat=2):
+            ms = device_ms(lambda: fk.fdn_tf_mse_loop_kernel(
+                D, U, b, c, X, t, with_dbar, pivot), "ge_loop_tf_mse_kernel")
+            bms, bby = bound("fdn_tf_mse", M_MAIN, N, pivot=pivot,
+                             with_dbar=with_dbar)
+            k1[0].setdefault("variants_ms", {})[
+                f"pivot={pivot} with_dbar={with_dbar}"] = ms
+            print(f"  fdn_tf_mse_loop N={N} pivot={pivot} with_dbar="
+                  f"{with_dbar}: kernel {ms:.6f} ms, bound {bms:.6f} ms "
+                  f"({bby}), {ms / bms:.1f}x")
+        if N == LOOP_N:
+            rows += dense + k1
+        else:
+            for r in dense + k1:
+                by_name = {x["name"].split("@")[0]: x for x in rows
+                           if x["name"].endswith(f"@N{LOOP_N}")}
+                base = by_name[r["name"].split("@")[0]]
+                base["at_n64"] = {k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "call_ms", "max_abs_err", *(("variants_ms",) if
+                                                "variants_ms" in r else ()))}
+        del o, D, U, b, c, B, X, t, A, A_loop, At_loop
+        torch.cuda.empty_cache()
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.6f} ms against its bound "
+              f"{r['bound_ms']:.6f} ({r['bound_by']}): "
+              f"{r['ms'] / r['bound_ms']:.1f}x; library "
+              + ("n/a" if r["library_ms"] is None else
+                 f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.2f}"
+                 "x the kernel)")
+              + f"; launches {r['launches']} on {card}")
+    return rows
+
+
+def loop_paths(nfft: int = NFFT, device="cuda", ns=LOOP_HFDN_NS,
+               n: int = LOOP_N) -> dict:
+    """Phase 4l's paths: HomogeneousFDN at each of ``ns`` channels, the
+    colorless FDN and the dense loop at ``n``."""
+    return dict(hfdn=[hfdn_loop_scenario(N, nfft, device) for N in ns],
+                colorless=colorless_loop_scenario(n, nfft, device),
+                dense=dense_loop_scenario(n, nfft, device))
+
+
+def loop_report(paths: dict) -> dict:
+    """Print phase 4l's paths; returns their launches by kernels-line row
+    (the kernel at the path's channel count)."""
+    launches = {}
+
+    def add(r):
+        for k, v in r["counts"].items():
+            launches[loop_row(k, r["N"])] = v
+
+    for h in paths["hfdn"]:
+        add(h)
+        print(f"  HomogeneousFDN N={h['N']} (delays {min(h['delays'])}.."
+              f"{max(h['delays'])}): |H| pallas against ge {h['err']:.3e} of "
+              f"the max (tol {HFDN_TOL:g}); {len(h['hist']['ge'])} Adam steps "
+              f"{h['hist']['pallas']} against ge {h['hist']['ge']}, rel "
+              f"{h['rel']:.3e} (tol {LOOP_LOSS_TOL:g}), first gradients "
+              f"{h['grad_err']:.3e} of the max; launches {h['counts']}")
+    col = paths["colorless"]
+    add(col)
+    print(f"  colorless FDN N={col['N']}: colorless_fit {col['hist']} "
+          f"against the graph on ge {col['hist_graph']}, rel {col['rel']:.3e} "
+          f"(tol {FUSED_LOSS_TOL:g}); the Trainer's gate took "
+          f"colorless_fused_step, fit_scan {col['trainer']}; launches "
+          f"{col['counts']}")
+    den = paths["dense"]
+    add(den)
+    print(f"  dense loop N={den['N']} (K6): {len(den['hist']['ge'])} Adam "
+          f"steps {den['hist']['pallas']} against ge {den['hist']['ge']}, rel "
+          f"{den['rel']:.3e} (tol {LOOP_LOSS_TOL:g}), first gradients "
+          f"{den['grad_err']:.3e}; launches {den['counts']}")
+    print(f"  launches in phase 4l: {launches}")
+    return launches
+
+
+def phase_loop(card: str, unrolled16: BackgroundBuild) -> tuple:
+    """K1, K2 and K6 past 16 channels: the looped kernels against their
+    plain versions at M_MAIN bins for each of LOOP_NS channels and
+    against the unrolled kernels at 16; HomogeneousFDN at LOOP_HFDN_NS
+    channels, the colorless FDN and the dense loop at LOOP_N, in lockstep
+    with 'ge', with exact launch counts.  Returns the launches and the
+    errors by kernels-line row, for loop_timing (run after phase 5: its
+    traces of 10-30 ms kernels came back one launch short, and so did
+    every trace after them in the same run)."""
+    print(f"phase 4l K1, K2 and K6 past 16 channels (fdn_loop.cu, one warp a "
+          f"bin; M={M_MAIN}, nfft={NFFT})")
+    errs = {}
+    for N in LOOP_NS:
+        e, tied = loop_kernel_checks(N)
+        errs.update({loop_row(k, N): v for k, v in e.items()})
+        print(f"  N={N}: the looped kernels held to their plain versions; "
+              f"{tied} exact tied systems equal bit for bit")
+    t0 = time.perf_counter()
+    built = unrolled16.wait()
+    print(f"  the unrolled library at N={fk.MAX_N}, built beside phases 1-4k:"
+          f" {max(built.values(), default=0.0):.1f} s of nvcc; phase 4l "
+          f"waited {time.perf_counter() - t0:.1f} s for it")
+    gaps = loop_versus_unrolled()
+    print("  looped against unrolled at N=16 (max abs): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in gaps.items()))
+    return loop_report(loop_paths()), errs
+
+
 def phase_timing(o, launches, errs, card, previous) -> list:
     print(f"phase 5 timing at M={M_MAIN}, N={N_MAIN} on {card}")
     D, U, b, c, B, X, t = (o[k] for k in "DUbcBXt")
@@ -4268,7 +4800,8 @@ def versus_previous(kern, previous, kernel: str) -> tuple[float, float]:
 
 def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
                N=N_MAIN, plain_reps=5, lib_reps=20,
-               lib_events=False, floor=None, previous=None) -> dict:
+               lib_events=False, floor=None, previous=None, kernel=None,
+               work=None, plain_events=False) -> dict:
     """The kernels-line row ``row`` of kernel ``name`` at M rows and N
     channels: device and call times of the kernel, its plain version and
     the library call (None when there is none), its bound, launches and
@@ -4279,9 +4812,13 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
     timed by CUDA events only, and ``library_ms`` is that call time:
     torch.linalg.eigvals on the card takes ~0.8 s a call, mostly off the
     device, and after a profiler trace of it later traces came back
-    empty or partial."""
+    empty or partial.  ``kernel`` names the device kernel the profiler
+    reads (default ``<name>_kernel``), ``work`` the function whose bound
+    kernel_work gives (default ``name``); with ``plain_events`` the plain
+    version is timed by CUDA events only (the looped kernels' plain
+    versions issue ~20,000 device operations a call at 64 channels)."""
     retries, timed_before = TRACE_RETRIES[0], len(EVENT_TIMED)
-    kernel = f"{name.removesuffix('_transposed')}_kernel"
+    kernel = kernel or f"{name.removesuffix('_transposed')}_kernel"
     if previous is None:
         ms, previous_ms = device_ms(kern, kernel), None
     else:
@@ -4289,16 +4826,17 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
     ms_by = ("cuda_events" if len(EVENT_TIMED) > timed_before
              else "profiler")
     floor_ms = None if floor is None else device_ms(floor, kernel)
-    plain_ms = device_ms(plain, reps=plain_reps)
     call_ms = time_ms(kern, reps=200)
     plain_call_ms = time_ms(plain, reps=plain_reps, warmup=1)
+    plain_ms = (plain_call_ms if plain_events
+                else device_ms(plain, reps=plain_reps))
     library_ms = library_call_ms = None
     if lib is not None:
         library_call_ms = time_ms(lib, reps=lib_reps,
                                   warmup=min(3, lib_reps))
         library_ms = (library_call_ms if lib_events
                       else device_ms(lib, reps=lib_reps))
-    bound_ms, bound_by = bound(name, M, N, **kw)
+    bound_ms, bound_by = bound(work or name, M, N, **kw)
     retries = TRACE_RETRIES[0] - retries
     lib_txt = ("n/a" if library_ms is None else
                f"{library_ms:.4f} (call {library_call_ms:.4f})")
@@ -4319,6 +4857,7 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "call_ms": call_ms,
             "plain_call_ms": plain_call_ms,
+            "plain_ms_by": "cuda_events" if plain_events else "profiler",
             "library_call_ms": library_call_ms, "rows": M,
             "library_ms_by": (None if lib is None else
                               "cuda_events" if lib_events else "profiler"),
@@ -4446,7 +4985,16 @@ def main() -> int:
         return round(marks[-1] - marks[-2], 1)
 
     took = {}
-    card, previous = phase_build(ptxas="--ptxas" in sys.argv[1:])
+    card, previous, unrolled16 = phase_build(ptxas="--ptxas" in sys.argv[1:])
+    try:
+        return run_phases(card, previous, unrolled16, t0, took,
+                          seconds_since_last)
+    finally:
+        unrolled16.join()  # no nvcc left running, whatever failed
+
+
+def run_phases(card, previous, unrolled16, t0, took,
+               seconds_since_last) -> int:
     took["1 build"] = seconds_since_last()
     o = main_path_operands(M_MAIN, N_MAIN)
     o["dense"] = dense_operands()
@@ -4492,8 +5040,13 @@ def main() -> int:
     add_counts(launches, reverb_launches)
     add_counts(launches, phase_multi_device(card, aa))
     took["4k multi-device, QR eigensolver"] = seconds_since_last()
+    loop_launches, loop_errs = phase_loop(card, unrolled16)
+    took["4l past 16 channels"] = seconds_since_last()
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
+    print(f"phase 5l timing of the looped kernels at M={M_MAIN} on {card}")
+    rows += loop_timing(card, loop_launches, loop_errs)
+    took["5l timing past 16 channels"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
     phase_trace(card, "Trainer.train_step (colorless_fused_step: K1)",
                 trainer_steps(), train_step_ms, share=("fdn_tf_mse",))

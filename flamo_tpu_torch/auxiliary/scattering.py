@@ -77,6 +77,10 @@ def shift_matrix_static(X: torch.Tensor, shift,
                         for j, s in enumerate(shift)], dim=1)
 
 
+# the JAX package's alias of the same function
+shift_matrix = shift_matrix_static
+
+
 def poly_matrix_conv(A, B) -> torch.Tensor:
     """Polynomial matrix product C(z) = A(z) B(z) by FFT-domain matmuls.
 

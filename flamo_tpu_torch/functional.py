@@ -614,6 +614,11 @@ def eigvals(A):
     return torch.linalg.eigvals(A)
 
 
+# the JAX package's name for its host-callback LAPACK route, which is
+# eigvals here
+eigvals_lapack = eigvals
+
+
 def spectral_radius(A, iters: int = 64, tail: int = 8):
     """Differentiable spectral-radius estimate ``max |lambda|`` of
     (..., N, N) matrices by power iteration from a fixed complex start

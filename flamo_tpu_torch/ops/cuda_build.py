@@ -10,11 +10,12 @@ in 1..16 for both), ``aa_kernels.cu`` the active-acoustics steps K8 and
 K9 (N the microphone count, 1..8; the loudspeaker count and the FIR
 order are runtime sizes), ``eig_kernels.cu`` the Durand-Kerner roots K7
 (N the degree, 1..8, built without FMA contraction so that it repeats
-its plain version's rounding).  Two sources take every size at run time
-and are one library each, built as N = 1: ``sos_cascade.cu``, the SOS
-cascade K4f and its tap VJP K4b (any channel count), and
+its plain version's rounding).  Three sources take every size at run
+time and are one library each, built as N = 1: ``sos_cascade.cu``, the
+SOS cascade K4f and its tap VJP K4b (any channel count),
 ``phase2_micro.cu``, the four variants of the phase-2 micro-benchmark
-K10.
+K10, and ``fdn_loop.cu``, the looped eliminations of K1, K2 and K6 for
+more than 16 channels (one warp a bin, N a run-time argument).
 
 The eliminations are unrolled over N and the large-N instantiations
 compile slowly, so each (source, N) is its own library, built when a
@@ -38,14 +39,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flamo_tpu_torch"
 SOURCES = ("fdn_kernels.cu", "sos_kernels.cu", "sos_cascade.cu",
-           "aa_kernels.cu", "eig_kernels.cu", "phase2_micro.cu", "fdn_ge.cuh",
-           "sos_common.cuh")
+           "aa_kernels.cu", "eig_kernels.cu", "phase2_micro.cu", "fdn_loop.cu",
+           "fdn_ge.cuh", "fdn_loop.cuh", "sos_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_N = 16
 # the channel counts (degrees for K7) each library is built for
 LIB_MAX_N = {"fdn_kernels": MAX_N, "sos_kernels": MAX_N, "sos_cascade": 1,
-             "aa_kernels": 8, "eig_kernels": 8, "phase2_micro": 1}
+             "aa_kernels": 8, "eig_kernels": 8, "phase2_micro": 1,
+             "fdn_loop": 1}
 # flags of one library only
 LIB_FLAGS = {"eig_kernels": ("-fmad=false",)}
 
@@ -100,6 +102,18 @@ _SIGNATURES = {
         "eig_channels": (_I, []),
         "eig_error_string": (ctypes.c_char_p, [_I]),
         "dk_roots_launch": (_I, [_I, _P, _P, _P, _P, _I, _I, _P]),
+    }),
+    "fdn_loop": ("fl", {
+        "fl_threads_per_block": (_I, []),
+        "fl_channels": (_I, []),
+        "fl_error_string": (ctypes.c_char_p, [_I]),
+        "fl_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+        "fl_warps": (_I, [_I, _I]),
+        "fl_tf_mse_grid": (_I, [_I, _I, _I, _I]),
+        "fl_solve_launch": (_I, [_I, _I, _P, _P, _P, _P, _I, _P]),
+        "fl_dense_solve_launch": (_I, [_I, _I, _P, _P, _P, _I, _P]),
+        "fl_tf_mse_launch": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _F, _I, _I, _P]),
     }),
     "phase2_micro": ("p2", {
         "p2_threads_per_block": (_I, []),

@@ -19,7 +19,12 @@ t (M,) float32):
 
 Each ``*_kernel`` wrapper launches its CUDA kernel for CUDA tensors (and
 counts the launch in :data:`LAUNCHES`) and runs the plain version for CPU
-tensors; it never falls back from one to the other.  The plain versions
+tensors, at any channel count; it never falls back from one to the
+other.  On the card K1, K2 and K6 take the unrolled kernels of
+``fdn_kernels.cu`` up to ``MAX_N`` = 16 channels and the looped ones of
+``fdn_loop.cu`` (``*_loop_kernel``, one warp a bin) above, up to
+:data:`LOOP_MAX_N`, where one bin's system fills a block's 227 KB of
+shared memory; K3f and K3b take 1..16 there.  The plain versions
 are the per-bin eliminations of :mod:`flamo_tpu_torch.ops.solve` on the
 assembled loop matrices, vectorised over bins; like the kernels, they
 pivot on the first row of largest magnitude.
@@ -40,14 +45,83 @@ from flamo_tpu_torch.ops.solve import (_gauss_solve_raw, _ge_nopivot_factor,
                                        _lu_transpose_solve)
 
 MAX_N = cuda_build.MAX_N
+LOOP_LIB = "fdn_loop"
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
 # count); K6 counts its forward and its transposed (gradient) launches
 # apart; K2 counts both under "fdn_solve", and its transposed ones also in
-# K2_TRANSPOSED
+# K2_TRANSPOSED; the looped kernels count under their own keys, K2 looped
+# and K6 looped each way apart
 LAUNCHES = {"fdn_tf_mse": 0, "fdn_solve": 0, "fdn_tf_fwd": 0,
-            "fdn_tf_bwd": 0, "dense_solve": 0, "dense_solve_transposed": 0}
+            "fdn_tf_bwd": 0, "dense_solve": 0, "dense_solve_transposed": 0,
+            "fdn_tf_mse_loop": 0, "fdn_solve_loop": 0,
+            "fdn_solve_loop_transposed": 0, "dense_solve_loop": 0,
+            "dense_solve_loop_transposed": 0}
 K2_TRANSPOSED = [0]
+
+# The looped kernels' shared memory (as fdn_loop.cu's smem_bytes): a block
+# of W warps holds a warp's system (N rows of stride N | 1 complex) and
+# vectors (d, rhs, y for K2; rhs, y for K6; d, rhs, y, w for K1) each, K1's
+# sums (N^2 + 2N + 1 floats) each, and once the staged U (N rows of stride
+# N | 1) and K1's b and c.  W is as many warps as fit LOOP_SMEM (227 KB,
+# the most a block may opt in to on sm_90), at most LOOP_MAX_WARPS.
+LOOP_SMEM = 232448
+LOOP_MAX_WARPS = 8
+LOOP_KINDS = {"fdn_solve": 0, "dense_solve": 1, "fdn_tf_mse": 2}
+LOOP_LABELS = {"fdn_solve": "K2", "dense_solve": "K6", "fdn_tf_mse": "K1"}
+
+
+def loop_smem_bytes(kind: str, N: int, warps: int) -> int:
+    """Dynamic shared memory of a looped kernel's block of ``warps``."""
+    S = N | 1
+    common = 0 if kind == "dense_solve" else N * S + (
+        2 * N if kind == "fdn_tf_mse" else 0)
+    vecs = {"fdn_solve": 3, "dense_solve": 2, "fdn_tf_mse": 4}[kind]
+    sums = N * N + 2 * N + 1 if kind == "fdn_tf_mse" else 0
+    return 4 * (common + common % 2) + warps * (8 * (N * S + vecs * N)
+                                                + 4 * sums)
+
+
+def loop_warps(kind: str, N: int) -> int:
+    """A looped kernel's warps a block at N channels (0: one bin's system
+    does not fit)."""
+    w = 0
+    while (w < LOOP_MAX_WARPS
+           and loop_smem_bytes(kind, N, w + 1) <= LOOP_SMEM):
+        w += 1
+    return w
+
+
+def _loop_max_n(kind: str) -> int:
+    N = 1
+    while loop_warps(kind, N + 1):
+        N += 1
+    return N
+
+
+# the most channels of each looped kernel on the card: 137 (K2), 169 (K6),
+# 119 (K1)
+LOOP_MAX_N = {kind: _loop_max_n(kind) for kind in LOOP_KINDS}
+
+
+def check_loop_n(kind: str, N: int) -> None:
+    """Raise unless the looped kernel ``kind`` takes N channels on the card,
+    naming its limit (before any library is loaded)."""
+    if not 1 <= N <= LOOP_MAX_N[kind]:
+        raise ValueError(
+            f"N = {N} channels; the looped kernel {LOOP_LABELS[kind]} "
+            f"({kind}) takes 1..{LOOP_MAX_N[kind]} on the card, where one "
+            f"bin's system must fit a block's {LOOP_SMEM} bytes (227 KB) of "
+            "shared memory")
+
+
+def _check_unrolled_n(N: int, what: str) -> None:
+    """K3f, K3b and K5 take 1..MAX_N channels on the card."""
+    if not 1 <= N <= MAX_N:
+        raise ValueError(
+            f"N = {N} channels; {what} takes 1..{MAX_N} on the card (its "
+            "looped variant for more channels is not written yet: "
+            "ROADMAP.md, queue 2); the plain version on the CPU takes any N")
 
 
 def reset_launch_counts() -> None:
@@ -162,8 +236,8 @@ def _check(D, U, vecs=(), cplx_rows=(), real_rows=(), cplx_mats=()):
         raise TypeError(f"D must be (M, N) complex64, got {tuple(D.shape)} "
                         f"{D.dtype}")
     M, N = D.shape
-    if not 1 <= N <= MAX_N:
-        raise ValueError(f"N = {N} channels; the kernels take 1..{MAX_N}")
+    if N == 0:
+        raise ValueError("no channels (N = 0)")
     if M == 0:
         raise ValueError("no bins (M = 0)")
     for name, x, shape, dtype in (
@@ -201,11 +275,90 @@ def _aligned16(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def fdn_solve_kernel(D, U, B, transpose: bool = False):
-    """K2 wrapper: y (M, N) complex64."""
+def _loop_check(rc: int, what: str) -> None:
+    cuda_build.check(rc, what, 1, LOOP_LIB)
+
+
+def fdn_solve_loop_kernel(D, U, B, transpose: bool = False):
+    """K2 looped (fdn_loop.cu, one warp a bin, any N up to
+    ``LOOP_MAX_N['fdn_solve']``): y (M, N) complex64."""
     M, N = _check(D, U, cplx_mats=[("B", B)])
     if not _on_cuda(D, U, B):
         return fdn_solve_plain(D, U, B, transpose)
+    check_loop_n("fdn_solve", N)
+    lib = cuda_build.load(1, LOOP_LIB)
+    D, U, B = (x.contiguous() for x in (D, U, B))
+    Y = torch.empty_like(B)
+    with torch.cuda.device(D.device):
+        rc = lib.fl_solve_launch(N, int(transpose), D.data_ptr(),
+                                 U.data_ptr(), B.data_ptr(), Y.data_ptr(), M,
+                                 _stream(D))
+    _loop_check(rc, "fdn_solve_loop_kernel")
+    LAUNCHES["fdn_solve_loop_transposed" if transpose
+             else "fdn_solve_loop"] += 1
+    return Y
+
+
+def dense_solve_loop_kernel(A, B, transpose: bool = False):
+    """K6 looped (fdn_loop.cu, one warp a row, any N up to
+    ``LOOP_MAX_N['dense_solve']``): y (M, N) complex64 for A (M, N, N),
+    B (M, N)."""
+    M, N = _check_dense(A, B)
+    if not _on_cuda(A, B):
+        return dense_solve_plain(A, B, transpose)
+    check_loop_n("dense_solve", N)
+    lib = cuda_build.load(1, LOOP_LIB)
+    A, B = A.contiguous(), B.contiguous()
+    Y = torch.empty_like(B)
+    with torch.cuda.device(A.device):
+        rc = lib.fl_dense_solve_launch(N, int(transpose), A.data_ptr(),
+                                       B.data_ptr(), Y.data_ptr(), M,
+                                       _stream(A))
+    _loop_check(rc, "dense_solve_loop_kernel")
+    LAUNCHES["dense_solve_loop_transposed" if transpose
+             else "dense_solve_loop"] += 1
+    return Y
+
+
+def fdn_tf_mse_loop_kernel(D, U, b, c, X, t, with_dbar: bool = True,
+                           pivot: bool = True):
+    """K1 looped (fdn_loop.cu, one warp a bin, any N up to
+    ``LOOP_MAX_N['fdn_tf_mse']``): (loss, D_bar or None, U_bar, b_bar,
+    c_bar).  Each block writes one row of partials, summed here."""
+    M, N = _check(D, U, vecs=[("b", b), ("c", c)], cplx_rows=[("X", X)],
+                  real_rows=[("t", t)])
+    if not _on_cuda(D, U, b, c, X, t):
+        return fdn_tf_mse_plain(D, U, b, c, X, t, with_dbar, pivot)
+    check_loop_n("fdn_tf_mse", N)
+    lib = cuda_build.load(1, LOOP_LIB)
+    D, U, b, c, X, t = (x.contiguous() for x in (D, U, b, c, X, t))
+    D_bar = torch.empty_like(D) if with_dbar else None
+    with torch.cuda.device(D.device):
+        blocks = lib.fl_tf_mse_grid(int(pivot), int(with_dbar), N, M)
+        if blocks < -1000:  # a CUDA error while sizing the grid
+            _loop_check(-1000 - blocks, "fdn_tf_mse_loop_kernel")
+        _loop_check(min(blocks, 0), "fdn_tf_mse_loop_kernel")
+        partials = torch.empty((blocks, N * N + 2 * N + 1),
+                               dtype=torch.float32, device=D.device)
+        rc = lib.fl_tf_mse_launch(
+            N, int(pivot), int(with_dbar), D.data_ptr(), U.data_ptr(),
+            b.data_ptr(), c.data_ptr(), X.data_ptr(), t.data_ptr(),
+            D_bar.data_ptr() if with_dbar else None, partials.data_ptr(),
+            2.0 / M, M, blocks, _stream(D))
+    _loop_check(rc, "fdn_tf_mse_loop_kernel")
+    LAUNCHES["fdn_tf_mse_loop"] += 1
+    U_bar, b_bar, c_bar, sq = _sum_partials(partials, N)
+    return sq / M, D_bar, U_bar, b_bar, c_bar
+
+
+def fdn_solve_kernel(D, U, B, transpose: bool = False):
+    """K2 wrapper: y (M, N) complex64; on the card the looped kernel above
+    MAX_N channels."""
+    M, N = _check(D, U, cplx_mats=[("B", B)])
+    if not _on_cuda(D, U, B):
+        return fdn_solve_plain(D, U, B, transpose)
+    if N > MAX_N:
+        return fdn_solve_loop_kernel(D, U, B, transpose)
     lib = cuda_build.load(N)
     D, U, B = _aligned16(D), U.contiguous(), _aligned16(B)
     Y = torch.empty_like(B)
@@ -219,8 +372,7 @@ def fdn_solve_kernel(D, U, B, transpose: bool = False):
     return Y
 
 
-def dense_solve_kernel(A, B, transpose: bool = False):
-    """K6 wrapper: y (M, N) complex64 for A (M, N, N), B (M, N)."""
+def _check_dense(A, B):
     if (A.ndim != 3 or B.ndim != 2 or A.dtype != torch.complex64
             or B.dtype != torch.complex64 or A.shape[1] != A.shape[2]
             or tuple(A.shape[:2]) != tuple(B.shape)):
@@ -228,12 +380,21 @@ def dense_solve_kernel(A, B, transpose: bool = False):
                         f"got {tuple(A.shape)} {A.dtype} and "
                         f"{tuple(B.shape)} {B.dtype}")
     M, N = B.shape
-    if not 1 <= N <= MAX_N:
-        raise ValueError(f"N = {N} channels; the kernels take 1..{MAX_N}")
+    if N == 0:
+        raise ValueError("no channels (N = 0)")
     if M == 0:
         raise ValueError("no rows (M = 0)")
+    return M, N
+
+
+def dense_solve_kernel(A, B, transpose: bool = False):
+    """K6 wrapper: y (M, N) complex64 for A (M, N, N), B (M, N); on the
+    card the looped kernel above MAX_N channels."""
+    M, N = _check_dense(A, B)
     if not _on_cuda(A, B):
         return dense_solve_plain(A, B, transpose)
+    if N > MAX_N:
+        return dense_solve_loop_kernel(A, B, transpose)
     lib = cuda_build.load(N)
     A, B = A.contiguous(), B.contiguous()
     Y = torch.empty_like(B)
@@ -251,6 +412,7 @@ def fdn_tf_fwd_kernel(D, U, b, c):
     M, N = _check(D, U, vecs=[("b", b), ("c", c)])
     if not _on_cuda(D, U, b, c):
         return fdn_tf_fwd_plain(D, U, b, c)
+    _check_unrolled_n(N, "kernel K3f (fdn_tf_fwd_kernel)")
     lib = cuda_build.load(N)
     D, U, b, c = _aligned16(D), U.contiguous(), b.contiguous(), c.contiguous()
     tf = torch.empty((M,), dtype=D.dtype, device=D.device)
@@ -270,6 +432,7 @@ def fdn_tf_bwd_kernel(D, U, b, c, y, tf_bar):
                   cplx_rows=[("tf_bar", tf_bar)], cplx_mats=[("y", y)])
     if not _on_cuda(D, U, b, c, y, tf_bar):
         return fdn_tf_bwd_plain(D, U, b, c, y, tf_bar)
+    _check_unrolled_n(N, "kernel K3b (fdn_tf_bwd_kernel)")
     lib = cuda_build.load(N)
     D, y = _aligned16(D), _aligned16(y)
     U, b, c, tf_bar = (x.contiguous() for x in (U, b, c, tf_bar))
@@ -288,11 +451,14 @@ def fdn_tf_bwd_kernel(D, U, b, c, y, tf_bar):
 
 def fdn_tf_mse_kernel(D, U, b, c, X, t, with_dbar: bool = True,
                       pivot: bool = True):
-    """K1 wrapper: (loss, D_bar or None, U_bar, b_bar, c_bar)."""
+    """K1 wrapper: (loss, D_bar or None, U_bar, b_bar, c_bar); on the card
+    the looped kernel above MAX_N channels."""
     M, N = _check(D, U, vecs=[("b", b), ("c", c)], cplx_rows=[("X", X)],
                   real_rows=[("t", t)])
     if not _on_cuda(D, U, b, c, X, t):
         return fdn_tf_mse_plain(D, U, b, c, X, t, with_dbar, pivot)
+    if N > MAX_N:
+        return fdn_tf_mse_loop_kernel(D, U, b, c, X, t, with_dbar, pivot)
     lib = cuda_build.load(N)
     D, U, b, c, X, t = (x.contiguous() for x in (D, U, b, c, X, t))
     D_bar = torch.empty_like(D) if with_dbar else None

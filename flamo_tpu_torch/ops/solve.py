@@ -240,8 +240,9 @@ def closed_loop_solve(A: torch.Tensor, B: torch.Tensor,
     rank-1 panel updates: :func:`gauss_solve_mat`), 'lu'
     (``torch.linalg.solve``) or 'pallas'.  A vector-rhs 'pallas' solve is
     the dense per-bin kernel K6 (:func:`~flamo_tpu_torch.ops.fdn_kernels.
-    dense_solve`: the CUDA kernel for CUDA tensors, its plain version for
-    CPU tensors; 1..16 channels); a matrix rhs goes to the pivoted 'ge',
+    dense_solve`: the CUDA kernel for CUDA tensors, unrolled up to 16
+    channels and looped above, its plain version for CPU tensors at any
+    N); a matrix rhs goes to the pivoted 'ge',
     as in the JAX package.  Unlike the JAX package, an unknown method
     raises instead of falling back to 'ge'."""
     if method == "pallas":

@@ -42,7 +42,8 @@ import torch
 
 from flamo_tpu_torch.functional import cascade_prods_scaled
 from flamo_tpu_torch.ops import cuda_build
-from flamo_tpu_torch.ops.fdn_kernels import (_check, _cotangents, _on_cuda,
+from flamo_tpu_torch.ops.fdn_kernels import (_check, _check_unrolled_n,
+                                             _cotangents, _on_cuda,
                                              _stream, _tf_mse_solves)
 
 # the kernels' limits (sos_kernels.cu: kMaxP, kMaxK, kMaxSmemFloats)
@@ -288,6 +289,7 @@ def fdn_sos_tf_mse_kernel(D, bt, at, U, b, c, X, t, nfft: int,
     if not _on_cuda(D, bt, at, U, b, c, X, t):
         return fdn_sos_tf_mse_plain(D, bt, at, U, b, c, X, t, nfft,
                                     with_dbar, pivot, fuse_taps, bin_offset)
+    _check_unrolled_n(N, "kernel K5 (fdn_sos_tf_mse_kernel)")
     nv0 = N * N + 2 * N + 1
     nv = nv0 + (2 * P * K * N if fuse_taps else 0)
     need = tf_mse_smem_bytes(N, K, P, fuse_taps)

@@ -46,20 +46,18 @@ class Trainer:
     ('auto' routes a recognised topology onto its fused kernel behind the
     parity gate; on the CPU only the candidates marked ``cpu_ok``;
     'force' gates every candidate on the CPU too; 'off' keeps the module
-    graph).  The model trains in place and stays on its device: batches
-    are moved there.  The JAX package's ``profile_dir`` has no
-    counterpart yet and raises; other keyword arguments are ignored, as
-    there."""
+    graph) and profile_dir (:meth:`train` traces epoch 1's training steps
+    with ``torch.profiler`` there, the card's activity too on a CUDA
+    model, as ``trace_epoch1.json``; epoch 0 warms up).  The model trains
+    in place and stays on its device: batches are moved there.  Other
+    keyword arguments are ignored, as in the JAX package."""
 
     def __init__(self, net, max_epochs: int = 10, lr: float = 1e-3,
                  patience: int = 5, patience_delta: float = 0.01,
                  step_size: int = 50, step_factor: float = 0.1,
                  log: bool = True, train_dir: Optional[str] = None,
-                 fused: str = "auto", **kwargs):
-        if kwargs.get("profile_dir") is not None:
-            raise NotImplementedError(
-                "Trainer(profile_dir=...) is not ported yet; trace with "
-                "torch.profiler around Trainer.train instead")
+                 fused: str = "auto", profile_dir: Optional[str] = None,
+                 **kwargs):
         if fused not in ("auto", "off", "force"):
             raise ValueError(f"fused must be 'auto', 'off' or 'force', got "
                              f"{fused!r}")
@@ -81,6 +79,7 @@ class Trainer:
             raise ValueError(
                 "The directory specified in train_dir does not exist.")
         self.train_dir = train_dir
+        self.profile_dir = profile_dir
         self.n_loss = 0
         self.criterion, self.alpha, self.requires_model = [], [], []
         self._opt = None
@@ -256,11 +255,14 @@ class Trainer:
         st = time.time()
         for epoch in epochs:
             st_epoch = time.time()
+            profiler = self._start_profile() if epoch == 1 else None
             epoch_loss = 0.0
             n_steps = 0
             for inputs, targets in train_dataset:
                 epoch_loss += self.train_step((inputs, targets))
                 n_steps += 1
+            if profiler is not None:
+                self._stop_profile(profiler)
             self.train_loss.append(epoch_loss / max(1, n_steps))
             self._last_steps_per_sec = n_steps / max(1e-9,
                                                      time.time() - st_epoch)
@@ -279,6 +281,26 @@ class Trainer:
                 print(f"Early stopping at epoch: {epoch}")
                 break
         print("Training time: {:.3f}s".format(time.time() - st))
+
+    def _start_profile(self):
+        """A started torch.profiler over the CPU and, for a CUDA model, the
+        card; None without ``profile_dir``."""
+        if self.profile_dir is None:
+            return None
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(
+            os.path.join(self.profile_dir, "trace_epoch1.json"))
 
     # ------------------------------------------------------------------
     def fit_scan(self, inputs, targets, n_steps: int,

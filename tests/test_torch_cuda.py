@@ -123,9 +123,8 @@ def test_cuda_autograd_matches_plain_and_counts_launches(cuda):
 
     fk.reset_launch_counts()
     on_card = run("cuda")
-    assert fk.LAUNCHES == {"fdn_tf_mse": 1, "fdn_solve": 2,
-                           "fdn_tf_fwd": 1, "fdn_tf_bwd": 1,
-                           "dense_solve": 0, "dense_solve_transposed": 0}
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fdn_tf_mse": 1, "fdn_solve": 2, "fdn_tf_fwd": 1, "fdn_tf_bwd": 1}
     on_cpu = run("cpu")
     assert fk.LAUNCHES["fdn_tf_fwd"] == 1  # the CPU run launches nothing
     for g, r in zip(on_card, on_cpu):
@@ -134,14 +133,106 @@ def test_cuda_autograd_matches_plain_and_counts_launches(cuda):
 
 @pytest.mark.gpu
 def test_cuda_kernel_rejects_unsupported_n(cuda):
-    D = torch.zeros((8, 17), dtype=torch.complex64, device="cuda")
+    """Past the looped kernels' limits K2 and K6 raise, naming them; K3f
+    raises past 16 channels."""
+    N = fk.LOOP_MAX_N["fdn_solve"] + 1
+    D = torch.zeros((8, N), dtype=torch.complex64, device="cuda")
     with pytest.raises(ValueError, match="channels"):
-        fk.fdn_solve_kernel(D, torch.zeros((17, 17), device="cuda"), D)
-    A = torch.zeros((8, 17, 17), dtype=torch.complex64, device="cuda")
+        fk.fdn_solve_kernel(D, torch.zeros((N, N), device="cuda"), D)
+    N = fk.LOOP_MAX_N["dense_solve"] + 1
+    D = torch.zeros((8, N), dtype=torch.complex64, device="cuda")
+    A = torch.zeros((8, N, N), dtype=torch.complex64, device="cuda")
     with pytest.raises(ValueError, match="channels"):
         fk.dense_solve_kernel(A, D)
     with pytest.raises(ValueError, match="channels"):
         fk.dense_solve(A, D)
+    v = torch.zeros(17, device="cuda")
+    with pytest.raises(ValueError, match="channels"):
+        fk.fdn_tf_fwd_kernel(D[:, :17], torch.zeros((17, 17), device="cuda"),
+                             v, v)
+
+
+@pytest.mark.gpu
+def test_cuda_loop_smem_rule_matches_python(cuda):
+    """fdn_loop.cu's shared memory and warps a block equal the wrapper's
+    rule at every N up to past each kernel's limit."""
+    lib = cuda_build.load(1, fk.LOOP_LIB)
+    for kind, code in fk.LOOP_KINDS.items():
+        for N in range(1, fk.LOOP_MAX_N[kind] + 3):
+            assert lib.fl_warps(code, N) == fk.loop_warps(kind, N)
+            for w in (1, 3, 8):
+                assert lib.fl_smem_bytes(code, N, w) == fk.loop_smem_bytes(
+                    kind, N, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [16, 17, 32, 64])
+@pytest.mark.parametrize("M", [33, 4097])
+def test_cuda_looped_kernels_match_plain(cuda, N, M):
+    """K2, K6 and K1 looped against their plain versions (values 1e-5 of
+    the max, cotangents 1e-4), both ways and in K1's four variants, and
+    at N = 16 against the unrolled kernels on the same operands at the
+    same bounds; two K1 launches equal bit for bit."""
+    o = _operands(N + 7 * M, M, N)
+    D, U, b, c, B, X, t = (o[n] for n in "DUbcBXt")
+    A = fk._loop_matrix(D, U)
+    for transpose in (False, True):
+        y = fk.fdn_solve_loop_kernel(D, U, B, transpose)
+        assert _rel(y, fk.fdn_solve_plain(D, U, B, transpose)) < 1e-5
+        yd = fk.dense_solve_loop_kernel(A, B, transpose)
+        assert _rel(yd, fk.dense_solve_plain(A, B, transpose)) < 1e-5
+        if N <= fk.MAX_N:
+            assert _rel(y, fk.fdn_solve_kernel(D, U, B, transpose)) < 1e-5
+            assert _rel(yd, fk.dense_solve_kernel(A, B, transpose)) < 1e-5
+    for pivot in (True, False):
+        for with_dbar in (True, False):
+            got = fk.fdn_tf_mse_loop_kernel(D, U, b, c, X, t, with_dbar,
+                                            pivot)
+            refs = [fk.fdn_tf_mse_plain(D, U, b, c, X, t, with_dbar, pivot)]
+            if N <= fk.MAX_N:
+                refs.append(fk.fdn_tf_mse_kernel(D, U, b, c, X, t,
+                                                 with_dbar, pivot))
+            for ref in refs:
+                assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5
+                for g, r in zip(got[1:], ref[1:]):
+                    if r is None:
+                        assert g is None
+                    else:
+                        assert _rel(g, r) < 1e-4
+            again = fk.fdn_tf_mse_loop_kernel(D, U, b, c, X, t, with_dbar,
+                                              pivot)
+            for g, r in zip(got, again):
+                assert (g is None and r is None) or torch.equal(g, r)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_looped_dispatch_and_counts(cuda):
+    """Past 16 channels the public functions launch the looped kernels,
+    counted under their own keys, and their gradients equal those of the
+    same functions on the CPU."""
+    o = _operands(3, 500, 24)
+
+    def run(device):
+        leaves = [o[n].detach().to(device).requires_grad_(True)
+                  for n in ("D", "U", "b", "c")]
+        X, t, B = (o[n].to(device) for n in ("X", "t", "B"))
+        A = fk._loop_matrix(leaves[0], leaves[1])
+        loss = (fk.fdn_tf_mse(*leaves, X, t, with_dbar=True, pivot=True)
+                + torch.abs(fk.fdn_solve(leaves[0], leaves[1], B)).sum()
+                + torch.abs(fk.dense_solve(A, B)).sum())
+        loss.backward()
+        return [x.grad.cpu() for x in leaves]
+
+    fk.reset_launch_counts()
+    on_card = run("cuda")
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fdn_tf_mse_loop": 1, "fdn_solve_loop": 1,
+        "fdn_solve_loop_transposed": 1, "dense_solve_loop": 1,
+        "dense_solve_loop_transposed": 1}
+    on_cpu = run("cpu")
+    for g, r in zip(on_card, on_cpu):
+        assert _rel(g, r) < 1e-4
 
 
 def _dense_system(seed: int, shape, N: int):

@@ -182,9 +182,14 @@ def test_fdn_kernels_reject_bad_operands():
     with pytest.raises(TypeError, match="U must be"):
         fk.fdn_tf_fwd_kernel(D, U.double(), b, c)
     with pytest.raises(ValueError, match="channels"):
-        fk.fdn_solve_kernel(torch.zeros((8, 17), dtype=torch.complex64),
-                            torch.zeros((17, 17)),
-                            torch.zeros((8, 17), dtype=torch.complex64))
+        fk.fdn_solve_kernel(torch.zeros((8, 0), dtype=torch.complex64),
+                            torch.zeros((0, 0)),
+                            torch.zeros((8, 0), dtype=torch.complex64))
+    # past 16 channels the CPU takes the plain version; on the card the
+    # looped kernel takes up to its shared-memory limit, named
+    N = fk.LOOP_MAX_N["fdn_solve"] + 1
+    with pytest.raises(ValueError, match=f"N = {N} channels"):
+        fk.check_loop_n("fdn_solve", N)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,23 @@ TOL = 1e-5
 NFFT = 2048
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain version at the published sizes issues thousands of
+    element-wise ops on 48128-bin rows, each split over torch's intra-op
+    threads.  Under the test runner's six workers on eight cores those
+    threads outnumber the cores, and each op waits on its slowest thread:
+    the float64 comparison took 394 s for one variant with busy
+    neighbours and 0.6 s alone.  On one thread a worker runs the same
+    ops and the same checks; only a sum's split over threads, and so the
+    order it rounds in, can change, far inside the 1e-5 of the terms'
+    magnitudes that each result is held to."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_script():
     spec = importlib.util.spec_from_file_location(

@@ -198,17 +198,24 @@ def test_dense_solve_matches_pallas(ps, N):
 
 def test_dense_solve_plain_transposed_and_limits():
     """The transposed plain version solves A^T y = B (1e-5 of the max
-    against torch.linalg.solve); the wrapper takes 1..16 channels and
-    checks its operands."""
+    against torch.linalg.solve); the wrapper takes any channel count on
+    the CPU (on the card 1..16 unrolled, then looped up to its named
+    limit) and checks its operands."""
     A, B = _system(5, (64,), (64,), 5)
     At, Bt = torch.tensor(A), torch.tensor(B)
     y = fk.dense_solve_plain(At, Bt, transpose=True)
     ref = torch.linalg.solve(At.transpose(-1, -2), Bt[..., None])[..., 0]
     assert _rel(y.numpy(), ref.numpy()) < 1e-5
     assert torch.equal(fk.dense_solve_kernel(At, Bt, transpose=True), y)
+    A17, B17 = (torch.tensor(x) for x in _system(6, (8,), (8,), 17))
+    assert torch.equal(fk.dense_solve_kernel(A17, B17),
+                       fk.dense_solve_plain(A17, B17))
     with pytest.raises(ValueError, match="channels"):
-        fk.dense_solve_kernel(torch.zeros((4, 17, 17), dtype=torch.complex64),
-                              torch.zeros((4, 17), dtype=torch.complex64))
+        fk.dense_solve_kernel(torch.zeros((4, 0, 0), dtype=torch.complex64),
+                              torch.zeros((4, 0), dtype=torch.complex64))
+    N = fk.LOOP_MAX_N["dense_solve"] + 1
+    with pytest.raises(ValueError, match=f"N = {N} channels"):
+        fk.check_loop_n("dense_solve", N)
     with pytest.raises(TypeError, match="complex64"):
         fk.dense_solve_kernel(At.to(torch.complex128), Bt)
 

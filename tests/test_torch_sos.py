@@ -260,11 +260,11 @@ def test_sos_guard_gives_eps_and_zero_gradient(pallas_interpret):
 def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
                                                           monkeypatch):
     """Each kernel source builds one library per channel count (1..16; the
-    active-acoustics and eigenvalue kernels 1..8; the SOS cascade K4 and
-    the phase-2 micro-benchmark one library each, as N = 1, for every
-    size), named by a hash of every source file, and every entry point
-    that the loader binds is defined in its source with as many
-    parameters."""
+    active-acoustics and eigenvalue kernels 1..8; the SOS cascade K4, the
+    phase-2 micro-benchmark and the looped eliminations one library each,
+    as N = 1, for every size), named by a hash of every source file, and
+    every entry point that the loader binds is defined in its source with
+    as many parameters."""
     import re
     import shutil
 
@@ -272,11 +272,12 @@ def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
 
     libs = tuple(cb._SIGNATURES)
     assert libs == ("fdn_kernels", "sos_kernels", "sos_cascade",
-                    "aa_kernels", "eig_kernels", "phase2_micro")
+                    "aa_kernels", "eig_kernels", "fdn_loop", "phase2_micro")
     assert cb.LIB_MAX_N["phase2_micro"] == cb.LIB_MAX_N["sos_cascade"] == 1
+    assert cb.LIB_MAX_N["fdn_loop"] == 1
     names = {cb.library_path(n, lib).name for lib in libs
              for n in {1, min(6, cb.LIB_MAX_N[lib]), cb.LIB_MAX_N[lib]}}
-    assert len(names) == 14
+    assert len(names) == 15
     for lib in libs:
         for bad in (0, cb.LIB_MAX_N[lib] + 1):
             with pytest.raises(ValueError, match="channels"):
@@ -288,19 +289,20 @@ def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
         assert {f"{prefix}_channels", f"{prefix}_threads_per_block",
                 f"{prefix}_error_string"} <= set(sigs)
         for name, (_, argtypes) in sigs.items():
-            found = re.search(rf"^(?:int|const char\*) {name}\(([^)]*)\)",
+            found = re.search(rf"^(?:int|long long|const char\*) {name}"
+                              r"\(([^)]*)\)",
                               src, re.MULTILINE)
             assert found, name
             params = found.group(1).strip()
             assert len(argtypes) == (params.count(",") + 1 if params else 0), \
                 name
-    # an edit of either shared header renames every library
+    # an edit of any shared header renames every library
     csrc = tmp_path / "csrc"
     shutil.copytree(cb.CSRC, csrc)
     before = [cb.library_path(6, lib) for lib in libs]
     monkeypatch.setattr(cb, "CSRC", csrc)
     assert [cb.library_path(6, lib) for lib in libs] == before
-    for header in ("fdn_ge.cuh", "sos_common.cuh"):
+    for header in ("fdn_ge.cuh", "fdn_loop.cuh", "sos_common.cuh"):
         with open(csrc / header, "a") as f:
             f.write("\n")
         after = [cb.library_path(6, lib) for lib in libs]

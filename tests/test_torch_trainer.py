@@ -225,8 +225,9 @@ def test_batches_the_fused_step_cannot_take_stay_on_the_graph(capsys):
 
 def test_unported_options_raise():
     _, mt = _colorless_pair()
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        Trainer(mt, log=False, profile_dir="trace")
+    # profile_dir is ported (tests/test_torch_profile_aliases.py traces
+    # with it): the Trainer keeps it, as the JAX package's does
+    assert Trainer(mt, log=False, profile_dir="trace").profile_dir == "trace"
     with pytest.raises(ValueError, match="fused"):
         Trainer(mt, log=False, fused="on")
     with pytest.raises(ValueError, match="train_dir"):

@@ -33,6 +33,7 @@ from flamo_tpu_torch.auxiliary.velvet import VelvetNoiseFilter
 from flamo_tpu_torch.convert import jax_named_tensors, load_jax_params, \
     load_jax_scattering
 from flamo_tpu_torch.examples import e1_vn
+from flamo_tpu_torch.ops import fdn_kernels as fk
 from flamo_tpu_torch.processor import dsp, system
 
 NFFT = 1024
@@ -160,11 +161,18 @@ def test_velvet_loop_pallas_matches_ge_and_names_k6_limit():
         yp = _velvet_loop("pallas")(X)
         yg = _velvet_loop("ge")(X)
     assert _rel(yp, yg) < 1e-5
-    loop = _velvet_loop("pallas", N=32, stages=2)
-    X32 = torch.zeros((1, NFFT // 2 + 1, 32), dtype=torch.complex64)
-    with pytest.raises(ValueError, match="N = 32 channels; the kernels "
-                                         "take 1..16"):
-        loop(X32)
+    # past 16 channels the CPU takes K6's plain version too (on the card,
+    # K6 looped), up to the looped kernel's limit, which the wrapper names
+    X32 = torch.fft.rfft(torch.randn((1, NFFT, 32), generator=torch.Generator()
+                                     .manual_seed(6)), dim=1)
+    with torch.no_grad():
+        yp = _velvet_loop("pallas", N=32, stages=2)(X32)
+        yg = _velvet_loop("ge", N=32, stages=2)(X32)
+    assert _rel(yp, yg) < 1e-5
+    top = fk.LOOP_MAX_N["dense_solve"]
+    with pytest.raises(ValueError, match=f"N = {top + 1} channels; the "
+                       rf"looped kernel K6 \(dense_solve\) takes 1..{top}"):
+        fk.check_loop_n("dense_solve", top + 1)
 
 
 def test_hadamard_and_shift_distribution():
