@@ -3,7 +3,8 @@
 paths, its active-acoustics path, its phase-2 micro-benchmark, its
 Trainer path, its e8_fdn example path, its filter zoo, its accurate
 GEQ, velvet-noise and tutorial paths, its reverb domain, its
-multi-device layer, its QR eigensolver and its solves past 16 channels
+multi-device layer, its QR eigensolver, its solves past 16 channels and
+its fused-tf, fused-response and attenuated fused steps past 16 channels
 on one CUDA card.
 
 Run from the root of the repository:
@@ -234,6 +235,20 @@ Phases, in order; any failure raises and exits non-zero without a result:
    colorless_fused_step; a 32-channel loop whose feedforward is
    Series(parallelDelay, Matrix) on 'pallas' (K6 looped both ways)
    against 'ge' in lockstep; every launch counted exactly;
+4m. K3f, K3b and K5 past 16 channels (the same looped library), at 32
+   and 64 channels (nfft=96000, delays hfdn_delays(N), 967..2411): the
+   colorless FDN's fused response (K3f looped) against
+   get_freq_response (1e-5 of the max) and LOOP_STEPS Adam steps of
+   colorless_train_step(fused_tf=True) (K3f and K3b looped once each a
+   step) in lockstep with its graph step on 'ge'; the attenuated FDN's
+   LOOP_STEPS steps of attenuated_train_step(fused_step=True) (K5 looped,
+   no pivot) in lockstep with its graph step on 'ge', then a Trainer
+   whose gate takes attenuated_fused_step (K5 once) and
+   TFSOS_TRAINER_STEPS fit_scan steps (K5 once a step); the fused routes
+   held to the graph at phases 3's and 4's gates (losses 1e-4, first
+   gradients 5e-3 of the max); one K5 call at 64 channels on the
+   attenuated FDN with a 1/3-octave GEQ (K = 30, one warp a block)
+   against its plain version; every launch counted exactly;
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
@@ -258,6 +273,16 @@ Phases, in order; any failure raises and exits non-zero without a result:
    K6) and its bound, at 32 and 64 channels (K1's four variants too);
    after phase 5, whose traces came back one launch short once 10-30 ms
    kernels had been traced;
+5m. the looped K3f, K3b and K5 against their plain versions at
+   M = 48001 for N = 17, 32 and 64 (values 1e-5, cotangents 1e-4 of the
+   max; K5 in its four fused variants, without fused taps through K4b,
+   and at bin_offset 24001 both ways), K3f's y on the exact tied systems
+   of k3_systems bit for bit, K3f and K3b on the others, and against the
+   unrolled kernels at N = 16 (fdn_kernels and sos_kernels at 16 built on
+   a thread beside phases 1-4k), the gaps printed; then each looped
+   kernel's device and call ms, its plain version's (CUDA events) and its
+   bound at 32 and 64 channels (K5 the training variant: no pivot, no
+   D_bar, fused taps, K = 12, P = 3);
 6. torch.profiler traces of a few training steps of each path (and of a
    few fused responses): the device's busy and idle share and the
    kernels that take its time (for the attenuated graph step and the
@@ -314,7 +339,11 @@ looped once for each HomogeneousFDN's response and once each way an Adam
 step, K1 looped once a colorless_fit step, once in the Trainer's gate and
 once a fit_scan step, K6 looped once each way a step of the dense loop
 (K6's and K1's times at 64 channels, where no path runs them, under
-``at_n64``).  ``trace_retries``
+``at_n64``); K3f, K3b and K5 looped in phase 4m's paths, a row for each
+channel count: K3f looped once for the fused response and once a
+fused-tf step, K3b looped once a fused-tf step, K5 looped once an
+attenuated fused step, once in the Trainer's gate and once a fit_scan
+step, and at 64 channels once more for the 1/3-octave call.  ``trace_retries``
 counts a row's profiler traces that were taken again because they held
 none of its kernel.
 
@@ -365,7 +394,8 @@ from flamo_tpu_torch.models import (ActiveAcoustics, aa_dft_basis,
                                     build_colorless_sfdn, colorless_fit,
                                     colorless_freq_response_fused,
                                     colorless_loss, colorless_loss_fused_tf,
-                                    colorless_train_step, sfdn_fit,
+                                    colorless_train_step,
+                                    extract_attenuated_operands, sfdn_fit,
                                     sfdn_masked_loss, sfdn_masked_train_step,
                                     sfdn_train_step)
 from flamo_tpu_torch.models.active_acoustics import _mixer_taps
@@ -523,6 +553,25 @@ LOOP_HFDN_NS = (32, 64)
 LOOP_N = 32
 LOOP_STEPS, LOOP_LR = 3, 1e-3
 LOOP_LOSS_TOL = 1e-5
+# phase 4m, K3f, K3b and K5 past 16 channels (fdn_loop.cu): at each of
+# TFSOS_NS channels (delays hfdn_delays(N)) the colorless FDN's fused-tf
+# step and fused response and the attenuated FDN's fused step, LOOP_STEPS
+# steps each in lockstep with the same model's graph step on 'ge' (the
+# plain elimination and cascade on the card), and the attenuated
+# Trainer's gate taking attenuated_fused_step, then TFSOS_TRAINER_STEPS
+# fit_scan steps; one K5 call at TFSOS_NS[-1] channels on the attenuated
+# FDN with a 1/3-octave GEQ (THIRD_K sections, the shared-memory extreme).
+# The fused routes against the graph at phases 3's and 4's gates:
+# FUSED_LOSS_TOL on the losses, FUSED_GRAD_TOL on the first gradients
+# (phase 4's, the octave GEQ's float32 conditioning).  Phase 5m holds the
+# looped K3f, K3b and K5 to their plain versions at M_MAIN bins for each
+# of LOOP_NS channels (values VAL_TOL, cotangents GRAD_TOL), K5 also at
+# TFSOS_OFFSET, and to the unrolled kernels at 16, then times them at
+# TFSOS_NS.
+TFSOS_NS = (32, 64)
+TFSOS_TRAINER_STEPS = 2
+THIRD_K = 30
+TFSOS_OFFSET = 24001
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
@@ -550,7 +599,8 @@ SOURCES = {
        for v in pm.VARIANTS},
     **{name: "flamo_tpu_torch/csrc/fdn_loop.cu" for name in (
         "fdn_solve_loop", "fdn_solve_loop_transposed", "dense_solve_loop",
-        "dense_solve_loop_transposed", "fdn_tf_mse_loop")},
+        "dense_solve_loop_transposed", "fdn_tf_mse_loop", "fdn_tf_fwd_loop",
+        "fdn_tf_bwd_loop", "fdn_sos_tf_mse_loop")},
 }
 REPLACES = {
     "fdn_tf_mse": "flamo_tpu/ops/pallas_solve.py:719",
@@ -577,6 +627,9 @@ REPLACES = {
     "dense_solve_loop": "flamo_tpu/ops/pallas_solve.py:161",
     "dense_solve_loop_transposed": "flamo_tpu/ops/pallas_solve.py:161",
     "fdn_tf_mse_loop": "flamo_tpu/ops/pallas_solve.py:719",
+    "fdn_tf_fwd_loop": "flamo_tpu/ops/pallas_solve.py:451",
+    "fdn_tf_bwd_loop": "flamo_tpu/ops/pallas_solve.py:474",
+    "fdn_sos_tf_mse_loop": "flamo_tpu/ops/pallas_solve.py:1376",
 }
 # kernel vs plain version on the same inputs.  Per-bin values (tf, y, the
 # loss, H) differ only by rounding (FMA contraction, division order, the
@@ -1194,9 +1247,11 @@ def phase_build(ptxas: bool = False) -> str:
                ("eig_kernels", 8), ("phase2_micro", 1))
     log = PTXAS_LOG if ptxas else None
     t0 = time.perf_counter()
-    # the unrolled kernels at 16 channels, which phase 4l holds the looped
-    # ones to, compile for minutes: beside phases 1-4k, on one core
-    unrolled16 = BackgroundBuild([("fdn_kernels", fk.MAX_N)])
+    # the unrolled kernels at 16 channels, which phases 4l and 5m hold the
+    # looped ones to, compile for minutes: beside phases 1-4k, one core
+    # each
+    unrolled16 = BackgroundBuild([("fdn_kernels", fk.MAX_N),
+                                  ("sos_kernels", fk.MAX_N)])
     unrolled16.start()
     try:
         previous_build = Previous.start(ptxas)
@@ -1301,15 +1356,15 @@ def print_ptxas(report: str) -> None:
               f"{len(spilled)} with spills")
 
 
-def _stable_taps(rng, P: int, K: int, N: int):
+def _stable_taps(rng, P: int, K: int, N: int, device="cuda"):
     """Well-conditioned SOS taps: poles of radius 0.2-0.6, numerators close
     to the denominators (each section's response near 1)."""
     r = rng.uniform(0.2, 0.6, (K, N))
     th = rng.uniform(0, np.pi, (K, N))
     a = np.stack([np.ones((K, N)), -2 * r * np.cos(th), r * r])
     b = a + 0.02 * rng.normal(size=(P, K, N))
-    return (torch.tensor(b.astype(np.float32), device="cuda"),
-            torch.tensor(a.astype(np.float32), device="cuda"))
+    return (torch.tensor(b.astype(np.float32), device=device),
+            torch.tensor(a.astype(np.float32), device=device))
 
 
 def main_path_operands(M: int, N: int, seed: int = SEED):
@@ -2262,12 +2317,12 @@ def phase_slice(card: str) -> tuple:
     return launches, seconds * 1e3 / FIT_STEPS, tf_ms, eval_ms
 
 
-def time_impulse_pair(nfft: int):
+def time_impulse_pair(nfft: int, device="cuda"):
     """The time-domain impulse input (1, nfft, 1) and the flat target
     (1, M, 1); ``colorless_pair`` gives the (1, M, 1) spectral pair."""
-    x = torch.zeros((1, nfft, 1), device="cuda")
+    x = torch.zeros((1, nfft, 1), device=device)
     x[:, 0, :] = 1.0
-    return x, torch.ones((1, nfft // 2 + 1, 1), device="cuda")
+    return x, torch.ones((1, nfft // 2 + 1, 1), device=device)
 
 
 def att_model(seed: int = SEED, **routes):
@@ -4108,45 +4163,63 @@ def loop_versus_unrolled(M: int = M_MAIN, device="cuda") -> dict:
     return gaps
 
 
+def step_lockstep(steps: dict, models: dict, x, t, n: int):
+    """``n`` calls of each ``steps[route](x, t)`` (a train step that leaves
+    its gradients on ``models[route]``), the launches counted apart for
+    each route: the loss histories, the first gradients and the launches,
+    by route."""
+    hist, grads, counts = {}, {}, {}
+    for route, step in steps.items():
+        reset_counts()
+        losses = []
+        for i in range(n):
+            losses.append(step(x, t))
+            if i == 0:
+                grads[route] = {k: p.grad.detach().clone() for k, p in
+                                models[route].named_parameters()
+                                if p.requires_grad}
+        counts[route] = nonzero_counts()
+        hist[route] = torch.stack(losses).cpu().numpy()
+    return hist, grads, counts
+
+
 def adam_lockstep(models: dict, loss_fn, steps: int, lr: float = LOOP_LR):
     """``steps`` Adam steps of each model on ``loss_fn(model)`` (the 'pallas'
     model's launches counted apart): the loss histories, the first
     gradients and the 'pallas' model's launches."""
-    hist, grads, counts = {}, {}, {}
-    for method, model in models.items():
+    def adam_step(model):
         opt = masked_optimizer(model, lr=lr)
-        losses = []
-        reset_counts()
-        for i in range(steps):
+
+        def step(*_):
             opt.zero_grad(set_to_none=True)
             loss = loss_fn(model)
             loss.backward()
-            if i == 0:
-                grads[method] = {n: p.grad.detach().clone()
-                                 for n, p in model.named_parameters()
-                                 if p.requires_grad}
             opt.step()
-            losses.append(loss.detach())
-        counts[method] = nonzero_counts()
-        hist[method] = torch.stack(losses).cpu().numpy()
+            return loss.detach()
+        return step
+
+    hist, grads, counts = step_lockstep(
+        {route: adam_step(model) for route, model in models.items()},
+        models, None, None, steps)
     return hist, grads, counts["pallas"]
 
 
-def check_lockstep(what: str, hist: dict, grads: dict, loss_tol: float):
-    """The 'pallas' losses within ``loss_tol`` (relative) of 'ge''s at
-    every step, each first gradient GRAD_TOL of its max, the losses
+def check_lockstep(what: str, hist: dict, grads: dict, loss_tol: float,
+                   grad_tol: float = GRAD_TOL, key: str = "pallas"):
+    """The ``key`` route's losses within ``loss_tol`` (relative) of 'ge''s
+    at every step, each first gradient ``grad_tol`` of its max, the losses
     finite and falling.  Returns (loss gap, gradient gap)."""
-    rel = float(np.max(np.abs(hist["pallas"] - hist["ge"])
+    rel = float(np.max(np.abs(hist[key] - hist["ge"])
                        / np.abs(hist["ge"])))
-    check(bool(np.isfinite(hist["pallas"]).all()) and rel < loss_tol,
-          f"{what}: losses {hist['pallas']} on 'pallas' against "
+    check(bool(np.isfinite(hist[key]).all()) and rel < loss_tol,
+          f"{what}: losses {hist[key]} on {key!r} against "
           f"{hist['ge']} on 'ge', rel {rel:.3e} (tol {loss_tol:g})")
-    check(hist["pallas"][-1] < hist["pallas"][0],
-          f"{what}: the loss did not fall: {hist['pallas']}")
-    gerr = max(rel_err(grads["pallas"][k], g)[1]
+    check(hist[key][-1] < hist[key][0],
+          f"{what}: the loss did not fall: {hist[key]}")
+    gerr = max(rel_err(grads[key][k], g)[1]
                for k, g in grads["ge"].items())
-    check(gerr < GRAD_TOL, f"{what}: first gradients {gerr:.3e} of the max "
-          f"apart (tol {GRAD_TOL:g})")
+    check(gerr < grad_tol, f"{what}: first gradients {gerr:.3e} of the max "
+          f"apart (tol {grad_tol:g})")
     return rel, gerr
 
 
@@ -4441,6 +4514,388 @@ def phase_loop(card: str, unrolled16: BackgroundBuild) -> tuple:
     print("  looped against unrolled at N=16 (max abs): " + ", ".join(
         f"{k} {v:.3e}" for k, v in gaps.items()))
     return loop_report(loop_paths()), errs
+
+
+# ---------------------------------------------------------------------------
+# phase 4m, K3f, K3b and K5 past 16 channels (fdn_loop.cu)
+# ---------------------------------------------------------------------------
+def colorless_tf_scenario(N: int, nfft: int = NFFT, device="cuda",
+                          steps: int = LOOP_STEPS) -> dict:
+    """A colorless FDN of N channels (build_colorless_fdn, delays
+    hfdn_delays(N)), two builds from one seed: the fused response
+    (colorless_freq_response_fused, K3f once) against get_freq_response
+    (VAL_TOL of the max), then ``steps`` Adam steps of
+    colorless_train_step(fused_tf=True) (K3f and K3b once each a step) in
+    lockstep with colorless_train_step on the graph ('ge')."""
+    delays = hfdn_delays(N)
+    models = {route: build_colorless_fdn(
+        nfft=nfft, delays=delays, device=device,
+        generator=torch.Generator().manual_seed(SEED))
+        for route in ("ge", "fused")}
+    x, t = colorless_pair(models["ge"])
+    with torch.no_grad():
+        H_graph = models["ge"].get_freq_response()
+        reset_counts()
+        H = colorless_freq_response_fused(models["fused"])
+    check_counts(f"the fused response N={N}", nonzero_counts(),
+                 {"fdn_tf_fwd_loop": 1})
+    _, resp_err = rel_err(H, H_graph)
+    check(bool(torch.isfinite(H).all()) and resp_err < VAL_TOL,
+          f"the fused response N={N}: {resp_err:.3e} of the max from "
+          f"get_freq_response (tol {VAL_TOL:g})")
+    hist, grads, counts = step_lockstep(
+        {"ge": colorless_train_step(models["ge"])[0],
+         "fused": colorless_train_step(models["fused"], fused_tf=True)[0]},
+        models, x, t, steps)
+    check_counts(f"the fused-tf step N={N}: {steps} steps", counts["fused"],
+                 {"fdn_tf_fwd_loop": steps, "fdn_tf_bwd_loop": steps})
+    check_counts(f"the graph step N={N}", counts["ge"], {})
+    rel, gerr = check_lockstep(f"colorless fused-tf N={N}", hist, grads,
+                               FUSED_LOSS_TOL, FUSED_GRAD_TOL, key="fused")
+    return dict(N=N, delays=delays, resp_err=resp_err, hist=hist, rel=rel,
+                grad_err=gerr, counts={"fdn_tf_fwd_loop": 1 + steps,
+                                       "fdn_tf_bwd_loop": steps})
+
+
+def att_loop_model(N: int, nfft: int = NFFT, device="cuda",
+                   octave_interval: int = 1):
+    """The attenuated FDN (octave GEQ unless ``octave_interval``) of N
+    channels, delays hfdn_delays(N), weights from SEED."""
+    return build_attenuated_fdn(
+        nfft=nfft, delays=hfdn_delays(N), octave_interval=octave_interval,
+        cache_delays=True, device=device,
+        generator=torch.Generator().manual_seed(SEED))
+
+
+def attenuated_loop_scenario(N: int, nfft: int = NFFT, device="cuda",
+                             steps: int = LOOP_STEPS,
+                             trainer_steps: int = TFSOS_TRAINER_STEPS
+                             ) -> dict:
+    """The attenuated FDN of N channels (att_loop_model): ``steps`` Adam
+    steps of attenuated_train_step(fused_step=True) (K5, no pivot, once a
+    step) in lockstep with attenuated_train_step on the graph ('ge', the
+    plain cascade), then the Trainer on the same model with an |.|
+    output: its gate takes attenuated_fused_step (K5 once) and
+    ``trainer_steps`` fit_scan steps (K5 once a step), the first loss the
+    graph's."""
+    models = {route: att_loop_model(N, nfft, device)
+              for route in ("ge", "fused")}
+    x, t = time_impulse_pair(nfft, device)
+    hist, grads, counts = step_lockstep(
+        {"ge": attenuated_train_step(models["ge"], lr=ATT_LR)[0],
+         "fused": attenuated_train_step(models["fused"], lr=ATT_LR,
+                                        fused_step=True)[0]},
+        models, x, t, steps)
+    check_counts(f"the attenuated fused step N={N}: {steps} steps",
+                 counts["fused"], {"fdn_sos_tf_mse_loop": steps})
+    check_counts(f"the attenuated graph step N={N}", counts["ge"], {})
+    rel, gerr = check_lockstep(f"attenuated fused step N={N}", hist, grads,
+                               FUSED_LOSS_TOL, FUSED_GRAD_TOL, key="fused")
+    m = att_loop_model(N, nfft, device)
+    model = system.Shell(core=m.core, input_layer=m.input_layer,
+                         output_layer=dsp.Transform(torch.abs))
+    reset_counts()
+    tr = gated_trainer(model, x, t, "attenuated_fused_step", sparsity=False,
+                       lr=ATT_LR, mse=mse_loss(nfft=nfft),
+                       fused="auto" if device == "cuda" else "force")
+    hist_tr = tr.fit_scan(x, t, n_steps=trainer_steps,
+                          steps_per_call=trainer_steps)
+    check_counts(f"the attenuated Trainer N={N}", nonzero_counts(),
+                 {"fdn_sos_tf_mse_loop": 1 + trainer_steps})
+    tr_rel = abs(hist_tr[0] - hist["ge"][0]) / hist["ge"][0]
+    check(bool(np.isfinite(hist_tr).all()) and tr_rel < FUSED_LOSS_TOL,
+          f"the attenuated Trainer N={N}: {hist_tr} against the graph's "
+          f"first loss {hist['ge'][0]}, rel {tr_rel:.3e}")
+    return dict(N=N, hist=hist, rel=rel, grad_err=gerr, trainer=hist_tr,
+                trainer_rel=tr_rel,
+                counts={"fdn_sos_tf_mse_loop": steps + 1 + trainer_steps})
+
+
+def third_octave_loop_check(N: int = TFSOS_NS[-1], nfft: int = NFFT,
+                            device="cuda") -> dict:
+    """One K5 call on the attenuated FDN of N channels with a 1/3-octave
+    GEQ (THIRD_K sections of P_MAIN taps, fused tap sums: the largest
+    shared memory of the paths, one warp a block at 64 channels), its
+    impulse -> flat operands, against the plain version at the GEQ taps'
+    bounds (FUSED_LOSS_TOL, FUSED_GRAD_TOL of the max), every result
+    finite."""
+    model = att_loop_model(N, nfft, device, octave_interval=3)
+    x, t = time_impulse_pair(nfft, device)
+    with torch.no_grad():
+        D, bt, at, U, b, c = extract_attenuated_operands(model)
+        X = torch.fft.rfft(x[0, :, 0], n=nfft)
+        args = (D.contiguous(), bt.contiguous(), at.contiguous(), U, b, c,
+                X, t[0, :, 0], nfft)
+        check(tuple(bt.shape) == (P_MAIN, THIRD_K, N),
+              f"the 1/3-octave GEQ's taps are {tuple(bt.shape)}")
+        reset_counts()
+        got = sk.fdn_sos_tf_mse_kernel(*args)
+        counts = nonzero_counts()
+        ref = sk.fdn_sos_tf_mse_plain(*args)
+    check_counts(f"K5 on the 1/3-octave GEQ N={N}", counts,
+                 {"fdn_sos_tf_mse_loop": 1})
+    check(all(bool(torch.isfinite(g).all()) for g in got if g is not None),
+          f"K5 on the 1/3-octave GEQ N={N}: not finite")
+    errs = [compare(f"K5 looped, 1/3-octave GEQ (K={THIRD_K}) N={N} loss",
+                    got[0], ref[0], FUSED_LOSS_TOL)]
+    for name, g, r in zip(("bt_bar", "at_bar", "U_bar", "b_bar", "c_bar"),
+                          got[2:], ref[2:]):
+        errs.append(compare(f"K5 looped, 1/3-octave GEQ N={N} {name}", g, r,
+                            FUSED_GRAD_TOL))
+    return dict(N=N, K=THIRD_K, err=max(errs),
+                warps=sk.loop_tf_mse_warps(N, THIRD_K, P_MAIN, True),
+                counts=counts)
+
+
+def tfsos_paths(nfft: int = NFFT, device="cuda", ns=TFSOS_NS) -> dict:
+    """Phase 4m's paths at each of ``ns`` channels, and the 1/3-octave K5
+    call at the last."""
+    return dict(colorless=[colorless_tf_scenario(N, nfft, device)
+                           for N in ns],
+                attenuated=[attenuated_loop_scenario(N, nfft, device)
+                            for N in ns],
+                third=third_octave_loop_check(ns[-1], nfft, device))
+
+
+def tfsos_report(paths: dict) -> dict:
+    """Print phase 4m's paths; returns their launches by kernels-line row
+    (the kernel at the path's channel count)."""
+    launches = {}
+
+    def add(r):
+        for k, v in r["counts"].items():
+            row = loop_row(k, r["N"])
+            launches[row] = launches.get(row, 0) + v
+
+    for r in paths["colorless"]:
+        add(r)
+        print(f"  colorless FDN N={r['N']} (delays {min(r['delays'])}.."
+              f"{max(r['delays'])}): the fused response {r['resp_err']:.3e} "
+              f"of the max from get_freq_response (tol {VAL_TOL:g}); "
+              f"{len(r['hist']['ge'])} fused-tf steps {r['hist']['fused']} "
+              f"against the graph on ge {r['hist']['ge']}, rel "
+              f"{r['rel']:.3e} (tol {FUSED_LOSS_TOL:g}), first gradients "
+              f"{r['grad_err']:.3e} of the max (tol {FUSED_GRAD_TOL:g}); "
+              f"launches {r['counts']}")
+    for r in paths["attenuated"]:
+        add(r)
+        print(f"  attenuated FDN N={r['N']}: {len(r['hist']['ge'])} fused "
+              f"steps {r['hist']['fused']} against the graph on ge "
+              f"{r['hist']['ge']}, rel {r['rel']:.3e} (tol "
+              f"{FUSED_LOSS_TOL:g}), first gradients {r['grad_err']:.3e} of "
+              f"the max (tol {FUSED_GRAD_TOL:g}); the Trainer's gate took "
+              f"attenuated_fused_step, fit_scan {r['trainer']} (first loss "
+              f"rel {r['trainer_rel']:.3e}); launches {r['counts']}")
+    third = paths["third"]
+    add(third)
+    print(f"  K5 looped on the 1/3-octave GEQ (K={third['K']}) N="
+          f"{third['N']}: {third['warps']} warp(s) a block, max abs err "
+          f"{third['err']:.3e} against the plain version")
+    print(f"  launches in phase 4m: {launches}")
+    return launches
+
+
+def phase_tfsos() -> dict:
+    """K3f, K3b and K5 past 16 channels on the slice's paths at
+    TFSOS_NS channels, full width, with exact launch counts; returns the
+    launches by kernels-line row."""
+    print(f"phase 4m K3f, K3b and K5 past 16 channels (fdn_loop.cu, one warp "
+          f"a bin; nfft={NFFT}, N in {TFSOS_NS})")
+    return tfsos_report(tfsos_paths())
+
+
+# ---------------------------------------------------------------------------
+# phase 5m, the looped K3f, K3b and K5 against their plain versions and the
+# unrolled kernels, then their times
+# ---------------------------------------------------------------------------
+def tfsos_operands(M: int, N: int, device="cuda") -> dict:
+    """loop_operands with K5's: stable taps (K_MAIN sections of P_MAIN)
+    and 0.6 U (a loop gain well below 1 with |Gam| near 1), and K3b's
+    cotangent of tf."""
+    o = loop_operands(M, N, device=device)
+    bt, at = _stable_taps(np.random.default_rng(SEED + 100 + N), P_MAIN,
+                          K_MAIN, N, device)
+    o.update(bt=bt, at=at, U6=0.6 * o["U"], tb=o["B"][:, 0].contiguous())
+    return o
+
+
+def k5_loop_args(o) -> tuple:
+    """K5's operands on tfsos_operands, its M rows the whole rfft grid of
+    2 (M - 1) points."""
+    return (o["D"], o["bt"], o["at"], o["U6"], o["b"], o["c"], o["X"],
+            o["t"], 2 * (len(o["D"]) - 1))
+
+
+K5_NAMES = ("loss", "D_bar", "bt_bar", "at_bar", "U_bar", "b_bar", "c_bar")
+
+
+def k5_compare(tag: str, got, ref) -> float:
+    """K5's results against a reference: the loss VAL_TOL, the cotangents
+    GRAD_TOL of the max; D_bar present in both or neither."""
+    errs = [compare(f"{tag} loss", got[0], ref[0], VAL_TOL)]
+    for name, g, r in zip(K5_NAMES[1:], got[1:], ref[1:]):
+        check((g is None) == (r is None), f"{tag}: {name}")
+        if r is not None:
+            errs.append(compare(f"{tag} {name}", g, r, GRAD_TOL))
+    return max(errs)
+
+
+K5_VARIANTS = (*((pivot, with_dbar, True) for pivot, with_dbar in
+                 itertools.product((True, False), repeat=2)),
+               (False, False, False))
+
+
+def tfsos_kernel_checks(N: int, M: int = M_MAIN, device="cuda",
+                        offset: int = TFSOS_OFFSET) -> tuple:
+    """K3f looped (tf and y VAL_TOL of the max), K3b looped (cotangents
+    GRAD_TOL) and K5 looped (K5_VARIANTS, and the training variant in both
+    fuse_taps modes on the last M - offset rows at bin_offset ``offset``)
+    against their plain versions on tfsos_operands; K3f's y
+    on the exact tied systems of k3_systems bit for bit (a diagonal left
+    by the elimination, as K2 looped's), K3f and K3b there and on the
+    pivoting, cyclic and random systems at VAL_TOL/GRAD_TOL.  Returns the
+    max abs error of each kernels-line kernel and the tied systems'
+    count."""
+    o = tfsos_operands(M, N, device)
+    D, U, b, c = (o[k] for k in "DUbc")
+    tf, y = fk.fdn_tf_fwd_loop_kernel(D, U, b, c)
+    tf_r, y_r = fk.fdn_tf_fwd_plain(D, U, b, c)
+    errs = {"fdn_tf_fwd_loop": max(
+        compare(f"K3f looped N={N} tf", tf, tf_r, VAL_TOL),
+        compare(f"K3f looped N={N} y", y, y_r, VAL_TOL))}
+    errs["fdn_tf_bwd_loop"] = max(
+        compare(f"K3b looped N={N} {name}", g, r, GRAD_TOL)
+        for name, g, r in zip(K5_NAMES[1:2] + K5_NAMES[4:],
+                              fk.fdn_tf_bwd_loop_kernel(D, U, b, c, y,
+                                                        o["tb"]),
+                              fk.fdn_tf_bwd_plain(D, U, b, c, y, o["tb"])))
+    errs["fdn_sos_tf_mse_loop"] = 0.0
+    for pivot, with_dbar, fuse_taps in K5_VARIANTS:
+        args = (*k5_loop_args(o), with_dbar, pivot, fuse_taps)
+        errs["fdn_sos_tf_mse_loop"] = max(
+            errs["fdn_sos_tf_mse_loop"],
+            k5_compare(f"K5 looped N={N} pivot={pivot} with_dbar="
+                       f"{with_dbar} fuse_taps={fuse_taps}",
+                       sk.fdn_sos_tf_mse_loop_kernel(*args),
+                       sk.fdn_sos_tf_mse_plain(*args)))
+    for fuse_taps in (True, False):
+        sl = {k: o[k][offset:] for k in "DXt"}
+        args = (sl["D"], o["bt"], o["at"], o["U6"], b, c, sl["X"], sl["t"],
+                2 * (M - 1), False, False, fuse_taps, offset)
+        k5_compare(f"K5 looped N={N} bin_offset={offset} ({M - offset} rows) "
+                   f"fuse_taps={fuse_taps}",
+                   sk.fdn_sos_tf_mse_loop_kernel(*args),
+                   sk.fdn_sos_tf_mse_plain(*args))
+    tied = 0
+    for tr in (False, True):
+        systems = k3_systems(np.random.default_rng(SEED + N + tr), M, N, tr)
+        for label, system in systems.items():
+            Ds, Us, bs, cs, tbs = k3_tensors(system, device)
+            tag = f"N={N} {label}{' transposed' if tr else ''}"
+            if not tr:
+                tf_k, y_k = fk.fdn_tf_fwd_loop_kernel(Ds, Us, bs, cs)
+                _, y_p = fk.fdn_tf_fwd_plain(Ds, Us, bs, cs)
+                compare(f"K3f looped {tag} y", y_k, y_p, VAL_TOL)
+                if label == "tied lower":
+                    check(torch.equal(y_k, y_p), f"K3f looped {tag}: the "
+                          "exact diagonal systems' y differs from the plain "
+                          "version in its bits (another pivot rule)")
+                    tied += len(y_k)
+            else:
+                _, y_s = fk.fdn_tf_fwd_plain(Ds, Us, bs, cs)
+                for name, g, r in zip(
+                        K5_NAMES[1:2] + K5_NAMES[4:],
+                        fk.fdn_tf_bwd_loop_kernel(Ds, Us, bs, cs, y_s, tbs),
+                        fk.fdn_tf_bwd_plain(Ds, Us, bs, cs, y_s, tbs)):
+                    if bool(torch.isfinite(r).all()):
+                        compare(f"K3b looped {tag} {name}", g, r, GRAD_TOL)
+    return errs, tied
+
+
+def tfsos_versus_unrolled(M: int = M_MAIN, device="cuda") -> dict:
+    """At N = 16 both kernels run: the looped K3f, K3b and K5 (K5_VARIANTS)
+    against the unrolled ones on the same operands, their gaps by kernel
+    (values VAL_TOL, cotangents GRAD_TOL of the max)."""
+    N = fk.MAX_N
+    o = tfsos_operands(M, N, device)
+    D, U, b, c = (o[k] for k in "DUbc")
+    tf, y = fk.fdn_tf_fwd_loop_kernel(D, U, b, c)
+    tf_u, y_u = fk.fdn_tf_fwd_kernel(D, U, b, c)
+    gaps = {"K3f": max(
+        compare(f"K3f looped against unrolled N={N} tf", tf, tf_u, VAL_TOL),
+        compare(f"K3f looped against unrolled N={N} y", y, y_u, VAL_TOL))}
+    gaps["K3b"] = max(
+        compare(f"K3b looped against unrolled N={N} {name}", g, r, GRAD_TOL)
+        for name, g, r in zip(K5_NAMES[1:2] + K5_NAMES[4:],
+                              fk.fdn_tf_bwd_loop_kernel(D, U, b, c, y,
+                                                        o["tb"]),
+                              fk.fdn_tf_bwd_kernel(D, U, b, c, y, o["tb"])))
+    for pivot, with_dbar, fuse_taps in K5_VARIANTS:
+        args = (*k5_loop_args(o), with_dbar, pivot, fuse_taps)
+        tag = f"K5 pivot={pivot} with_dbar={with_dbar} fuse_taps={fuse_taps}"
+        gaps[tag] = k5_compare(f"{tag} looped against unrolled N={N}",
+                               sk.fdn_sos_tf_mse_loop_kernel(*args),
+                               sk.fdn_sos_tf_mse_kernel(*args))
+    return gaps
+
+
+def tfsos_timing(card: str, launches: dict, errs: dict) -> list:
+    """The looped K3f, K3b and K5 (the training variant: no pivot, no
+    D_bar, fused taps, K_MAIN sections of P_MAIN taps) at M_MAIN bins and
+    each of TFSOS_NS channels: device and call ms, the plain version's
+    (CUDA events), the bound and the launches on phase 4m's paths; no
+    single PyTorch call computes them."""
+    rows = []
+    for N in TFSOS_NS:
+        o = tfsos_operands(M_MAIN, N)
+        D, U, b, c = (o[k] for k in "DUbc")
+        _, y = fk.fdn_tf_fwd_loop_kernel(D, U, b, c)
+        args = k5_loop_args(o)
+        for name, kern, plain, kernel in (
+                ("fdn_tf_fwd_loop",
+                 lambda: fk.fdn_tf_fwd_loop_kernel(D, U, b, c),
+                 lambda: fk.fdn_tf_fwd_plain(D, U, b, c),
+                 "ge_loop_tf_fwd_kernel"),
+                ("fdn_tf_bwd_loop",
+                 lambda: fk.fdn_tf_bwd_loop_kernel(D, U, b, c, y, o["tb"]),
+                 lambda: fk.fdn_tf_bwd_plain(D, U, b, c, y, o["tb"]),
+                 "ge_loop_tf_bwd_kernel"),
+                ("fdn_sos_tf_mse_loop",
+                 lambda: sk.fdn_sos_tf_mse_loop_kernel(*args),
+                 lambda: sk.fdn_sos_tf_mse_plain(*args),
+                 "ge_loop_sos_tf_mse_kernel")):
+            rows.append(timing_row(
+                name, loop_row(name, N), M_MAIN, kern, plain, None, {},
+                launches, errs, N=N, plain_reps=1, kernel=kernel,
+                work=name.removesuffix("_loop"), plain_events=True))
+        del o, D, U, b, c, y, args
+        torch.cuda.empty_cache()
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.6f} ms against its bound "
+              f"{r['bound_ms']:.6f} ({r['bound_by']}): "
+              f"{r['ms'] / r['bound_ms']:.1f}x; launches {r['launches']} on "
+              f"{card}")
+    return rows
+
+
+def phase_tfsos_kernels(card: str, launches: dict,
+                        unrolled16: BackgroundBuild) -> list:
+    """Phase 5m: the looped K3f, K3b and K5 against their plain versions at
+    M_MAIN bins for each of LOOP_NS channels and against the unrolled
+    kernels at 16 (those libraries built on a thread beside the earlier
+    phases), then their kernels-line rows."""
+    print(f"phase 5m the looped K3f, K3b and K5 at M={M_MAIN} on {card}")
+    errs = {}
+    for N in LOOP_NS:
+        e, tied = tfsos_kernel_checks(N)
+        errs.update({loop_row(k, N): v for k, v in e.items()})
+        print(f"  N={N}: the looped K3f, K3b and K5 held to their plain "
+              f"versions; {tied} exact tied systems' y equal bit for bit")
+    unrolled16.wait()
+    gaps = tfsos_versus_unrolled()
+    print("  looped against unrolled at N=16 (max abs): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in gaps.items()))
+    return tfsos_timing(card, launches, errs)
 
 
 def phase_timing(o, launches, errs, card, previous) -> list:
@@ -5042,11 +5497,15 @@ def run_phases(card, previous, unrolled16, t0, took,
     took["4k multi-device, QR eigensolver"] = seconds_since_last()
     loop_launches, loop_errs = phase_loop(card, unrolled16)
     took["4l past 16 channels"] = seconds_since_last()
+    tfsos_launches = phase_tfsos()
+    took["4m K3f, K3b, K5 past 16 channels"] = seconds_since_last()
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     print(f"phase 5l timing of the looped kernels at M={M_MAIN} on {card}")
     rows += loop_timing(card, loop_launches, loop_errs)
     took["5l timing past 16 channels"] = seconds_since_last()
+    rows += phase_tfsos_kernels(card, tfsos_launches, unrolled16)
+    took["5m K3f, K3b, K5 past 16 channels"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
     phase_trace(card, "Trainer.train_step (colorless_fused_step: K1)",
                 trainer_steps(), train_step_ms, share=("fdn_tf_mse",))

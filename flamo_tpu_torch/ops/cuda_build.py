@@ -14,8 +14,9 @@ its plain version's rounding).  Three sources take every size at run
 time and are one library each, built as N = 1: ``sos_cascade.cu``, the
 SOS cascade K4f and its tap VJP K4b (any channel count),
 ``phase2_micro.cu``, the four variants of the phase-2 micro-benchmark
-K10, and ``fdn_loop.cu``, the looped eliminations of K1, K2 and K6 for
-more than 16 channels (one warp a bin, N a run-time argument).
+K10, and ``fdn_loop.cu``, the looped eliminations of K1, K2, K3f, K3b, K5
+and K6 for more than 16 channels (one warp a bin, N a run-time
+argument).
 
 The eliminations are unrolled over N and the large-N instantiations
 compile slowly, so each (source, N) is its own library, built when a
@@ -114,6 +115,16 @@ _SIGNATURES = {
         "fl_dense_solve_launch": (_I, [_I, _I, _P, _P, _P, _I, _P]),
         "fl_tf_mse_launch": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _F, _I, _I, _P]),
+        "fl_tf_fwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _P]),
+        "fl_tf_bwd_grid": (_I, [_I, _I]),
+        "fl_tf_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _P]),
+        "fl_sos_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I, _I]),
+        "fl_sos_warps": (_I, [_I, _I, _I, _I]),
+        "fl_sos_tf_mse_grid": (_I, [_I, _I, _I, _I, _I, _I, _I]),
+        "fl_sos_tf_mse_launch": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _P, _P, _P, _F, _I, _I, _I, _F,
+                                      _F, _I, _P]),
     }),
     "phase2_micro": ("p2", {
         "p2_threads_per_block": (_I, []),

@@ -20,11 +20,11 @@ t (M,) float32):
 Each ``*_kernel`` wrapper launches its CUDA kernel for CUDA tensors (and
 counts the launch in :data:`LAUNCHES`) and runs the plain version for CPU
 tensors, at any channel count; it never falls back from one to the
-other.  On the card K1, K2 and K6 take the unrolled kernels of
+other.  On the card K1, K2, K3f, K3b and K6 take the unrolled kernels of
 ``fdn_kernels.cu`` up to ``MAX_N`` = 16 channels and the looped ones of
 ``fdn_loop.cu`` (``*_loop_kernel``, one warp a bin) above, up to
 :data:`LOOP_MAX_N`, where one bin's system fills a block's 227 KB of
-shared memory; K3f and K3b take 1..16 there.  The plain versions
+shared memory.  The plain versions
 are the per-bin eliminations of :mod:`flamo_tpu_torch.ops.solve` on the
 assembled loop matrices, vectorised over bins; like the kernels, they
 pivot on the first row of largest magnitude.
@@ -56,28 +56,34 @@ LAUNCHES = {"fdn_tf_mse": 0, "fdn_solve": 0, "fdn_tf_fwd": 0,
             "fdn_tf_bwd": 0, "dense_solve": 0, "dense_solve_transposed": 0,
             "fdn_tf_mse_loop": 0, "fdn_solve_loop": 0,
             "fdn_solve_loop_transposed": 0, "dense_solve_loop": 0,
-            "dense_solve_loop_transposed": 0}
+            "dense_solve_loop_transposed": 0, "fdn_tf_fwd_loop": 0,
+            "fdn_tf_bwd_loop": 0}
 K2_TRANSPOSED = [0]
 
 # The looped kernels' shared memory (as fdn_loop.cu's smem_bytes): a block
 # of W warps holds a warp's system (N rows of stride N | 1 complex) and
-# vectors (d, rhs, y for K2; rhs, y for K6; d, rhs, y, w for K1) each, K1's
-# sums (N^2 + 2N + 1 floats) each, and once the staged U (N rows of stride
-# N | 1) and K1's b and c.  W is as many warps as fit LOOP_SMEM (227 KB,
-# the most a block may opt in to on sm_90), at most LOOP_MAX_WARPS.
+# vectors (d, rhs, y for K2 and K3f; rhs, y for K6; d, rhs, y, w for K1
+# and K3b) each, K1's and K3b's sums (N^2 + 2N + 1 floats) each, and once
+# the staged U (N rows of stride N | 1) and, but for K2, b and c.  W is
+# as many warps as fit LOOP_SMEM (227 KB, the most a block may opt in to
+# on sm_90), at most LOOP_MAX_WARPS.  K5 looped's rule, which also
+# depends on its taps, is sos_kernels.loop_tf_mse_smem_bytes.
 LOOP_SMEM = 232448
 LOOP_MAX_WARPS = 8
-LOOP_KINDS = {"fdn_solve": 0, "dense_solve": 1, "fdn_tf_mse": 2}
-LOOP_LABELS = {"fdn_solve": "K2", "dense_solve": "K6", "fdn_tf_mse": "K1"}
+LOOP_KINDS = {"fdn_solve": 0, "dense_solve": 1, "fdn_tf_mse": 2,
+              "fdn_tf_fwd": 3, "fdn_tf_bwd": 4}
+LOOP_LABELS = {"fdn_solve": "K2", "dense_solve": "K6", "fdn_tf_mse": "K1",
+               "fdn_tf_fwd": "K3f", "fdn_tf_bwd": "K3b"}
 
 
 def loop_smem_bytes(kind: str, N: int, warps: int) -> int:
     """Dynamic shared memory of a looped kernel's block of ``warps``."""
     S = N | 1
-    common = 0 if kind == "dense_solve" else N * S + (
-        2 * N if kind == "fdn_tf_mse" else 0)
-    vecs = {"fdn_solve": 3, "dense_solve": 2, "fdn_tf_mse": 4}[kind]
-    sums = N * N + 2 * N + 1 if kind == "fdn_tf_mse" else 0
+    common = {"fdn_solve": N * S, "dense_solve": 0}.get(kind, N * S + 2 * N)
+    vecs = {"fdn_solve": 3, "dense_solve": 2, "fdn_tf_mse": 4,
+            "fdn_tf_fwd": 3, "fdn_tf_bwd": 4}[kind]
+    sums = (N * N + 2 * N + 1 if kind in ("fdn_tf_mse", "fdn_tf_bwd")
+            else 0)
     return 4 * (common + common % 2) + warps * (8 * (N * S + vecs * N)
                                                 + 4 * sums)
 
@@ -100,7 +106,7 @@ def _loop_max_n(kind: str) -> int:
 
 
 # the most channels of each looped kernel on the card: 137 (K2), 169 (K6),
-# 119 (K1)
+# 119 (K1), 137 (K3f), 119 (K3b)
 LOOP_MAX_N = {kind: _loop_max_n(kind) for kind in LOOP_KINDS}
 
 
@@ -113,15 +119,6 @@ def check_loop_n(kind: str, N: int) -> None:
             f"({kind}) takes 1..{LOOP_MAX_N[kind]} on the card, where one "
             f"bin's system must fit a block's {LOOP_SMEM} bytes (227 KB) of "
             "shared memory")
-
-
-def _check_unrolled_n(N: int, what: str) -> None:
-    """K3f, K3b and K5 take 1..MAX_N channels on the card."""
-    if not 1 <= N <= MAX_N:
-        raise ValueError(
-            f"N = {N} channels; {what} takes 1..{MAX_N} on the card (its "
-            "looped variant for more channels is not written yet: "
-            "ROADMAP.md, queue 2); the plain version on the CPU takes any N")
 
 
 def reset_launch_counts() -> None:
@@ -279,6 +276,16 @@ def _loop_check(rc: int, what: str) -> None:
     cuda_build.check(rc, what, 1, LOOP_LIB)
 
 
+def loop_grid(blocks: int, what: str) -> int:
+    """A looped kernel's grid as its library's ``*_grid`` returned it (its
+    blocks, one partials row each), raising on an error: -1000 - a CUDA
+    error while sizing it, or a refused size."""
+    if blocks < -1000:  # a CUDA error while sizing the grid
+        _loop_check(-1000 - blocks, what)
+    _loop_check(min(blocks, 0), what)
+    return blocks
+
+
 def fdn_solve_loop_kernel(D, U, B, transpose: bool = False):
     """K2 looped (fdn_loop.cu, one warp a bin, any N up to
     ``LOOP_MAX_N['fdn_solve']``): y (M, N) complex64."""
@@ -334,10 +341,8 @@ def fdn_tf_mse_loop_kernel(D, U, b, c, X, t, with_dbar: bool = True,
     D, U, b, c, X, t = (x.contiguous() for x in (D, U, b, c, X, t))
     D_bar = torch.empty_like(D) if with_dbar else None
     with torch.cuda.device(D.device):
-        blocks = lib.fl_tf_mse_grid(int(pivot), int(with_dbar), N, M)
-        if blocks < -1000:  # a CUDA error while sizing the grid
-            _loop_check(-1000 - blocks, "fdn_tf_mse_loop_kernel")
-        _loop_check(min(blocks, 0), "fdn_tf_mse_loop_kernel")
+        blocks = loop_grid(lib.fl_tf_mse_grid(int(pivot), int(with_dbar), N,
+                                              M), "fdn_tf_mse_loop_kernel")
         partials = torch.empty((blocks, N * N + 2 * N + 1),
                                dtype=torch.float32, device=D.device)
         rc = lib.fl_tf_mse_launch(
@@ -349,6 +354,53 @@ def fdn_tf_mse_loop_kernel(D, U, b, c, X, t, with_dbar: bool = True,
     LAUNCHES["fdn_tf_mse_loop"] += 1
     U_bar, b_bar, c_bar, sq = _sum_partials(partials, N)
     return sq / M, D_bar, U_bar, b_bar, c_bar
+
+
+def fdn_tf_fwd_loop_kernel(D, U, b, c):
+    """K3f looped (fdn_loop.cu, one warp a bin, any N up to
+    ``LOOP_MAX_N['fdn_tf_fwd']``): (tf (M,), y (M, N))."""
+    M, N = _check(D, U, vecs=[("b", b), ("c", c)])
+    if not _on_cuda(D, U, b, c):
+        return fdn_tf_fwd_plain(D, U, b, c)
+    check_loop_n("fdn_tf_fwd", N)
+    lib = cuda_build.load(1, LOOP_LIB)
+    D, U, b, c = (x.contiguous() for x in (D, U, b, c))
+    tf = torch.empty((M,), dtype=D.dtype, device=D.device)
+    Y = torch.empty_like(D)
+    with torch.cuda.device(D.device):
+        rc = lib.fl_tf_fwd_launch(N, D.data_ptr(), U.data_ptr(), b.data_ptr(),
+                                  c.data_ptr(), tf.data_ptr(), Y.data_ptr(),
+                                  M, _stream(D))
+    _loop_check(rc, "fdn_tf_fwd_loop_kernel")
+    LAUNCHES["fdn_tf_fwd_loop"] += 1
+    return tf, Y
+
+
+def fdn_tf_bwd_loop_kernel(D, U, b, c, y, tf_bar):
+    """K3b looped (fdn_loop.cu, one warp a bin, any N up to
+    ``LOOP_MAX_N['fdn_tf_bwd']``): (D_bar, U_bar, b_bar, c_bar) for JAX's
+    tf_bar.  Each block writes one row of partials, summed here."""
+    M, N = _check(D, U, vecs=[("b", b), ("c", c)],
+                  cplx_rows=[("tf_bar", tf_bar)], cplx_mats=[("y", y)])
+    if not _on_cuda(D, U, b, c, y, tf_bar):
+        return fdn_tf_bwd_plain(D, U, b, c, y, tf_bar)
+    check_loop_n("fdn_tf_bwd", N)
+    lib = cuda_build.load(1, LOOP_LIB)
+    D, U, b, c, y, tf_bar = (x.contiguous()
+                             for x in (D, U, b, c, y, tf_bar))
+    D_bar = torch.empty_like(D)
+    with torch.cuda.device(D.device):
+        blocks = loop_grid(lib.fl_tf_bwd_grid(N, M), "fdn_tf_bwd_loop_kernel")
+        partials = torch.empty((blocks, N * N + 2 * N + 1),
+                               dtype=torch.float32, device=D.device)
+        rc = lib.fl_tf_bwd_launch(N, D.data_ptr(), U.data_ptr(), b.data_ptr(),
+                                  c.data_ptr(), y.data_ptr(),
+                                  tf_bar.data_ptr(), D_bar.data_ptr(),
+                                  partials.data_ptr(), M, blocks, _stream(D))
+    _loop_check(rc, "fdn_tf_bwd_loop_kernel")
+    LAUNCHES["fdn_tf_bwd_loop"] += 1
+    U_bar, b_bar, c_bar, _ = _sum_partials(partials, N)
+    return D_bar, U_bar, b_bar, c_bar
 
 
 def fdn_solve_kernel(D, U, B, transpose: bool = False):
@@ -408,11 +460,13 @@ def dense_solve_kernel(A, B, transpose: bool = False):
 
 
 def fdn_tf_fwd_kernel(D, U, b, c):
-    """K3f wrapper: (tf (M,), y (M, N))."""
+    """K3f wrapper: (tf (M,), y (M, N)); on the card the looped kernel above
+    MAX_N channels."""
     M, N = _check(D, U, vecs=[("b", b), ("c", c)])
     if not _on_cuda(D, U, b, c):
         return fdn_tf_fwd_plain(D, U, b, c)
-    _check_unrolled_n(N, "kernel K3f (fdn_tf_fwd_kernel)")
+    if N > MAX_N:
+        return fdn_tf_fwd_loop_kernel(D, U, b, c)
     lib = cuda_build.load(N)
     D, U, b, c = _aligned16(D), U.contiguous(), b.contiguous(), c.contiguous()
     tf = torch.empty((M,), dtype=D.dtype, device=D.device)
@@ -427,12 +481,14 @@ def fdn_tf_fwd_kernel(D, U, b, c):
 
 
 def fdn_tf_bwd_kernel(D, U, b, c, y, tf_bar):
-    """K3b wrapper: (D_bar, U_bar, b_bar, c_bar) for JAX's tf_bar."""
+    """K3b wrapper: (D_bar, U_bar, b_bar, c_bar) for JAX's tf_bar; on the
+    card the looped kernel above MAX_N channels."""
     M, N = _check(D, U, vecs=[("b", b), ("c", c)],
                   cplx_rows=[("tf_bar", tf_bar)], cplx_mats=[("y", y)])
     if not _on_cuda(D, U, b, c, y, tf_bar):
         return fdn_tf_bwd_plain(D, U, b, c, y, tf_bar)
-    _check_unrolled_n(N, "kernel K3b (fdn_tf_bwd_kernel)")
+    if N > MAX_N:
+        return fdn_tf_bwd_loop_kernel(D, U, b, c, y, tf_bar)
     lib = cuda_build.load(N)
     D, y = _aligned16(D), _aligned16(y)
     U, b, c, tf_bar = (x.contiguous() for x in (U, b, c, tf_bar))

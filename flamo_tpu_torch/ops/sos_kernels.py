@@ -27,9 +27,14 @@ for bit wherever the unscaled products stay normal.
 for CUDA tensors (and counts the launch in :data:`LAUNCHES`) and runs the
 plain version for CPU tensors; it never falls back from one to the other.
 On the card K4 takes any channel count (one library, the channels in
-blocks of at most ``K4_MAX_CB`` side by side in the grid) and K5 1..16
-(one library per channel count, as ``fdn_kernels``), each at most
-``MAX_P`` taps and ``MAX_K`` sections.
+blocks of at most ``K4_MAX_CB`` side by side in the grid) and K5 the
+unrolled kernel of ``sos_kernels.cu`` up to 16 channels (one library per
+channel count, as ``fdn_kernels``) and the looped one of ``fdn_loop.cu``
+above (one warp a bin, N at run time), as far as one bin's system, its
+sums and the staged taps fit a block's 227 KB of shared memory
+(:func:`loop_tf_mse_max_n`: 101 channels at an octave GEQ's K = 12,
+P = 3 with fused tap sums, 82 at a 1/3-octave GEQ's K = 30), each at
+most ``MAX_P`` taps and ``MAX_K`` sections.
 Cotangents follow ``fdn_kernels``: the kernels compute JAX's cotangent of
 a complex tensor and each backward conjugates at the boundary.
 """
@@ -42,9 +47,11 @@ import torch
 
 from flamo_tpu_torch.functional import cascade_prods_scaled
 from flamo_tpu_torch.ops import cuda_build
-from flamo_tpu_torch.ops.fdn_kernels import (_check, _check_unrolled_n,
-                                             _cotangents, _on_cuda,
-                                             _stream, _tf_mse_solves)
+from flamo_tpu_torch.ops.fdn_kernels import (LOOP_LIB, LOOP_MAX_WARPS,
+                                             LOOP_SMEM, MAX_N, _check,
+                                             _cotangents, _loop_check,
+                                             _on_cuda, _stream,
+                                             _tf_mse_solves, loop_grid)
 
 # the kernels' limits (sos_kernels.cu: kMaxP, kMaxK, kMaxSmemFloats)
 MAX_P = 8
@@ -59,8 +66,9 @@ _K4_SMEM_FLOATS = 48 * 1024 // 4
 _K4_LIB = "sos_cascade"
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
-# count)
-LAUNCHES = {"sos_cascade_fwd": 0, "sos_cascade_bwd": 0, "fdn_sos_tf_mse": 0}
+# count); K5 looped under its own key
+LAUNCHES = {"sos_cascade_fwd": 0, "sos_cascade_bwd": 0, "fdn_sos_tf_mse": 0,
+            "fdn_sos_tf_mse_loop": 0}
 
 
 def reset_launch_counts() -> None:
@@ -183,6 +191,54 @@ def tf_mse_smem_bytes(N: int, K: int, P: int, fuse_taps: bool = True) -> int:
     return 4 * (bins + taps + _THREADS // 32 * (N * N + 2 * N + 1))
 
 
+def loop_tf_mse_smem_bytes(N: int, K: int, P: int, fuse_taps: bool,
+                           warps: int) -> int:
+    """K5 looped's dynamic shared memory of a block of ``warps`` (as
+    fdn_loop.cu's sos_smem_bytes): once U (N rows of stride N | 1), b, c
+    and the 2 P K N taps; each warp its system (N rows of stride N | 1
+    complex), six complex vectors (d, D Gam, Gam, rhs, y, w), the guard
+    flags (N floats in ceil(N / 2) complex slots) and its sums, the
+    N^2 + 2N + 1 head values and, with ``fuse_taps``, the 2 P K N tap
+    sums.  At N = 64, K = 30, P = 3 with fused taps one warp takes
+    162820 bytes."""
+    S = N | 1
+    common = N * S + 2 * N + 2 * P * K * N
+    sums = N * N + 2 * N + 1 + (2 * P * K * N if fuse_taps else 0)
+    return 4 * (common + common % 2) + warps * (
+        8 * (N * S + 6 * N + (N + 1) // 2) + 4 * sums)
+
+
+def loop_tf_mse_warps(N: int, K: int, P: int, fuse_taps: bool) -> int:
+    """K5 looped's warps a block (0: one bin does not fit)."""
+    w = 0
+    while (w < LOOP_MAX_WARPS and loop_tf_mse_smem_bytes(
+            N, K, P, fuse_taps, w + 1) <= LOOP_SMEM):
+        w += 1
+    return w
+
+
+def loop_tf_mse_max_n(K: int, P: int, fuse_taps: bool) -> int:
+    """The most channels K5 looped takes on the card at K sections of P
+    taps (0 when not even one fits)."""
+    N = 0
+    while loop_tf_mse_warps(N + 1, K, P, fuse_taps):
+        N += 1
+    return N
+
+
+def check_loop_tf_mse(N: int, K: int, P: int, fuse_taps: bool) -> None:
+    """Raise unless K5 looped takes N channels at (K, P, fuse_taps) on the
+    card, naming the limit (before any library is loaded)."""
+    if not loop_tf_mse_warps(N, K, P, fuse_taps):
+        top = loop_tf_mse_max_n(K, P, fuse_taps)
+        raise ValueError(
+            f"N = {N} channels, K = {K} sections of P = {P} taps, "
+            f"fuse_taps={fuse_taps}: the looped kernel K5 (fdn_sos_tf_mse) "
+            f"takes 1..{top} channels at this K and P on the card, where one "
+            f"bin's system, its sums and the staged taps must fit a block's "
+            f"{LOOP_SMEM} bytes (227 KB) of shared memory")
+
+
 def _phase_args(nfft: int, bin_offset):
     return 2.0 * math.pi / nfft, 0.0 if bin_offset is None else float(
         bin_offset)
@@ -277,21 +333,83 @@ def sos_cascade_bwd_kernel(b, a, g, nfft: int, bin_offset=None):
     return s[0], s[1]
 
 
-def fdn_sos_tf_mse_kernel(D, bt, at, U, b, c, X, t, nfft: int,
-                          with_dbar: bool = False, pivot: bool = False,
-                          fuse_taps: bool = True, bin_offset=None):
-    """K5 wrapper: (loss, D_bar or None, bt_bar, at_bar, U_bar, b_bar,
-    c_bar).  ``fuse_taps=False`` emits the masked Gam-cotangent rows and
-    launches K4b on them."""
+def _k5_result(partials, M: int, D_bar, bt, at, G_bar, nfft: int,
+               bin_offset, fuse_taps: bool):
+    """K5's (loss, D_bar, bt_bar, at_bar, U_bar, b_bar, c_bar) from its
+    blocks' partials rows [U_bar, b_bar, c_bar, loss, tap sums (part, p,
+    k, n)], summed here; without ``fuse_taps`` the tap sums come from K4b
+    on the Gam-cotangent rows G_bar."""
+    P, K, N = bt.shape
+    s = torch.sum(partials, dim=0)
+    nv0 = N * N + 2 * N + 1
+    if fuse_taps:
+        bt_bar, at_bar = s[nv0:].reshape(2, P, K, N)
+    else:
+        bt_bar, at_bar = sos_cascade_bwd_kernel(bt, at, G_bar, nfft,
+                                                bin_offset)
+    return (s[nv0 - 1] / M, D_bar, bt_bar, at_bar, s[:N * N].reshape(N, N),
+            s[N * N:N * N + N], s[N * N + N:N * N + 2 * N])
+
+
+def fdn_sos_tf_mse_loop_kernel(D, bt, at, U, b, c, X, t, nfft: int,
+                               with_dbar: bool = False, pivot: bool = False,
+                               fuse_taps: bool = True, bin_offset=None):
+    """K5 looped (fdn_loop.cu, one warp a bin, any N up to
+    :func:`loop_tf_mse_max_n` of its K and P): (loss, D_bar or None,
+    bt_bar, at_bar, U_bar, b_bar, c_bar).  Each block writes one row of
+    partials, summed here; ``fuse_taps=False`` emits the masked
+    Gam-cotangent rows and launches K4b on them."""
     M, N = _check(D, U, vecs=[("b", b), ("c", c)], cplx_rows=[("X", X)],
                   real_rows=[("t", t)])
     P, K, _ = _check_taps(bt, at, N)
     if not _on_cuda(D, bt, at, U, b, c, X, t):
         return fdn_sos_tf_mse_plain(D, bt, at, U, b, c, X, t, nfft,
                                     with_dbar, pivot, fuse_taps, bin_offset)
-    _check_unrolled_n(N, "kernel K5 (fdn_sos_tf_mse_kernel)")
-    nv0 = N * N + 2 * N + 1
-    nv = nv0 + (2 * P * K * N if fuse_taps else 0)
+    check_loop_tf_mse(N, K, P, fuse_taps)
+    lib = cuda_build.load(1, LOOP_LIB)
+    D, bt, at, U, b, c, X, t = (x.contiguous()
+                                for x in (D, bt, at, U, b, c, X, t))
+    D_bar = torch.empty_like(D) if with_dbar else None
+    G_bar = None if fuse_taps else torch.empty_like(D)
+    what = "fdn_sos_tf_mse_loop_kernel"
+    with torch.cuda.device(D.device):
+        blocks = loop_grid(lib.fl_sos_tf_mse_grid(
+            int(pivot), int(with_dbar), int(fuse_taps), N, K, P, M), what)
+        partials = torch.empty(
+            (blocks, N * N + 2 * N + 1 + (2 * P * K * N if fuse_taps else 0)),
+            dtype=torch.float32, device=D.device)
+        rc = lib.fl_sos_tf_mse_launch(
+            N, int(pivot), int(with_dbar), int(fuse_taps), D.data_ptr(),
+            bt.data_ptr(), at.data_ptr(), U.data_ptr(), b.data_ptr(),
+            c.data_ptr(), X.data_ptr(), t.data_ptr(),
+            None if D_bar is None else D_bar.data_ptr(),
+            None if G_bar is None else G_bar.data_ptr(),
+            partials.data_ptr(), 2.0 / M, M, K, P,
+            *_phase_args(nfft, bin_offset), blocks, _stream(D))
+    _loop_check(rc, what)
+    LAUNCHES["fdn_sos_tf_mse_loop"] += 1
+    return _k5_result(partials, M, D_bar, bt, at, G_bar, nfft, bin_offset,
+                      fuse_taps)
+
+
+def fdn_sos_tf_mse_kernel(D, bt, at, U, b, c, X, t, nfft: int,
+                          with_dbar: bool = False, pivot: bool = False,
+                          fuse_taps: bool = True, bin_offset=None):
+    """K5 wrapper: (loss, D_bar or None, bt_bar, at_bar, U_bar, b_bar,
+    c_bar); on the card the looped kernel above MAX_N channels.
+    ``fuse_taps=False`` emits the masked Gam-cotangent rows and launches
+    K4b on them."""
+    M, N = _check(D, U, vecs=[("b", b), ("c", c)], cplx_rows=[("X", X)],
+                  real_rows=[("t", t)])
+    P, K, _ = _check_taps(bt, at, N)
+    if not _on_cuda(D, bt, at, U, b, c, X, t):
+        return fdn_sos_tf_mse_plain(D, bt, at, U, b, c, X, t, nfft,
+                                    with_dbar, pivot, fuse_taps, bin_offset)
+    if N > MAX_N:
+        return fdn_sos_tf_mse_loop_kernel(D, bt, at, U, b, c, X, t, nfft,
+                                          with_dbar, pivot, fuse_taps,
+                                          bin_offset)
+    nv = N * N + 2 * N + 1 + (2 * P * K * N if fuse_taps else 0)
     need = tf_mse_smem_bytes(N, K, P, fuse_taps)
     if need > _MAX_SMEM:
         raise ValueError(f"kernel K5 needs {need} bytes of shared memory "
@@ -318,16 +436,8 @@ def fdn_sos_tf_mse_kernel(D, bt, at, U, b, c, X, t, nfft: int,
             *_phase_args(nfft, bin_offset), _stream(D))
     cuda_build.check(rc, "fdn_sos_tf_mse_kernel", N, "sos_kernels")
     LAUNCHES["fdn_sos_tf_mse"] += 1
-    s = torch.sum(partials, dim=0)
-    U_bar = s[:N * N].reshape(N, N)
-    b_bar, c_bar = s[N * N:N * N + N], s[N * N + N:N * N + 2 * N]
-    if fuse_taps:
-        taps = s[nv0:].reshape(2, P, K, N)
-        bt_bar, at_bar = taps[0], taps[1]
-    else:
-        bt_bar, at_bar = sos_cascade_bwd_kernel(bt, at, G_bar, nfft,
-                                                bin_offset)
-    return s[nv0 - 1] / M, D_bar, bt_bar, at_bar, U_bar, b_bar, c_bar
+    return _k5_result(partials, M, D_bar, bt, at, G_bar, nfft, bin_offset,
+                      fuse_taps)
 
 
 # ---------------------------------------------------------------------------

@@ -133,8 +133,8 @@ def test_cuda_autograd_matches_plain_and_counts_launches(cuda):
 
 @pytest.mark.gpu
 def test_cuda_kernel_rejects_unsupported_n(cuda):
-    """Past the looped kernels' limits K2 and K6 raise, naming them; K3f
-    raises past 16 channels."""
+    """Past the looped kernels' limits K2, K6, K3f, K3b and K5 raise,
+    naming them."""
     N = fk.LOOP_MAX_N["fdn_solve"] + 1
     D = torch.zeros((8, N), dtype=torch.complex64, device="cuda")
     with pytest.raises(ValueError, match="channels"):
@@ -146,10 +146,23 @@ def test_cuda_kernel_rejects_unsupported_n(cuda):
         fk.dense_solve_kernel(A, D)
     with pytest.raises(ValueError, match="channels"):
         fk.dense_solve(A, D)
-    v = torch.zeros(17, device="cuda")
-    with pytest.raises(ValueError, match="channels"):
-        fk.fdn_tf_fwd_kernel(D[:, :17], torch.zeros((17, 17), device="cuda"),
-                             v, v)
+    for kind in ("fdn_tf_fwd", "fdn_tf_bwd"):
+        N = fk.LOOP_MAX_N[kind] + 1
+        v = torch.zeros(N, device="cuda")
+        U = torch.zeros((N, N), device="cuda")
+        with pytest.raises(ValueError, match=rf"N = {N} channels.*"
+                           rf"takes 1\.\.{N - 1}"):
+            if kind == "fdn_tf_fwd":
+                fk.fdn_tf_fwd_kernel(D[:, :N], U, v, v)
+            else:
+                fk.fdn_tf_bwd_kernel(D[:, :N], U, v, v, D[:, :N], D[:, 0])
+    N = sk.loop_tf_mse_max_n(30, 3, True) + 1
+    v = torch.zeros(N, device="cuda")
+    bt = torch.zeros((3, 30, N), device="cuda")
+    with pytest.raises(ValueError, match=rf"N = {N} channels, K = 30 "
+                       rf"sections of P = 3 taps.*takes 1\.\.{N - 1}"):
+        sk.fdn_sos_tf_mse_kernel(D[:, :N], bt, bt, torch.zeros(
+            (N, N), device="cuda"), v, v, D[:, 0], D[:, 0].real, 14)
 
 
 @pytest.mark.gpu
@@ -230,6 +243,135 @@ def test_cuda_looped_dispatch_and_counts(cuda):
         "fdn_tf_mse_loop": 1, "fdn_solve_loop": 1,
         "fdn_solve_loop_transposed": 1, "dense_solve_loop": 1,
         "dense_solve_loop_transposed": 1}
+    on_cpu = run("cpu")
+    for g, r in zip(on_card, on_cpu):
+        assert _rel(g, r) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_loop_sos_smem_rule_matches_python(cuda):
+    """fdn_loop.cu's shared memory and warps a block of K5 looped equal
+    the wrapper's rule (loop_tf_mse_smem_bytes) over N, K, P and
+    fuse_taps, past the limit too."""
+    lib = cuda_build.load(1, fk.LOOP_LIB)
+    for K, P in ((1, 1), (12, 3), (30, 3), (64, 8)):
+        for fuse in (True, False):
+            for N in range(1, sk.loop_tf_mse_max_n(K, P, fuse) + 3, 5):
+                assert lib.fl_sos_warps(N, K, P, int(fuse)) == (
+                    sk.loop_tf_mse_warps(N, K, P, fuse))
+                for w in (1, 2, 8):
+                    assert lib.fl_sos_smem_bytes(N, K, P, int(fuse), w) == (
+                        sk.loop_tf_mse_smem_bytes(N, K, P, fuse, w))
+
+
+def _check_tf_loop(o, refs_unrolled: bool):
+    """K3f and K3b looped against their plain versions (tf and y 1e-5 of
+    the max, cotangents 1e-4) and, with ``refs_unrolled``, against the
+    unrolled kernels at the same bounds; two K3b launches equal bit for
+    bit."""
+    D, U, b, c, B = (o[n] for n in "DUbcB")
+    tf, y = fk.fdn_tf_fwd_loop_kernel(D, U, b, c)
+    refs = [fk.fdn_tf_fwd_plain(D, U, b, c)]
+    if refs_unrolled:
+        refs.append(fk.fdn_tf_fwd_kernel(D, U, b, c))
+    for tf_r, y_r in refs:
+        assert _rel(tf, tf_r) < 1e-5 and _rel(y, y_r) < 1e-5
+    tb = B[:, 0]
+    got = fk.fdn_tf_bwd_loop_kernel(D, U, b, c, y, tb)
+    refs = [fk.fdn_tf_bwd_plain(D, U, b, c, y, tb)]
+    if refs_unrolled:
+        refs.append(fk.fdn_tf_bwd_kernel(D, U, b, c, y, tb))
+    for ref in refs:
+        for g, r in zip(got, ref):
+            assert _rel(g, r) < 1e-4
+    again = fk.fdn_tf_bwd_loop_kernel(D, U, b, c, y, tb)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def _check_k5_loop(o, bt, at, nfft, bin_offset=None, variants=None,
+                   unrolled: bool = False):
+    """K5 looped against its plain version (loss 1e-5, cotangents 1e-4 of
+    the max) in each (pivot, with_dbar, fuse_taps) variant, and with
+    ``unrolled`` against the unrolled K5 at the same bounds; two launches
+    of each variant equal bit for bit."""
+    D, U, b, c, X, t = (o[n] for n in "DUbcXt")
+    for v in variants or itertools.product((True, False), repeat=3):
+        pivot, with_dbar, fuse_taps = v
+        args = (D, bt, at, 0.6 * U, b, c, X, t, nfft, with_dbar, pivot,
+                fuse_taps, bin_offset)
+        got = sk.fdn_sos_tf_mse_loop_kernel(*args)
+        refs = [sk.fdn_sos_tf_mse_plain(*args)]
+        if unrolled:
+            refs.append(sk.fdn_sos_tf_mse_kernel(*args))
+        for ref in refs:
+            assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5, v
+            for g, r in zip(got[1:], ref[1:]):
+                if r is None:
+                    assert g is None
+                else:
+                    assert _rel(g, r) < 1e-4, v
+        again = sk.fdn_sos_tf_mse_loop_kernel(*args)
+        assert all(torch.equal(g, a) for g, a in zip(got, again)
+                   if g is not None), v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [16, 17, 32, 64])
+@pytest.mark.parametrize("M", [33, 4097])
+def test_cuda_looped_tf_and_k5_match_plain(cuda, N, M):
+    """K3f, K3b and K5 looped against their plain versions and, at N = 16,
+    against the unrolled kernels on the same operands: K5 in all eight
+    variants (K = 12 sections of P = 3 taps), also at a bin offset; two
+    launches equal bit for bit."""
+    o = _operands(N + 11 * M, M, N)
+    _check_tf_loop(o, N <= fk.MAX_N)
+    nfft = 2 * (M - 1)
+    bt, at = _sos_taps(N + M, 3, 12, N)
+    _check_k5_loop(o, bt, at, nfft, unrolled=N <= fk.MAX_N)
+    _check_k5_loop(o, bt, at, 2 * nfft, bin_offset=M - 1,
+                   variants=[(False, False, True), (True, True, False)],
+                   unrolled=N <= fk.MAX_N)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_looped_k5_third_octave_at_64(cuda):
+    """K5 looped at its shared-memory extreme on the main path's widths:
+    N = 64 channels of a 1/3-octave GEQ's K = 30 sections of P = 3 taps
+    with fused tap sums, one warp a block, against its plain version."""
+    assert sk.loop_tf_mse_warps(64, 30, 3, True) == 1
+    o = _operands(64, 4097, 64)
+    _check_k5_loop(o, *_k5_taps(30, 3, 30, 64), 8192,
+                   variants=[(False, False, True), (True, True, True)])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_looped_tf_and_k5_dispatch_and_counts(cuda):
+    """Past 16 channels fdn_tf and fdn_sos_tf_mse launch the looped K3f,
+    K3b and K5, counted under their own keys, and their gradients equal
+    those of the same functions on the CPU."""
+    o = _operands(5, 500, 24)
+    bt, at = _sos_taps(6, 3, 12, 24)
+
+    def run(device):
+        leaves = [o[n].detach().to(device).requires_grad_(True)
+                  for n in ("D", "U", "b", "c")]
+        taps = [x.detach().to(device).requires_grad_(True) for x in (bt, at)]
+        X, t = (o[n].to(device) for n in ("X", "t"))
+        D, U, b, c = leaves
+        loss = (torch.abs(fk.fdn_tf(D, U, b, c)).sum()
+                + sk.fdn_sos_tf_mse(D, *taps, 0.6 * U, b, c, X, t, 998,
+                                    with_dbar=True))
+        loss.backward()
+        return [x.grad.cpu() for x in leaves + taps]
+
+    fk.reset_launch_counts()
+    sk.reset_launch_counts()
+    on_card = run("cuda")
+    assert {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items()
+            if v} == {"fdn_tf_fwd_loop": 1, "fdn_tf_bwd_loop": 1,
+                      "fdn_sos_tf_mse_loop": 1}
     on_cpu = run("cpu")
     for g, r in zip(on_card, on_cpu):
         assert _rel(g, r) < 1e-4

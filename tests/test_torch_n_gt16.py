@@ -3,9 +3,10 @@
 plain versions for CPU tensors at every N) at N = 20, 32 and 64 against
 the JAX package's ``gauss_solve_loop`` on the assembled loop matrices,
 values and gradients; the wrappers' dispatch on the card (the unrolled
-library up to 16 channels, the looped one above, the looped kernels'
-limits named before a library loads), pinned with the device test
-patched; the looped kernels' shared-memory rule.
+library up to 16 channels, the looped one above, for K3f, K3b and K5
+too, the looped kernels' limits named before a library loads), pinned
+with the device test patched; the looped kernels' shared-memory rule.
+tests/test_torch_tf_sos_gt16.py holds K3f, K3b and K5 past 16 channels.
 
 JAX's Pallas kernels are not the oracle here: interpreted, they take
 minutes a call above N = 8, and JAX's unrolled ``gauss_solve`` ~80 s to
@@ -186,16 +187,17 @@ def test_loop_smem_rule_and_limits():
     block of W warps, each with its system (N rows of stride N | 1) and
     vectors, K1's sums, and U (and b, c) once; W as many warps as fit 227
     KB, at most 8; the largest N of one warp: 137 (K2), 169 (K6), 119
-    (K1)."""
+    (K1), 137 (K3f) and 119 (K3b)."""
     assert fk.LOOP_MAX_N == {"fdn_solve": 137, "dense_solve": 169,
-                             "fdn_tf_mse": 119}
+                             "fdn_tf_mse": 119, "fdn_tf_fwd": 137,
+                             "fdn_tf_bwd": 119}
     assert fk.loop_smem_bytes("fdn_solve", 64, 1) == (
         4 * 64 * 65 + 8 * (64 * 65 + 3 * 64))
     assert fk.loop_smem_bytes("dense_solve", 17, 2) == 2 * 8 * (17 * 17
                                                                 + 2 * 17)
     assert fk.loop_smem_bytes("fdn_tf_mse", 32, 1) == (
         4 * (32 * 33 + 64) + 8 * (32 * 33 + 4 * 32) + 4 * (32 * 32 + 65))
-    assert [fk.loop_warps(k, 64) for k in fk.LOOP_KINDS] == [6, 6, 4]
+    assert [fk.loop_warps(k, 64) for k in fk.LOOP_KINDS] == [6, 6, 4, 6, 4]
     for kind, top in fk.LOOP_MAX_N.items():
         assert fk.loop_warps(kind, 17) == fk.LOOP_MAX_WARPS
         assert fk.loop_smem_bytes(kind, top, 1) <= fk.LOOP_SMEM
@@ -203,8 +205,8 @@ def test_loop_smem_rule_and_limits():
         assert fk.loop_warps(kind, top + 1) == 0
         fk.check_loop_n(kind, top)
         with pytest.raises(ValueError, match=rf"N = {top + 1} channels; the "
-                           rf"looped kernel K\d \({kind}\) takes 1\.\.{top}"
-                           r" on the card.*227 KB"):
+                           rf"looped kernel K\d[fb]? \({kind}\) takes "
+                           rf"1\.\.{top} on the card.*227 KB"):
             fk.check_loop_n(kind, top + 1)
 
 
@@ -226,35 +228,36 @@ def on_card(monkeypatch):
 
 @pytest.mark.parametrize("N", [16, 17, 64, 119])
 def test_dispatch_unrolled_to_16_looped_above(on_card, N):
-    """On the card K1, K2 (both ways) and K6 load the unrolled library of N
-    channels up to 16 and the one looped library above; K3f, K3b and K5
-    raise above 16, naming the queue, before loading anything."""
+    """On the card K1, K2 (both ways), K6, K3f, K3b and K5 load the
+    unrolled library of N channels up to 16 and the one looped library
+    above; past its limit at these taps (K = 2 sections of P = 3: 115
+    channels) K5 raises, naming it, before loading anything."""
     o = {k: torch.tensor(v) for k, v in _fdn_operands(N).items()}
     D, U, B, b, c, X, t = (o[k] for k in "DUBbcXt")
     want = ("fdn_kernels", N) if N <= fk.MAX_N else ("fdn_loop", 1)
     calls = [lambda: fk.fdn_solve_kernel(D, U, B),
              lambda: fk.fdn_solve_kernel(D, U, B, True),
              lambda: fk.dense_solve_kernel(fk._loop_matrix(D, U), B, True),
-             lambda: fk.fdn_tf_mse_kernel(D, U, b, c, X, t, False, False)]
+             lambda: fk.fdn_tf_mse_kernel(D, U, b, c, X, t, False, False),
+             lambda: fk.fdn_tf_fwd_kernel(D, U, b, c),
+             lambda: fk.fdn_tf_bwd_kernel(D, U, b, c, B, X)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no library"):
             call()
     assert on_card == [want] * len(calls)
     bt = torch.full((3, 2, N), 0.1)
-    unrolled = [lambda: fk.fdn_tf_fwd_kernel(D, U, b, c),
-                lambda: fk.fdn_tf_bwd_kernel(D, U, b, c, B, X),
-                lambda: sk.fdn_sos_tf_mse_kernel(D, bt, bt, U, b, c, X, t,
-                                                 64)]
-    for call, name in zip(unrolled, ("K3f", "K3b", "K5")):
-        if N <= fk.MAX_N:
-            with pytest.raises(RuntimeError, match="no library"):
-                call()
-        else:
-            with pytest.raises(ValueError, match=rf"N = {N} channels; kernel "
-                               rf"{name} .* takes 1\.\.16 on the card .*"
-                               "queue 2"):
-                call()
-    assert len(on_card) == len(calls) + (3 if N <= fk.MAX_N else 0)
+    top = sk.loop_tf_mse_max_n(2, 3, True)
+    assert top == 115
+    if N <= top:
+        with pytest.raises(RuntimeError, match="no library"):
+            sk.fdn_sos_tf_mse_kernel(D, bt, bt, U, b, c, X, t, 64)
+        assert on_card[-1] == (("sos_kernels", N) if N <= fk.MAX_N
+                               else ("fdn_loop", 1))
+    else:
+        with pytest.raises(ValueError, match=rf"N = {N} channels, K = 2 "
+                           rf"sections of P = 3 taps.*takes 1\.\.{top}"):
+            sk.fdn_sos_tf_mse_kernel(D, bt, bt, U, b, c, X, t, 64)
+    assert len(on_card) == len(calls) + (N <= top)
 
 
 def test_looped_wrappers_name_their_limit_before_loading(on_card):
@@ -269,7 +272,11 @@ def test_looped_wrappers_name_their_limit_before_loading(on_card):
                     "dense_solve": lambda: fk.dense_solve_loop_kernel(
                         torch.zeros((2, N, N), dtype=torch.complex64), D),
                     "fdn_tf_mse": lambda: fk.fdn_tf_mse_loop_kernel(
-                        D, U, v, v, D[:, 0], torch.zeros(2))}[kind]
+                        D, U, v, v, D[:, 0], torch.zeros(2)),
+                    "fdn_tf_fwd": lambda: fk.fdn_tf_fwd_loop_kernel(
+                        D, U, v, v),
+                    "fdn_tf_bwd": lambda: fk.fdn_tf_bwd_loop_kernel(
+                        D, U, v, v, D, D[:, 0])}[kind]
             n_loads = len(on_card)
             if N > top:
                 with pytest.raises(ValueError, match=f"takes 1..{top}"):
