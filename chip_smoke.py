@@ -5,7 +5,8 @@ Trainer path, its e8_fdn example path, its filter zoo, its accurate
 GEQ, velvet-noise and tutorial paths, its reverb domain, its
 multi-device layer, its QR eigensolver, its solves past 16 channels and
 its fused-tf, fused-response and attenuated fused steps past 16 channels
-on one CUDA card.
+and its active-acoustics magnitude steps past 8 microphones on one CUDA
+card.
 
 Run from the root of the repository:
 
@@ -249,6 +250,17 @@ Phases, in order; any failure raises and exits non-zero without a result:
    gradients 5e-3 of the max); one K5 call at 64 channels on the
    attenuated FDN with a 1/3-octave GEQ (K = 30, one warp a block)
    against its plain version; every launch counted exactly;
+4n. K8 and K9 past 8 microphones (flamo_tpu_torch/csrc/aa_loop.cu, one
+   warp a bin, N at run time): phase 4c's rig (13 loudspeakers,
+   15000-tap rooms, a 100-tap mixer, nfft=96000, 'ge_cached') at 16 and
+   32 microphones, the graph loss, then AA_LOOP_STEPS Adam steps (lr
+   1e-4) from the same weights through K9 looped at 'high', 'default' and 'highest' and
+   through K8 looped: each first loss against its plain version (1e-5)
+   and the graph (phase 4c's STEP_GRAPH_TOL; 'default' also no farther
+   than its plain version, plus 1e-5), the losses falling, the
+   looped kernel launched once a step and the unrolled ones never; at 16
+   microphones one K9 'high' call at bin_offset 24000 against its plain
+   version;
 5. timing of each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the kernel's bound (for
    K10 also the work of its passes counted as K5's distinct sections; K9
@@ -283,6 +295,14 @@ Phases, in order; any failure raises and exits non-zero without a result:
    kernel's device and call ms, its plain version's (CUDA events) and its
    bound at 32 and 64 channels (K5 the training variant: no pivot, no
    D_bar, fused taps, K = 12, P = 3);
+5n. the looped K8 and K9 on the rigs' own rows at M = 48001 for 9, 16 and
+   32 microphones against their plain versions (both pivot modes, K9 at
+   every precision: the loss 1e-5, S and the tap cotangent 1e-4 of the
+   max, 'default''s tap cotangent by phase 2's one-pass TF32 bounds),
+   and against the unrolled kernels at 8 microphones, the gaps printed;
+   then each looped kernel's device and call ms, its plain version's
+   (CUDA events) and its bound at 16 and 32 microphones (the no-pivot
+   variant the fused steps run);
 6. torch.profiler traces of a few training steps of each path (and of a
    few fused responses): the device's busy and idle share and the
    kernels that take its time (for the attenuated graph step and the
@@ -343,7 +363,9 @@ once a fit_scan step, K6 looped once each way a step of the dense loop
 channel count: K3f looped once for the fused response and once a
 fused-tf step, K3b looped once a fused-tf step, K5 looped once an
 attenuated fused step, once in the Trainer's gate and once a fit_scan
-step, and at 64 channels once more for the 1/3-octave call.  ``trace_retries``
+step, and at 64 channels once more for the 1/3-octave call; K8 and K9
+looped in phase 4n's steps, a row for each microphone count
+(``<kernel>_loop@N16``, ``@N32``), once a step.  ``trace_retries``
 counts a row's profiler traces that were taken again because they held
 none of its kernel.
 
@@ -572,6 +594,29 @@ TFSOS_NS = (32, 64)
 TFSOS_TRAINER_STEPS = 2
 THIRD_K = 30
 TFSOS_OFFSET = 24001
+# phase 4n, K8 and K9 past 8 microphones (aa_loop.cu): phase 4c's rig at
+# each of AA_LOOP_NS microphones, AA_LOOP_STEPS Adam steps a kernel and
+# precision; phase 5n holds the looped kernels to their plain versions on
+# the rigs' own rows at AA_LOOP_CHECK_NS microphones, and to the unrolled
+# ones at 8
+AA_LOOP_NS = (16, 32)
+AA_LOOP_CHECK_NS = (9, 16, 32)
+AA_LOOP_STEPS = 3
+# Adam at AA_LR overshoots the wider rigs (at 32 microphones the second
+# loss read 3.2x the first on the H100): they train at shard_smoke's
+# aa_lr, which its lockstep takes for the 4-microphone rig's overshoot
+AA_LOOP_LR = 1e-4
+# At 16 and 32 microphones the rig's loop A = I - H G is ill-conditioned
+# at its initial mixer (a loss of 280 against the flat target 1, 41.3 at
+# 4 microphones), and float32 rounding alone moves the loss by up to
+# 4.2e-5 of itself: the plain version's own distance from a float64 twin
+# of the same function (NVIDIA H100 80GB HBM3, 700.00 W), past
+# AA_LOSS_TOL.  So phases 4n and 5n hold each looped kernel to the float64
+# twin of its function, within AA_LOSS_TOL (the loss) or AA_GRAD_TOL of
+# the max (S, the tap cotangent), or within AA_TWIN_FACTOR times the plain
+# versions' own distance from it (both eliminations), whichever is
+# larger: phase 4h's rule for the ill-conditioned PEQ (ZOO_ILL_FACTOR).
+AA_TWIN_FACTOR = ZOO_ILL_FACTOR
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 CUDA-core FLOP/s,
 # dense TF32 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
@@ -601,6 +646,8 @@ SOURCES = {
         "fdn_solve_loop", "fdn_solve_loop_transposed", "dense_solve_loop",
         "dense_solve_loop_transposed", "fdn_tf_mse_loop", "fdn_tf_fwd_loop",
         "fdn_tf_bwd_loop", "fdn_sos_tf_mse_loop")},
+    **{f"{name}_loop": "flamo_tpu_torch/csrc/aa_loop.cu"
+       for name in ("aa_tf_mse", *K9_ROWS.values())},
 }
 REPLACES = {
     "fdn_tf_mse": "flamo_tpu/ops/pallas_solve.py:719",
@@ -630,6 +677,9 @@ REPLACES = {
     "fdn_tf_fwd_loop": "flamo_tpu/ops/pallas_solve.py:451",
     "fdn_tf_bwd_loop": "flamo_tpu/ops/pallas_solve.py:474",
     "fdn_sos_tf_mse_loop": "flamo_tpu/ops/pallas_solve.py:1376",
+    "aa_tf_mse_loop": "flamo_tpu/ops/pallas_solve.py:1602",
+    **{f"{name}_loop": "flamo_tpu/ops/pallas_solve.py:1820"
+       for name in K9_ROWS.values()},
 }
 # kernel vs plain version on the same inputs.  Per-bin values (tf, y, the
 # loss, H) differ only by rounding (FMA contraction, division order, the
@@ -716,14 +766,18 @@ def rel_err(got, ref) -> tuple[float, float]:
 
 
 def reset_counts() -> None:
-    """Set the launch counts of K1-K3, K6 (fk) and K4, K5 (sk) to 0."""
+    """Set the launch counts of K1-K3, K6 (fk), K4, K5 (sk) and K8, K9 (ak)
+    to 0."""
     fk.reset_launch_counts()
     sk.reset_launch_counts()
+    ak.reset_launch_counts()
 
 
 def nonzero_counts() -> dict:
-    """The nonzero launch counts of K1-K3, K6 (fk) and K4, K5 (sk)."""
-    return {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items() if v}
+    """The nonzero launch counts of K1-K3, K6 (fk), K4, K5 (sk) and K8, K9
+    (ak)."""
+    return {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES,
+                              **ak.LAUNCHES}.items() if v}
 
 
 def check_counts(what: str, got: dict, want: dict) -> None:
@@ -1243,7 +1297,8 @@ def phase_build(ptxas: bool = False) -> str:
           f"{torch.cuda.get_device_name(0)}")
     targets = (*(("fdn_kernels", n) for n in K3_NS),
                ("fdn_loop", 1), ("sos_kernels", N_MAIN),
-               ("sos_cascade", 1), ("aa_kernels", AA_N), ("eig_kernels", AA_N),
+               ("sos_cascade", 1), ("aa_kernels", AA_N),
+               ("aa_kernels", ak.MAX_N), ("aa_loop", 1), ("eig_kernels", AA_N),
                ("eig_kernels", 8), ("phase2_micro", 1))
     log = PTXAS_LOG if ptxas else None
     t0 = time.perf_counter()
@@ -1942,31 +1997,36 @@ def dense_row(name: str, shape: str) -> str:
     return name if shape == "M" else f"{name}@P{SFDN_SAMPLES}"
 
 
-def aa_rig(seed: int = SEED):
-    """The active-acoustics magnitude rig at full width on the card."""
+def aa_rig(seed: int = SEED, n_mics: int = AA_N, nfft: int = NFFT,
+           device="cuda", rir_length: int = AA_RIR):
+    """The active-acoustics magnitude rig at full width on the card (phase
+    4n: at more microphones)."""
     return build_active_acoustics(
-        n_mics=AA_N, n_loudspeakers=AA_L, rir_length=AA_RIR,
-        fir_order=AA_ORDER, nfft=NFFT, t60=0.5, solve_method="ge_cached",
-        device="cuda", generator=torch.Generator().manual_seed(seed))
+        n_mics=n_mics, n_loudspeakers=AA_L, rir_length=rir_length,
+        fir_order=AA_ORDER, nfft=nfft, t60=0.5, solve_method="ge_cached",
+        device=device, generator=torch.Generator().manual_seed(seed))
 
 
-def aa_pair():
+def aa_pair(n_mics: int = AA_N, nfft: int = NFFT, device="cuda"):
     """The rig's impulses on every loudspeaker (1, nfft, L) and the flat
     target (1, M, N)."""
-    x = torch.zeros((1, NFFT, AA_L), device="cuda")
+    x = torch.zeros((1, nfft, AA_L), device=device)
     x[:, 0, :] = 1.0
-    return x, torch.ones((1, NFFT // 2 + 1, AA_N), device="cuda")
+    return x, torch.ones((1, nfft // 2 + 1, n_mics), device=device)
 
 
 def aa_kernel_operands(model) -> dict:
     """K8's and K9's operands on the rig's own rows at its initial mixer:
     the room rows, rhs and targets, the envelope-folded taps and the
     mixer response rows from the DFT basis."""
-    o = aa_fused_operands(model, *aa_pair())
+    fb = model.get_core().feedback
+    order, _, n_mics = fb.param.shape
+    o = aa_fused_operands(model, *aa_pair(n_mics, model.nfft,
+                                          fb.param.device))
     with torch.no_grad():
-        tw = _mixer_taps(model.get_core().feedback).contiguous()
-        er, ei = (torch.from_numpy(b).cuda()
-                  for b in aa_dft_basis(AA_ORDER, NFFT))
+        tw = _mixer_taps(fb).contiguous()
+        er, ei = (torch.from_numpy(b).to(fb.param.device)
+                  for b in aa_dft_basis(order, model.nfft))
         o.update(tw=tw, gr=(tw.T @ er).contiguous(),
                  gi=(tw.T @ ei).contiguous())
     return o
@@ -2025,7 +2085,8 @@ def default_cotangent_gap(tag, got, ref, rows9, pivot, off) -> float:
     rounding boundary; the spread measures that, and it exceeds
     AA_GRAD_TOL at the rig's size.  (2) Elementwise, twice the forward
     error of one TF32 pass (``tf32_pass_bound``), which rests on the
-    operands' magnitudes and not on the plain version's noise."""
+    operands' magnitudes and not on the plain version's noise
+    (tf32_bound_gap)."""
     other = ak.aa_taps_tf_mse_plain(*rows9, AA_N, AA_L, NFFT, not pivot, off,
                                     "default")
     err, rel = rel_err(got, ref)
@@ -2036,7 +2097,16 @@ def default_cotangent_gap(tag, got, ref, rows9, pivot, off) -> float:
           f"own pivot spread {spread:.3e}; {rel / max(spread, 1e-30):.3f} x)")
     check(rel < tol, f"{tag} tap cotangent: relative error {rel:.3e} >= "
           f"{tol:.3e}")
-    bound = tf32_pass_bound(rows9, pivot, off)
+    tf32_bound_gap(tag, got, ref, rows9, pivot, off)
+    return err
+
+
+def tf32_bound_gap(tag, got, ref, rows9, pivot, off, N=AA_N,
+                   nfft=NFFT) -> None:
+    """K9 'default''s tap cotangent against its plain version ``ref``,
+    elementwise, within twice the forward error of one TF32 pass
+    (``tf32_pass_bound``)."""
+    bound = tf32_pass_bound(rows9, pivot, off, N, nfft=nfft)
     ratio = float(((got - ref).double().abs() / bound).max())
     print(f"  {tag} tap cotangent against twice one TF32 pass's forward "
           f"error bound, elementwise: max |kernel - plain| / bound "
@@ -2044,7 +2114,6 @@ def default_cotangent_gap(tag, got, ref, rows9, pivot, off) -> float:
           f"against the cotangent's max {float(ref.abs().max()):.3e})")
     check(ratio <= 1.0, f"{tag} tap cotangent: outside the TF32 forward "
           f"error bound ({ratio:.3e} of it)")
-    return err
 
 
 def phase_kernels_aa(o, errs: dict, previous) -> None:
@@ -4898,6 +4967,350 @@ def phase_tfsos_kernels(card: str, launches: dict,
     return tfsos_timing(card, launches, errs)
 
 
+# ---------------------------------------------------------------------------
+# phase 4n, K8 and K9 past 8 microphones (aa_loop.cu)
+# ---------------------------------------------------------------------------
+def aa_loop_runs() -> list:
+    """(launch key, step builder) of phase 4n's runs: K9 looped at 'high',
+    'default' and 'highest', then K8 looped."""
+    return ([(f"{K9_ROWS[p]}_loop", k9_build(p))
+             for p in ("high", "default", "highest")]
+            + [("aa_tf_mse_loop", aa_fused_step)])
+
+
+def aa_loop_rows(o) -> tuple:
+    """K8's and K9's operand rows from aa_kernel_operands."""
+    return ([o[k] for k in ("hr", "hi", "gr", "gi", "rr", "ri", "t")],
+            [o[k] for k in ("hr", "hi", "tw", "rr", "ri", "t")])
+
+
+def aa_loop_scenario(N: int, nfft: int = NFFT, device="cuda",
+                     steps: int = AA_LOOP_STEPS, rir_length: int = AA_RIR,
+                     offset: int | None = None) -> dict:
+    """Phase 4c's rig at N microphones (aa_rig): the graph loss
+    (ge_cached), then ``steps`` Adam steps from the same weights through
+    each of aa_loop_runs, each first loss against the float64 twin of its
+    function on the same weights (AA_LOSS_TOL or AA_TWIN_FACTOR times the
+    plain versions' own distance from it) and the graph (STEP_GRAPH_TOL of
+    its kernel; for K9 'default' at least the twin's own distance from the
+    graph plus that noise: one TF32 pass of G moves the function by
+    3.4e-2 of the loss at 16 microphones), the loss falling, its looped
+    kernel launched once a step and nothing else; with ``offset`` one K9
+    'high' call on the rows from that bin on, at that bin_offset, held as
+    phase 5n holds its calls (aa_loop_result_gap)."""
+    model = aa_rig(n_mics=N, nfft=nfft, device=device, rir_length=rir_length)
+    x, t = aa_pair(N, nfft, device)
+    with torch.no_grad():
+        l_graph = float(torch.mean((torch.abs(model(x)) - t) ** 2))
+    check(np.isfinite(l_graph), f"the graph loss at N={N} is not finite")
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    rows8, rows9 = aa_loop_rows(aa_kernel_operands(model))
+    # each run's first loss in its plain version (both eliminations) and
+    # in the float64 twin of its function, on the same weights
+    plain, twin = {}, {}
+    with torch.no_grad():
+        for name, precision in aa_loop_kernels():
+            fn = aa_loop_calls(rows8, rows9, N, nfft, precision)[1]
+            plain[name] = [float(fn(pivot)[0]) for pivot in (False, True)]
+            twin[name] = float(aa_twin(rows8, rows9, N, nfft, precision)[0])
+    runs = {}
+    for name, build in aa_loop_runs():
+        model.load_state_dict(state)
+        step, _ = build(model, x, t, lr=AA_LOOP_LR)
+        reset_counts()
+        hist = np.array([float(step()) for _ in range(steps)])
+        counts = nonzero_counts()
+        what = f"{build.__name__} N={N}"
+        check_counts(f"{what}: {steps} steps", counts, {name: steps})
+        rel = abs(hist[0] - l_graph) / l_graph
+        rel_plain = abs(hist[0] - plain[name][0]) / plain[name][0]
+        own = max(abs(x - twin[name]) / twin[name] for x in plain[name])
+        noise = max(AA_LOSS_TOL, AA_TWIN_FACTOR * own)
+        rel_twin = abs(hist[0] - twin[name]) / twin[name]
+        twin_graph = abs(twin[name] - l_graph) / l_graph
+        tol = STEP_GRAPH_TOL[name.removesuffix("_loop")]
+        if name == "aa_taps_tf_mse_tc_default_loop":
+            # one TF32 pass of G moves the function itself away from the
+            # FP32 graph at this loop's conditioning
+            tol = max(tol, twin_graph + noise)
+        check(bool(np.isfinite(hist).all()), f"{what}: a loss is not finite")
+        check(rel_twin <= noise, f"{what}: first loss {hist[0]} against the "
+              f"float64 twin's {twin[name]}, rel {rel_twin:.3e} (tol "
+              f"{noise:.3e}: the larger of {AA_LOSS_TOL:g} and "
+              f"{AA_TWIN_FACTOR:g} x the plain versions' own {own:.3e})")
+        check(rel < tol, f"{what}: first loss {hist[0]} against the graph's "
+              f"{l_graph}, rel {rel:.3e} (tol {tol:g}; the twin "
+              f"{twin_graph:.3e} from it)")
+        check(hist[-1] < hist[0], f"{what}: the loss did not fall: {hist}")
+        runs[name] = dict(hist=hist, rel=rel, rel_plain=rel_plain, tol=tol,
+                          rel_twin=rel_twin, noise=noise,
+                          twin_graph=twin_graph)
+    model.load_state_dict(state)
+    offset_err = None
+    if offset is not None:
+        rows = [r if r is rows9[2] else r[:, offset:].contiguous()
+                for r in rows9]
+        offset_err = aa_loop_result_gap(
+            f"K9 looped high N={N} bin_offset={offset}", N,
+            ak.aa_taps_tf_mse_kernel(*rows, N, AA_L, nfft, False, "high",
+                                     offset),
+            [ak.aa_taps_tf_mse_plain(*rows, N, AA_L, nfft, pivot, offset,
+                                     "high") for pivot in (False, True)],
+            aa_twin(None, rows, N, nfft, "high", offset), rows, False,
+            "high", nfft)
+    return dict(N=N, graph=l_graph, runs=runs, offset=offset,
+                offset_err=offset_err,
+                counts={name: steps for name in runs})
+
+
+def aa_loop_paths(nfft: int = NFFT, device="cuda", ns=AA_LOOP_NS,
+                  rir_length: int = AA_RIR, offset: int = AA_OFFSET) -> list:
+    """Phase 4n's rigs at each of ``ns`` microphones, the bin-offset call
+    at the first."""
+    return [aa_loop_scenario(N, nfft, device, rir_length=rir_length,
+                             offset=offset if i == 0 else None)
+            for i, N in enumerate(ns)]
+
+
+def aa_loop_report(paths: list) -> dict:
+    """Print phase 4n's runs; returns their launches by kernels-line row
+    (the kernel at the rig's microphone count)."""
+    launches = {}
+    for r in paths:
+        for name, run in r["runs"].items():
+            row = loop_row(name, r["N"])
+            launches[row] = launches.get(row, 0) + r["counts"][name]
+            print(f"  N={r['N']} {row}: losses {run['hist']} (graph "
+                  f"{r['graph']:.7f}), first loss vs graph rel "
+                  f"{run['rel']:.3e} (tol {run['tol']:g}; the float64 twin "
+                  f"{run['twin_graph']:.3e}), vs the twin "
+                  f"{run['rel_twin']:.3e} (tol {run['noise']:.3e}), vs plain "
+                  f"{run['rel_plain']:.3e}")
+        if r["offset_err"] is not None:
+            print(f"  N={r['N']} K9 looped 'high' at bin_offset "
+                  f"{r['offset']}: max abs err {r['offset_err']:.3e} against "
+                  "the plain version")
+    print(f"  launches in phase 4n: {launches}")
+    return launches
+
+
+def phase_aa_loop() -> dict:
+    """K8 and K9 past 8 microphones on phase 4c's rig at AA_LOOP_NS
+    microphones, full width, exact launch counts; returns the launches by
+    kernels-line row."""
+    print(f"phase 4n K8 and K9 past 8 microphones (aa_loop.cu, one warp a "
+          f"bin): build_active_acoustics(N x {AA_L}, rir_length={AA_RIR}, "
+          f"fir_order={AA_ORDER}, nfft={NFFT}, solve_method='ge_cached'), "
+          f"N in {AA_LOOP_NS}, {AA_LOOP_STEPS} Adam steps a kernel at lr "
+          f"{AA_LOOP_LR:g}")
+    return aa_loop_report(aa_loop_paths())
+
+
+# ---------------------------------------------------------------------------
+# phase 5n, the looped K8 and K9 against their plain versions and the
+# unrolled kernels, then their times
+# ---------------------------------------------------------------------------
+def aa_twin(rows8, rows9, N: int, nfft: int, precision: str | None = None,
+            off: int = 0) -> tuple:
+    """The float64 twin of K8's function (``precision`` None, at rows8's
+    G) or of K9's at ``precision`` (G from the precision's split TF32
+    operands, or FP32's, summed in float64) on the same rows: the loss
+    and, for K8, the S rows (Sr, Si), for K9 the tap cotangent ('default':
+    from the TF32 powers and S unrounded, so that the kernel and the
+    plain version each carry their own one-pass rounding of S); the
+    eliminations pivoted, in complex128."""
+    hr, hi, rr, ri, t = (rows9[i].double() for i in (0, 1, 3, 4, 5))
+    if precision is None:
+        loss, Sr, Si = ak.aa_tf_mse_plain(hr, hi, rows8[2].double(),
+                                          rows8[3].double(), rr, ri, t, N,
+                                          AA_L, True)
+        return loss, (Sr, Si)
+    tw, M = rows9[2], hr.shape[-1]
+    P2 = torch.cat(ak.dft_powers(tw.shape[0], M, nfft, off, tw.device), 1)
+    if precision == "highest":
+        G = tw.T.double() @ P2.double()
+    else:
+        ah, bh = ak.tf32_round(tw.T), ak.tf32_round(P2)
+        G = ah.double() @ bh.double()
+        if precision == "high":
+            G += (ah.double() @ ak.tf32_round(P2 - bh).double()
+                  + ak.tf32_round(tw.T - ah).double() @ bh.double())
+    loss, Sr, Si = ak.aa_tf_mse_plain(hr, hi, G[:, :M], G[:, M:], rr, ri, t,
+                                      N, AA_L, True)
+    P2 = ak.tf32_round(P2) if precision == "default" else P2
+    return loss, P2.double() @ torch.cat([Sr, -Si], 1).T
+
+
+def aa_twin_gap(tag: str, got, plains: list, twin, tol: float) -> float:
+    """A looped kernel's result against the float64 twin of its function:
+    within ``tol`` of the twin's max or within AA_TWIN_FACTOR times the
+    plain versions' (``plains``) own distance from it, whichever is
+    larger.  Returns the max abs error against the first plain version."""
+    err, rel = rel_err(got, plains[0])
+    own = max(rel_err(x.double(), twin)[1] for x in plains)
+    bound = max(tol, AA_TWIN_FACTOR * own)
+    rel_twin = rel_err(got.double(), twin)[1]
+    print(f"  {tag}: rel {rel:.3e} from the plain version, {rel_twin:.3e} "
+          f"from the float64 twin (tol {bound:.3e}: the larger of {tol:g} "
+          f"and {AA_TWIN_FACTOR:g} x the plain versions' own {own:.3e})")
+    check(rel_twin <= bound, f"{tag}: {rel_twin:.3e} of the max from the "
+          f"float64 twin, past {bound:.3e}")
+    return err
+
+
+def aa_loop_result_gap(tag: str, N: int, got, plains: list, twin, rows9,
+                       pivot: bool, precision: str | None, nfft: int) -> float:
+    """K8's (``precision`` None) or K9's results, each held by
+    aa_twin_gap (the loss at AA_LOSS_TOL, the S rows and the tap cotangent
+    at AA_GRAD_TOL), K9 'default''s tap cotangent also elementwise within
+    the TF32 pass bound of the first plain version (tf32_bound_gap).  The
+    pivot spread that phase 2 holds 'default' to leaves out G's own
+    float32 rounding, which this loop's conditioning amplifies (the
+    kernel read 4.3 times that spread at 9 microphones on the H100)."""
+    errs = [aa_twin_gap(f"{tag} loss", got[0], [p[0] for p in plains],
+                        twin[0], AA_LOSS_TOL)]
+    if precision is None:
+        errs += [aa_twin_gap(f"{tag} {name}", got[i],
+                             [p[i] for p in plains], twin[1][i - 1],
+                             AA_GRAD_TOL)
+                 for i, name in ((1, "S re"), (2, "S im"))]
+    else:
+        errs.append(aa_twin_gap(f"{tag} tap cotangent", got[1],
+                                [p[1] for p in plains], twin[1],
+                                AA_GRAD_TOL))
+        if precision == "default":
+            tf32_bound_gap(tag, got[1], plains[0][1], rows9, pivot, 0, N,
+                           nfft)
+    return max(errs)
+
+
+def aa_loop_kernel_checks(N: int, nfft: int = NFFT, device="cuda",
+                          rir_length: int = AA_RIR) -> dict:
+    """The looped K8 and K9 on the rows of phase 4n's rig at N microphones
+    (its initial mixer), both pivot modes, K9 at every precision, held by
+    aa_loop_result_gap to the float64 twin of each function (the plain
+    versions of both eliminations setting the float32 noise).  Returns the
+    max abs error against the plain version of each kernels-line row (the
+    no-pivot variant the steps run)."""
+    rows8, rows9 = aa_loop_rows(aa_kernel_operands(aa_rig(
+        n_mics=N, nfft=nfft, device=device, rir_length=rir_length)))
+    errs = {}
+    for row, precision in aa_loop_kernels():
+        kern, plain = aa_loop_calls(rows8, rows9, N, nfft, precision)
+        plains = {pivot: plain(pivot) for pivot in (False, True)}
+        twin = aa_twin(rows8, rows9, N, nfft, precision)
+        for pivot in (False, True):
+            e = aa_loop_result_gap(
+                f"{aa_loop_label(precision)} looped N={N} pivot={pivot}", N,
+                kern(pivot), [plains[pivot], plains[not pivot]], twin, rows9,
+                pivot, precision, nfft)
+            if not pivot:
+                errs[loop_row(row, N)] = e
+        del plains, twin
+    return errs
+
+
+def aa_loop_kernels() -> list:
+    """(kernels-line name, K9 precision or None for K8) of the looped
+    kernels."""
+    return [("aa_tf_mse_loop", None)] + [(f"{row}_loop", p)
+                                         for p, row in K9_ROWS.items()]
+
+
+def aa_loop_label(precision: str | None) -> str:
+    return "K8" if precision is None else f"K9 {precision}"
+
+
+def aa_loop_calls(rows8, rows9, N: int, nfft: int, precision: str | None,
+                  looped: bool = True) -> tuple:
+    """(kernel(pivot), plain(pivot)) of K8 (``precision`` None) or K9 at
+    ``precision`` on the rows: the looped kernel, or with ``looped``
+    False the wrapper (the unrolled kernel up to 8 microphones)."""
+    if precision is None:
+        fn = ak.aa_tf_mse_loop_kernel if looped else ak.aa_tf_mse_kernel
+        return (lambda pivot: fn(*rows8, N, AA_L, pivot),
+                lambda pivot: ak.aa_tf_mse_plain(*rows8, N, AA_L, pivot))
+    fn = (ak.aa_taps_tf_mse_loop_kernel if looped
+          else ak.aa_taps_tf_mse_kernel)
+    return (lambda pivot: fn(*rows9, N, AA_L, nfft, pivot, precision),
+            lambda pivot: ak.aa_taps_tf_mse_plain(*rows9, N, AA_L, nfft,
+                                                  pivot, 0, precision))
+
+
+def aa_loop_versus_unrolled(nfft: int = NFFT, device="cuda",
+                            rir_length: int = AA_RIR) -> dict:
+    """At 8 microphones both designs run: the looped K8 and K9 (every
+    precision, no pivot) against the unrolled kernels on the rows of the
+    rig at 8 microphones, their gaps (relative to the loss and to the
+    rows' max) printed and returned by kernel; the looped results held as
+    in aa_loop_kernel_checks."""
+    N = ak.MAX_N
+    rows8, rows9 = aa_loop_rows(aa_kernel_operands(aa_rig(
+        n_mics=N, nfft=nfft, device=device, rir_length=rir_length)))
+    gaps = {}
+    for _, precision in aa_loop_kernels():
+        kern, plain = aa_loop_calls(rows8, rows9, N, nfft, precision)
+        looped = kern(False)
+        unrolled = aa_loop_calls(rows8, rows9, N, nfft, precision,
+                                 looped=False)[0](False)
+        tag = aa_loop_label(precision)
+        aa_loop_result_gap(f"{tag} looped N={N}", N, looped,
+                           [plain(False), plain(True)],
+                           aa_twin(rows8, rows9, N, nfft, precision), rows9,
+                           False, precision, nfft)
+        loss_gap = rel_err(looped[0], unrolled[0])[1]
+        row_gap = max(rel_err(g, r)[1] for g, r in zip(looped[1:],
+                                                        unrolled[1:]))
+        print(f"  {tag} looped against unrolled N={N}: loss rel "
+              f"{loss_gap:.3e}, rows {row_gap:.3e} of the max")
+        gaps[tag] = max(loss_gap, row_gap)
+    return gaps
+
+
+def aa_loop_timing(card: str, launches: dict, errs: dict) -> list:
+    """The looped K8 and K9 (no pivot, K9 at every precision) on the rigs'
+    rows at M_MAIN bins and each of AA_LOOP_NS microphones: device and
+    call ms, the plain version's (CUDA events), the bound and the
+    launches on phase 4n's steps; no single PyTorch call computes them."""
+    rows = []
+    for N in AA_LOOP_NS:
+        r8, r9 = aa_loop_rows(aa_kernel_operands(aa_rig(n_mics=N)))
+        for name, precision in aa_loop_kernels():
+            kern, plain = aa_loop_calls(r8, r9, N, NFFT, precision)
+            passes = 0 if precision is None else ak.PASSES[precision]
+            work = ("aa_tf_mse" if precision is None else
+                    "aa_taps_tf_mse_tc" if passes else "aa_taps_tf_mse")
+            rows.append(timing_row(
+                name, loop_row(name, N), M_MAIN, lambda: kern(False),
+                lambda: plain(False), None, {"passes": passes}, launches,
+                errs, N=N, plain_reps=1,
+                kernel=f"{work.replace('aa_', 'aa_loop_', 1)}_kernel",
+                work=work, plain_events=True))
+        del r8, r9
+        torch.cuda.empty_cache()
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.6f} ms against its bound "
+              f"{r['bound_ms']:.6f} ({r['bound_by']}): "
+              f"{r['ms'] / r['bound_ms']:.1f}x; launches {r['launches']} on "
+              f"{card}")
+    return rows
+
+
+def phase_aa_loop_kernels(card: str, launches: dict) -> list:
+    """Phase 5n: the looped K8 and K9 against their plain versions on the
+    rigs' rows at M_MAIN bins for each of AA_LOOP_CHECK_NS microphones and
+    against the unrolled kernels at 8, then their kernels-line rows."""
+    print(f"phase 5n the looped K8 and K9 at M={M_MAIN} on {card}")
+    errs = {}
+    for N in AA_LOOP_CHECK_NS:
+        errs.update(aa_loop_kernel_checks(N))
+        print(f"  N={N}: the looped K8 and K9 held to their plain versions")
+    gaps = aa_loop_versus_unrolled()
+    print(f"  looped against unrolled at N={ak.MAX_N} (relative): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    return aa_loop_timing(card, launches, errs)
+
+
 def phase_timing(o, launches, errs, card, previous) -> list:
     print(f"phase 5 timing at M={M_MAIN}, N={N_MAIN} on {card}")
     D, U, b, c, B, X, t = (o[k] for k in "DUbcBXt")
@@ -5499,6 +5912,8 @@ def run_phases(card, previous, unrolled16, t0, took,
     took["4l past 16 channels"] = seconds_since_last()
     tfsos_launches = phase_tfsos()
     took["4m K3f, K3b, K5 past 16 channels"] = seconds_since_last()
+    aa_loop_launches = phase_aa_loop()
+    took["4n K8, K9 past 8 microphones"] = seconds_since_last()
     rows = phase_timing(o, launches, errs, card, previous)
     took["5 timing"] = seconds_since_last()
     print(f"phase 5l timing of the looped kernels at M={M_MAIN} on {card}")
@@ -5506,6 +5921,8 @@ def run_phases(card, previous, unrolled16, t0, took,
     took["5l timing past 16 channels"] = seconds_since_last()
     rows += phase_tfsos_kernels(card, tfsos_launches, unrolled16)
     took["5m K3f, K3b, K5 past 16 channels"] = seconds_since_last()
+    rows += phase_aa_loop_kernels(card, aa_loop_launches)
+    took["5n K8, K9 past 8 microphones"] = seconds_since_last()
     phase_trace(card, "colorless_fit", colorless_steps(), step_ms)
     phase_trace(card, "Trainer.train_step (colorless_fused_step: K1)",
                 trainer_steps(), train_step_ms, share=("fdn_tf_mse",))

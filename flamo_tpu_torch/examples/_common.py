@@ -38,12 +38,21 @@ def example_parser(**overrides):
     ap.add_argument("--train_dir", type=str, default=None)
     ap.add_argument("--patience_delta", type=float, default=1e-5)
     ap.add_argument("--seed", type=int, default=overrides.get("seed", 130709))
+    ap.add_argument("--dtype", type=str, default="float32",
+                    choices=["float32", "float64"],
+                    help="float64 makes it torch's default dtype, so tensors "
+                         "made without one are float64; the modules keep "
+                         "their own float32, and the card's kernels take "
+                         "float32 only")
     return ap
 
 
 def setup(args):
-    """Seed the global generator, make ``train_dir`` (default
-    output/<time>) and write the arguments into it."""
+    """Seed the global generator, set torch's default dtype from
+    ``--dtype``, make ``train_dir`` (default output/<time>) and write the
+    arguments into it."""
+    if getattr(args, "dtype", "float32") == "float64":
+        torch.set_default_dtype(torch.float64)
     set_seed(args.seed)
     if args.train_dir is None:
         args.train_dir = os.path.join("output",

@@ -141,7 +141,8 @@ def mlp_stack(params, x):
     """(Linear, LayerNorm (population std + 1e-6), ReLU) per hidden
     layer, then the last Linear."""
     for i, layer in enumerate(params):
-        x = x @ layer["W"] + layer["b"]
+        dt = torch.promote_types(x.dtype, layer["W"].dtype)  # as jnp's @
+        x = x.to(dt) @ layer["W"].to(dt) + layer["b"]
         if i < len(params) - 1:
             mu = torch.mean(x, dim=-1, keepdim=True)
             sd = torch.std(x, dim=-1, keepdim=True, unbiased=False) + 1e-6

@@ -1,8 +1,9 @@
 """The fused active-acoustics step kernels K8 and K9 (counterpart of
 ``pallas_aa_tf_mse`` and ``pallas_aa_taps_tf_mse`` in
 ``flamo_tpu/ops/pallas_solve.py``): wrappers around the hand-written CUDA
-kernels of ``flamo_tpu_torch/csrc/aa_kernels.cu``, their plain PyTorch
-versions, and the ``autograd.Function``s of the public functions.
+kernels of ``flamo_tpu_torch/csrc/aa_kernels.cu`` (up to 8 microphones)
+and ``aa_loop.cu`` (above), their plain PyTorch versions, and the
+``autograd.Function``s of the public functions.
 
 For a frozen room H_m (N microphones x L loudspeakers), a mixer response
 G_m (L x N) and a frozen rhs r_m = H_m X_m, per rfft bin m:
@@ -33,10 +34,16 @@ float32): ``hr``/``hi`` (N L, M), row i L + j = H[i, j]; ``gr``/``gi``
 
 Each ``*_kernel`` wrapper launches its CUDA kernel for CUDA tensors (and
 counts the launch in :data:`LAUNCHES`) and runs the plain version for CPU
-tensors; it never falls back from one to the other.  On the card the
-kernels take 1..8 microphones (one library per count) and any number of
-loudspeakers and taps whose K9 working set fits a block's shared memory;
-the wrappers raise outside those limits.  ``pivot=False`` (the default,
+tensors, at any microphone count; it never falls back from one to the
+other.  On the card the unrolled kernels take 1..8 microphones (one
+library per count) and the looped ones of ``aa_loop.cu`` (one warp a
+bin, ``*_loop_kernel``) more, as many as one bin's system and the K9
+frame fit a block's shared memory (:func:`check_aa_loop` names the limit
+at the given loudspeakers and taps: 155 microphones for K8, 49 for K9
+at 'high' and 'default' and 50 at 'highest', at the rig's 13
+loudspeakers and 100 taps); any number of loudspeakers
+and taps whose K9 working set fits; the wrappers raise outside those
+limits, before any library loads.  ``pivot=False`` (the default,
 as in the JAX package) eliminates without pivoting and solves the adjoint
 from the same L/U factors: valid while the loop is well away from
 instability, as at the rig's small initial mixer.
@@ -55,6 +62,7 @@ from flamo_tpu_torch.ops.solve import (_gauss_solve_raw, _ge_nopivot_factor,
 
 LIB = "aa_kernels"
 MAX_N = cuda_build.LIB_MAX_N[LIB]
+LOOP_LIB = "aa_loop"
 PRECISIONS = ("default", "high", "highest")
 # K9's TF32 passes at each precision (0: the FP32 kernel)
 PASSES = {"high": 3, "default": 1, "highest": 0}
@@ -66,9 +74,11 @@ _TAP_STRIDE = 2 * 64 + 4
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
 # count); K9 counts its FP32 kernel ('highest') and its tensor-core kernel
-# at each TF32 precision apart
-LAUNCHES = {"aa_tf_mse": 0, "aa_taps_tf_mse": 0, "aa_taps_tf_mse_tc_high": 0,
-            "aa_taps_tf_mse_tc_default": 0}
+# at each TF32 precision apart, and the looped kernels (more than MAX_N
+# microphones) count under the same names with "_loop"
+_KEYS = ("aa_tf_mse", "aa_taps_tf_mse", "aa_taps_tf_mse_tc_high",
+         "aa_taps_tf_mse_tc_default")
+LAUNCHES = {k + suffix: 0 for suffix in ("", "_loop") for k in _KEYS}
 
 
 def reset_launch_counts() -> None:
@@ -165,9 +175,8 @@ def aa_taps_tf_mse_plain(hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
 # kernel wrappers: CUDA tensors -> the kernel, CPU tensors -> plain version
 # ---------------------------------------------------------------------------
 def _check_rows(N: int, L: int, rows: dict):
-    if not 1 <= N <= MAX_N:
-        raise ValueError(f"N = {N} microphone channels; kernels K8 and K9 "
-                         f"take 1..{MAX_N}")
+    if N < 1:
+        raise ValueError(f"N = {N} microphone channels")
     if L < 1:
         raise ValueError(f"L = {L} loudspeakers")
     M = rows["t"].shape[-1]
@@ -190,10 +199,13 @@ def _check_rows(N: int, L: int, rows: dict):
 
 def aa_tf_mse_kernel(hr, hi, gr, gi, rr, ri, t, N: int, L: int,
                      pivot: bool = False):
-    """K8 wrapper: ``(loss, Sr, Si)``."""
+    """K8 wrapper: ``(loss, Sr, Si)``; on the card the looped kernel above
+    MAX_N microphones."""
     M = _check_rows(N, L, dict(hr=hr, hi=hi, gr=gr, gi=gi, rr=rr, ri=ri, t=t))
     if not _on_cuda(hr, hi, gr, gi, rr, ri, t):
         return aa_tf_mse_plain(hr, hi, gr, gi, rr, ri, t, N, L, pivot)
+    if N > MAX_N:
+        return aa_tf_mse_loop_kernel(hr, hi, gr, gi, rr, ri, t, N, L, pivot)
     lib = cuda_build.load(N, LIB)
     hr, hi, gr, gi, rr, ri, t = (x.contiguous()
                                  for x in (hr, hi, gr, gi, rr, ri, t))
@@ -251,12 +263,16 @@ def aa_taps_tf_mse_kernel(hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
                           bin_offset=None):
     """K9 wrapper: ``(loss, tb)``.  On the card 'highest' launches the FP32
     kernel and 'high'/'default' the tensor-core kernel with 3 or 1 TF32
-    passes; on the CPU the plain version of the same precision runs."""
+    passes (the looped ones above MAX_N microphones); on the CPU the plain
+    version of the same precision runs."""
     off = _check_taps_args(precision, bin_offset, nfft)
     M = _check_rows(N, L, dict(hr=hr, hi=hi, tw=tw, rr=rr, ri=ri, t=t))
     if not _on_cuda(hr, hi, tw, rr, ri, t):
         return aa_taps_tf_mse_plain(hr, hi, tw, rr, ri, t, N, L, nfft, pivot,
                                     off, precision)
+    if N > MAX_N:
+        return aa_taps_tf_mse_loop_kernel(hr, hi, tw, rr, ri, t, N, L, nfft,
+                                          pivot, precision, bin_offset)
     order, passes = tw.shape[0], PASSES[precision]
     key = f"aa_taps_tf_mse_tc_{precision}" if passes else "aa_taps_tf_mse"
     name = "aa_taps_tf_mse_tc_kernel" if passes else "aa_taps_tf_mse_kernel"
@@ -282,6 +298,169 @@ def aa_taps_tf_mse_kernel(hr, hi, tw, rr, ri, t, N: int, L: int, nfft: int,
     cuda_build.check(rc, name, N, LIB)
     LAUNCHES[key] += 1
     return torch.sum(loss_row) / (M * N), torch.sum(partials, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# the looped kernels (aa_loop.cu): more than MAX_N microphones
+# ---------------------------------------------------------------------------
+# Their shared memory (as aa_loop.cu's): float2s of one bin's system
+# (N x (N | 1)) and vectors (rhs, y, w, xi: N each; a = H^T xi: L); K8
+# looped's blocks of W warps hold W bins, each also with its H and G
+# (odd(N L) float2s each), r (N) and t (N floats); K9 looped's a tile of
+# 64 or 32 bins (the powers and G/S rows, 2 bins + 4 floats a row) and
+# its solver warps' bins, each with its H, r and t.
+_LOOP_MAX_WARPS = 8
+
+
+def _bin_float2s(N: int, L: int) -> int:
+    return N * (N | 1) + 4 * N + L
+
+
+def loop_tf_mse_smem_bytes(N: int, L: int, warps: int) -> int:
+    """K8 looped's dynamic shared memory for a block of ``warps``."""
+    return warps * (8 * (2 * (N * L | 1) + N + _bin_float2s(N, L)) + 4 * N)
+
+
+def loop_tf_mse_warps(N: int, L: int) -> int:
+    """K8 looped's warps a block (0: one bin does not fit)."""
+    w = 0
+    while (w < _LOOP_MAX_WARPS
+           and loop_tf_mse_smem_bytes(N, L, w + 1) <= _MAX_SMEM):
+        w += 1
+    return w
+
+
+def loop_taps_smem_bytes(passes: int, order: int, N: int, L: int,
+                         bins: int, solvers: int) -> int:
+    """K9 looped's dynamic shared memory for a tile of ``bins`` and
+    ``solvers`` solver warps (the tensor-core kernel, ``passes`` 1 or 3,
+    pads order to 16 and L N to 8)."""
+    LN = L * N
+    rows = (-(-order // 16) * 16 + -(-LN // 8) * 8 if passes
+            else order + LN)
+    solver = 8 * (_bin_float2s(N, L) + (N * L | 1) + N) + 4 * N
+    return 4 * (2 * bins + 4) * rows + solvers * solver
+
+
+def loop_taps_plan(passes: int, order: int, N: int, L: int) -> tuple:
+    """K9 looped's (bins a tile, solver warps): 64 bins and eight solvers
+    where they fit a block, else 32 bins and as many solvers as fit;
+    (0, 0) when not even one does."""
+    if loop_taps_smem_bytes(passes, order, N, L, 64,
+                            _LOOP_MAX_WARPS) <= _MAX_SMEM:
+        return 64, _LOOP_MAX_WARPS
+    w = 0
+    while (w < _LOOP_MAX_WARPS and loop_taps_smem_bytes(
+            passes, order, N, L, 32, w + 1) <= _MAX_SMEM):
+        w += 1
+    return (32 if w else 0), w
+
+
+def loop_max_n(L: int, order: int | None = None,
+               precision: str = "high") -> int:
+    """The most microphones the looped K8 (``order`` None) or K9 (at
+    ``order`` taps and ``precision``) takes at L loudspeakers."""
+    def fits(N):
+        if order is None:
+            return loop_tf_mse_warps(N, L) > 0
+        return loop_taps_plan(PASSES[precision], order, N, L)[1] > 0
+
+    lo, hi = 0, 1
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:  # fits(lo), not fits(hi); the rules grow with N
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def check_aa_loop(N: int, L: int, order: int | None = None,
+                  precision: str = "high") -> None:
+    """Raise unless the looped K8 (``order`` None) or K9 takes N
+    microphones at L loudspeakers (and ``order`` taps, ``precision``) on
+    the card, naming the limit (before any library is loaded)."""
+    if order is None:
+        fits, what = loop_tf_mse_warps(N, L) > 0, "K8 (aa_tf_mse)"
+        extra = ""
+    else:
+        fits = loop_taps_plan(PASSES[precision], order, N, L)[1] > 0
+        what = f"K9 (aa_taps_tf_mse, precision={precision!r})"
+        extra = f" and order = {order} taps"
+    if not fits:
+        top = loop_max_n(L, order, precision)
+        raise ValueError(
+            f"N = {N} microphones, L = {L} loudspeakers{extra}: the looped "
+            f"kernel {what} takes 1..{top} microphones at these sizes on "
+            f"the card, where one bin's system"
+            + ("" if order is None else " and the tile's powers and rows")
+            + f" must fit a block's {_MAX_SMEM} bytes (227 KB) of shared "
+            "memory")
+
+
+def _loop_check(rc: int, what: str) -> None:
+    cuda_build.check(rc, what, 1, LOOP_LIB)
+
+
+def aa_tf_mse_loop_kernel(hr, hi, gr, gi, rr, ri, t, N: int, L: int,
+                          pivot: bool = False):
+    """K8 looped (aa_loop.cu, one warp a bin, any N up to
+    ``loop_max_n(L)``): ``(loss, Sr, Si)``."""
+    M = _check_rows(N, L, dict(hr=hr, hi=hi, gr=gr, gi=gi, rr=rr, ri=ri, t=t))
+    if not _on_cuda(hr, hi, gr, gi, rr, ri, t):
+        return aa_tf_mse_plain(hr, hi, gr, gi, rr, ri, t, N, L, pivot)
+    check_aa_loop(N, L)
+    lib = cuda_build.load(1, LOOP_LIB)
+    hr, hi, gr, gi, rr, ri, t = (x.contiguous()
+                                 for x in (hr, hi, gr, gi, rr, ri, t))
+    loss_row = torch.empty((M,), dtype=torch.float32, device=hr.device)
+    Sr, Si = torch.empty_like(gr), torch.empty_like(gi)
+    with torch.cuda.device(hr.device):
+        rc = lib.aal_tf_mse_launch(
+            N, int(pivot), hr.data_ptr(), hi.data_ptr(), gr.data_ptr(),
+            gi.data_ptr(), rr.data_ptr(), ri.data_ptr(), t.data_ptr(),
+            loss_row.data_ptr(), Sr.data_ptr(), Si.data_ptr(),
+            2.0 / (M * N), L, M, _stream(hr))
+    _loop_check(rc, "aa_loop_tf_mse_kernel")
+    LAUNCHES["aa_tf_mse_loop"] += 1
+    return torch.sum(loss_row) / (M * N), Sr, Si
+
+
+def aa_taps_tf_mse_loop_kernel(hr, hi, tw, rr, ri, t, N: int, L: int,
+                               nfft: int, pivot: bool = False,
+                               precision: str = "high", bin_offset=None):
+    """K9 looped (aa_loop.cu, one warp a bin, any N up to
+    ``loop_max_n(L, order, precision)``): ``(loss, tb)``; 'highest' is
+    ``aa_loop_taps_tf_mse_kernel`` (FP32), 'high' and 'default'
+    ``aa_loop_taps_tf_mse_tc_kernel`` (3 or 1 TF32 passes).  Each block
+    adds its tiles into one row of partials, summed here."""
+    off = _check_taps_args(precision, bin_offset, nfft)
+    M = _check_rows(N, L, dict(hr=hr, hi=hi, tw=tw, rr=rr, ri=ri, t=t))
+    if not _on_cuda(hr, hi, tw, rr, ri, t):
+        return aa_taps_tf_mse_plain(hr, hi, tw, rr, ri, t, N, L, nfft, pivot,
+                                    off, precision)
+    order, passes = tw.shape[0], PASSES[precision]
+    check_aa_loop(N, L, order, precision)
+    name = ("aa_loop_taps_tf_mse_tc_kernel" if passes
+            else "aa_loop_taps_tf_mse_kernel")
+    lib = cuda_build.load(1, LOOP_LIB)
+    hr, hi, tw, rr, ri, t = (x.contiguous() for x in (hr, hi, tw, rr, ri, t))
+    with torch.cuda.device(hr.device):
+        grid = lib.aal_taps_grid(int(pivot), passes, order, N, L, M)
+        _loop_check(min(grid, 0), f"{name} grid")
+        loss_row = torch.empty((M,), dtype=torch.float32, device=hr.device)
+        partials = torch.empty((grid, -(-order // 16) * 16,
+                                -(-(L * N) // 8) * 8), dtype=torch.float32,
+                               device=hr.device)
+        rc = lib.aal_taps_launch(
+            N, int(pivot), passes, hr.data_ptr(), hi.data_ptr(),
+            tw.data_ptr(), rr.data_ptr(), ri.data_ptr(), t.data_ptr(),
+            loss_row.data_ptr(), partials.data_ptr(), 2.0 / (M * N), L, M,
+            order, nfft, off % nfft, 2.0 * math.pi / nfft, grid, _stream(hr))
+    _loop_check(rc, name)
+    LAUNCHES[(f"aa_taps_tf_mse_tc_{precision}" if passes
+              else "aa_taps_tf_mse") + "_loop"] += 1
+    return (torch.sum(loss_row) / (M * N),
+            torch.sum(partials, dim=0)[:order, :L * N])
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,9 @@ its plain version's rounding).  Three sources take every size at run
 time and are one library each, built as N = 1: ``sos_cascade.cu``, the
 SOS cascade K4f and its tap VJP K4b (any channel count),
 ``phase2_micro.cu``, the four variants of the phase-2 micro-benchmark
-K10, and ``fdn_loop.cu``, the looped eliminations of K1, K2, K3f, K3b, K5
-and K6 for more than 16 channels (one warp a bin, N a run-time
-argument).
+K10, ``fdn_loop.cu``, the looped eliminations of K1, K2, K3f, K3b, K5
+and K6 for more than 16 channels, and ``aa_loop.cu``, the looped K8 and
+K9 for more than 8 microphones (one warp a bin, N a run-time argument).
 
 The eliminations are unrolled over N and the large-N instantiations
 compile slowly, so each (source, N) is its own library, built when a
@@ -41,14 +41,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flamo_tpu_torch"
 SOURCES = ("fdn_kernels.cu", "sos_kernels.cu", "sos_cascade.cu",
            "aa_kernels.cu", "eig_kernels.cu", "phase2_micro.cu", "fdn_loop.cu",
-           "fdn_ge.cuh", "fdn_loop.cuh", "sos_common.cuh")
+           "aa_loop.cu", "fdn_ge.cuh", "fdn_loop.cuh", "sos_common.cuh",
+           "aa_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_N = 16
 # the channel counts (degrees for K7) each library is built for
 LIB_MAX_N = {"fdn_kernels": MAX_N, "sos_kernels": MAX_N, "sos_cascade": 1,
              "aa_kernels": 8, "eig_kernels": 8, "phase2_micro": 1,
-             "fdn_loop": 1}
+             "fdn_loop": 1, "aa_loop": 1}
 # flags of one library only
 LIB_FLAGS = {"eig_kernels": ("-fmad=false",)}
 
@@ -125,6 +126,21 @@ _SIGNATURES = {
         "fl_sos_tf_mse_launch": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                       _P, _P, _P, _P, _P, _F, _I, _I, _I, _F,
                                       _F, _I, _P]),
+    }),
+    "aa_loop": ("aal", {
+        "aal_threads_per_block": (_I, []),
+        "aal_channels": (_I, []),
+        "aal_error_string": (ctypes.c_char_p, [_I]),
+        "aal_tf_mse_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+        "aal_tf_mse_warps": (_I, [_I, _I]),
+        "aal_taps_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I, _I, _I]),
+        "aal_taps_bins": (_I, [_I, _I, _I, _I]),
+        "aal_taps_solvers": (_I, [_I, _I, _I, _I]),
+        "aal_tf_mse_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _F, _I, _I, _P]),
+        "aal_taps_grid": (_I, [_I, _I, _I, _I, _I, _I]),
+        "aal_taps_launch": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _F, _I, _I, _I, _I, _I, _F, _I, _P]),
     }),
     "phase2_micro": ("p2", {
         "p2_threads_per_block": (_I, []),

@@ -62,6 +62,16 @@ def _softplus(x):
     return torch.nn.functional.softplus(x)
 
 
+def _contract(spec: str, H: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A module's response (or map) contracted with its input in their
+    common dtype, as ``jnp.einsum`` promotes mixed operands: under
+    ``torch.set_default_dtype(torch.float64)`` (the examples' ``--dtype
+    float64``, JAX's x64 mode) an input made without a dtype is float64
+    and meets the modules' float32 responses."""
+    dt = torch.promote_types(H.dtype, x.dtype)
+    return torch.einsum(spec, H.to(dt), x.to(dt))
+
+
 def _as_z(z, cdtype: torch.dtype, device) -> torch.Tensor:
     """A probe's point z as a complex tensor on the module's device."""
     if isinstance(z, torch.Tensor):
@@ -295,7 +305,7 @@ class _Diagonal:
 
     def forward(self, x, ext_param=None):
         self.check_input_shape(x)
-        return torch.einsum("fn,bfn...->bfn...", self.response(ext_param), x)
+        return _contract("fn,bfn...->bfn...", self.response(ext_param), x)
 
     def probe(self, z):
         return torch.diag(super().probe(z))
@@ -329,7 +339,7 @@ class Gain(DSP):
 
     def forward(self, x, ext_param=None):
         self.check_input_shape(x)
-        return torch.einsum("mn,bfn...->bfm...", self.response(ext_param), x)
+        return _contract("mn,bfn...->bfm...", self.response(ext_param), x)
 
     def probe(self, z):
         return to_complex(self.map(self.param))
@@ -351,7 +361,7 @@ class parallelGain(Gain):
 
     def forward(self, x, ext_param=None):
         self.check_input_shape(x)
-        return torch.einsum("n,bfn...->bfn...", self.response(ext_param), x)
+        return _contract("n,bfn...->bfn...", self.response(ext_param), x)
 
     def probe(self, z):
         return torch.diag(to_complex(self.map(self.param)))
@@ -459,8 +469,8 @@ class HouseholderMatrix(Gain):
     def forward(self, x, ext_param=None):
         self.check_input_shape(x)
         u = self.map(self._raw(ext_param))  # (N, 1) complex
-        uTx = torch.einsum("mn,bfn...->bfm...", u.T, x)
-        uuTx = torch.einsum("nm,bfm...->bfn...", u, uTx)
+        uTx = _contract("mn,bfn...->bfm...", u.T, x)
+        uuTx = _contract("nm,bfm...->bfn...", u, uTx)
         return x - 2 * uuTx
 
 
@@ -545,7 +555,7 @@ class Delay(DSP):
 
     def forward(self, x, ext_param=None):
         self.check_input_shape(x)
-        return torch.einsum("fmn,bfn...->bfm...", self.response(ext_param), x)
+        return _contract("fmn,bfn...->bfm...", self.response(ext_param), x)
 
     def probe(self, z):
         m = self.get_delays(self.param)
@@ -628,7 +638,7 @@ class GainDelay(DSP):
 
     def forward(self, x, ext_param=None):
         self.check_input_shape(x)
-        return torch.einsum("fmn,bfn...->bfm...", self.response(ext_param), x)
+        return _contract("fmn,bfn...->bfm...", self.response(ext_param), x)
 
     def probe(self, z):
         gain, d = self._gain_delay(self.param)
@@ -701,7 +711,7 @@ class Filter(DSP):
 
     def forward(self, x, ext_param=None):
         self.check_input_shape(x)
-        return torch.einsum("fmn,bfn...->bfm...", self.response(ext_param), x)
+        return _contract("fmn,bfn...->bfm...", self.response(ext_param), x)
 
     def probe(self, z):
         """sum_k ir[k] gamma^k z^-k (a ScatteringMatrix's ir is its

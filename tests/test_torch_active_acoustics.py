@@ -426,12 +426,23 @@ def test_tf32_round_is_cvt_rna(x, want):
         assert got == np.sign(x) * np.floor(q + 0.5) * step
 
 
-def test_aa_kernels_reject_unsupported_sizes():
-    """The wrappers raise, naming the limits, before any device
-    dispatch."""
+def test_aa_kernels_reject_unsupported_sizes(monkeypatch):
+    """The wrappers raise, naming the limits: the shapes and dtypes before
+    any device dispatch; the microphone count on the card's path (CPU
+    tensors take the plain version at any count), past the looped
+    kernel's limit, before a library loads."""
     z = torch.zeros((9 * 2, 5))
-    with pytest.raises(ValueError, match="1..8"):
-        ak.aa_tf_mse_kernel(z, z, z, z, z[:9], z[:9], z[:9], N=9, L=2)
+    loss, Sr, _ = ak.aa_tf_mse_kernel(z, z, z, z, z[:9], z[:9], z[:9], N=9,
+                                      L=2)
+    assert float(loss) == 0.0 and Sr.shape == (18, 5)
+    top = ak.loop_max_n(2)
+    zt = torch.zeros(((top + 1) * 2, 5))
+    with monkeypatch.context() as mp:
+        mp.setattr(ak, "_on_cuda", lambda *t: True)
+        mp.setattr(ak.cuda_build, "load", None)  # never reached
+        with pytest.raises(ValueError, match=rf"takes 1\.\.{top} "):
+            ak.aa_tf_mse_kernel(zt, zt, zt, zt, *(zt[:top + 1],) * 3,
+                                N=top + 1, L=2)
     with pytest.raises(TypeError, match="must be"):
         ak.aa_tf_mse_kernel(z, z, z[:4], z, z[:2], z[:2], z[:2], N=2, L=9)
     with pytest.raises(ValueError, match="EIG_DK_MAX_N"):

@@ -816,9 +816,8 @@ def test_cuda_aa_autograd_matches_plain_and_counts_launches(cuda):
     ak.reset_launch_counts()
     ek.reset_launch_counts()
     on_card = run("cuda")
-    assert ak.LAUNCHES == {"aa_tf_mse": 1, "aa_taps_tf_mse": 0,
-                           "aa_taps_tf_mse_tc_high": 1,
-                           "aa_taps_tf_mse_tc_default": 0}
+    assert ak.LAUNCHES == {k: int(k in ("aa_tf_mse", "aa_taps_tf_mse_tc_high"))
+                           for k in ak.LAUNCHES}
     assert ek.LAUNCHES == {"dk_roots": 1}
     on_cpu = run("cpu")
     assert ak.LAUNCHES["aa_taps_tf_mse_tc_high"] == 1  # none on the CPU
@@ -847,8 +846,8 @@ def test_cuda_aa_taps_tf_mse_counts_the_precisions_kernel(cuda, precision):
 @pytest.mark.gpu
 def test_cuda_aa_taps_tc_kernel_rejects_unsupported_sizes(cuda):
     """The tensor-core K9 raises by name outside its limits: a working
-    set above a block's shared memory, more than 8 microphones, a
-    fractional bin offset; its library refuses a pass count other than 0
+    set above a block's shared memory, more microphones than the looped
+    kernel takes, a fractional bin offset; its library refuses a pass count other than 0
     (the FP32 kernel), 1 or 3.  No CUDA tensor goes to the FP32 kernel or the plain version
     instead."""
     o = _aa_operands(1, 4, 13, 100, 400)
@@ -863,9 +862,11 @@ def test_cuda_aa_taps_tc_kernel_rejects_unsupported_sizes(cuda):
             ak.aa_taps_tf_mse_kernel(*args[:2], o["tw"][:100], *args[3:], 4,
                                      13, 8192, precision=precision,
                                      bin_offset=0.5)
-    z = torch.zeros((9, 10), device="cuda")
-    with pytest.raises(ValueError, match="1..8"):
-        ak.aa_taps_tf_mse_kernel(z, z, z[:2, :9], z, z, z, 9, 1, 64)
+    top = ak.loop_max_n(1, 2)
+    z = torch.zeros((top + 1, top + 1), device="cuda")
+    with pytest.raises(ValueError, match=rf"1\.\.{top} microphones"):
+        ak.aa_taps_tf_mse_kernel(z, z, z[:2, :top + 1], z, z, z, top + 1, 1,
+                                 64)
     assert all(v == 0 for v in ak.LAUNCHES.values())
     lib = cuda_build.load(4, ak.LIB)
     assert lib.aa_taps_grid(4, 0, 2, 100, 13, 1000) == -2
@@ -874,14 +875,122 @@ def test_cuda_aa_taps_tc_kernel_rejects_unsupported_sizes(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N,L,order,M", [(9, 13, 100, 4097), (16, 13, 100, 4097),
+                                         (32, 13, 100, 1000), (12, 3, 37, 301)])
+@pytest.mark.parametrize("pivot", [True, False])
+def test_cuda_aa_loop_matches_plain(cuda, N, L, order, M, pivot):
+    """K8 looped and K9 looped at every precision (past 8 microphones,
+    aa_loop.cu) against their plain versions, K9 also at a bin offset: the
+    loss 1e-5, the S rows and the tap cotangent 1e-4 of the max, as the
+    unrolled kernels; each call launches its looped kernel once."""
+    o = _aa_operands(N * 7 + L + M, N, L, M, order)
+    args = [o[k] for k in ("hr", "hi", "gr", "gi", "rr", "ri", "t")]
+    ak.reset_launch_counts()
+    got = ak.aa_tf_mse_kernel(*args, N, L, pivot)
+    ref = ak.aa_tf_mse_plain(*args, N, L, pivot)
+    assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5
+    for g, r in zip(got[1:], ref[1:]):
+        assert _rel(g, r) < 1e-4
+    args = [o[k] for k in ("hr", "hi", "tw", "rr", "ri", "t")]
+    for precision in ak.PRECISIONS:
+        for off in (0, 1000):
+            got = ak.aa_taps_tf_mse_kernel(*args, N, L, 8192, pivot, precision,
+                                           off)
+            ref = ak.aa_taps_tf_mse_plain(*args, N, L, 8192, pivot, off,
+                                          precision)
+            assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5, \
+                (precision, off)
+            assert _rel(got[1], ref[1]) < 1e-4, (precision, off)
+    assert ak.LAUNCHES == {k: (1 if k == "aa_tf_mse_loop" else
+                               2 if k.endswith("_loop") else 0)
+                           for k in ak.LAUNCHES}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ak.PRECISIONS)
+def test_cuda_aa_loop_against_unrolled_at_8(cuda, precision):
+    """At 8 microphones both designs run: the looped K8 and K9 against the
+    unrolled ones on the same operands (loss 1e-5, rows 1e-4 of the max)."""
+    o = _aa_operands(88, 8, 13, 4097, 100)
+    rows8 = [o[k] for k in ("hr", "hi", "gr", "gi", "rr", "ri", "t")]
+    rows9 = [o[k] for k in ("hr", "hi", "tw", "rr", "ri", "t")]
+    for pivot in (True, False):
+        for got, ref in ((ak.aa_tf_mse_loop_kernel(*rows8, 8, 13, pivot),
+                          ak.aa_tf_mse_kernel(*rows8, 8, 13, pivot)),
+                         (ak.aa_taps_tf_mse_loop_kernel(
+                             *rows9, 8, 13, 8192, pivot, precision, 100),
+                          ak.aa_taps_tf_mse_kernel(*rows9, 8, 13, 8192, pivot,
+                                                   precision, 100))):
+            assert abs(float(got[0] - ref[0])) / float(ref[0]) < 1e-5
+            for g, r in zip(got[1:], ref[1:]):
+                assert _rel(g, r) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_aa_loop_smem_rule_matches_python(cuda):
+    """The looped kernels' shared-memory rules and plans in aa_loop.cu
+    equal their Python mirrors, which check_aa_loop applies before a
+    library loads."""
+    lib = cuda_build.load(1, ak.LOOP_LIB)
+    for N in (1, 9, 16, 17, 32, 49, 50, 64, 155, 156):
+        for L in (1, 3, 13):
+            for w in (1, 8):
+                assert lib.aal_tf_mse_smem_bytes(N, L, w) == \
+                    ak.loop_tf_mse_smem_bytes(N, L, w)
+            assert lib.aal_tf_mse_warps(N, L) == ak.loop_tf_mse_warps(N, L)
+            for passes in (0, 1, 3):
+                for order in (1, 37, 100):
+                    assert (lib.aal_taps_bins(passes, order, N, L),
+                            lib.aal_taps_solvers(passes, order, N, L)) == \
+                        ak.loop_taps_plan(passes, order, N, L)
+                    for bins, solvers in ((64, 8), (32, 3)):
+                        assert lib.aal_taps_smem_bytes(
+                            passes, order, N, L, bins, solvers) == \
+                            ak.loop_taps_smem_bytes(passes, order, N, L, bins,
+                                                    solvers)
+    assert ak.loop_max_n(13) == 155
+    assert ak.loop_max_n(13, 100, "high") == 49
+
+
+@pytest.mark.gpu
+def test_cuda_aa_loop_autograd_matches_cpu(cuda):
+    """aa_tf_mse and aa_taps_tf_mse at 12 microphones on the card (the
+    looped kernels, once each) give the gradients of the same functions
+    on the CPU (plain versions), 1e-4 of the max."""
+    o = _aa_operands(12, 12, 5, 1000, 20)
+
+    def run(device):
+        x = {k: v.to(device) for k, v in o.items()}
+        gr, gi, tw = (x[k].detach().requires_grad_(True)
+                      for k in ("gr", "gi", "tw"))
+        loss = (ak.aa_tf_mse(x["hr"], x["hi"], gr, gi, x["rr"], x["ri"],
+                             x["t"], 12, 5)
+                + ak.aa_taps_tf_mse(x["hr"], x["hi"], tw, x["rr"], x["ri"],
+                                    x["t"], 12, 5, 1998))
+        loss.backward()
+        return [v.grad.cpu() for v in (gr, gi, tw)]
+
+    ak.reset_launch_counts()
+    on_card = run("cuda")
+    assert ak.LAUNCHES == {k: int(k in ("aa_tf_mse_loop",
+                                        "aa_taps_tf_mse_tc_high_loop"))
+                           for k in ak.LAUNCHES}
+    for g, r in zip(on_card, run("cpu")):
+        assert _rel(g, r) < 1e-4
+
+
+@pytest.mark.gpu
 def test_cuda_aa_and_eig_kernels_reject_unsupported_sizes(cuda):
     o = _aa_operands(1, 4, 13, 100, 2000)
     with pytest.raises(ValueError, match="shared memory"):
         ak.aa_taps_tf_mse_kernel(*(o[k] for k in ("hr", "hi", "tw", "rr",
                                                   "ri", "t")), 4, 13, 8192)
-    z = torch.zeros((9, 10), device="cuda")
-    with pytest.raises(ValueError, match="1..8"):
-        ak.aa_tf_mse_kernel(z, z, z, z, z, z, z, 9, 1)
+    top = ak.loop_max_n(1)
+    z = torch.zeros((top + 1, 10), device="cuda")
+    with pytest.raises(ValueError, match=rf"1\.\.{top} microphones"):
+        ak.aa_tf_mse_kernel(z, z, z, z, z, z, z, top + 1, 1)
+    z = z[:9]
     with pytest.raises(ValueError, match="EIG_DK_MAX_N"):
         ek.dk_roots_rows(z, z)
     with pytest.raises(TypeError, match="float32"):

@@ -272,12 +272,13 @@ def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
 
     libs = tuple(cb._SIGNATURES)
     assert libs == ("fdn_kernels", "sos_kernels", "sos_cascade",
-                    "aa_kernels", "eig_kernels", "fdn_loop", "phase2_micro")
+                    "aa_kernels", "eig_kernels", "fdn_loop", "aa_loop",
+                    "phase2_micro")
     assert cb.LIB_MAX_N["phase2_micro"] == cb.LIB_MAX_N["sos_cascade"] == 1
-    assert cb.LIB_MAX_N["fdn_loop"] == 1
+    assert cb.LIB_MAX_N["fdn_loop"] == cb.LIB_MAX_N["aa_loop"] == 1
     names = {cb.library_path(n, lib).name for lib in libs
              for n in {1, min(6, cb.LIB_MAX_N[lib]), cb.LIB_MAX_N[lib]}}
-    assert len(names) == 15
+    assert len(names) == 16
     for lib in libs:
         for bad in (0, cb.LIB_MAX_N[lib] + 1):
             with pytest.raises(ValueError, match="channels"):
@@ -302,7 +303,8 @@ def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
     before = [cb.library_path(6, lib) for lib in libs]
     monkeypatch.setattr(cb, "CSRC", csrc)
     assert [cb.library_path(6, lib) for lib in libs] == before
-    for header in ("fdn_ge.cuh", "fdn_loop.cuh", "sos_common.cuh"):
+    for header in ("fdn_ge.cuh", "fdn_loop.cuh", "sos_common.cuh",
+                   "aa_tile.cuh"):
         with open(csrc / header, "a") as f:
             f.write("\n")
         after = [cb.library_path(6, lib) for lib in libs]
