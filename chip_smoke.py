@@ -227,8 +227,13 @@ Phases, in order; any failure raises and exits non-zero without a result:
    cyclic, the tied systems whose elimination leaves a diagonal equal bit
    for bit), and against the unrolled kernels at N = 16 on the same
    operands (that library built on a thread beside phases 1-4k), the gaps
-   printed; HomogeneousFDN at 32 and 64 channels (nfft=96000, delays
-   drawn from SEED in 20-50 ms) on 'pallas' (K2 looped) against 'ge': |H|
+   printed; K2 looped runs on fdn_reg.cu's register-resident kernel from
+   17 to 64 channels (a bin's rows in registers) and on fdn_loop.cu's
+   above, so K2 is also held so at 33, 48 and 65 channels (at 65, on the
+   shared-memory kernel, a k2_systems result past float32 is held to a
+   complex128 solve, k2_twin_check), every launch on the kernel of its
+   size's range (reg_launch_check); HomogeneousFDN at 32 and 64 channels
+   (nfft=96000, delays drawn from SEED in 20-50 ms) on 'pallas' (K2 looped) against 'ge': |H|
    1e-5 of the max, then LOOP_STEPS Adam steps of mse(model(impulse), a
    decaying noise IR) in lockstep (losses 1e-5, first gradients 1e-4);
    a 32-channel colorless FDN: colorless_fit (K1 looped) against its
@@ -248,8 +253,10 @@ Phases, in order; any failure raises and exits non-zero without a result:
    TFSOS_TRAINER_STEPS fit_scan steps (K5 once a step); the fused routes
    held to the graph at phases 3's and 4's gates (losses 1e-4, first
    gradients 5e-3 of the max); one K5 call at 64 channels on the
-   attenuated FDN with a 1/3-octave GEQ (K = 30, one warp a block)
-   against its plain version; every launch counted exactly;
+   attenuated FDN with a 1/3-octave GEQ (K = 30, four bins a block of
+   the register-resident kernel) against its plain version; every launch
+   counted exactly, K2 and K5 on fdn_reg.cu's kernels at 32 and 64
+   (their shared-memory keys never counted);
 4n. K8 and K9 past 8 microphones (flamo_tpu_torch/csrc/aa_loop.cu, one
    warp a bin, N at run time): phase 4c's rig (13 loudspeakers,
    15000-tap rooms, a 100-tap mixer, nfft=96000, 'ge_cached') at 16 and
@@ -283,18 +290,25 @@ Phases, in order; any failure raises and exits non-zero without a result:
 5l. each looped kernel's device and call ms at M = 48001, its plain
    version's (CUDA events), torch.linalg.solve's on the same systems (K2,
    K6) and its bound, at 32 and 64 channels (K1's four variants too);
-   after phase 5, whose traces came back one launch short once 10-30 ms
-   kernels had been traced;
+   K2 (fdn_reg.cu) beside fdn_loop.cu's shared-memory K2 in turns
+   (previous_ms), with the warps resident on an SM of both
+   (cudaOccupancyMaxActiveBlocksPerMultiprocessor), held to
+   PREVIOUS_GATE; after phase 5, whose traces came back one launch short
+   once 10-30 ms kernels had been traced;
 5m. the looped K3f, K3b and K5 against their plain versions at
    M = 48001 for N = 17, 32 and 64 (values 1e-5, cotangents 1e-4 of the
    max; K5 in its four fused variants, without fused taps through K4b,
    and at bin_offset 24001 both ways), K3f's y on the exact tied systems
    of k3_systems bit for bit, K3f and K3b on the others, and against the
    unrolled kernels at N = 16 (fdn_kernels and sos_kernels at 16 built on
-   a thread beside phases 1-4k), the gaps printed; then each looped
+   a thread beside phases 1-4k), the gaps printed; K5 also in all eight
+   variants, at bin_offset 24001 and at K = 30 for N = 17, 32, 33, 48, 64
+   (fdn_reg.cu) and 65 (fdn_loop.cu), reg_k5_checks; then each looped
    kernel's device and call ms, its plain version's (CUDA events) and its
    bound at 32 and 64 channels (K5 the training variant: no pivot, no
-   D_bar, fused taps, K = 12, P = 3);
+   D_bar, fused taps, K = 12, P = 3; beside fdn_loop.cu's shared-memory
+   K5 in turns, with both kernels' resident warps, held to
+   PREVIOUS_GATE);
 5n. the looped K8 and K9 on the rigs' own rows at M = 48001 for 9, 16 and
    32 microphones against their plain versions (both pivot modes, K9 at
    every precision: the loss 1e-5, S and the tap cotangent 1e-4 of the
@@ -594,6 +608,18 @@ TFSOS_NS = (32, 64)
 TFSOS_TRAINER_STEPS = 2
 THIRD_K = 30
 TFSOS_OFFSET = 24001
+# the register-resident K2 and K5 (fdn_reg.cu, 17..64 channels): phases
+# 4l and 5m hold them to their plain versions at M_MAIN bins at each of
+# REG_NS channels (at LOOP_NS through loop_kernel_checks and
+# tfsos_kernel_checks), the last the first count above their range, where
+# the shared-memory kernels take over: K2 both ways on loop_operands and
+# k2_systems, K5 in all eight variants, at TFSOS_OFFSET and at THIRD_K
+# sections; phases 5l and 5m time them at 32 and 64 channels beside the
+# shared-memory kernels in turns, each held to PREVIOUS_GATE
+REG_NS = (17, 32, 33, 48, 64, 65)
+# calls a trace of these kernels and of the previous ones beside them
+# (0.5-39 ms a call: 50 took 4 traces each, the profiler a launch short)
+REG_REPS = 10
 # phase 4n, K8 and K9 past 8 microphones (aa_loop.cu): phase 4c's rig at
 # each of AA_LOOP_NS microphones, AA_LOOP_STEPS Adam steps a kernel and
 # precision; phase 5n holds the looped kernels to their plain versions on
@@ -643,9 +669,12 @@ SOURCES = {
     **{f"phase2_{v}": "flamo_tpu_torch/csrc/phase2_micro.cu"
        for v in pm.VARIANTS},
     **{name: "flamo_tpu_torch/csrc/fdn_loop.cu" for name in (
-        "fdn_solve_loop", "fdn_solve_loop_transposed", "dense_solve_loop",
-        "dense_solve_loop_transposed", "fdn_tf_mse_loop", "fdn_tf_fwd_loop",
-        "fdn_tf_bwd_loop", "fdn_sos_tf_mse_loop")},
+        "dense_solve_loop", "dense_solve_loop_transposed", "fdn_tf_mse_loop",
+        "fdn_tf_fwd_loop", "fdn_tf_bwd_loop")},
+    # K2 and K5 looped on the register-resident core at 17..64 channels
+    **{name: "flamo_tpu_torch/csrc/fdn_reg.cu" for name in (
+        "fdn_solve_loop", "fdn_solve_loop_transposed",
+        "fdn_sos_tf_mse_loop")},
     **{f"{name}_loop": "flamo_tpu_torch/csrc/aa_loop.cu"
        for name in ("aa_tf_mse", *K9_ROWS.values())},
 }
@@ -1375,6 +1404,7 @@ def print_ptxas(report: str) -> None:
             r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_fwd|fdn_tf_bwd|"
             r"dense_solve|"
             r"fdn_solve|ge_loop_solve|ge_loop_dense|ge_loop_tf_mse|"
+            r"reg_solve|reg_sos_tf_mse|ge_loop_sos_tf_mse|"
             r"aa_taps_tf_mse_tc|aa_taps_tf_mse|sos_cascade_fwd|"
             r"sos_cascade_bwd|phase2_full|phase2_ps|phase2_noreduce|"
             r"phase2_lanered)_kernel", name)
@@ -1394,8 +1424,11 @@ def print_ptxas(report: str) -> None:
         # a block's warps; K6's blocks are one warp, the previous ones
         # four; K9's eight, the previous FP32 one's two; the looped
         # kernels' up to eight (fewer at large N: their shared memory)
+        # fdn_reg.cu's: K2 4 warps a block, K5 8 at H = 1 and 16 at H = 2
         warps = {"dk_roots_kernel": 2, "ge_loop_solve_kernel": 8,
                  "ge_loop_dense_kernel": 8, "ge_loop_tf_mse_kernel": 8,
+                 "ge_loop_sos_tf_mse_kernel": 8,
+                 "reg_sos_tf_mse_kernel": 8 if targs[:1] == ["1"] else 16,
                  "dense_solve_kernel": 4 if tag else 1,
                  "aa_taps_tf_mse_kernel": 2 if tag else 8,
                  "aa_taps_tf_mse_tc_kernel": 8}.get(kernel, 4)
@@ -4125,11 +4158,13 @@ def phase_multi_device(card: str, aa) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4l, K1, K2 and K6 past 16 channels (fdn_loop.cu)
 # ---------------------------------------------------------------------------
-def loop_operands(M: int, N: int, seed: int = SEED, device="cuda") -> dict:
+def loop_operands(M: int, N: int, seed: int = SEED, device="cuda",
+                  dense: bool = True) -> dict:
     """Operands of the looped kernels at N channels: D of modulus 0.85 with
     random phases, an orthogonal U, gains b and c, a rhs B, K1's X and t,
-    and well-conditioned dense systems A (I plus a normal matrix of norm
-    ~0.5) for K6."""
+    and with ``dense`` well-conditioned dense systems A (I plus a normal
+    matrix of norm ~0.5) for K6, drawn last (1.6 GB at M_MAIN and 64
+    channels)."""
     rng = np.random.default_rng(seed + N)
 
     def cplx(shape):
@@ -4143,23 +4178,49 @@ def loop_operands(M: int, N: int, seed: int = SEED, device="cuda") -> dict:
     o = {k: torch.tensor(v.astype(np.complex64 if np.iscomplexobj(v)
                                   else np.float32), device=device)
          for k, v in host.items()}
-    o["A"] = (torch.eye(N, dtype=torch.complex64, device=device)
-              + torch.tensor(cplx((M, N, N)).astype(np.complex64),
-                             device=device) / (4 * np.sqrt(N)))
+    if dense:
+        o["A"] = (torch.eye(N, dtype=torch.complex64, device=device)
+                  + torch.tensor(cplx((M, N, N)).astype(np.complex64),
+                                 device=device) / (4 * np.sqrt(N)))
     return o
 
 
-def loop_kernel_checks(N: int, M: int = M_MAIN, device="cuda") -> dict:
-    """K2 looped (both ways), K6 looped (both ways) and K1 looped (its four
-    variants) against their plain versions on loop_operands (values
-    VAL_TOL, cotangents GRAD_TOL of the max), and K2 looped on k2_systems:
-    pivoting at every step, tied pivots and the cycle at VAL_TOL; where the
-    eliminated system is diagonal (the tied lower forward and tied upper
-    transposed systems, exact), bit for bit, which only the first-maximal-
-    row pivot rule gives.  Returns the max abs error of each kernels-line
-    row's kernel and the tied systems' count."""
-    o = loop_operands(M, N, device=device)
-    D, U, b, c, B, X, t, A = (o[k] for k in "DUbcBXtA")
+def k2_twin_check(label: str, y, ref, system, tr: bool, device) -> None:
+    """K2's result ``y`` on a k2_systems ``system`` that lies VAL_TOL or
+    more from the plain version's ``ref``, held to a complex128 solve of
+    the same float32 operands (phase 4n's rule for a system past float32):
+    the plain version must itself lie VAL_TOL or more from it, and the
+    kernel within AA_TWIN_FACTOR times the plain version's distance."""
+    Ds, Us, Bs = k2_tensors(system, device)
+    A = fk._loop_matrix(Ds.to(torch.complex128), Us.double(), tr)
+    twin = torch.linalg.solve(A, Bs.to(torch.complex128)[..., None])[..., 0]
+    plain_gap = rel_err(ref.to(twin.dtype), twin)[1]
+    gap = rel_err(y.to(twin.dtype), twin)[1]
+    print(f"  {label}: {rel_err(y, ref)[1]:.3e} of the max from the plain "
+          f"version, past float32: the plain version {plain_gap:.3e} from "
+          f"a complex128 solve, the kernel {gap:.3e} (at most "
+          f"{AA_TWIN_FACTOR:g}x the plain version's)")
+    check(plain_gap >= VAL_TOL and gap <= AA_TWIN_FACTOR * plain_gap,
+          f"{label}: the kernel {gap:.3e} and the plain version "
+          f"{plain_gap:.3e} from a complex128 solve")
+
+
+def k2_loop_checks(N: int, M: int = M_MAIN, device="cuda",
+                   o=None, twin: bool = False) -> tuple:
+    """K2 looped (both ways) against its plain version on loop_operands
+    (``o``, made when None; VAL_TOL) and on k2_systems: pivoting at every
+    step, tied pivots and the cycle at VAL_TOL; where the eliminated system
+    is diagonal (the tied lower forward and tied upper transposed systems,
+    exact), bit for bit, which only the first-maximal-row pivot rule
+    gives.  With ``twin`` (the first count above the register-resident
+    kernels' range) a k2_systems result VAL_TOL or more from the plain
+    version goes to k2_twin_check: at 65 channels the tied lower system's
+    transposed solution grows as 2^N, and the plain version's own float32
+    solve lies 3.5e-4 of the max from a complex128 one (2000 bins, on a
+    CPU).  Returns the max abs error of each direction's kernels-line row
+    and the tied systems' count."""
+    o = loop_operands(M, N, device=device, dense=False) if o is None else o
+    D, U, B = (o[k] for k in "DUB")
     errs = {}
     for tr in (False, True):
         sfx = "_transposed" if tr else ""
@@ -4167,6 +4228,37 @@ def loop_kernel_checks(N: int, M: int = M_MAIN, device="cuda") -> dict:
             f"K2 looped{sfx.replace('_', ' ')} N={N}",
             fk.fdn_solve_loop_kernel(D, U, B, tr),
             fk.fdn_solve_plain(D, U, B, tr), VAL_TOL)
+    tied = 0
+    for tr in (False, True):
+        systems = k2_systems(np.random.default_rng(SEED + N + tr), M, N, tr)
+        for label, system in systems.items():
+            Ds, Us, Bs = k2_tensors(system, device)
+            y = fk.fdn_solve_loop_kernel(Ds, Us, Bs, tr)
+            ref = fk.fdn_solve_plain(Ds, Us, Bs, tr)
+            tag = f"K2 looped N={N} {label}{' transposed' if tr else ''}"
+            if twin and rel_err(y, ref)[1] >= VAL_TOL:
+                k2_twin_check(tag, y, ref, system, tr, device)
+            else:
+                compare(tag, y, ref, VAL_TOL)
+            if label == ("tied upper" if tr else "tied lower"):
+                check(torch.equal(y, ref), f"K2 looped N={N} {label}: the "
+                      "exact diagonal systems differ from the plain version "
+                      "in their bits (another pivot rule)")
+                tied += len(y)
+    return errs, tied
+
+
+def loop_kernel_checks(N: int, M: int = M_MAIN, device="cuda") -> dict:
+    """K2 looped (both ways, k2_loop_checks), K6 looped (both ways) and K1
+    looped (its four variants) against their plain versions on
+    loop_operands (values VAL_TOL, cotangents GRAD_TOL of the max).
+    Returns the max abs error of each kernels-line row's kernel and the
+    tied systems' count."""
+    o = loop_operands(M, N, device=device)
+    D, U, b, c, B, X, t, A = (o[k] for k in "DUbcBXtA")
+    errs, tied = k2_loop_checks(N, M, device, o)
+    for tr in (False, True):
+        sfx = "_transposed" if tr else ""
         errs[f"dense_solve_loop{sfx}"] = compare(
             f"K6 looped{sfx.replace('_', ' ')} N={N}",
             fk.dense_solve_loop_kernel(A, B, tr),
@@ -4183,21 +4275,24 @@ def loop_kernel_checks(N: int, M: int = M_MAIN, device="cuda") -> dict:
               for name, g, r in zip(("D_bar", "U_bar", "b_bar", "c_bar"),
                                     got[1:], ref[1:]) if r is not None))
         check((got[1] is None) == (not with_dbar), f"{tag}: D_bar")
-    tied = 0
-    for tr in (False, True):
-        systems = k2_systems(np.random.default_rng(SEED + N + tr), M, N, tr)
-        for label, system in systems.items():
-            Ds, Us, Bs = k2_tensors(system, device)
-            y = fk.fdn_solve_loop_kernel(Ds, Us, Bs, tr)
-            ref = fk.fdn_solve_plain(Ds, Us, Bs, tr)
-            compare(f"K2 looped N={N} {label}{' transposed' if tr else ''}",
-                    y, ref, VAL_TOL)
-            if label == ("tied upper" if tr else "tied lower"):
-                check(torch.equal(y, ref), f"K2 looped N={N} {label}: the "
-                      "exact diagonal systems differ from the plain version "
-                      "in their bits (another pivot rule)")
-                tied += len(y)
     return errs, tied
+
+
+def reg_launch_check(what: str, N: int, device: str) -> None:
+    """On the card: the launches since the last reset_counts went to the
+    register-resident K2 and K5 at REG_MIN_N..REG_MAX_N channels and to
+    the shared-memory kernels (their "_smem" keys) above."""
+    if device == "cpu":
+        return
+    counts = nonzero_counts()
+    smem = sorted(k for k in counts if k.endswith(("_smem",
+                                                   "_smem_transposed")))
+    reg = sorted(k for k in counts if k in (
+        "fdn_solve_loop", "fdn_solve_loop_transposed", "fdn_sos_tf_mse_loop"))
+    above = N > fk.REG_MAX_N
+    check(bool(smem) == above and bool(reg) != above,
+          f"{what} N={N}: launches {counts}; the register-resident kernels "
+          f"take {fk.REG_MIN_N}..{fk.REG_MAX_N} channels")
 
 
 def loop_versus_unrolled(M: int = M_MAIN, device="cuda") -> dict:
@@ -4456,8 +4551,12 @@ def loop_timing(card: str, launches: dict, errs: dict) -> list:
                 lambda Al=(At_loop if tr else A_loop): torch.linalg.solve(
                     Al, B[..., None]),
                 {}, launches, errs, N=N, plain_reps=1, lib_reps=5,
-                kernel="ge_loop_solve_kernel", work="fdn_solve",
-                plain_events=True))
+                kernel="reg_solve_kernel", work="fdn_solve",
+                plain_events=True,
+                previous=lambda tr=tr: fk.fdn_solve_loop_smem_kernel(
+                    D, U, B, tr),
+                previous_kernel="ge_loop_solve_kernel", reps=REG_REPS))
+            reg_occupancy(rows[-1], N, tr)
         dense, k1 = [], []
         for name in ("dense_solve_loop", "dense_solve_loop_transposed",
                      "fdn_tf_mse_loop"):  # not on the path at 64 channels
@@ -4511,7 +4610,45 @@ def loop_timing(card: str, launches: dict, errs: dict) -> list:
                  f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.2f}"
                  "x the kernel)")
               + f"; launches {r['launches']} on {card}")
+    reg_gate(rows)
     return rows
+
+
+def reg_occupancy(row: dict, N: int, transpose: bool = False) -> None:
+    """Add to a register-resident kernel's row (K2's, or K5's training
+    variant at K_MAIN sections of P_MAIN taps) the warps resident on an
+    SM, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them, of
+    its block and of the shared-memory kernel's block at the same sizes."""
+    lib = cuda_build.load(1, fk.LOOP_LIB)
+    if row["name"].startswith("fdn_solve_loop"):
+        new = lib.fl_reg_solve_resident_warps(N)
+        old = lib.fl_solve_resident_warps(N, int(transpose))
+    else:
+        new = lib.fl_reg_sos_resident_warps(0, 1, N, K_MAIN, P_MAIN)
+        old = lib.fl_sos_resident_warps(0, 0, 1, N, K_MAIN, P_MAIN)
+    check(new > 0 and old > 0, f"{row['name']}: resident warps {new}, "
+          f"previous {old}")
+    row.update(resident_warps=new, previous_resident_warps=old)
+
+
+def reg_gate(rows: list) -> None:
+    """The register-resident kernels' rows (those timed beside the
+    shared-memory kernel): each printed with its resident warps, and each
+    device time held to PREVIOUS_GATE times the shared-memory kernel's in
+    the same call."""
+    timed = [r for r in rows if "previous_ms" in r]
+    for r in timed:
+        print(f"  {r['name']} (fdn_reg.cu): {r['ms']:.6f} ms against the "
+              f"shared-memory kernel's {r['previous_ms']:.6f} "
+              f"({r['ms'] / r['previous_ms']:.3f}x, at most "
+              f"{PREVIOUS_GATE}x); bound {r['bound_ms']:.6f} "
+              f"({r['ms'] / r['bound_ms']:.1f}x); warps resident on an SM "
+              f"{r['resident_warps']} (previous "
+              f"{r['previous_resident_warps']})")
+    for r in timed:
+        check(r["ms"] <= PREVIOUS_GATE * r["previous_ms"],
+              f"{r['name']}: {r['ms']:.6f} ms is more than {PREVIOUS_GATE} "
+              f"x the shared-memory kernel's {r['previous_ms']:.6f}")
 
 
 def loop_paths(nfft: int = NFFT, device="cuda", ns=LOOP_HFDN_NS,
@@ -4567,13 +4704,26 @@ def phase_loop(card: str, unrolled16: BackgroundBuild) -> tuple:
     traces of 10-30 ms kernels came back one launch short, and so did
     every trace after them in the same run)."""
     print(f"phase 4l K1, K2 and K6 past 16 channels (fdn_loop.cu, one warp a "
-          f"bin; M={M_MAIN}, nfft={NFFT})")
+          f"bin; K2 on fdn_reg.cu from {fk.REG_MIN_N} to {fk.REG_MAX_N}; "
+          f"M={M_MAIN}, nfft={NFFT})")
     errs = {}
     for N in LOOP_NS:
+        reset_counts()
         e, tied = loop_kernel_checks(N)
+        reg_launch_check("K2", N, "cuda")
         errs.update({loop_row(k, N): v for k, v in e.items()})
         print(f"  N={N}: the looped kernels held to their plain versions; "
               f"{tied} exact tied systems equal bit for bit")
+    for N in (n for n in REG_NS if n not in LOOP_NS):
+        reset_counts()
+        e, tied = k2_loop_checks(N, twin=N > fk.REG_MAX_N)
+        reg_launch_check("K2", N, "cuda")
+        errs.update({loop_row(k, N): v for k, v in e.items()})
+        print(f"  N={N}: K2 looped held to its plain version both ways on "
+              + ("the register-resident kernel" if N <= fk.REG_MAX_N else
+                 "the shared-memory kernel, above the register-resident "
+                 "one's range")
+              + f"; {tied} exact tied systems equal bit for bit")
     t0 = time.perf_counter()
     built = unrolled16.wait()
     print(f"  the unrolled library at N={fk.MAX_N}, built beside phases 1-4k:"
@@ -4713,6 +4863,7 @@ def third_octave_loop_check(N: int = TFSOS_NS[-1], nfft: int = NFFT,
                             FUSED_GRAD_TOL))
     return dict(N=N, K=THIRD_K, err=max(errs),
                 warps=sk.loop_tf_mse_warps(N, THIRD_K, P_MAIN, True),
+                bins=sk.reg_tf_mse_bins(N, THIRD_K, P_MAIN, True),
                 counts=counts)
 
 
@@ -4758,8 +4909,10 @@ def tfsos_report(paths: dict) -> dict:
     third = paths["third"]
     add(third)
     print(f"  K5 looped on the 1/3-octave GEQ (K={third['K']}) N="
-          f"{third['N']}: {third['warps']} warp(s) a block, max abs err "
-          f"{third['err']:.3e} against the plain version")
+          f"{third['N']}: {third['bins']} bin(s) a block of the "
+          f"register-resident kernel (the shared-memory kernel's "
+          f"{third['warps']} warp(s)), max abs err {third['err']:.3e} "
+          "against the plain version")
     print(f"  launches in phase 4m: {launches}")
     return launches
 
@@ -4769,7 +4922,8 @@ def phase_tfsos() -> dict:
     TFSOS_NS channels, full width, with exact launch counts; returns the
     launches by kernels-line row."""
     print(f"phase 4m K3f, K3b and K5 past 16 channels (fdn_loop.cu, one warp "
-          f"a bin; nfft={NFFT}, N in {TFSOS_NS})")
+          f"a bin; K5 on fdn_reg.cu from {fk.REG_MIN_N} to {fk.REG_MAX_N}; "
+          f"nfft={NFFT}, N in {TFSOS_NS})")
     return tfsos_report(tfsos_paths())
 
 
@@ -4781,7 +4935,7 @@ def tfsos_operands(M: int, N: int, device="cuda") -> dict:
     """loop_operands with K5's: stable taps (K_MAIN sections of P_MAIN)
     and 0.6 U (a loop gain well below 1 with |Gam| near 1), and K3b's
     cotangent of tf."""
-    o = loop_operands(M, N, device=device)
+    o = loop_operands(M, N, device=device, dense=False)
     bt, at = _stable_taps(np.random.default_rng(SEED + 100 + N), P_MAIN,
                           K_MAIN, N, device)
     o.update(bt=bt, at=at, U6=0.6 * o["U"], tb=o["B"][:, 0].contiguous())
@@ -4812,6 +4966,9 @@ def k5_compare(tag: str, got, ref) -> float:
 K5_VARIANTS = (*((pivot, with_dbar, True) for pivot, with_dbar in
                  itertools.product((True, False), repeat=2)),
                (False, False, False))
+# all eight (pivot, with_dbar, fuse_taps), and those K5_VARIANTS leaves out
+K5_ALL = tuple(itertools.product((True, False), repeat=3))
+K5_REST = tuple(v for v in K5_ALL if v not in K5_VARIANTS)
 
 
 def tfsos_kernel_checks(N: int, M: int = M_MAIN, device="cuda",
@@ -4881,6 +5038,45 @@ def tfsos_kernel_checks(N: int, M: int = M_MAIN, device="cuda",
     return errs, tied
 
 
+def reg_k5_checks(N: int, M: int = M_MAIN, device="cuda",
+                  offset: int = TFSOS_OFFSET, variants=K5_ALL,
+                  at_offset: bool = True) -> float:
+    """K5 looped in ``variants`` against its plain version on
+    tfsos_operands (k5_compare: loss VAL_TOL, cotangents GRAD_TOL of the
+    max); with ``at_offset`` the training variant in both fuse_taps modes
+    on the last M - offset rows at bin_offset ``offset``; the training
+    variant on THIRD_K sections of stable taps; every launch on the
+    register-resident kernel up to REG_MAX_N channels and on the
+    shared-memory one above (reg_launch_check).  Returns the max abs
+    error."""
+    o = tfsos_operands(M, N, device)
+    b, c = o["b"], o["c"]
+    reset_counts()
+    err = 0.0
+    for pivot, with_dbar, fuse_taps in variants:
+        args = (*k5_loop_args(o), with_dbar, pivot, fuse_taps)
+        err = max(err, k5_compare(
+            f"K5 looped N={N} pivot={pivot} with_dbar={with_dbar} "
+            f"fuse_taps={fuse_taps}", sk.fdn_sos_tf_mse_loop_kernel(*args),
+            sk.fdn_sos_tf_mse_plain(*args)))
+    for fuse_taps in (True, False) if at_offset else ():
+        sl = {k: o[k][offset:] for k in "DXt"}
+        args = (sl["D"], o["bt"], o["at"], o["U6"], b, c, sl["X"], sl["t"],
+                2 * (M - 1), False, False, fuse_taps, offset)
+        err = max(err, k5_compare(
+            f"K5 looped N={N} bin_offset={offset} ({M - offset} rows) "
+            f"fuse_taps={fuse_taps}", sk.fdn_sos_tf_mse_loop_kernel(*args),
+            sk.fdn_sos_tf_mse_plain(*args)))
+    bt, at = _stable_taps(np.random.default_rng(SEED + 200 + N), P_MAIN,
+                          THIRD_K, N, device)
+    args = (o["D"], bt, at, o["U6"], b, c, o["X"], o["t"], 2 * (M - 1))
+    err = max(err, k5_compare(f"K5 looped N={N} K={THIRD_K}",
+                              sk.fdn_sos_tf_mse_loop_kernel(*args),
+                              sk.fdn_sos_tf_mse_plain(*args)))
+    reg_launch_check("K5", N, device)
+    return err
+
+
 def tfsos_versus_unrolled(M: int = M_MAIN, device="cuda") -> dict:
     """At N = 16 both kernels run: the looped K3f, K3b and K5 (K5_VARIANTS)
     against the unrolled ones on the same operands, their gaps by kernel
@@ -4932,11 +5128,18 @@ def tfsos_timing(card: str, launches: dict, errs: dict) -> list:
                 ("fdn_sos_tf_mse_loop",
                  lambda: sk.fdn_sos_tf_mse_loop_kernel(*args),
                  lambda: sk.fdn_sos_tf_mse_plain(*args),
-                 "ge_loop_sos_tf_mse_kernel")):
+                 "reg_sos_tf_mse_kernel")):
+            k5 = name == "fdn_sos_tf_mse_loop"
             rows.append(timing_row(
                 name, loop_row(name, N), M_MAIN, kern, plain, None, {},
                 launches, errs, N=N, plain_reps=1, kernel=kernel,
-                work=name.removesuffix("_loop"), plain_events=True))
+                work=name.removesuffix("_loop"), plain_events=True,
+                previous=(lambda: sk.fdn_sos_tf_mse_loop_smem_kernel(*args))
+                if k5 else None,
+                previous_kernel="ge_loop_sos_tf_mse_kernel" if k5 else None,
+                reps=REG_REPS if k5 else 50))
+            if k5:
+                reg_occupancy(rows[-1], N)
         del o, D, U, b, c, y, args
         torch.cuda.empty_cache()
     for r in rows:
@@ -4944,6 +5147,7 @@ def tfsos_timing(card: str, launches: dict, errs: dict) -> list:
               f"{r['bound_ms']:.6f} ({r['bound_by']}): "
               f"{r['ms'] / r['bound_ms']:.1f}x; launches {r['launches']} on "
               f"{card}")
+    reg_gate(rows)
     return rows
 
 
@@ -4960,6 +5164,16 @@ def phase_tfsos_kernels(card: str, launches: dict,
         errs.update({loop_row(k, N): v for k, v in e.items()})
         print(f"  N={N}: the looped K3f, K3b and K5 held to their plain "
               f"versions; {tied} exact tied systems' y equal bit for bit")
+    for N in REG_NS:
+        row = loop_row("fdn_sos_tf_mse_loop", N)
+        errs[row] = max(errs.get(row, 0.0), reg_k5_checks(
+            N, variants=K5_REST if N in LOOP_NS else K5_ALL,
+            at_offset=N not in LOOP_NS))
+        print(f"  N={N}: K5 looped in all eight variants, at bin_offset "
+              f"{TFSOS_OFFSET} and at K={THIRD_K}, held to its plain version "
+              + ("on the register-resident kernel" if N <= fk.REG_MAX_N
+                 else "on the shared-memory kernel, above the "
+                 "register-resident one's range"))
     unrolled16.wait()
     gaps = tfsos_versus_unrolled()
     print("  looped against unrolled at N=16 (max abs): " + ", ".join(
@@ -5649,19 +5863,24 @@ def redesigned_last(by: dict) -> None:
               f"than {PREVIOUS_GATE} x the previous kernel's {prev:.6f}")
 
 
-def versus_previous(kern, previous, kernel: str) -> tuple[float, float]:
+def versus_previous(kern, previous, kernel: str,
+                    previous_kernel: str | None = None,
+                    reps: int = 50) -> tuple[float, float]:
     """Device ms of ``kern`` and of the previous library's ``previous``
-    in turns, previous, new, new, previous; each pair averaged.  When
+    (its device kernel named ``previous_kernel``, default ``kernel``) in
+    turns, previous, new, new, previous, ``reps`` calls each; each pair
+    averaged.  When
     device_ms had to time any of the four by CUDA events, all four are
     timed so, so that the two are read on one clock."""
     timed_before = len(EVENT_TIMED)
-    p1, k1, k2, p2 = (device_ms(f, kernel)
-                      for f in (previous, kern, kern, previous))
+    pk = previous_kernel or kernel
+    p1, k1, k2, p2 = (device_ms(f, name, reps) for f, name in (
+        (previous, pk), (kern, kernel), (kern, kernel), (previous, pk)))
     if len(EVENT_TIMED) > timed_before:
         print(f"  {kernel}: the new and previous kernels both timed by "
               "CUDA events, previous, new, new, previous")
         EVENT_TIMED.append(f"{kernel} beside its previous kernel")
-        p1, k1, k2, p2 = (time_ms(f, 50)
+        p1, k1, k2, p2 = (time_ms(f, reps)
                           for f in (previous, kern, kern, previous))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
@@ -5669,7 +5888,8 @@ def versus_previous(kern, previous, kernel: str) -> tuple[float, float]:
 def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
                N=N_MAIN, plain_reps=5, lib_reps=20,
                lib_events=False, floor=None, previous=None, kernel=None,
-               work=None, plain_events=False) -> dict:
+               work=None, plain_events=False,
+               previous_kernel=None, reps: int = 50) -> dict:
     """The kernels-line row ``row`` of kernel ``name`` at M rows and N
     channels: device and call times of the kernel, its plain version and
     the library call (None when there is none), its bound, launches and
@@ -5684,13 +5904,17 @@ def timing_row(name, row, M, kern, plain, lib, kw, launches, errs,
     reads (default ``<name>_kernel``), ``work`` the function whose bound
     kernel_work gives (default ``name``); with ``plain_events`` the plain
     version is timed by CUDA events only (the looped kernels' plain
-    versions issue ~20,000 device operations a call at 64 channels)."""
+    versions issue ~20,000 device operations a call at 64 channels);
+    ``previous_kernel`` names the previous kernel's device kernel where
+    it differs; ``reps`` calls are traced for the kernel's (and the
+    previous kernel's) device time."""
     retries, timed_before = TRACE_RETRIES[0], len(EVENT_TIMED)
     kernel = kernel or f"{name.removesuffix('_transposed')}_kernel"
     if previous is None:
-        ms, previous_ms = device_ms(kern, kernel), None
+        ms, previous_ms = device_ms(kern, kernel, reps), None
     else:
-        ms, previous_ms = versus_previous(kern, previous, kernel)
+        ms, previous_ms = versus_previous(kern, previous, kernel,
+                                          previous_kernel, reps)
     ms_by = ("cuda_events" if len(EVENT_TIMED) > timed_before
              else "profiler")
     floor_ms = None if floor is None else device_ms(floor, kernel)

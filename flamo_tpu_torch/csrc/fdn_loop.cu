@@ -1,11 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels of the per-bin solves for any
 // channel count N, N a run-time argument: one library for every N (built
-// as N = 1), with a plain C interface that
+// as N = 1, with fdn_reg.cu linked in), with a plain C interface that
 // flamo_tpu_torch/ops/fdn_kernels.py and ops/sos_kernels.py load through
 // ctypes.  The wrappers there take the unrolled kernels of fdn_kernels.cu
 // and sos_kernels.cu (one library a channel count, 1..16) up to 16
-// channels and these above.  Every entry point launches on the stream it
-// is given, allocates nothing, and returns cudaGetLastError(), or kBadSize
+// channels and these above, but for K2 and K5 from 17 to 64 channels,
+// which go to fdn_reg.cu's register-resident kernels (its own entry
+// points fl_reg_*).  Every entry point launches on the stream it is
+// given, allocates nothing, and returns cudaGetLastError(), or kBadSize
 // for sizes it does not take.
 //
 // Kernels and the TPU kernels they replace (flamo_tpu/ops/pallas_solve.py;
@@ -172,20 +174,6 @@ __device__ __forceinline__ float2 project(const float* sc, const float2* y, int 
     tf.y += __shfl_xor_sync(kFull, tf.y, o);
   }
   return tf;
-}
-
-// JAX's cotangent tb of tf in scale (|tf X| - t)^2 (scale = 2 / M for the
-// mean), and diff = |tf X| - t; a safe divide where |tf X| = 0.
-__device__ __forceinline__ float2 mse_cotangent(float2 tf, float2 x, float tt, float scale,
-                                                float& diff) {
-  const float zr = tf.x * x.x - tf.y * x.y;
-  const float zi = tf.x * x.y + tf.y * x.x;
-  const float a = sqrtf(zr * zr + zi * zi);
-  diff = a - tt;
-  const float g = scale * diff / (a > 0.0f ? a : 1.0f);
-  const float dzr = g * zr;
-  const float dzi = g * zi;
-  return make_float2(dzr * x.x + dzi * x.y, dzr * x.y - dzi * x.x);
 }
 
 // One bin's cotangents (fdn_ge.cuh's cotangents, a lane a row), given
@@ -446,17 +434,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     add_cotangents<true>(d, sU, sb, y, w, tb, rhs, Dbar + row, sums, N, S, lane);
   }
   fold_sums(sums0, W, NV, partials + static_cast<size_t>(blockIdx.x) * NV);
-}
-
-// sum_p c[p stride] z^p by Horner, from the highest tap down (the unrolled
-// K5's horner_s on taps kept in their global layout)
-__device__ __forceinline__ float2 horner(const float* c, int P, int step, float2 z) {
-  float2 out = make_float2(c[(P - 1) * step], 0.0f);
-  for (int p = P - 2; p >= 0; --p) {
-    out = cmul(out, z);
-    out.x += c[p * step];
-  }
-  return out;
 }
 
 // K5 looped: the attenuated FDN's step, as sos_kernels.cu's
@@ -724,6 +701,39 @@ long long fl_sos_smem_bytes(int N, int K, int P, int fuse_taps, int warps) {
 
 int fl_sos_warps(int N, int K, int P, int fuse_taps) {
   return fdn::loop::sos_warps(N, K, P, fuse_taps != 0);
+}
+
+// warps resident on an SM as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// gives them for K2 looped's and K5 looped's blocks at these sizes;
+// negative on an error
+int fl_solve_resident_warps(int N, int transpose) {
+  using namespace fdn::loop;
+  if (!sizes_ok(kSolve, N, 1)) return kBadSize;
+  const int W = loop_warps(kSolve, N);
+  const size_t smem = smem_bytes(kSolve, N, W);
+  void (*kernel)(const float2*, const float*, const float2*, float2*, int, int) =
+      ge_loop_solve_kernel<false>;
+  if (transpose) kernel = ge_loop_solve_kernel<true>;
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, W * 32, smem) != cudaSuccess)
+    return grid_or_error(0);
+  return per_sm * W;
+}
+
+int fl_sos_resident_warps(int pivot, int with_dbar, int fuse_taps, int N, int K, int P) {
+  using namespace fdn::loop;
+  if (!sos_sizes_ok(N, K, P, fuse_taps != 0, 1)) return kBadSize;
+  const int W = sos_warps(N, K, P, fuse_taps != 0);
+  const size_t smem = sos_smem_bytes(N, K, P, fuse_taps != 0, W);
+  const SosKernel kernel = sos_kernel(pivot != 0, with_dbar != 0, fuse_taps != 0);
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, W * 32, smem) != cudaSuccess)
+    return grid_or_error(0);
+  return per_sm * W;
 }
 
 // K1 looped's grid (its rows of partials); negative on an error

@@ -159,6 +159,31 @@ __device__ __forceinline__ void assemble(float2* A, const float2* d, const float
   __syncwarp();
 }
 
+// JAX's cotangent tb of tf in scale (|tf X| - t)^2 (scale = 2 / M for the
+// mean), and diff = |tf X| - t; a safe divide where |tf X| = 0.
+__device__ __forceinline__ float2 mse_cotangent(float2 tf, float2 x, float tt, float scale,
+                                                float& diff) {
+  const float zr = tf.x * x.x - tf.y * x.y;
+  const float zi = tf.x * x.y + tf.y * x.x;
+  const float a = sqrtf(zr * zr + zi * zi);
+  diff = a - tt;
+  const float g = scale * diff / (a > 0.0f ? a : 1.0f);
+  const float dzr = g * zr;
+  const float dzi = g * zi;
+  return make_float2(dzr * x.x + dzi * x.y, dzr * x.y - dzi * x.x);
+}
+
+// sum_p c[p stride] z^p by Horner, from the highest tap down (the unrolled
+// K5's horner_s on taps kept in their global layout)
+__device__ __forceinline__ float2 horner(const float* c, int P, int step, float2 z) {
+  float2 out = make_float2(c[(P - 1) * step], 0.0f);
+  for (int p = P - 2; p >= 0; --p) {
+    out = cmul(out, z);
+    out.x += c[p * step];
+  }
+  return out;
+}
+
 // U (N x N, row-major in global memory) staged by the whole block with row
 // stride SU; the caller synchronises the block.
 __device__ __forceinline__ void stage_u(const float* __restrict__ U, float* sU, int N, int SU) {

@@ -15,8 +15,10 @@ time and are one library each, built as N = 1: ``sos_cascade.cu``, the
 SOS cascade K4f and its tap VJP K4b (any channel count),
 ``phase2_micro.cu``, the four variants of the phase-2 micro-benchmark
 K10, ``fdn_loop.cu``, the looped eliminations of K1, K2, K3f, K3b, K5
-and K6 for more than 16 channels, and ``aa_loop.cu``, the looped K8 and
-K9 for more than 8 microphones (one warp a bin, N a run-time argument).
+and K6 for more than 16 channels (one warp a bin, N a run-time argument;
+linked with ``fdn_reg.cu``, the register-resident K2 and K5 for 17..64
+channels), and ``aa_loop.cu``, the looped K8 and K9 for more than 8
+microphones.
 
 The eliminations are unrolled over N and the large-N instantiations
 compile slowly, so each (source, N) is its own library, built when a
@@ -41,8 +43,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flamo_tpu_torch"
 SOURCES = ("fdn_kernels.cu", "sos_kernels.cu", "sos_cascade.cu",
            "aa_kernels.cu", "eig_kernels.cu", "phase2_micro.cu", "fdn_loop.cu",
-           "aa_loop.cu", "fdn_ge.cuh", "fdn_loop.cuh", "sos_common.cuh",
-           "aa_tile.cuh")
+           "aa_loop.cu", "fdn_reg.cu", "fdn_ge.cuh", "fdn_loop.cuh",
+           "fdn_reg.cuh", "sos_common.cuh", "aa_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_N = 16
@@ -52,6 +54,13 @@ LIB_MAX_N = {"fdn_kernels": MAX_N, "sos_kernels": MAX_N, "sos_cascade": 1,
              "fdn_loop": 1, "aa_loop": 1}
 # flags of one library only
 LIB_FLAGS = {"eig_kernels": ("-fmad=false",)}
+# the compile units of a library built from several (a source and its
+# flags), each compiled to an object by its own nvcc, all started with the
+# other libraries' compiles, then linked into the library; the looped
+# library's register-resident kernels compile as four parts of fdn_reg.cu
+LIB_UNITS = {"fdn_loop": (("fdn_loop.cu",),
+                          *(("fdn_reg.cu", f"-DFDN_REG_PART={part}")
+                            for part in (1, 2, 3, 4)))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -126,6 +135,18 @@ _SIGNATURES = {
         "fl_sos_tf_mse_launch": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                       _P, _P, _P, _P, _P, _F, _I, _I, _I, _F,
                                       _F, _I, _P]),
+        "fl_solve_resident_warps": (_I, [_I, _I]),
+        "fl_sos_resident_warps": (_I, [_I, _I, _I, _I, _I, _I]),
+        "fl_reg_bins": (_I, [_I, _I, _I, _I, _I]),
+        "fl_reg_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I, _I, _I]),
+        "fl_reg_group_warps": (_I, [_I]),
+        "fl_reg_solve_resident_warps": (_I, [_I]),
+        "fl_reg_sos_resident_warps": (_I, [_I, _I, _I, _I, _I]),
+        "fl_reg_solve_launch": (_I, [_I, _I, _P, _P, _P, _P, _I, _P]),
+        "fl_reg_sos_tf_mse_grid": (_I, [_I, _I, _I, _I, _I, _I]),
+        "fl_reg_sos_tf_mse_launch": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                          _P, _P, _P, _P, _P, _P, _F, _I, _I,
+                                          _I, _F, _F, _I, _P]),
     }),
     "aa_loop": ("aal", {
         "aal_threads_per_block": (_I, []),
@@ -191,10 +212,11 @@ def library_path(n: int, lib: str = "fdn_kernels") -> Path:
 
 def build(targets, ptxas_log: Path | None = None) -> dict:
     """Compile the (library, N) pairs of ``targets`` that are not built
-    yet, one ``nvcc`` each, all started together; returns the seconds
-    from the start to the end of each compiled library's ``nvcc``, by
-    (library, N) (empty when nothing was built: the largest is the
-    call's wall time).  With ``ptxas_log`` every named library is
+    yet, one ``nvcc`` each (one a unit for the libraries of
+    ``LIB_UNITS``, then a link), all started together; returns the
+    seconds from the start to the end of each compiled library's
+    ``nvcc``, by (library, N) (empty when nothing was built: the largest
+    is the call's wall time).  With ``ptxas_log`` every named library is
     compiled and the compiler's per-kernel register and spill report
     goes there."""
     todo = []
@@ -207,32 +229,67 @@ def build(targets, ptxas_log: Path | None = None) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
-    jobs = []
+    jobs = []  # (lib, n, output, log, process): a library or one unit's object
     for lib, n in todo:
         tmp = library_path(n, lib).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *LIB_FLAGS.get(lib, ()), f"-DFDN_N={n}",
-               "-o", str(tmp), str(CSRC / f"{lib}.cu")]
-        if ptxas_log is not None:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        log = tempfile.TemporaryFile(mode="w+")
-        jobs.append((lib, n, tmp, log, subprocess.Popen(
-            cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
-    seconds, pending = {}, list(jobs)
-    while pending:  # each library's own time, taken when its nvcc ends
+        units = LIB_UNITS.get(lib)
+        if units is None:
+            cmds = [(tmp, [*NVCC_FLAGS, *LIB_FLAGS.get(lib, ()),
+                           f"-DFDN_N={n}", "-o", str(tmp),
+                           str(CSRC / f"{lib}.cu")])]
+        else:
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            cmds = [(obj, [*compile_flags, "-c", *LIB_FLAGS.get(lib, ()),
+                           f"-DFDN_N={n}", *flags, "-o", str(obj),
+                           str(CSRC / src)])
+                    for i, (src, *flags) in enumerate(units)
+                    for obj in [tmp.with_suffix(f".{i}.o")]]
+        for out, args in cmds:
+            cmd = [nvcc, *args]
+            if ptxas_log is not None:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            log = tempfile.TemporaryFile(mode="w+")
+            jobs.append((lib, n, out, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    ended, pending = {}, list(jobs)
+    while pending:  # each job's own time, taken when its nvcc ends
         for job in [j for j in pending if j[4].poll() is not None]:
-            seconds[job[:2]] = time.perf_counter() - t0
+            ended[job[2]] = time.perf_counter() - t0
             pending.remove(job)
         if pending:
             time.sleep(0.05)
-    reports, failures = [], []
-    for lib, n, tmp, log, proc in jobs:
-        log.seek(0)
-        out = log.read()
-        log.close()
-        if proc.returncode != 0:
-            failures.append(f"{lib} N={n} (exit {proc.returncode}):\n{out}")
+    seconds, reports, failures = {}, [], []
+    for lib, n in todo:
+        mine = [j for j in jobs if j[:2] == (lib, n)]
+        ok = True
+        for *_, log, proc in mine:
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if proc.returncode != 0:
+                failures.append(
+                    f"{lib} N={n} (exit {proc.returncode}):\n{text}")
+                ok = False
+            else:
+                reports.append(f"# {lib} N = {n}\n{text}")
+        objs = [str(j[2]) for j in mine] if lib in LIB_UNITS else []
+        if not ok:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
             continue
-        reports.append(f"# {lib} N = {n}\n{out}")
+        tmp = library_path(n, lib).with_suffix(f".{os.getpid()}.tmp")
+        seconds[(lib, n)] = max(ended[j[2]] for j in mine)
+        if objs:  # link the units' objects
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *objs],
+                                  capture_output=True, text=True)
+            for obj in objs:
+                os.remove(obj)
+            if link.returncode != 0:
+                failures.append(f"{lib} N={n} (link, exit {link.returncode}):"
+                                f"\n{link.stdout}{link.stderr}")
+                continue
+            seconds[(lib, n)] = time.perf_counter() - t0
         os.replace(tmp, library_path(n, lib))
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))

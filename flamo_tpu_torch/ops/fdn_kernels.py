@@ -24,7 +24,9 @@ other.  On the card K1, K2, K3f, K3b and K6 take the unrolled kernels of
 ``fdn_kernels.cu`` up to ``MAX_N`` = 16 channels and the looped ones of
 ``fdn_loop.cu`` (``*_loop_kernel``, one warp a bin) above, up to
 :data:`LOOP_MAX_N`, where one bin's system fills a block's 227 KB of
-shared memory.  The plain versions
+shared memory; from ``REG_MIN_N`` to ``REG_MAX_N`` (17..64) channels the
+looped K2 runs on ``fdn_reg.cu``'s register-resident core instead (a
+bin's rows in registers), linked into the same library.  The plain versions
 are the per-bin eliminations of :mod:`flamo_tpu_torch.ops.solve` on the
 assembled loop matrices, vectorised over bins; like the kernels, they
 pivot on the first row of largest magnitude.
@@ -51,11 +53,14 @@ LOOP_LIB = "fdn_loop"
 # count); K6 counts its forward and its transposed (gradient) launches
 # apart; K2 counts both under "fdn_solve", and its transposed ones also in
 # K2_TRANSPOSED; the looped kernels count under their own keys, K2 looped
-# and K6 looped each way apart
+# and K6 looped each way apart; K2 looped counts its register-resident
+# kernel (17..64 channels) under "fdn_solve_loop" and fdn_loop.cu's
+# shared-memory kernel under "fdn_solve_loop_smem", each way apart
 LAUNCHES = {"fdn_tf_mse": 0, "fdn_solve": 0, "fdn_tf_fwd": 0,
             "fdn_tf_bwd": 0, "dense_solve": 0, "dense_solve_transposed": 0,
             "fdn_tf_mse_loop": 0, "fdn_solve_loop": 0,
-            "fdn_solve_loop_transposed": 0, "dense_solve_loop": 0,
+            "fdn_solve_loop_transposed": 0, "fdn_solve_loop_smem": 0,
+            "fdn_solve_loop_smem_transposed": 0, "dense_solve_loop": 0,
             "dense_solve_loop_transposed": 0, "fdn_tf_fwd_loop": 0,
             "fdn_tf_bwd_loop": 0}
 K2_TRANSPOSED = [0]
@@ -119,6 +124,61 @@ def check_loop_n(kind: str, N: int) -> None:
             f"({kind}) takes 1..{LOOP_MAX_N[kind]} on the card, where one "
             f"bin's system must fit a block's {LOOP_SMEM} bytes (227 KB) of "
             "shared memory")
+
+
+# The register-resident K2 and K5 of fdn_reg.cu take REG_MIN_N..REG_MAX_N
+# channels: one warp a bin up to 32 (a lane a row), a group of
+# ceil(N / 16) warps a bin above (two threads a row).  A block of
+# ``bins`` bins holds U (N rows of stride N | 1) once and each bin's pivot
+# buffers and vectors (reg_bin_float2s); K5 adds its b, c, taps, sums and
+# tile (sos_kernels.reg_tf_mse_smem_bytes).  A block holds at most
+# REG_MAX_BINS bins of a kind (at N <= 32, above), fewer where shared
+# memory runs out; 0 bins: the kernel does not take the size.
+REG_MIN_N, REG_MAX_N = 17, 64
+REG_MAX_BINS = {"fdn_solve": (4, 1), "fdn_sos_tf_mse": (8, 4)}
+
+
+def reg_group_warps(N: int) -> int:
+    """The warps of one bin's group in fdn_reg.cu."""
+    return 1 if N <= 32 else -(-N // 16)
+
+
+def _al4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def reg_bin_float2s(N: int) -> int:
+    """A bin's shared memory in complex slots: its pivot buffers (2 x G
+    rows of 34 slots, or 70 at two threads a row: each half's 32 places,
+    padded by 2 at two threads, and the rhs and cp), arg-max words (2 G),
+    y, w, d (W = 32 or 64 each) and two scalars, made even."""
+    G, two = reg_group_warps(N), N > 32
+    W, RL = (64, 70) if two else (32, 34)
+    n = 2 * G * RL + 2 * G + 3 * W + 2
+    return n + (n & 1)
+
+
+def reg_smem_bytes(N: int, bins: int) -> int:
+    """Dynamic shared memory of a register-resident K2 block of ``bins``
+    (as fdn_reg.cu's smem_bytes)."""
+    return 4 * _al4(N * (N | 1)) + bins * 8 * reg_bin_float2s(N)
+
+
+def reg_fit_bins(kind: str, N: int, smem) -> int:
+    """The most bins a block of ``kind`` holds at N channels, where
+    ``smem(bins)`` gives its shared memory: at most REG_MAX_BINS, 0 outside
+    REG_MIN_N..REG_MAX_N or where one bin does not fit."""
+    if not REG_MIN_N <= N <= REG_MAX_N:
+        return 0
+    b = 0
+    while (b < REG_MAX_BINS[kind][N > 32] and smem(b + 1) <= LOOP_SMEM):
+        b += 1
+    return b
+
+
+def reg_bins(N: int) -> int:
+    """The register-resident K2's bins a block (0: it does not take N)."""
+    return reg_fit_bins("fdn_solve", N, lambda b: reg_smem_bytes(N, b))
 
 
 def reset_launch_counts() -> None:
@@ -286,24 +346,45 @@ def loop_grid(blocks: int, what: str) -> int:
     return blocks
 
 
+def _loop_solve(entry: str, key: str, D, U, B, transpose: bool):
+    """Launch the looped library's K2 ``entry`` and count it under ``key``
+    (``_transposed`` appended for the transposed system)."""
+    M, N = D.shape
+    lib = cuda_build.load(1, LOOP_LIB)
+    D, U, B = (x.contiguous() for x in (D, U, B))
+    Y = torch.empty_like(B)
+    with torch.cuda.device(D.device):
+        rc = getattr(lib, entry)(N, int(transpose), D.data_ptr(),
+                                 U.data_ptr(), B.data_ptr(), Y.data_ptr(), M,
+                                 _stream(D))
+    _loop_check(rc, entry)
+    LAUNCHES[key + ("_transposed" if transpose else "")] += 1
+    return Y
+
+
 def fdn_solve_loop_kernel(D, U, B, transpose: bool = False):
-    """K2 looped (fdn_loop.cu, one warp a bin, any N up to
+    """K2 looped (any N up to ``LOOP_MAX_N['fdn_solve']``): y (M, N)
+    complex64.  On the card fdn_reg.cu's register-resident kernel where it
+    takes N (REG_MIN_N..REG_MAX_N), else fdn_loop.cu's shared-memory one
+    (:func:`fdn_solve_loop_smem_kernel`)."""
+    M, N = _check(D, U, cplx_mats=[("B", B)])
+    if not _on_cuda(D, U, B):
+        return fdn_solve_plain(D, U, B, transpose)
+    if not reg_bins(N):
+        return fdn_solve_loop_smem_kernel(D, U, B, transpose)
+    return _loop_solve("fl_reg_solve_launch", "fdn_solve_loop", D, U, B,
+                       transpose)
+
+
+def fdn_solve_loop_smem_kernel(D, U, B, transpose: bool = False):
+    """K2 on fdn_loop.cu's shared-memory core (one warp a bin, any N up to
     ``LOOP_MAX_N['fdn_solve']``): y (M, N) complex64."""
     M, N = _check(D, U, cplx_mats=[("B", B)])
     if not _on_cuda(D, U, B):
         return fdn_solve_plain(D, U, B, transpose)
     check_loop_n("fdn_solve", N)
-    lib = cuda_build.load(1, LOOP_LIB)
-    D, U, B = (x.contiguous() for x in (D, U, B))
-    Y = torch.empty_like(B)
-    with torch.cuda.device(D.device):
-        rc = lib.fl_solve_launch(N, int(transpose), D.data_ptr(),
-                                 U.data_ptr(), B.data_ptr(), Y.data_ptr(), M,
-                                 _stream(D))
-    _loop_check(rc, "fdn_solve_loop_kernel")
-    LAUNCHES["fdn_solve_loop_transposed" if transpose
-             else "fdn_solve_loop"] += 1
-    return Y
+    return _loop_solve("fl_solve_launch", "fdn_solve_loop_smem", D, U, B,
+                       transpose)
 
 
 def dense_solve_loop_kernel(A, B, transpose: bool = False):

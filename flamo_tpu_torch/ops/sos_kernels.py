@@ -29,8 +29,10 @@ plain version for CPU tensors; it never falls back from one to the other.
 On the card K4 takes any channel count (one library, the channels in
 blocks of at most ``K4_MAX_CB`` side by side in the grid) and K5 the
 unrolled kernel of ``sos_kernels.cu`` up to 16 channels (one library per
-channel count, as ``fdn_kernels``) and the looped one of ``fdn_loop.cu``
-above (one warp a bin, N at run time), as far as one bin's system, its
+channel count, as ``fdn_kernels``) and the looped ones above (N at run
+time): ``fdn_reg.cu``'s register-resident kernel from 17 to 64 channels
+where its block fits (:func:`reg_tf_mse_bins`), else ``fdn_loop.cu``'s
+shared-memory one (one warp a bin), as far as one bin's system, its
 sums and the staged taps fit a block's 227 KB of shared memory
 (:func:`loop_tf_mse_max_n`: 101 channels at an octave GEQ's K = 12,
 P = 3 with fused tap sums, 82 at a 1/3-octave GEQ's K = 30), each at
@@ -48,10 +50,11 @@ import torch
 from flamo_tpu_torch.functional import cascade_prods_scaled
 from flamo_tpu_torch.ops import cuda_build
 from flamo_tpu_torch.ops.fdn_kernels import (LOOP_LIB, LOOP_MAX_WARPS,
-                                             LOOP_SMEM, MAX_N, _check,
+                                             LOOP_SMEM, MAX_N, _al4, _check,
                                              _cotangents, _loop_check,
                                              _on_cuda, _stream,
-                                             _tf_mse_solves, loop_grid)
+                                             _tf_mse_solves, loop_grid,
+                                             reg_bin_float2s, reg_fit_bins)
 
 # the kernels' limits (sos_kernels.cu: kMaxP, kMaxK, kMaxSmemFloats)
 MAX_P = 8
@@ -66,9 +69,11 @@ _K4_SMEM_FLOATS = 48 * 1024 // 4
 _K4_LIB = "sos_cascade"
 
 # launches of each CUDA kernel since the last reset (plain CPU runs do not
-# count); K5 looped under its own key
+# count); K5 looped under its own key: its register-resident kernel (17..64
+# channels) under "fdn_sos_tf_mse_loop", fdn_loop.cu's shared-memory one
+# under "fdn_sos_tf_mse_loop_smem"
 LAUNCHES = {"sos_cascade_fwd": 0, "sos_cascade_bwd": 0, "fdn_sos_tf_mse": 0,
-            "fdn_sos_tf_mse_loop": 0}
+            "fdn_sos_tf_mse_loop": 0, "fdn_sos_tf_mse_loop_smem": 0}
 
 
 def reset_launch_counts() -> None:
@@ -239,6 +244,30 @@ def check_loop_tf_mse(N: int, K: int, P: int, fuse_taps: bool) -> None:
             f"{LOOP_SMEM} bytes (227 KB) of shared memory")
 
 
+def reg_tf_mse_smem_bytes(N: int, K: int, P: int, fuse_taps: bool,
+                          bins: int) -> int:
+    """The register-resident K5's dynamic shared memory of a block of
+    ``bins`` (as fdn_reg.cu's smem_bytes): once U (N rows of stride N | 1),
+    b and c, the 2 P K N taps, the block's sums (N^2 + 2N + 1 and, with
+    ``fuse_taps``, the 2 P K N tap sums) and each bin's tile slot of
+    8 N + 3 floats, every region on 16 bytes; and each bin's region
+    (fdn_kernels.reg_bin_float2s)."""
+    taps = 2 * P * K * N
+    sums = N * N + 2 * N + 1 + (taps if fuse_taps else 0)
+    return 4 * (_al4(N * (N | 1)) + _al4(2 * N) + _al4(taps) + _al4(sums)
+                + bins * _al4(8 * N + 3)) + bins * 8 * reg_bin_float2s(N)
+
+
+def reg_tf_mse_bins(N: int, K: int, P: int, fuse_taps: bool) -> int:
+    """The register-resident K5's bins a block (0: it does not take the
+    size, and the shared-memory kernel does, as far as
+    :func:`loop_tf_mse_max_n`)."""
+    if not (1 <= K <= MAX_K and 1 <= P <= MAX_P):
+        return 0
+    return reg_fit_bins("fdn_sos_tf_mse", N, lambda b: reg_tf_mse_smem_bytes(
+        N, K, P, fuse_taps, b))
+
+
 def _phase_args(nfft: int, bin_offset):
     return 2.0 * math.pi / nfft, 0.0 if bin_offset is None else float(
         bin_offset)
@@ -354,10 +383,12 @@ def _k5_result(partials, M: int, D_bar, bt, at, G_bar, nfft: int,
 def fdn_sos_tf_mse_loop_kernel(D, bt, at, U, b, c, X, t, nfft: int,
                                with_dbar: bool = False, pivot: bool = False,
                                fuse_taps: bool = True, bin_offset=None):
-    """K5 looped (fdn_loop.cu, one warp a bin, any N up to
-    :func:`loop_tf_mse_max_n` of its K and P): (loss, D_bar or None,
-    bt_bar, at_bar, U_bar, b_bar, c_bar).  Each block writes one row of
-    partials, summed here; ``fuse_taps=False`` emits the masked
+    """K5 looped (any N up to :func:`loop_tf_mse_max_n` of its K and P):
+    (loss, D_bar or None, bt_bar, at_bar, U_bar, b_bar, c_bar).  On the
+    card fdn_reg.cu's register-resident kernel where it takes the size
+    (:func:`reg_tf_mse_bins`), else fdn_loop.cu's shared-memory one
+    (:func:`fdn_sos_tf_mse_loop_smem_kernel`).  Each block writes one row
+    of partials, summed here; ``fuse_taps=False`` emits the masked
     Gam-cotangent rows and launches K4b on them."""
     M, N = _check(D, U, vecs=[("b", b), ("c", c)], cplx_rows=[("X", X)],
                   real_rows=[("t", t)])
@@ -365,20 +396,58 @@ def fdn_sos_tf_mse_loop_kernel(D, bt, at, U, b, c, X, t, nfft: int,
     if not _on_cuda(D, bt, at, U, b, c, X, t):
         return fdn_sos_tf_mse_plain(D, bt, at, U, b, c, X, t, nfft,
                                     with_dbar, pivot, fuse_taps, bin_offset)
+    if not reg_tf_mse_bins(N, K, P, fuse_taps):
+        return fdn_sos_tf_mse_loop_smem_kernel(D, bt, at, U, b, c, X, t,
+                                               nfft, with_dbar, pivot,
+                                               fuse_taps, bin_offset)
+    return _k5_loop("fl_reg_sos_tf_mse", "fdn_sos_tf_mse_loop", D, bt, at,
+                    U, b, c, X, t, nfft, with_dbar, pivot, fuse_taps,
+                    bin_offset)
+
+
+def fdn_sos_tf_mse_loop_smem_kernel(D, bt, at, U, b, c, X, t, nfft: int,
+                                    with_dbar: bool = False,
+                                    pivot: bool = False,
+                                    fuse_taps: bool = True, bin_offset=None):
+    """K5 on fdn_loop.cu's shared-memory core (one warp a bin, any N up to
+    :func:`loop_tf_mse_max_n` of its K and P), as
+    :func:`fdn_sos_tf_mse_loop_kernel`."""
+    M, N = _check(D, U, vecs=[("b", b), ("c", c)], cplx_rows=[("X", X)],
+                  real_rows=[("t", t)])
+    P, K, _ = _check_taps(bt, at, N)
+    if not _on_cuda(D, bt, at, U, b, c, X, t):
+        return fdn_sos_tf_mse_plain(D, bt, at, U, b, c, X, t, nfft,
+                                    with_dbar, pivot, fuse_taps, bin_offset)
     check_loop_tf_mse(N, K, P, fuse_taps)
+    return _k5_loop("fl_sos_tf_mse", "fdn_sos_tf_mse_loop_smem", D, bt, at,
+                    U, b, c, X, t, nfft, with_dbar, pivot, fuse_taps,
+                    bin_offset)
+
+
+def _k5_loop(prefix: str, key: str, D, bt, at, U, b, c, X, t, nfft: int,
+             with_dbar: bool, pivot: bool, fuse_taps: bool, bin_offset):
+    """Launch the looped library's K5 through its C entry points
+    ``<prefix>_grid`` and ``<prefix>_launch``, and count it under
+    ``key``."""
+    M, N = D.shape
+    P, K, _ = bt.shape
     lib = cuda_build.load(1, LOOP_LIB)
     D, bt, at, U, b, c, X, t = (x.contiguous()
                                 for x in (D, bt, at, U, b, c, X, t))
     D_bar = torch.empty_like(D) if with_dbar else None
     G_bar = None if fuse_taps else torch.empty_like(D)
-    what = "fdn_sos_tf_mse_loop_kernel"
+    what = f"{prefix}_launch"
+    # the shared-memory kernel's block depends on D_bar (a template flag
+    # there), fdn_reg.cu's does not
+    flags = ((int(pivot), int(fuse_taps)) if prefix == "fl_reg_sos_tf_mse"
+             else (int(pivot), int(with_dbar), int(fuse_taps)))
     with torch.cuda.device(D.device):
-        blocks = loop_grid(lib.fl_sos_tf_mse_grid(
-            int(pivot), int(with_dbar), int(fuse_taps), N, K, P, M), what)
+        blocks = loop_grid(getattr(lib, f"{prefix}_grid")(*flags, N, K, P, M),
+                           what)
         partials = torch.empty(
             (blocks, N * N + 2 * N + 1 + (2 * P * K * N if fuse_taps else 0)),
             dtype=torch.float32, device=D.device)
-        rc = lib.fl_sos_tf_mse_launch(
+        rc = getattr(lib, what)(
             N, int(pivot), int(with_dbar), int(fuse_taps), D.data_ptr(),
             bt.data_ptr(), at.data_ptr(), U.data_ptr(), b.data_ptr(),
             c.data_ptr(), X.data_ptr(), t.data_ptr(),
@@ -387,7 +456,7 @@ def fdn_sos_tf_mse_loop_kernel(D, bt, at, U, b, c, X, t, nfft: int,
             partials.data_ptr(), 2.0 / M, M, K, P,
             *_phase_args(nfft, bin_offset), blocks, _stream(D))
     _loop_check(rc, what)
-    LAUNCHES["fdn_sos_tf_mse_loop"] += 1
+    LAUNCHES[key] += 1
     return _k5_result(partials, M, D_bar, bt, at, G_bar, nfft, bin_offset,
                       fuse_taps)
 

@@ -263,8 +263,9 @@ def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
     active-acoustics and eigenvalue kernels 1..8; the SOS cascade K4, the
     phase-2 micro-benchmark and the looped eliminations one library each,
     as N = 1, for every size), named by a hash of every source file, and
-    every entry point that the loader binds is defined in its source with
-    as many parameters."""
+    every entry point that the loader binds is defined in its sources (a
+    library of several compile units: in one of them) with as many
+    parameters."""
     import re
     import shutil
 
@@ -286,7 +287,8 @@ def test_kernel_libraries_one_per_source_and_channel_count(tmp_path,
     with pytest.raises(ValueError, match="unknown"):
         cb._check_target("sos", 6)
     for lib, (prefix, sigs) in cb._SIGNATURES.items():
-        src = (cb.CSRC / f"{lib}.cu").read_text()
+        src = "".join((cb.CSRC / unit[0]).read_text() for unit in
+                      cb.LIB_UNITS.get(lib, ((f"{lib}.cu",),)))
         assert {f"{prefix}_channels", f"{prefix}_threads_per_block",
                 f"{prefix}_error_string"} <= set(sigs)
         for name, (_, argtypes) in sigs.items():
