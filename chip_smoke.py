@@ -255,8 +255,8 @@ Phases, in order; any failure raises and exits non-zero without a result:
    gradients 5e-3 of the max); one K5 call at 64 channels on the
    attenuated FDN with a 1/3-octave GEQ (K = 30, four bins a block of
    the register-resident kernel) against its plain version; every launch
-   counted exactly, K2 and K5 on fdn_reg.cu's kernels at 32 and 64
-   (their shared-memory keys never counted);
+   counted exactly, K3f, K3b and K5 on fdn_reg.cu's kernels at 32 and 64
+   (their shared-memory keys never counted, reg_launch_check);
 4n. K8 and K9 past 8 microphones (flamo_tpu_torch/csrc/aa_loop.cu, one
    warp a bin, N at run time): phase 4c's rig (13 loudspeakers,
    15000-tap rooms, a 100-tap mixer, nfft=96000, 'ge_cached') at 16 and
@@ -301,14 +301,16 @@ Phases, in order; any failure raises and exits non-zero without a result:
    and at bin_offset 24001 both ways), K3f's y on the exact tied systems
    of k3_systems bit for bit, K3f and K3b on the others, and against the
    unrolled kernels at N = 16 (fdn_kernels and sos_kernels at 16 built on
-   a thread beside phases 1-4k), the gaps printed; K5 also in all eight
-   variants, at bin_offset 24001 and at K = 30 for N = 17, 32, 33, 48, 64
-   (fdn_reg.cu) and 65 (fdn_loop.cu), reg_k5_checks; then each looped
+   a thread beside phases 1-4k), the gaps printed; K3f and K3b also so at
+   33, 48 and 65 channels (k3_loop_checks), and K5 in all eight variants,
+   at bin_offset 24001 and at K = 30 for N = 17, 32, 33, 48, 64
+   (fdn_reg.cu) and 65 (fdn_loop.cu), reg_k5_checks, every launch on the
+   kernel of its size's range (reg_launch_check); then each looped
    kernel's device and call ms, its plain version's (CUDA events) and its
    bound at 32 and 64 channels (K5 the training variant: no pivot, no
-   D_bar, fused taps, K = 12, P = 3; beside fdn_loop.cu's shared-memory
-   K5 in turns, with both kernels' resident warps, held to
-   PREVIOUS_GATE);
+   D_bar, fused taps, K = 12, P = 3), each beside fdn_loop.cu's
+   shared-memory kernel in turns, with both kernels' resident warps, held
+   to PREVIOUS_GATE;
 5n. the looped K8 and K9 on the rigs' own rows at M = 48001 for 9, 16 and
    32 microphones against their plain versions (both pivot modes, K9 at
    every precision: the loss 1e-5, S and the tap cotangent 1e-4 of the
@@ -608,12 +610,13 @@ TFSOS_NS = (32, 64)
 TFSOS_TRAINER_STEPS = 2
 THIRD_K = 30
 TFSOS_OFFSET = 24001
-# the register-resident K2 and K5 (fdn_reg.cu, 17..64 channels): phases
-# 4l and 5m hold them to their plain versions at M_MAIN bins at each of
-# REG_NS channels (at LOOP_NS through loop_kernel_checks and
-# tfsos_kernel_checks), the last the first count above their range, where
-# the shared-memory kernels take over: K2 both ways on loop_operands and
-# k2_systems, K5 in all eight variants, at TFSOS_OFFSET and at THIRD_K
+# the register-resident K2, K3f, K3b and K5 (fdn_reg.cu, 17..64
+# channels): phases 4l and 5m hold them to their plain versions at M_MAIN
+# bins at each of REG_NS channels (at LOOP_NS through loop_kernel_checks
+# and tfsos_kernel_checks), the last the first count above their range,
+# where the shared-memory kernels take over: K2 both ways on
+# loop_operands and k2_systems, K3f and K3b on tfsos_operands and
+# k3_systems, K5 in all eight variants, at TFSOS_OFFSET and at THIRD_K
 # sections; phases 5l and 5m time them at 32 and 64 channels beside the
 # shared-memory kernels in turns, each held to PREVIOUS_GATE
 REG_NS = (17, 32, 33, 48, 64, 65)
@@ -669,12 +672,13 @@ SOURCES = {
     **{f"phase2_{v}": "flamo_tpu_torch/csrc/phase2_micro.cu"
        for v in pm.VARIANTS},
     **{name: "flamo_tpu_torch/csrc/fdn_loop.cu" for name in (
-        "dense_solve_loop", "dense_solve_loop_transposed", "fdn_tf_mse_loop",
-        "fdn_tf_fwd_loop", "fdn_tf_bwd_loop")},
-    # K2 and K5 looped on the register-resident core at 17..64 channels
+        "dense_solve_loop", "dense_solve_loop_transposed",
+        "fdn_tf_mse_loop")},
+    # K2, K3f, K3b and K5 looped on the register-resident core at 17..64
+    # channels
     **{name: "flamo_tpu_torch/csrc/fdn_reg.cu" for name in (
-        "fdn_solve_loop", "fdn_solve_loop_transposed",
-        "fdn_sos_tf_mse_loop")},
+        "fdn_solve_loop", "fdn_solve_loop_transposed", "fdn_tf_fwd_loop",
+        "fdn_tf_bwd_loop", "fdn_sos_tf_mse_loop")},
     **{f"{name}_loop": "flamo_tpu_torch/csrc/aa_loop.cu"
        for name in ("aa_tf_mse", *K9_ROWS.values())},
 }
@@ -1404,6 +1408,7 @@ def print_ptxas(report: str) -> None:
             r"(fdn_sos_tf_mse|dk_roots|fdn_tf_mse|fdn_tf_fwd|fdn_tf_bwd|"
             r"dense_solve|"
             r"fdn_solve|ge_loop_solve|ge_loop_dense|ge_loop_tf_mse|"
+            r"ge_loop_tf_fwd|ge_loop_tf_bwd|reg_tf_fwd|reg_tf_bwd|"
             r"reg_solve|reg_sos_tf_mse|ge_loop_sos_tf_mse|"
             r"aa_taps_tf_mse_tc|aa_taps_tf_mse|sos_cascade_fwd|"
             r"sos_cascade_bwd|phase2_full|phase2_ps|phase2_noreduce|"
@@ -1424,11 +1429,15 @@ def print_ptxas(report: str) -> None:
         # a block's warps; K6's blocks are one warp, the previous ones
         # four; K9's eight, the previous FP32 one's two; the looped
         # kernels' up to eight (fewer at large N: their shared memory)
-        # fdn_reg.cu's: K2 4 warps a block, K5 8 at H = 1 and 16 at H = 2
+        # fdn_reg.cu's: K2 and K3f 4 warps a block, K3b and K5 8 at H = 1
+        # and 16 at H = 2
         warps = {"dk_roots_kernel": 2, "ge_loop_solve_kernel": 8,
                  "ge_loop_dense_kernel": 8, "ge_loop_tf_mse_kernel": 8,
+                 "ge_loop_tf_fwd_kernel": 8, "ge_loop_tf_bwd_kernel": 8,
                  "ge_loop_sos_tf_mse_kernel": 8,
-                 "reg_sos_tf_mse_kernel": 8 if targs[:1] == ["1"] else 16,
+                 **dict.fromkeys(("reg_sos_tf_mse_kernel",
+                                  "reg_tf_bwd_kernel"),
+                                 8 if targs[:1] == ["1"] else 16),
                  "dense_solve_kernel": 4 if tag else 1,
                  "aa_taps_tf_mse_kernel": 2 if tag else 8,
                  "aa_taps_tf_mse_tc_kernel": 8}.get(kernel, 4)
@@ -4278,17 +4287,22 @@ def loop_kernel_checks(N: int, M: int = M_MAIN, device="cuda") -> dict:
     return errs, tied
 
 
-def reg_launch_check(what: str, N: int, device: str) -> None:
-    """On the card: the launches since the last reset_counts went to the
-    register-resident K2 and K5 at REG_MIN_N..REG_MAX_N channels and to
-    the shared-memory kernels (their "_smem" keys) above."""
+REG_KEYS = ("fdn_solve_loop", "fdn_solve_loop_transposed", "fdn_tf_fwd_loop",
+            "fdn_tf_bwd_loop", "fdn_sos_tf_mse_loop")
+
+
+def reg_launch_check(what: str, N: int, device: str,
+                     counts: dict | None = None) -> None:
+    """On the card: the launches since the last reset_counts (or
+    ``counts``) went to the register-resident K2, K3f, K3b and K5
+    (REG_KEYS) at REG_MIN_N..REG_MAX_N channels and to the shared-memory
+    kernels (their "_smem" keys) above."""
     if device == "cpu":
         return
-    counts = nonzero_counts()
+    counts = nonzero_counts() if counts is None else counts
     smem = sorted(k for k in counts if k.endswith(("_smem",
                                                    "_smem_transposed")))
-    reg = sorted(k for k in counts if k in (
-        "fdn_solve_loop", "fdn_solve_loop_transposed", "fdn_sos_tf_mse_loop"))
+    reg = sorted(k for k in counts if k in REG_KEYS)
     above = N > fk.REG_MAX_N
     check(bool(smem) == above and bool(reg) != above,
           f"{what} N={N}: launches {counts}; the register-resident kernels "
@@ -4615,14 +4629,22 @@ def loop_timing(card: str, launches: dict, errs: dict) -> list:
 
 
 def reg_occupancy(row: dict, N: int, transpose: bool = False) -> None:
-    """Add to a register-resident kernel's row (K2's, or K5's training
-    variant at K_MAIN sections of P_MAIN taps) the warps resident on an
-    SM, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them, of
-    its block and of the shared-memory kernel's block at the same sizes."""
+    """Add to a register-resident kernel's row (K2's, K3f's, K3b's, or K5's
+    training variant at K_MAIN sections of P_MAIN taps) the warps resident
+    on an SM, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them,
+    of its block and of the shared-memory kernel's block at the same
+    sizes."""
     lib = cuda_build.load(1, fk.LOOP_LIB)
-    if row["name"].startswith("fdn_solve_loop"):
+    name = row["name"].split("@")[0]
+    if name.startswith("fdn_solve_loop"):
         new = lib.fl_reg_solve_resident_warps(N)
         old = lib.fl_solve_resident_warps(N, int(transpose))
+    elif name == "fdn_tf_fwd_loop":
+        new = lib.fl_reg_tf_fwd_resident_warps(N)
+        old = lib.fl_tf_resident_warps(0, N)
+    elif name == "fdn_tf_bwd_loop":
+        new = lib.fl_reg_tf_bwd_resident_warps(N)
+        old = lib.fl_tf_resident_warps(1, N)
     else:
         new = lib.fl_reg_sos_resident_warps(0, 1, N, K_MAIN, P_MAIN)
         old = lib.fl_sos_resident_warps(0, 0, 1, N, K_MAIN, P_MAIN)
@@ -4745,7 +4767,9 @@ def colorless_tf_scenario(N: int, nfft: int = NFFT, device="cuda",
     (colorless_freq_response_fused, K3f once) against get_freq_response
     (VAL_TOL of the max), then ``steps`` Adam steps of
     colorless_train_step(fused_tf=True) (K3f and K3b once each a step) in
-    lockstep with colorless_train_step on the graph ('ge')."""
+    lockstep with colorless_train_step on the graph ('ge'); on the card
+    every launch on the register-resident kernels up to REG_MAX_N
+    channels (reg_launch_check)."""
     delays = hfdn_delays(N)
     models = {route: build_colorless_fdn(
         nfft=nfft, delays=delays, device=device,
@@ -4758,6 +4782,7 @@ def colorless_tf_scenario(N: int, nfft: int = NFFT, device="cuda",
         H = colorless_freq_response_fused(models["fused"])
     check_counts(f"the fused response N={N}", nonzero_counts(),
                  {"fdn_tf_fwd_loop": 1})
+    reg_launch_check("the fused response", N, device)
     _, resp_err = rel_err(H, H_graph)
     check(bool(torch.isfinite(H).all()) and resp_err < VAL_TOL,
           f"the fused response N={N}: {resp_err:.3e} of the max from "
@@ -4768,6 +4793,7 @@ def colorless_tf_scenario(N: int, nfft: int = NFFT, device="cuda",
         models, x, t, steps)
     check_counts(f"the fused-tf step N={N}: {steps} steps", counts["fused"],
                  {"fdn_tf_fwd_loop": steps, "fdn_tf_bwd_loop": steps})
+    reg_launch_check("the fused-tf step", N, device, counts["fused"])
     check_counts(f"the graph step N={N}", counts["ge"], {})
     rel, gerr = check_lockstep(f"colorless fused-tf N={N}", hist, grads,
                                FUSED_LOSS_TOL, FUSED_GRAD_TOL, key="fused")
@@ -4921,8 +4947,8 @@ def phase_tfsos() -> dict:
     """K3f, K3b and K5 past 16 channels on the slice's paths at
     TFSOS_NS channels, full width, with exact launch counts; returns the
     launches by kernels-line row."""
-    print(f"phase 4m K3f, K3b and K5 past 16 channels (fdn_loop.cu, one warp "
-          f"a bin; K5 on fdn_reg.cu from {fk.REG_MIN_N} to {fk.REG_MAX_N}; "
+    print(f"phase 4m K3f, K3b and K5 past 16 channels (fdn_reg.cu from "
+          f"{fk.REG_MIN_N} to {fk.REG_MAX_N}, fdn_loop.cu above; "
           f"nfft={NFFT}, N in {TFSOS_NS})")
     return tfsos_report(tfsos_paths())
 
@@ -4971,18 +4997,17 @@ K5_ALL = tuple(itertools.product((True, False), repeat=3))
 K5_REST = tuple(v for v in K5_ALL if v not in K5_VARIANTS)
 
 
-def tfsos_kernel_checks(N: int, M: int = M_MAIN, device="cuda",
-                        offset: int = TFSOS_OFFSET) -> tuple:
-    """K3f looped (tf and y VAL_TOL of the max), K3b looped (cotangents
-    GRAD_TOL) and K5 looped (K5_VARIANTS, and the training variant in both
-    fuse_taps modes on the last M - offset rows at bin_offset ``offset``)
-    against their plain versions on tfsos_operands; K3f's y
-    on the exact tied systems of k3_systems bit for bit (a diagonal left
-    by the elimination, as K2 looped's), K3f and K3b there and on the
-    pivoting, cyclic and random systems at VAL_TOL/GRAD_TOL.  Returns the
-    max abs error of each kernels-line kernel and the tied systems'
-    count."""
-    o = tfsos_operands(M, N, device)
+def k3_loop_checks(N: int, M: int = M_MAIN, device="cuda",
+                   o=None) -> tuple:
+    """K3f looped (tf and y VAL_TOL of the max) and K3b looped (cotangents
+    GRAD_TOL) against their plain versions on tfsos_operands (``o``, made
+    when None); K3f's y on the exact tied systems of k3_systems bit for
+    bit (a diagonal left by the elimination, as K2 looped's), K3f and K3b
+    there and on the pivoting, cyclic and random systems at
+    VAL_TOL/GRAD_TOL (K3b's results that overflow float32 left out).
+    Returns the max abs error of each kernels-line kernel and the tied
+    systems' count."""
+    o = tfsos_operands(M, N, device) if o is None else o
     D, U, b, c = (o[k] for k in "DUbc")
     tf, y = fk.fdn_tf_fwd_loop_kernel(D, U, b, c)
     tf_r, y_r = fk.fdn_tf_fwd_plain(D, U, b, c)
@@ -4995,23 +5020,6 @@ def tfsos_kernel_checks(N: int, M: int = M_MAIN, device="cuda",
                               fk.fdn_tf_bwd_loop_kernel(D, U, b, c, y,
                                                         o["tb"]),
                               fk.fdn_tf_bwd_plain(D, U, b, c, y, o["tb"])))
-    errs["fdn_sos_tf_mse_loop"] = 0.0
-    for pivot, with_dbar, fuse_taps in K5_VARIANTS:
-        args = (*k5_loop_args(o), with_dbar, pivot, fuse_taps)
-        errs["fdn_sos_tf_mse_loop"] = max(
-            errs["fdn_sos_tf_mse_loop"],
-            k5_compare(f"K5 looped N={N} pivot={pivot} with_dbar="
-                       f"{with_dbar} fuse_taps={fuse_taps}",
-                       sk.fdn_sos_tf_mse_loop_kernel(*args),
-                       sk.fdn_sos_tf_mse_plain(*args)))
-    for fuse_taps in (True, False):
-        sl = {k: o[k][offset:] for k in "DXt"}
-        args = (sl["D"], o["bt"], o["at"], o["U6"], b, c, sl["X"], sl["t"],
-                2 * (M - 1), False, False, fuse_taps, offset)
-        k5_compare(f"K5 looped N={N} bin_offset={offset} ({M - offset} rows) "
-                   f"fuse_taps={fuse_taps}",
-                   sk.fdn_sos_tf_mse_loop_kernel(*args),
-                   sk.fdn_sos_tf_mse_plain(*args))
     tied = 0
     for tr in (False, True):
         systems = k3_systems(np.random.default_rng(SEED + N + tr), M, N, tr)
@@ -5035,6 +5043,36 @@ def tfsos_kernel_checks(N: int, M: int = M_MAIN, device="cuda",
                         fk.fdn_tf_bwd_plain(Ds, Us, bs, cs, y_s, tbs)):
                     if bool(torch.isfinite(r).all()):
                         compare(f"K3b looped {tag} {name}", g, r, GRAD_TOL)
+    return errs, tied
+
+
+def tfsos_kernel_checks(N: int, M: int = M_MAIN, device="cuda",
+                        offset: int = TFSOS_OFFSET) -> tuple:
+    """K3f and K3b looped (k3_loop_checks) and K5 looped (K5_VARIANTS, and
+    the training variant in both fuse_taps modes on the last M - offset
+    rows at bin_offset ``offset``) against their plain versions on
+    tfsos_operands.  Returns the max abs error of each kernels-line
+    kernel and the tied systems' count."""
+    o = tfsos_operands(M, N, device)
+    b, c = o["b"], o["c"]
+    errs, tied = k3_loop_checks(N, M, device, o)
+    errs["fdn_sos_tf_mse_loop"] = 0.0
+    for pivot, with_dbar, fuse_taps in K5_VARIANTS:
+        args = (*k5_loop_args(o), with_dbar, pivot, fuse_taps)
+        errs["fdn_sos_tf_mse_loop"] = max(
+            errs["fdn_sos_tf_mse_loop"],
+            k5_compare(f"K5 looped N={N} pivot={pivot} with_dbar="
+                       f"{with_dbar} fuse_taps={fuse_taps}",
+                       sk.fdn_sos_tf_mse_loop_kernel(*args),
+                       sk.fdn_sos_tf_mse_plain(*args)))
+    for fuse_taps in (True, False):
+        sl = {k: o[k][offset:] for k in "DXt"}
+        args = (sl["D"], o["bt"], o["at"], o["U6"], b, c, sl["X"], sl["t"],
+                2 * (M - 1), False, False, fuse_taps, offset)
+        k5_compare(f"K5 looped N={N} bin_offset={offset} ({M - offset} rows) "
+                   f"fuse_taps={fuse_taps}",
+                   sk.fdn_sos_tf_mse_loop_kernel(*args),
+                   sk.fdn_sos_tf_mse_plain(*args))
     return errs, tied
 
 
@@ -5108,38 +5146,40 @@ def tfsos_timing(card: str, launches: dict, errs: dict) -> list:
     """The looped K3f, K3b and K5 (the training variant: no pivot, no
     D_bar, fused taps, K_MAIN sections of P_MAIN taps) at M_MAIN bins and
     each of TFSOS_NS channels: device and call ms, the plain version's
-    (CUDA events), the bound and the launches on phase 4m's paths; no
-    single PyTorch call computes them."""
+    (CUDA events), the bound and the launches on phase 4m's paths, each
+    beside fdn_loop.cu's shared-memory kernel in turns (REG_REPS calls),
+    with both kernels' resident warps, held to PREVIOUS_GATE; no single
+    PyTorch call computes them."""
     rows = []
     for N in TFSOS_NS:
         o = tfsos_operands(M_MAIN, N)
         D, U, b, c = (o[k] for k in "DUbc")
         _, y = fk.fdn_tf_fwd_loop_kernel(D, U, b, c)
         args = k5_loop_args(o)
-        for name, kern, plain, kernel in (
+        for name, kern, plain, previous, kernel, previous_kernel in (
                 ("fdn_tf_fwd_loop",
                  lambda: fk.fdn_tf_fwd_loop_kernel(D, U, b, c),
                  lambda: fk.fdn_tf_fwd_plain(D, U, b, c),
-                 "ge_loop_tf_fwd_kernel"),
+                 lambda: fk.fdn_tf_fwd_loop_smem_kernel(D, U, b, c),
+                 "reg_tf_fwd_kernel", "ge_loop_tf_fwd_kernel"),
                 ("fdn_tf_bwd_loop",
                  lambda: fk.fdn_tf_bwd_loop_kernel(D, U, b, c, y, o["tb"]),
                  lambda: fk.fdn_tf_bwd_plain(D, U, b, c, y, o["tb"]),
-                 "ge_loop_tf_bwd_kernel"),
+                 lambda: fk.fdn_tf_bwd_loop_smem_kernel(D, U, b, c, y,
+                                                        o["tb"]),
+                 "reg_tf_bwd_kernel", "ge_loop_tf_bwd_kernel"),
                 ("fdn_sos_tf_mse_loop",
                  lambda: sk.fdn_sos_tf_mse_loop_kernel(*args),
                  lambda: sk.fdn_sos_tf_mse_plain(*args),
-                 "reg_sos_tf_mse_kernel")):
-            k5 = name == "fdn_sos_tf_mse_loop"
+                 lambda: sk.fdn_sos_tf_mse_loop_smem_kernel(*args),
+                 "reg_sos_tf_mse_kernel", "ge_loop_sos_tf_mse_kernel")):
             rows.append(timing_row(
                 name, loop_row(name, N), M_MAIN, kern, plain, None, {},
                 launches, errs, N=N, plain_reps=1, kernel=kernel,
                 work=name.removesuffix("_loop"), plain_events=True,
-                previous=(lambda: sk.fdn_sos_tf_mse_loop_smem_kernel(*args))
-                if k5 else None,
-                previous_kernel="ge_loop_sos_tf_mse_kernel" if k5 else None,
-                reps=REG_REPS if k5 else 50))
-            if k5:
-                reg_occupancy(rows[-1], N)
+                previous=previous, previous_kernel=previous_kernel,
+                reps=REG_REPS))
+            reg_occupancy(rows[-1], N)
         del o, D, U, b, c, y, args
         torch.cuda.empty_cache()
     for r in rows:
@@ -5154,16 +5194,29 @@ def tfsos_timing(card: str, launches: dict, errs: dict) -> list:
 def phase_tfsos_kernels(card: str, launches: dict,
                         unrolled16: BackgroundBuild) -> list:
     """Phase 5m: the looped K3f, K3b and K5 against their plain versions at
-    M_MAIN bins for each of LOOP_NS channels and against the unrolled
-    kernels at 16 (those libraries built on a thread beside the earlier
-    phases), then their kernels-line rows."""
+    M_MAIN bins for each of REG_NS channels (K5's training variants at
+    LOOP_NS) and against the unrolled kernels at 16 (those libraries built
+    on a thread beside the earlier phases), every launch on the kernel of
+    its size's range (reg_launch_check), then their kernels-line rows."""
     print(f"phase 5m the looped K3f, K3b and K5 at M={M_MAIN} on {card}")
     errs = {}
     for N in LOOP_NS:
+        reset_counts()
         e, tied = tfsos_kernel_checks(N)
+        reg_launch_check("K3f, K3b, K5", N, "cuda")
         errs.update({loop_row(k, N): v for k, v in e.items()})
         print(f"  N={N}: the looped K3f, K3b and K5 held to their plain "
               f"versions; {tied} exact tied systems' y equal bit for bit")
+    for N in (n for n in REG_NS if n not in LOOP_NS):
+        reset_counts()
+        e, tied = k3_loop_checks(N)
+        reg_launch_check("K3f, K3b", N, "cuda")
+        errs.update({loop_row(k, N): v for k, v in e.items()})
+        print(f"  N={N}: K3f and K3b looped held to their plain versions on "
+              + ("the register-resident kernels" if N <= fk.REG_MAX_N else
+                 "the shared-memory kernels, above the register-resident "
+                 "ones' range")
+              + f"; {tied} exact tied systems' y equal bit for bit")
     for N in REG_NS:
         row = loop_row("fdn_sos_tf_mse_loop", N)
         errs[row] = max(errs.get(row, 0.0), reg_k5_checks(

@@ -4,11 +4,13 @@
 // flamo_tpu_torch/ops/fdn_kernels.py and ops/sos_kernels.py load through
 // ctypes.  The wrappers there take the unrolled kernels of fdn_kernels.cu
 // and sos_kernels.cu (one library a channel count, 1..16) up to 16
-// channels and these above, but for K2 and K5 from 17 to 64 channels,
-// which go to fdn_reg.cu's register-resident kernels (its own entry
-// points fl_reg_*).  Every entry point launches on the stream it is
-// given, allocates nothing, and returns cudaGetLastError(), or kBadSize
-// for sizes it does not take.
+// channels and these above, but for K2, K3f, K3b and K5 from 17 to 64
+// channels, which go to fdn_reg.cu's register-resident kernels (its own
+// entry points fl_reg_*): here K1 and K6 run at every N > 16, and K2,
+// K3f, K3b and K5 from 65 channels up (and wherever fdn_reg.cu's block
+// does not fit).  Every entry point launches on the stream it is given,
+// allocates nothing, and returns cudaGetLastError(), or kBadSize for
+// sizes it does not take.
 //
 // Kernels and the TPU kernels they replace (flamo_tpu/ops/pallas_solve.py;
 // there the elimination is unrolled over N at trace time, for any N):
@@ -146,34 +148,6 @@ inline int sos_warps(int N, int K, int P, bool fuse_taps) {
          sos_smem_bytes(N, K, P, fuse_taps, w + 1) <= static_cast<size_t>(kSmemLimit))
     ++w;
   return w;
-}
-
-// U (as stage_u), b and c staged by the whole block; the caller
-// synchronises the block.
-__device__ __forceinline__ void stage_ubc(const float* __restrict__ U, const float* __restrict__ b,
-                                          const float* __restrict__ c, float* sU, float* sb,
-                                          float* sc, int N, int S) {
-  stage_u(U, sU, N, S);
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    sb[i] = __ldg(b + i);
-    sc[i] = __ldg(c + i);
-  }
-}
-
-// tf = c^T y: each lane's rows in order, then a butterfly, which leaves
-// the same sum on every lane.
-__device__ __forceinline__ float2 project(const float* sc, const float2* y, int N, int lane) {
-  float2 tf = make_float2(0.0f, 0.0f);
-  for (int i = lane; i < N; i += 32) {
-    tf.x += sc[i] * y[i].x;
-    tf.y += sc[i] * y[i].y;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    tf.x += __shfl_xor_sync(kFull, tf.x, o);
-    tf.y += __shfl_xor_sync(kFull, tf.y, o);
-  }
-  return tf;
 }
 
 // One bin's cotangents (fdn_ge.cuh's cotangents, a lane a row), given
@@ -658,6 +632,18 @@ int grid_or_error(int blocks) {
   return err != 0 ? -1000 - err : kBadSize;
 }
 
+// the warps resident on an SM of the kernel's block of W warps (its
+// dynamic shared memory set first), or a negative grid_or_error code
+template <typename Kernel>
+int resident_warps(Kernel kernel, size_t smem, int W) {
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, W * 32, smem) != cudaSuccess)
+    return grid_or_error(0);
+  return per_sm * W;
+}
+
 bool sizes_ok(int kind, int N, int M) { return N >= 1 && M >= 1 && loop_warps(kind, N) >= 1; }
 
 bool sos_sizes_ok(int N, int K, int P, bool fuse_taps, int M) {
@@ -704,36 +690,33 @@ int fl_sos_warps(int N, int K, int P, int fuse_taps) {
 }
 
 // warps resident on an SM as cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// gives them for K2 looped's and K5 looped's blocks at these sizes;
-// negative on an error
+// gives them for K2 looped's, K3f's and K3b's (backward) and K5 looped's
+// blocks at these sizes; negative on an error
 int fl_solve_resident_warps(int N, int transpose) {
   using namespace fdn::loop;
   if (!sizes_ok(kSolve, N, 1)) return kBadSize;
   const int W = loop_warps(kSolve, N);
   const size_t smem = smem_bytes(kSolve, N, W);
-  void (*kernel)(const float2*, const float*, const float2*, float2*, int, int) =
-      ge_loop_solve_kernel<false>;
-  if (transpose) kernel = ge_loop_solve_kernel<true>;
-  int per_sm = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, W * 32, smem) != cudaSuccess)
-    return grid_or_error(0);
-  return per_sm * W;
+  if (transpose) return resident_warps(ge_loop_solve_kernel<true>, smem, W);
+  return resident_warps(ge_loop_solve_kernel<false>, smem, W);
+}
+
+int fl_tf_resident_warps(int backward, int N) {
+  using namespace fdn::loop;
+  const int kind = backward ? kTfBwd : kTfFwd;
+  if (!sizes_ok(kind, N, 1)) return kBadSize;
+  const int W = loop_warps(kind, N);
+  const size_t smem = smem_bytes(kind, N, W);
+  if (backward) return resident_warps(ge_loop_tf_bwd_kernel, smem, W);
+  return resident_warps(ge_loop_tf_fwd_kernel, smem, W);
 }
 
 int fl_sos_resident_warps(int pivot, int with_dbar, int fuse_taps, int N, int K, int P) {
   using namespace fdn::loop;
   if (!sos_sizes_ok(N, K, P, fuse_taps != 0, 1)) return kBadSize;
   const int W = sos_warps(N, K, P, fuse_taps != 0);
-  const size_t smem = sos_smem_bytes(N, K, P, fuse_taps != 0, W);
-  const SosKernel kernel = sos_kernel(pivot != 0, with_dbar != 0, fuse_taps != 0);
-  int per_sm = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, W * 32, smem) != cudaSuccess)
-    return grid_or_error(0);
-  return per_sm * W;
+  return resident_warps(sos_kernel(pivot != 0, with_dbar != 0, fuse_taps != 0),
+                        sos_smem_bytes(N, K, P, fuse_taps != 0, W), W);
 }
 
 // K1 looped's grid (its rows of partials); negative on an error

@@ -190,5 +190,33 @@ __device__ __forceinline__ void stage_u(const float* __restrict__ U, float* sU, 
   for (int v = threadIdx.x; v < N * N; v += blockDim.x) sU[(v / N) * SU + v % N] = __ldg(U + v);
 }
 
+// U (as stage_u), b and c staged by the whole block; the caller
+// synchronises the block.
+__device__ __forceinline__ void stage_ubc(const float* __restrict__ U, const float* __restrict__ b,
+                                          const float* __restrict__ c, float* sU, float* sb,
+                                          float* sc, int N, int S) {
+  stage_u(U, sU, N, S);
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    sb[i] = __ldg(b + i);
+    sc[i] = __ldg(c + i);
+  }
+}
+
+// tf = c^T y: each lane's rows in order, then a butterfly, which leaves
+// the same sum on every lane.
+__device__ __forceinline__ float2 project(const float* sc, const float2* y, int N, int lane) {
+  float2 tf = make_float2(0.0f, 0.0f);
+  for (int i = lane; i < N; i += 32) {
+    tf.x += sc[i] * y[i].x;
+    tf.y += sc[i] * y[i].y;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    tf.x += __shfl_xor_sync(kFull, tf.x, o);
+    tf.y += __shfl_xor_sync(kFull, tf.y, o);
+  }
+  return tf;
+}
+
 }  // namespace loop
 }  // namespace fdn

@@ -43,6 +43,22 @@
 // Every function is called by all threads of the group with the same
 // arguments; collective operations (shuffles, barriers) sit outside the
 // per-row predicates.
+//
+// Its kernels (fdn_reg.cu) and the TPU kernels they replace
+// (flamo_tpu/ops/pallas_solve.py): K2 (:277) eliminates A y = B either
+// way; K3f (:451) A y = D b, its projection c^T y on the group's first
+// warp; K3b (:474) the transposed system A^T w = c, assembled from the
+// bin's d in shared memory, before its cotangents; K5 (:1376) both.  All
+// are bound by this elimination's FP32 operations, ~(2/3) N^3 complex
+// multiply-adds a bin: ~0.07 ms at N = 32 and ~0.53 ms at 64 for
+// M = 48001 bins (chip_smoke.kernel_work).  What the core does about the
+// shared-memory core's cost (fdn_loop.cuh: three shared-memory accesses
+// for four FMAs, one warp's system 34.8 KB at N = 64) is above: a row's
+// update touches registers and 16-byte broadcasts of the pivot row only,
+// and a bin's shared memory is its pivot buffers and vectors.  At
+// 33..64 channels each step still pays a fixed cost (the arg-max, a
+// barrier, the pivot row's write and broadcast, the multiplier's shuffle)
+// against half a row of updates a thread.
 #pragma once
 
 #include "fdn_loop.cuh"

@@ -16,8 +16,8 @@ SOS cascade K4f and its tap VJP K4b (any channel count),
 ``phase2_micro.cu``, the four variants of the phase-2 micro-benchmark
 K10, ``fdn_loop.cu``, the looped eliminations of K1, K2, K3f, K3b, K5
 and K6 for more than 16 channels (one warp a bin, N a run-time argument;
-linked with ``fdn_reg.cu``, the register-resident K2 and K5 for 17..64
-channels), and ``aa_loop.cu``, the looped K8 and K9 for more than 8
+linked with ``fdn_reg.cu``, the register-resident K2, K3f, K3b and K5
+for 17..64 channels), and ``aa_loop.cu``, the looped K8 and K9 for more than 8
 microphones.
 
 The eliminations are unrolled over N and the large-N instantiations
@@ -57,10 +57,10 @@ LIB_FLAGS = {"eig_kernels": ("-fmad=false",)}
 # the compile units of a library built from several (a source and its
 # flags), each compiled to an object by its own nvcc, all started with the
 # other libraries' compiles, then linked into the library; the looped
-# library's register-resident kernels compile as four parts of fdn_reg.cu
+# library's register-resident kernels compile as six parts of fdn_reg.cu
 LIB_UNITS = {"fdn_loop": (("fdn_loop.cu",),
                           *(("fdn_reg.cu", f"-DFDN_REG_PART={part}")
-                            for part in (1, 2, 3, 4)))}
+                            for part in range(1, 7)))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -136,13 +136,20 @@ _SIGNATURES = {
                                       _P, _P, _P, _P, _P, _F, _I, _I, _I, _F,
                                       _F, _I, _P]),
         "fl_solve_resident_warps": (_I, [_I, _I]),
+        "fl_tf_resident_warps": (_I, [_I, _I]),
         "fl_sos_resident_warps": (_I, [_I, _I, _I, _I, _I, _I]),
         "fl_reg_bins": (_I, [_I, _I, _I, _I, _I]),
         "fl_reg_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I, _I, _I]),
         "fl_reg_group_warps": (_I, [_I]),
         "fl_reg_solve_resident_warps": (_I, [_I]),
+        "fl_reg_tf_fwd_resident_warps": (_I, [_I]),
+        "fl_reg_tf_bwd_resident_warps": (_I, [_I]),
         "fl_reg_sos_resident_warps": (_I, [_I, _I, _I, _I, _I]),
         "fl_reg_solve_launch": (_I, [_I, _I, _P, _P, _P, _P, _I, _P]),
+        "fl_reg_tf_fwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _P]),
+        "fl_reg_tf_bwd_grid": (_I, [_I, _I]),
+        "fl_reg_tf_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _P]),
         "fl_reg_sos_tf_mse_grid": (_I, [_I, _I, _I, _I, _I, _I]),
         "fl_reg_sos_tf_mse_launch": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P,
                                           _P, _P, _P, _P, _P, _P, _F, _I, _I,

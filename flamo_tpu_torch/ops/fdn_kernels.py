@@ -25,11 +25,12 @@ other.  On the card K1, K2, K3f, K3b and K6 take the unrolled kernels of
 ``fdn_loop.cu`` (``*_loop_kernel``, one warp a bin) above, up to
 :data:`LOOP_MAX_N`, where one bin's system fills a block's 227 KB of
 shared memory; from ``REG_MIN_N`` to ``REG_MAX_N`` (17..64) channels the
-looped K2 runs on ``fdn_reg.cu``'s register-resident core instead (a
-bin's rows in registers), linked into the same library.  The plain versions
-are the per-bin eliminations of :mod:`flamo_tpu_torch.ops.solve` on the
-assembled loop matrices, vectorised over bins; like the kernels, they
-pivot on the first row of largest magnitude.
+looped K2, K3f and K3b run on ``fdn_reg.cu``'s register-resident core
+instead (a bin's rows in registers), linked into the same library.  The
+plain versions are the per-bin eliminations of
+:mod:`flamo_tpu_torch.ops.solve` on the assembled loop matrices,
+vectorised over bins; like the kernels, they pivot on the first row of
+largest magnitude.
 
 Cotangents: the kernels, like the TPU ones, compute JAX's cotangent of a
 complex tensor, ``dL/dRe - i dL/dIm``.  PyTorch's autograd works with the
@@ -53,16 +54,18 @@ LOOP_LIB = "fdn_loop"
 # count); K6 counts its forward and its transposed (gradient) launches
 # apart; K2 counts both under "fdn_solve", and its transposed ones also in
 # K2_TRANSPOSED; the looped kernels count under their own keys, K2 looped
-# and K6 looped each way apart; K2 looped counts its register-resident
-# kernel (17..64 channels) under "fdn_solve_loop" and fdn_loop.cu's
-# shared-memory kernel under "fdn_solve_loop_smem", each way apart
+# and K6 looped each way apart; K2, K3f and K3b looped count their
+# register-resident kernels (17..64 channels) under "fdn_solve_loop",
+# "fdn_tf_fwd_loop" and "fdn_tf_bwd_loop" and fdn_loop.cu's shared-memory
+# kernels under the same keys with "_smem" (K2 each way apart)
 LAUNCHES = {"fdn_tf_mse": 0, "fdn_solve": 0, "fdn_tf_fwd": 0,
             "fdn_tf_bwd": 0, "dense_solve": 0, "dense_solve_transposed": 0,
             "fdn_tf_mse_loop": 0, "fdn_solve_loop": 0,
             "fdn_solve_loop_transposed": 0, "fdn_solve_loop_smem": 0,
             "fdn_solve_loop_smem_transposed": 0, "dense_solve_loop": 0,
             "dense_solve_loop_transposed": 0, "fdn_tf_fwd_loop": 0,
-            "fdn_tf_bwd_loop": 0}
+            "fdn_tf_bwd_loop": 0, "fdn_tf_fwd_loop_smem": 0,
+            "fdn_tf_bwd_loop_smem": 0}
 K2_TRANSPOSED = [0]
 
 # The looped kernels' shared memory (as fdn_loop.cu's smem_bytes): a block
@@ -126,16 +129,18 @@ def check_loop_n(kind: str, N: int) -> None:
             "shared memory")
 
 
-# The register-resident K2 and K5 of fdn_reg.cu take REG_MIN_N..REG_MAX_N
-# channels: one warp a bin up to 32 (a lane a row), a group of
-# ceil(N / 16) warps a bin above (two threads a row).  A block of
+# The register-resident K2, K3f, K3b and K5 of fdn_reg.cu take
+# REG_MIN_N..REG_MAX_N channels: one warp a bin up to 32 (a lane a row), a
+# group of ceil(N / 16) warps a bin above (two threads a row).  A block of
 # ``bins`` bins holds U (N rows of stride N | 1) once and each bin's pivot
-# buffers and vectors (reg_bin_float2s); K5 adds its b, c, taps, sums and
-# tile (sos_kernels.reg_tf_mse_smem_bytes).  A block holds at most
+# buffers and vectors (reg_bin_float2s); K3f adds b and c, K3b also its
+# sums and tile (reg_tf_smem_bytes), K5 its b, c, taps, sums and tile
+# (sos_kernels.reg_tf_mse_smem_bytes).  A block holds at most
 # REG_MAX_BINS bins of a kind (at N <= 32, above), fewer where shared
 # memory runs out; 0 bins: the kernel does not take the size.
 REG_MIN_N, REG_MAX_N = 17, 64
-REG_MAX_BINS = {"fdn_solve": (4, 1), "fdn_sos_tf_mse": (8, 4)}
+REG_MAX_BINS = {"fdn_solve": (4, 1), "fdn_sos_tf_mse": (8, 4),
+                "fdn_tf_fwd": (4, 1), "fdn_tf_bwd": (8, 4)}
 
 
 def reg_group_warps(N: int) -> int:
@@ -179,6 +184,24 @@ def reg_fit_bins(kind: str, N: int, smem) -> int:
 def reg_bins(N: int) -> int:
     """The register-resident K2's bins a block (0: it does not take N)."""
     return reg_fit_bins("fdn_solve", N, lambda b: reg_smem_bytes(N, b))
+
+
+def reg_tf_smem_bytes(kind: str, N: int, bins: int) -> int:
+    """Dynamic shared memory of a register-resident K3f ("fdn_tf_fwd") or
+    K3b ("fdn_tf_bwd") block of ``bins`` (as fdn_reg.cu's smem_bytes):
+    U (N rows of stride N | 1), b and c once; K3b also the block's sums
+    (N^2 + 2N + 1 floats) and each bin's tile slot of 8 N + 3 floats,
+    every region on 16 bytes; and each bin's region."""
+    floats = _al4(N * (N | 1)) + _al4(2 * N)
+    if kind == "fdn_tf_bwd":
+        floats += _al4(N * N + 2 * N + 1) + bins * _al4(8 * N + 3)
+    return 4 * floats + bins * 8 * reg_bin_float2s(N)
+
+
+def reg_tf_bins(kind: str, N: int) -> int:
+    """The register-resident K3f's or K3b's bins a block (0: it does not
+    take N)."""
+    return reg_fit_bins(kind, N, lambda b: reg_tf_smem_bytes(kind, N, b))
 
 
 def reset_launch_counts() -> None:
@@ -438,48 +461,94 @@ def fdn_tf_mse_loop_kernel(D, U, b, c, X, t, with_dbar: bool = True,
 
 
 def fdn_tf_fwd_loop_kernel(D, U, b, c):
-    """K3f looped (fdn_loop.cu, one warp a bin, any N up to
+    """K3f looped (any N up to ``LOOP_MAX_N['fdn_tf_fwd']``): (tf (M,),
+    y (M, N)).  On the card fdn_reg.cu's register-resident kernel where it
+    takes N (:func:`reg_tf_bins`), else fdn_loop.cu's shared-memory one
+    (:func:`fdn_tf_fwd_loop_smem_kernel`)."""
+    M, N = _check(D, U, vecs=[("b", b), ("c", c)])
+    if not _on_cuda(D, U, b, c):
+        return fdn_tf_fwd_plain(D, U, b, c)
+    if not reg_tf_bins("fdn_tf_fwd", N):
+        return fdn_tf_fwd_loop_smem_kernel(D, U, b, c)
+    return _loop_tf_fwd("fl_reg_tf_fwd_launch", "fdn_tf_fwd_loop", D, U, b, c)
+
+
+def fdn_tf_fwd_loop_smem_kernel(D, U, b, c):
+    """K3f on fdn_loop.cu's shared-memory core (one warp a bin, any N up to
     ``LOOP_MAX_N['fdn_tf_fwd']``): (tf (M,), y (M, N))."""
     M, N = _check(D, U, vecs=[("b", b), ("c", c)])
     if not _on_cuda(D, U, b, c):
         return fdn_tf_fwd_plain(D, U, b, c)
     check_loop_n("fdn_tf_fwd", N)
+    return _loop_tf_fwd("fl_tf_fwd_launch", "fdn_tf_fwd_loop_smem", D, U, b,
+                        c)
+
+
+def _loop_tf_fwd(entry: str, key: str, D, U, b, c):
+    """Launch the looped library's K3f ``entry`` and count it under
+    ``key``."""
+    M, N = D.shape
     lib = cuda_build.load(1, LOOP_LIB)
     D, U, b, c = (x.contiguous() for x in (D, U, b, c))
     tf = torch.empty((M,), dtype=D.dtype, device=D.device)
     Y = torch.empty_like(D)
     with torch.cuda.device(D.device):
-        rc = lib.fl_tf_fwd_launch(N, D.data_ptr(), U.data_ptr(), b.data_ptr(),
-                                  c.data_ptr(), tf.data_ptr(), Y.data_ptr(),
-                                  M, _stream(D))
-    _loop_check(rc, "fdn_tf_fwd_loop_kernel")
-    LAUNCHES["fdn_tf_fwd_loop"] += 1
+        rc = getattr(lib, entry)(N, D.data_ptr(), U.data_ptr(), b.data_ptr(),
+                                 c.data_ptr(), tf.data_ptr(), Y.data_ptr(), M,
+                                 _stream(D))
+    _loop_check(rc, entry)
+    LAUNCHES[key] += 1
     return tf, Y
 
 
 def fdn_tf_bwd_loop_kernel(D, U, b, c, y, tf_bar):
-    """K3b looped (fdn_loop.cu, one warp a bin, any N up to
-    ``LOOP_MAX_N['fdn_tf_bwd']``): (D_bar, U_bar, b_bar, c_bar) for JAX's
-    tf_bar.  Each block writes one row of partials, summed here."""
+    """K3b looped (any N up to ``LOOP_MAX_N['fdn_tf_bwd']``): (D_bar,
+    U_bar, b_bar, c_bar) for JAX's tf_bar.  On the card fdn_reg.cu's
+    register-resident kernel where it takes N (:func:`reg_tf_bins`), else
+    fdn_loop.cu's shared-memory one (:func:`fdn_tf_bwd_loop_smem_kernel`).
+    Each block writes one row of partials, summed here."""
+    M, N = _check(D, U, vecs=[("b", b), ("c", c)],
+                  cplx_rows=[("tf_bar", tf_bar)], cplx_mats=[("y", y)])
+    if not _on_cuda(D, U, b, c, y, tf_bar):
+        return fdn_tf_bwd_plain(D, U, b, c, y, tf_bar)
+    if not reg_tf_bins("fdn_tf_bwd", N):
+        return fdn_tf_bwd_loop_smem_kernel(D, U, b, c, y, tf_bar)
+    return _loop_tf_bwd("fl_reg_tf_bwd", "fdn_tf_bwd_loop", D, U, b, c, y,
+                        tf_bar)
+
+
+def fdn_tf_bwd_loop_smem_kernel(D, U, b, c, y, tf_bar):
+    """K3b on fdn_loop.cu's shared-memory core (one warp a bin, any N up to
+    ``LOOP_MAX_N['fdn_tf_bwd']``), as :func:`fdn_tf_bwd_loop_kernel`."""
     M, N = _check(D, U, vecs=[("b", b), ("c", c)],
                   cplx_rows=[("tf_bar", tf_bar)], cplx_mats=[("y", y)])
     if not _on_cuda(D, U, b, c, y, tf_bar):
         return fdn_tf_bwd_plain(D, U, b, c, y, tf_bar)
     check_loop_n("fdn_tf_bwd", N)
+    return _loop_tf_bwd("fl_tf_bwd", "fdn_tf_bwd_loop_smem", D, U, b, c, y,
+                        tf_bar)
+
+
+def _loop_tf_bwd(prefix: str, key: str, D, U, b, c, y, tf_bar):
+    """Launch the looped library's K3b through its C entry points
+    ``<prefix>_grid`` and ``<prefix>_launch``, count it under ``key`` and
+    sum its partials."""
+    M, N = D.shape
     lib = cuda_build.load(1, LOOP_LIB)
     D, U, b, c, y, tf_bar = (x.contiguous()
                              for x in (D, U, b, c, y, tf_bar))
     D_bar = torch.empty_like(D)
+    what = f"{prefix}_launch"
     with torch.cuda.device(D.device):
-        blocks = loop_grid(lib.fl_tf_bwd_grid(N, M), "fdn_tf_bwd_loop_kernel")
+        blocks = loop_grid(getattr(lib, f"{prefix}_grid")(N, M), what)
         partials = torch.empty((blocks, N * N + 2 * N + 1),
                                dtype=torch.float32, device=D.device)
-        rc = lib.fl_tf_bwd_launch(N, D.data_ptr(), U.data_ptr(), b.data_ptr(),
-                                  c.data_ptr(), y.data_ptr(),
-                                  tf_bar.data_ptr(), D_bar.data_ptr(),
-                                  partials.data_ptr(), M, blocks, _stream(D))
-    _loop_check(rc, "fdn_tf_bwd_loop_kernel")
-    LAUNCHES["fdn_tf_bwd_loop"] += 1
+        rc = getattr(lib, what)(N, D.data_ptr(), U.data_ptr(), b.data_ptr(),
+                                c.data_ptr(), y.data_ptr(), tf_bar.data_ptr(),
+                                D_bar.data_ptr(), partials.data_ptr(), M,
+                                blocks, _stream(D))
+    _loop_check(rc, what)
+    LAUNCHES[key] += 1
     U_bar, b_bar, c_bar, _ = _sum_partials(partials, N)
     return D_bar, U_bar, b_bar, c_bar
 

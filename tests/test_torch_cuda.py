@@ -1448,14 +1448,14 @@ def test_cuda_e8_fdn_step_pallas_matches_xla(cuda, scenario):
 
 
 # ---------------------------------------------------------------------------
-# the register-resident K2 and K5 of fdn_reg.cu (17..64 channels)
+# the register-resident K2, K3f, K3b and K5 of fdn_reg.cu (17..64 channels)
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
 def test_cuda_reg_smem_rule_matches_python(cuda):
     """fdn_reg.cu's bins a block, shared memory and a bin's warps equal
-    the wrappers' rules (fk.reg_bins, sk.reg_tf_mse_bins and their
-    shared-memory mirrors) over N, K, P and fuse_taps, past the range
-    too."""
+    the wrappers' rules (fk.reg_bins, fk.reg_tf_bins, sk.reg_tf_mse_bins
+    and their shared-memory mirrors) over N, K, P and fuse_taps, past the
+    range too."""
     lib = cuda_build.load(1, fk.LOOP_LIB)
     for N in range(1, 70):
         assert lib.fl_reg_bins(0, N, 0, 0, 0) == fk.reg_bins(N)
@@ -1464,6 +1464,12 @@ def test_cuda_reg_smem_rule_matches_python(cuda):
         for bins in (1, 2, 4):
             assert lib.fl_reg_smem_bytes(0, N, 0, 0, 0, bins) == (
                 fk.reg_smem_bytes(N, bins))
+        for kind, name in ((2, "fdn_tf_fwd"), (3, "fdn_tf_bwd")):
+            assert lib.fl_reg_bins(kind, N, 0, 0, 0) == fk.reg_tf_bins(
+                name, N)
+            for bins in (1, 3, 8):
+                assert lib.fl_reg_smem_bytes(kind, N, 0, 0, 0, bins) == (
+                    fk.reg_tf_smem_bytes(name, N, bins))
         for K, P in ((1, 1), (12, 3), (30, 3), (64, 8)):
             for fuse in (True, False):
                 assert lib.fl_reg_bins(1, N, K, P, int(fuse)) == (
@@ -1479,19 +1485,24 @@ def test_cuda_reg_smem_rule_matches_python(cuda):
 @pytest.mark.parametrize("M", [33, 4097])
 def test_cuda_reg_kernels_match_plain(cuda, N, M):
     """The register-resident K2 (both ways) against its plain version and
-    the shared-memory kernel (values 1e-5 of the max), and K5 in all eight
-    variants against its plain version (loss 1e-5, cotangents 1e-4 of the
-    max), also at a bin offset; each launch counted under the looped
-    kernels' keys, the shared-memory kernels' never; two launches equal
-    bit for bit."""
+    the shared-memory kernel (values 1e-5 of the max), K3f and K3b against
+    their plain versions (tf and y 1e-5, cotangents 1e-4 of the max) and
+    the shared-memory kernels, and K5 in all eight variants against its
+    plain version (loss 1e-5, cotangents 1e-4 of the max), also at a bin
+    offset; each launch counted under the looped kernels' keys, the
+    shared-memory kernels' never; two launches equal bit for bit."""
     o = _operands(N + 13 * M, M, N)
-    D, U, B = (o[n] for n in "DUB")
+    D, U, B, b, c = (o[n] for n in "DUBbc")
     fk.reset_launch_counts()
     sk.reset_launch_counts()
     for transpose in (False, True):
         y = fk.fdn_solve_loop_kernel(D, U, B, transpose)
         assert _rel(y, fk.fdn_solve_plain(D, U, B, transpose)) < 1e-5
         assert torch.equal(y, fk.fdn_solve_loop_kernel(D, U, B, transpose))
+    _check_tf_loop(o, False)  # K3f once, K3b twice
+    tf, y = fk.fdn_tf_fwd_loop_kernel(D, U, b, c)
+    assert all(torch.equal(g, a) for g, a in zip(
+        (tf, y), fk.fdn_tf_fwd_loop_kernel(D, U, b, c)))
     nfft = 2 * (M - 1)
     bt, at = _sos_taps(N + M, 3, 12, N)
     _check_k5_loop(o, bt, at, nfft)
@@ -1500,40 +1511,48 @@ def test_cuda_reg_kernels_match_plain(cuda, N, M):
     # the four variants without fused taps also launch K4b on their rows
     assert {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items()
             if v} == {"fdn_solve_loop": 2, "fdn_solve_loop_transposed": 2,
+                      "fdn_tf_fwd_loop": 3, "fdn_tf_bwd_loop": 2,
                       "fdn_sos_tf_mse_loop": 2 * (8 + 2),
                       "sos_cascade_bwd": 2 * (4 + 1)}
     for transpose in (False, True):
         assert _rel(fk.fdn_solve_loop_kernel(D, U, B, transpose),
                     fk.fdn_solve_loop_smem_kernel(D, U, B, transpose)) < 1e-5
+    tf_s, y_s = fk.fdn_tf_fwd_loop_smem_kernel(D, U, b, c)
+    assert _rel(tf, tf_s) < 1e-5 and _rel(y, y_s) < 1e-5
+    for g, r in zip(fk.fdn_tf_bwd_loop_kernel(D, U, b, c, y, B[:, 0]),
+                    fk.fdn_tf_bwd_loop_smem_kernel(D, U, b, c, y, B[:, 0])):
+        assert _rel(g, r) < 1e-4
     torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
 def test_cuda_reg_range_boundary(cuda):
-    """At 64 channels K2 and K5 (1/3-octave taps, K = 30) launch the
-    register-resident kernels, at 65 the shared-memory ones, counted
+    """At 64 channels K2, K3f, K3b and K5 (1/3-octave taps, K = 30) launch
+    the register-resident kernels, at 65 the shared-memory ones, counted
     under their own keys, each held to its plain version."""
-    for N, k2, k5 in ((64, "fdn_solve_loop", "fdn_sos_tf_mse_loop"),
-                      (65, "fdn_solve_loop_smem",
-                       "fdn_sos_tf_mse_loop_smem")):
+    for N, sfx in ((64, ""), (65, "_smem")):
         o = _operands(N, 1000, N)
         D, U, B = (o[n] for n in "DUB")
         fk.reset_launch_counts()
         sk.reset_launch_counts()
         assert _rel(fk.fdn_solve_loop_kernel(D, U, B),
                     fk.fdn_solve_plain(D, U, B)) < 1e-5
+        _check_tf_loop(o, False)
         _check_k5_loop(o, *_k5_taps(30, 3, 30, N), 8192,
                        variants=[(False, False, True)])
         assert {k: v for k, v in {**fk.LAUNCHES, **sk.LAUNCHES}.items()
-                if v} == {k2: 1, k5: 2}
+                if v} == {f"fdn_solve_loop{sfx}": 1,
+                          f"fdn_tf_fwd_loop{sfx}": 1,
+                          f"fdn_tf_bwd_loop{sfx}": 2,
+                          f"fdn_sos_tf_mse_loop{sfx}": 2}
     torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
 def test_cuda_reg_build_error_raises(cuda, tmp_path, monkeypatch):
-    """A looped library that fails to build raises from the K2 and K5
-    wrappers at 32 channels; nothing falls back to the shared-memory
-    kernel or the plain version, and nothing is counted."""
+    """A looped library that fails to build raises from the K2, K3f, K3b
+    and K5 wrappers at 32 channels; nothing falls back to the
+    shared-memory kernel or the plain version, and nothing is counted."""
     src = tmp_path / "csrc"
     src.mkdir()
     for name in cuda_build.SOURCES:
@@ -1552,4 +1571,8 @@ def test_cuda_reg_build_error_raises(cuda, tmp_path, monkeypatch):
         fk.fdn_solve_loop_kernel(D, U, B)
     with pytest.raises(RuntimeError, match="nvcc failed for fdn_loop"):
         sk.fdn_sos_tf_mse_loop_kernel(D, bt, at, U, b, c, X, t, 198)
+    with pytest.raises(RuntimeError, match="nvcc failed for fdn_loop"):
+        fk.fdn_tf_fwd_loop_kernel(D, U, b, c)
+    with pytest.raises(RuntimeError, match="nvcc failed for fdn_loop"):
+        fk.fdn_tf_bwd_loop_kernel(D, U, b, c, B, X)
     assert not any({**fk.LAUNCHES, **sk.LAUNCHES}.values())
